@@ -1,0 +1,53 @@
+"""deepspeed_tpu_torch — the PyTorch/CUDA port of ``deepspeed_tpu``.
+
+A second package beside the JAX one: the same module names, PyTorch idiom
+inside, hand-written CUDA kernels for Hopper (sm_90a) where the JAX package
+wrote Pallas kernels for the TPU. It never imports JAX or ``deepspeed_tpu``.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no card and no explicit CPU request they raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+__version__ = "0.1.0"
+
+from .accelerator import get_accelerator  # noqa: F401
+from .inference.engine import InferenceEngine  # noqa: F401
+from .serving.engine import NOT_PORTED, ServingEngine
+from .utils.logging import log_dist, logger  # noqa: F401
+
+
+def init_inference(model: Any = None, config: Union[Dict, None] = None,
+                   **kwargs) -> InferenceEngine:
+    """Build the inference engine: ``model`` is the port's
+    ``TransformerLM``; ``model_parameters=`` (a state dict) and
+    ``device=`` are optional; other keys configure the engine."""
+    return InferenceEngine(model=model, config=config, **kwargs)
+
+
+# serving keys the JAX ``init_serving`` routes to the ServingEngine
+SERVE_KEYS = ("policy", "do_sample", "temperature", "top_k", "top_p", "seed",
+              "monitor", "prefill_chunk") + NOT_PORTED
+
+
+def init_serving(model: Any = None, config: Union[Dict, None] = None,
+                 num_slots: int = 4, max_queue_depth: int = 64,
+                 device: Optional[Any] = None, **kwargs) -> ServingEngine:
+    """Build a continuous-batching server: :func:`init_inference` for the
+    engine, wrapped in :class:`ServingEngine` (slot-pooled KV cache, FIFO
+    admission, per-request SLO metrics).
+
+    Server-global keys: ``policy``, ``do_sample``, ``temperature``,
+    ``top_k``, ``top_p``, ``seed``, ``monitor`` and ``prefill_chunk``
+    (0 only in this slice). The JAX package's other serving keys are
+    accepted and raise ``NotImplementedError`` unless off (None/False).
+    Per-request ``max_new_tokens`` and ``eos_token_id`` ride on
+    ``submit()``. Everything else configures the inference engine."""
+    serve_kwargs = {k: kwargs.pop(k) for k in SERVE_KEYS if k in kwargs}
+    engine = init_inference(model=model, config=config, device=device,
+                            **kwargs)
+    return ServingEngine(engine, num_slots=num_slots,
+                         max_queue_depth=max_queue_depth, **serve_kwargs)

@@ -1,0 +1,7 @@
+from .abstract_accelerator import Accelerator  # noqa: F401
+from .real_accelerator import (  # noqa: F401
+    CpuAccelerator,
+    CudaAccelerator,
+    get_accelerator,
+    resolve_device,
+)

@@ -1,0 +1,86 @@
+"""Inference config (port of ``deepspeed_tpu/inference/config.py``): the same
+JSON surface as a plain dataclass.
+
+Keys for features this port does not have yet raise instead of being
+ignored: tensor parallelism above 1, weight quantization, ZeRO-Inference,
+checkpoint loading, and the CUDA-graph/Triton switches (graph capture of the
+decode step is later work).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
+           "float16": torch.float16, "fp16": torch.float16,
+           "half": torch.float16, "bfloat16": torch.bfloat16,
+           "bf16": torch.bfloat16}
+
+# key -> the value that means "off" (anything else raises)
+_NOT_PORTED = {"enable_cuda_graph": False, "use_triton": False,
+               "triton_autotune": False, "zero": {}, "checkpoint": None,
+               "injection_policy": None}
+
+
+@dataclasses.dataclass
+class DeepSpeedInferenceConfig:
+    dtype: str = "bfloat16"  # float32 | float16 | bfloat16
+    tensor_parallel: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    quant: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    max_out_tokens: int = 1024
+    min_out_tokens: int = 1
+    max_batch_size: Optional[int] = None
+    replace_method: str = "auto"
+    replace_with_kernel_inject: bool = False
+    return_tuple: bool = True
+    # sampling defaults for generate() and serving
+    temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 1.0
+
+    @classmethod
+    def from_dict(cls, cfg: Optional[Dict[str, Any]]) -> \
+            "DeepSpeedInferenceConfig":
+        cfg = dict(cfg or {})
+        for alias, key in (("tp", "tensor_parallel"),
+                           ("max_tokens", "max_out_tokens"),
+                           ("kernel_inject", "replace_with_kernel_inject")):
+            if alias in cfg:
+                cfg[key] = cfg.pop(alias)
+        if "mp_size" in cfg:
+            cfg.setdefault("tensor_parallel", {})["tp_size"] = \
+                cfg.pop("mp_size")
+        for key, off in _NOT_PORTED.items():
+            if key in cfg and cfg.pop(key) != off:
+                raise NotImplementedError(
+                    f"inference config key {key!r} is not ported to the "
+                    f"PyTorch/CUDA package yet")
+        names = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(cfg) - names)
+        if unknown:
+            raise ValueError(f"unknown inference config keys {unknown}")
+        out = cls(**cfg)
+        if int(out.tensor_parallel.get("tp_size", 1)) != 1:
+            raise NotImplementedError("tensor parallelism is not ported yet")
+        if out.quant.get("enabled", False):
+            raise NotImplementedError("weight quantization (int8) is not "
+                                      "ported yet")
+        out.torch_dtype()
+        return out
+
+    @property
+    def mp_size(self) -> int:
+        return int(self.tensor_parallel.get("tp_size", 1))
+
+    def torch_dtype(self) -> torch.dtype:
+        key = str(self.dtype).replace("torch.", "")
+        if key == "int8":
+            raise NotImplementedError("dtype=int8 (weight quantization) is "
+                                      "not ported yet")
+        if key not in _DTYPES:
+            raise ValueError(f"unsupported inference dtype {self.dtype!r}; "
+                             f"supported: {sorted(_DTYPES)}")
+        return _DTYPES[key]

@@ -1,0 +1,175 @@
+"""Inference engine (port of ``deepspeed_tpu/inference/engine.py``).
+
+The JAX engine compiles its programs with ``jax.jit``; PyTorch runs
+eagerly, so each program here is a plain method: ``prefill_at`` (the
+serving path's bucketed prefill, projecting one position), ``decode`` (one
+token per row against a cache updated in place), ``sample`` and
+``generate``. Parameters are cast to the config dtype and moved to the
+engine's device once, as the JAX engine's ``_finalize_params`` casts them.
+Capturing the decode step as a CUDA graph is later work.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..accelerator import resolve_device
+from ..utils.logging import log_dist
+from .config import DeepSpeedInferenceConfig
+
+
+def _filter_logits(last, temperature: float, top_k: int, top_p: float):
+    """Temperature/top-k/top-p filtering of fp32 logits (..., V); masked
+    entries become -1e30."""
+    V = last.shape[-1]
+    scaled = last / max(float(temperature), 1e-6)
+    top_k = min(int(top_k), V)
+    if top_k > 0:
+        kth = torch.sort(scaled, dim=-1).values[..., -top_k][..., None]
+        scaled = torch.where(scaled < kth, torch.full_like(scaled, -1e30),
+                             scaled)
+    if top_p < 1.0:
+        sorted_ = torch.sort(scaled, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_, dim=-1), dim=-1)
+        # smallest prefix with mass >= top_p
+        cutoff_idx = (cum < top_p).sum(dim=-1).clamp(max=V - 1)
+        cutoff = torch.gather(sorted_, -1, cutoff_idx[..., None])
+        scaled = torch.where(scaled < cutoff, torch.full_like(scaled, -1e30),
+                             scaled)
+    return scaled
+
+
+class InferenceEngine:
+    """Construct via :func:`deepspeed_tpu_torch.init_inference`.
+
+    ``model`` is the port's ``TransformerLM`` (or any module with the same
+    ``prefill_last``/``decode``/``logits``/``kv_cache_spec`` surface);
+    ``model_parameters`` an optional state dict to load into it (for example
+    from ``checkpoint.flax_import.state_dict_from_flax``). ``device``
+    defaults to ``cuda``; the CPU runs only when asked for.
+    """
+
+    def __init__(self, model: nn.Module = None,
+                 config: Union[Dict, DeepSpeedInferenceConfig, None] = None,
+                 model_parameters: Optional[Dict[str, torch.Tensor]] = None,
+                 device: Union[str, torch.device, None] = None, **kwargs):
+        if isinstance(config, DeepSpeedInferenceConfig):
+            if kwargs:
+                raise ValueError(f"pass either a config object or keys, not "
+                                 f"both: {sorted(kwargs)}")
+            self._config = config
+        else:
+            self._config = DeepSpeedInferenceConfig.from_dict(
+                {**dict(config or {}), **kwargs})
+        if not isinstance(model, nn.Module):
+            raise ValueError("init_inference needs the port's TransformerLM "
+                             "(a torch.nn.Module) as model=")
+        self.device = resolve_device(device)
+        self.dtype = self._config.torch_dtype()
+        model_dtype = getattr(getattr(model, "config", None), "dtype", None)
+        if model_dtype is not None and model_dtype != self.dtype:
+            raise ValueError(
+                f"config dtype {self.dtype} differs from the model config's "
+                f"{model_dtype}: the port computes in the parameters' dtype, "
+                f"so build the model with dtype={self.dtype}")
+        if model_parameters is not None:
+            model.load_state_dict(model_parameters)
+        self.module = model.to(device=self.device, dtype=self.dtype).eval()
+        log_dist(f"InferenceEngine: device={self.device} "
+                 f"dtype={self._config.dtype}", ranks=[0])
+
+    # ------------------------------------------------------------------
+    def kv_cache_spec(self):
+        return self.module.kv_cache_spec()
+
+    def _ids(self, input_ids) -> torch.Tensor:
+        ids = torch.as_tensor(np.asarray(input_ids) if not
+                              torch.is_tensor(input_ids) else input_ids)
+        ids = ids.to(self.device, torch.long)
+        return ids[None] if ids.dim() == 1 else ids
+
+    @torch.no_grad()
+    def prefill_at(self, input_ids, last_pos=None, cache=None, rows=None):
+        """Prefill ``input_ids`` (B, T) into ``cache`` rows ``rows`` (a new
+        cache when None) and project position ``last_pos`` (T-1 when None):
+        returns ((B, 1, V) fp32 logits, cache)."""
+        if rows is not None:
+            rows = torch.as_tensor(rows, device=self.device).long()
+        return self.module.prefill_last(self._ids(input_ids), last_pos,
+                                        cache, rows)
+
+    @torch.no_grad()
+    def decode(self, cache, tokens, pos) -> torch.Tensor:
+        """One token per row: ``tokens`` (B, 1), ``pos`` the current cache
+        lengths (int or (B,)). Writes ``cache`` in place; returns (B, 1, V)
+        fp32 logits."""
+        return self.module.decode(self._ids(tokens), pos, cache)
+
+    @torch.no_grad()
+    def sample(self, logits, generator: torch.Generator, temperature: float,
+               top_k: int, top_p: float, greedy: bool) -> torch.Tensor:
+        """Next token per row from (B, T, V) logits' last position: argmax
+        when ``greedy``, else a draw from the filtered distribution."""
+        last = logits[:, -1, :].float()
+        if greedy:
+            return last.argmax(dim=-1)
+        probs = torch.softmax(_filter_logits(last, temperature, top_k,
+                                             top_p), dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0]
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 do_sample: bool = False, temperature: Optional[float] = None,
+                 top_k: Optional[int] = None, top_p: Optional[float] = None,
+                 eos_token_id: Optional[int] = None, seed: int = 0,
+                 **kwargs: Any) -> np.ndarray:
+        """Autoregressive generation with the KV cache. Returns int32
+        (B, T_prompt + n_generated): prompt + new tokens, cut when every
+        row has emitted ``eos_token_id``, with everything after a row's
+        first eos set to eos (the JAX engine's output exactly)."""
+        if kwargs:
+            raise TypeError(f"unexpected generate() arguments "
+                            f"{sorted(kwargs)}")
+        ids = self._ids(input_ids)
+        B, T = ids.shape
+        if max_new_tokens <= 0:
+            return ids.cpu().numpy().astype(np.int32)
+        cap = self.kv_cache_spec().max_seq_len
+        if T + max_new_tokens > cap:
+            raise ValueError(
+                f"prompt({T}) + max_new_tokens({max_new_tokens}) exceeds the "
+                f"model's max_seq_len({cap}) KV-cache capacity")
+        cfg = self._config
+        temperature = cfg.temperature if temperature is None else temperature
+        top_k = cfg.top_k if top_k is None else top_k
+        top_p = cfg.top_p if top_p is None else top_p
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        sample = lambda lg: self.sample(  # noqa: E731
+            lg, gen, temperature, top_k, top_p, not do_sample)
+
+        logits, cache = self.prefill_at(ids)
+        token = sample(logits)
+        out = [token]
+        finished = np.zeros((B,), bool)
+        pos = T
+        for _ in range(max_new_tokens - 1):
+            nxt = sample(self.decode(cache, token[:, None], pos))
+            if eos_token_id is not None:
+                finished |= token.cpu().numpy() == eos_token_id
+                if finished.all():
+                    break
+            token = nxt
+            out.append(token)
+            pos += 1
+        toks = torch.stack(out, dim=1).cpu().numpy().astype(np.int32)
+        if eos_token_id is not None:
+            hit = np.cumsum(toks == eos_token_id, axis=1) > 0
+            after = np.roll(hit, 1, axis=1)
+            after[:, 0] = False
+            toks = np.where(after, eos_token_id, toks)
+        return np.concatenate([ids.cpu().numpy().astype(np.int32), toks],
+                              axis=1)

@@ -1,0 +1,50 @@
+// Shared helpers for the hand-written attention kernels: dtype codes that the
+// Python wrappers pass across the C interface, float conversions, and the
+// rounding of a float through the storage dtype (the FA2 cast of the
+// probabilities to the value dtype before the PV product).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dstorch {
+
+// Dtype codes shared with deepspeed_tpu_torch/ops/op_builder (DTYPE_CODES).
+enum DtypeCode : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
+
+// Large finite negative, as the TPU kernels use: a masked score never turns
+// a row into NaN through inf - inf.
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half(x); }
+
+// x rounded to T and back (round to nearest even): a no-op for float.
+template <typename T> __device__ __forceinline__ float round_through(float x) {
+  return to_float(from_float<T>(x));
+}
+
+// Elements of T in one 16-byte load.
+template <typename T> struct Vec { static constexpr int kN = 16 / sizeof(T); };
+
+// Load kN = 16 / sizeof(T) contiguous elements of T (16-byte aligned) as floats.
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* __restrict__ src, float* dst) {
+  constexpr int kN = Vec<T>::kN;
+  uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const T* vals = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < kN; ++i) dst[i] = to_float(vals[i]);
+}
+
+}  // namespace dstorch

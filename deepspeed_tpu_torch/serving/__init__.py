@@ -1,0 +1,8 @@
+from .engine import ServingEngine  # noqa: F401
+from .metrics import ServingMetrics  # noqa: F401
+from .request import (FinishReason, RejectReason, Request,  # noqa: F401
+                      RequestState)
+from .resilience.errors import (InvariantViolation,  # noqa: F401
+                                ServingStalledError)
+from .scheduler import FIFOScheduler  # noqa: F401
+from .slot_pool import SlotPool  # noqa: F401

@@ -1,0 +1,86 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test skips without a CUDA device (decided inside the
+test, never at import). Run on a GPU machine with
+``python -m pytest -m cuda tests/test_torch_cuda_kernels.py``.
+
+Tolerances: fp32 inputs differ from the plain version only in summation
+order (1e-4 absolute on unit-scale outputs); bf16/fp16 add the rounding of
+p to the input dtype before the PV product and of the output (3e-2 on
+outputs below 4 in magnitude). lse is fp32 in every case (1e-3).
+"""
+
+import math
+
+import pytest
+import torch
+
+from deepspeed_tpu_torch.ops.attention.decode_attention import (
+    alibi_slopes, decode_attention, decode_attention_reference)
+from deepspeed_tpu_torch.ops.attention.flash_attention import (
+    flash_attention, mha_reference)
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_decode_kernel_matches_plain(gen, dtype, D, H, KV, alibi):
+    B, S = 5, 300
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, KV, S, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, KV, S, D, generator=gen, device="cuda").to(dtype)
+    lengths = torch.tensor([0, 1, 77, 299, 300], dtype=torch.int32,
+                           device="cuda")
+    slopes = alibi_slopes(H).cuda() if alibi else None
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, lengths, alibi_slopes=slopes)
+    want = decode_attention_reference(q, k, v, lengths, 1 / math.sqrt(D),
+                                      slopes)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,T,S", [(True, 1, 1), (True, 100, 100),
+                                        (True, 129, 129), (False, 70, 200)])
+def test_flash_kernel_matches_plain(gen, dtype, D, causal, T, S):
+    B, H, KV = 2, 4, 2
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, causal=causal)
+    want, want_lse = mha_reference(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+def test_cuda_wrappers_reject_what_the_kernels_do_not_take(gen):
+    q = torch.randn(1, 8, 2, 48, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    q = torch.randn(1, 8, 2, 64, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
+    cache = torch.randn(1, 2, 8, 64, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(q[:, 0], cache, cache,
+                         torch.tensor([4], device="cuda"))

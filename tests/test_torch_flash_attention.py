@@ -1,0 +1,74 @@
+"""The port's flash-attention forward against the JAX package's.
+
+The JAX side runs its Pallas kernel (interpret mode on the CPU); the port's
+wrapper takes its plain version because the tensors lie on the CPU. Inputs
+come from numpy with a seed. Both sides compute in fp32, so the tolerance
+(2e-5 absolute on unit-scale outputs) covers only summation order: the
+Pallas kernel's blockwise online softmax against one full softmax.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.attention.flash_attention import \
+    flash_attention as jax_flash
+from deepspeed_tpu_torch.ops.attention.flash_attention import (
+    flash_attention, mha_reference)
+
+ATOL = 2e-5
+
+
+def _inputs(seed, B, T, S, H, KV, D):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_lse(q, k, causal):
+    """logsumexp over keys of the JAX-side scores, (B, H, T)."""
+    s = jnp.einsum("bthd,bshd->bhts", q, k) / np.sqrt(q.shape[-1])
+    if causal:
+        T, S = q.shape[1], k.shape[1]
+        s = jnp.where(jnp.tril(jnp.ones((T, S), bool))[None, None], s, -1e30)
+    return np.asarray(jnp.log(jnp.sum(jnp.exp(s - s.max(-1, keepdims=True)),
+                                      -1)) + s.max(-1))
+
+
+@pytest.mark.parametrize("causal,T,S", [(True, 96, 96), (True, 40, 40),
+                                        (False, 48, 80)])
+def test_out_and_lse_match_jax(causal, T, S):
+    q, k, v = _inputs(0, 2, T, S, 2, 2, 32)
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal))
+    out, lse = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), _jax_lse(q, k, causal),
+                               atol=ATOL, rtol=0)
+    assert flash_attention.launches == 0  # CPU tensors launch nothing
+
+
+def test_gqa_maps_heads_like_repeat():
+    """KV heads shared by H/KV query heads each equal the JAX package's
+    ``jnp.repeat`` of K/V along heads (transformer_lm.py:530-532)."""
+    q, k, v = _inputs(1, 1, 24, 24, 4, 2, 32)
+    want = np.asarray(jax_flash(jnp.asarray(q),
+                                jnp.repeat(jnp.asarray(k), 2, axis=2),
+                                jnp.repeat(jnp.asarray(v), 2, axis=2)))
+    out, _ = flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v))
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_reference_keeps_input_dtype_and_rejects_misaligned_causal():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(2, 1, 16, 16, 2, 2, 32))
+    out, lse = mha_reference(q, k, v)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert torch.isfinite(lse).all()
+    with pytest.raises(ValueError, match="seq_q == seq_k"):
+        flash_attention(q, k[:, :8], v[:, :8], causal=True)

@@ -30,7 +30,8 @@ def init_inference(model: Any = None, config: Union[Dict, None] = None,
 
 # serving keys the JAX ``init_serving`` routes to the ServingEngine
 SERVE_KEYS = ("policy", "do_sample", "temperature", "top_k", "top_p", "seed",
-              "monitor", "prefill_chunk") + NOT_PORTED
+              "monitor", "prefill_chunk", "prefill_token_budget",
+              "paged_kv") + NOT_PORTED
 
 
 def init_serving(model: Any = None, config: Union[Dict, None] = None,
@@ -41,11 +42,24 @@ def init_serving(model: Any = None, config: Union[Dict, None] = None,
     admission, per-request SLO metrics).
 
     Server-global keys: ``policy``, ``do_sample``, ``temperature``,
-    ``top_k``, ``top_p``, ``seed``, ``monitor`` and ``prefill_chunk``
-    (0 only in this slice). The JAX package's other serving keys are
+    ``top_k``, ``top_p``, ``seed``, ``monitor``; ``prefill_chunk`` (default
+    64: stall-free chunked admission; 0: whole prompts at admission) and
+    ``prefill_token_budget`` (default two chunks per step); ``paged_kv``
+    (False: contiguous rows; True or ``{"num_pages", "page_size",
+    "prefix_cache", "kernel"}``: the page pool with its prefix cache,
+    decode reading pages in place through the paged attention kernel
+    unless ``kernel="off"``). The JAX package's other serving keys are
     accepted and raise ``NotImplementedError`` unless off (None/False).
     Per-request ``max_new_tokens`` and ``eos_token_id`` ride on
-    ``submit()``. Everything else configures the inference engine."""
+    ``submit()``. Everything else configures the inference engine.
+
+    The default serving path on the card::
+
+        init_serving(model, config={"dtype": "bfloat16"}, num_slots=8,
+                     prefill_chunk=64,
+                     paged_kv={"page_size": 64, "num_pages": 128,
+                               "prefix_cache": True, "kernel": "auto"})
+    """
     serve_kwargs = {k: kwargs.pop(k) for k in SERVE_KEYS if k in kwargs}
     engine = init_inference(model=model, config=config, device=device,
                             **kwargs)

@@ -2,8 +2,10 @@
 
 The JAX engine compiles its programs with ``jax.jit``; PyTorch runs
 eagerly, so each program here is a plain method: ``prefill_at`` (the
-serving path's bucketed prefill, projecting one position), ``decode`` (one
-token per row against a cache updated in place), ``sample`` and
+serving path's bucketed prefill, projecting one position),
+``prefill_chunk`` (one chunk of a long prompt into a slot's cache row),
+``decode`` (one token per row against a cache updated in place),
+``decode_paged`` (the same over a page pool), ``sample`` and
 ``generate``. Parameters are cast to the config dtype and moved to the
 engine's device once, as the JAX engine's ``_finalize_params`` casts them.
 Capturing the decode step as a CUDA graph is later work.
@@ -103,11 +105,30 @@ class InferenceEngine:
                                         cache, rows)
 
     @torch.no_grad()
+    def prefill_chunk(self, cache, input_ids, slot, start, last_idx):
+        """One fixed-width prefill chunk (1, C), right-padded, into row
+        ``slot`` of the slot-pooled ``cache`` at offset ``start``
+        (updated in place), projecting chunk position ``last_idx``:
+        returns (1, 1, V) fp32 logits. The caller records the slot's new
+        length (``start`` + the chunk's true token count)."""
+        rows = torch.as_tensor([slot], device=self.device).long()
+        return self.module.prefill_chunk(self._ids(input_ids), [start],
+                                         last_idx, cache, rows)
+
+    @torch.no_grad()
     def decode(self, cache, tokens, pos) -> torch.Tensor:
         """One token per row: ``tokens`` (B, 1), ``pos`` the current cache
         lengths (int or (B,)). Writes ``cache`` in place; returns (B, 1, V)
         fp32 logits."""
         return self.module.decode(self._ids(tokens), pos, cache)
+
+    @torch.no_grad()
+    def decode_paged(self, pages, tokens, pos, table) -> torch.Tensor:
+        """:meth:`decode` over a page pool (``KVCacheSpec.paged_cache``)
+        through the (B, pages_per_slot) int32 page ``table``: the step's
+        K/V rows are written into the pages in place and attention reads
+        them there. Returns (B, 1, V) fp32 logits."""
+        return self.module.decode_paged(self._ids(tokens), pos, pages, table)
 
     @torch.no_grad()
     def sample(self, logits, generator: torch.Generator, temperature: float,

@@ -16,20 +16,25 @@ numerics points follow the JAX package exactly: a tied head projects in
 KV cache: per-layer K/V live in one stacked tensor per side,
 ``(L, B, KV, S, D)`` in the compute dtype, positions-major. The JAX package
 stores positions-minor ``(L, B, KV, D, S)`` for TPU lane tiling; the CUDA
-decode kernel reads contiguous rows instead. Caches are updated IN PLACE
-(``prefill`` writes the prompt rows it is given, ``decode`` one column per
-sequence); the JAX package returns new arrays instead.
+decode kernel reads contiguous rows instead. The paged pool
+(``KVCacheSpec.paged_cache``) is ``(L, P, KV, page_size, D)`` on the same
+principle. Caches are updated IN PLACE (``prefill`` writes the prompt rows
+it is given, ``decode``/``prefill_chunk`` the step's positions of each
+sequence, ``decode_paged`` the step's positions through the page table);
+the JAX package returns new arrays instead.
 
-Attention takes the two CUDA kernels on CUDA tensors: the fresh causal
+Attention takes the three CUDA kernels on CUDA tensors: the fresh causal
 forward (training-style ``logits`` and ``prefill``) goes through
-``ops.attention.flash_attention`` for T > 1 without ALiBi, and the T=1 cached
-decode through ``ops.attention.decode_attention``. On CPU tensors both
-wrappers take their plain versions.
+``ops.attention.flash_attention`` for T > 1 without ALiBi, the T=1 cached
+decode through ``ops.attention.decode_attention``, and ``decode_paged``
+through ``ops.attention.paged_attention``. Multi-token decode against the
+cache (``prefill_chunk``) is the window-masked einsum, which has no kernel
+in the JAX package either. On CPU tensors every wrapper takes its plain
+version.
 
-Not in this port yet (each raises ``NotImplementedError``): ``int8_weights``,
-``kv_cache_quant``, multi-token decode (``prefill_chunk``, speculative
-verify) and ``decode_paged``. This port serves only; there is no training
-loss, so ``dropout``, ``remat`` and ``loss_chunk`` have no effect here.
+Not in this port yet (each raises ``NotImplementedError``): ``int8_weights``
+and ``kv_cache_quant``. This port serves only; there is no training loss,
+so ``dropout``, ``remat`` and ``loss_chunk`` have no effect here.
 """
 
 from __future__ import annotations
@@ -45,8 +50,11 @@ from torch import nn
 
 from ..ops.attention.decode_attention import (alibi_slopes,
                                               decode_attention,
-                                              decode_attention_reference)
+                                              decode_attention_reference,
+                                              window_attention_reference)
 from ..ops.attention.flash_attention import NEG_INF, flash_attention
+from ..ops.attention.paged_attention import (page_writes,
+                                             paged_decode_attention)
 
 __all__ = ["TransformerConfig", "FAMILY_PRESETS", "transformer_config",
            "apply_rotary", "alibi_slopes", "CachedAttention",
@@ -206,14 +214,31 @@ def _fresh_reference(q, k, v, slopes=None):
     return torch.einsum("bhts,bshd->bthd", p, v32).to(q.dtype)
 
 
+def _row_writes(positions, rows, S: int):
+    """Cache writes of a multi-token step into contiguous rows: token t of
+    row b goes to ``buf[rows[b], :, positions[b, t]]``; positions past the
+    allocation ``S`` are dropped. Returns ``(sel, row ids, positions)``
+    over the flattened (B*T) tokens (one host sync, once per forward)."""
+    B, T = positions.shape
+    sel = (positions < S).reshape(-1).nonzero()[:, 0]
+    return (sel, rows[:, None].expand(B, T).reshape(-1)[sel],
+            positions.reshape(-1)[sel])
+
+
 class CachedAttention(nn.Module):
     """Multi-head / grouped-query attention with an optional KV cache.
 
     Modes: ``"fresh"`` (causal self-attention over the given tokens, no
     cache), ``"prefill"`` (fresh attention, and the tokens' K/V written to
-    cache rows ``rows`` at positions [0, T)), ``"decode"`` (T=1: the K/V
-    written at position ``start[b]`` of row b, attention over the first
-    ``start[b] + 1`` positions)."""
+    cache rows ``rows`` at positions [0, T)), ``"decode"`` (token t of row b
+    written at position ``start[b] + t`` and attending positions ``<=
+    start[b] + t``), ``"paged"`` (as decode, over one layer's page pool
+    through the page ``table``).
+
+    ``write`` is ``(sel, a, b)`` from :func:`_row_writes` or
+    ``page_writes``, computed once per forward for every layer: the
+    flattened token rows ``sel`` that land in the cache, and where
+    (``buf[a, :, b]``)."""
 
     def __init__(self, cfg: TransformerConfig, **fk):
         super().__init__()
@@ -237,7 +262,7 @@ class CachedAttention(nn.Module):
         return True
 
     def forward(self, x, positions, mode: str = "fresh", kv=None,
-                rows=None, start=None):
+                rows=None, start=None, table=None, write=None):
         cfg = self.config
         B, T, _ = x.shape
         H, KV, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
@@ -251,11 +276,22 @@ class CachedAttention(nn.Module):
         slopes = alibi_slopes(H).to(x.device) \
             if cfg.pos_emb == "alibi" else None
 
+        if mode == "paged" or (mode == "decode" and T > 1):
+            k_buf, v_buf = kv
+            sel, a, b = write
+            k_buf[a, :, b] = k.reshape(B * T, KV, D)[sel].to(k_buf.dtype)
+            v_buf[a, :, b] = v.reshape(B * T, KV, D)[sel].to(v_buf.dtype)
+            if mode == "paged":
+                y = paged_decode_attention(
+                    q.contiguous(), k_buf, v_buf, table,
+                    start.to(torch.int32), alibi_slopes=slopes)
+            else:
+                y = window_attention_reference(q, k_buf[rows], v_buf[rows],
+                                               start, 1.0 / math.sqrt(D),
+                                               slopes)
+            return self.o_proj(y.to(x.dtype).reshape(B, T, H * D))
+
         if mode == "decode":
-            if T != 1:
-                raise NotImplementedError(
-                    "multi-token decode against the cache (chunked prefill, "
-                    "speculative verify) is a later slice of the port")
             k_buf, v_buf = kv
             k_buf[rows, :, start] = k[:, 0].to(k_buf.dtype)
             v_buf[rows, :, start] = v[:, 0].to(v_buf.dtype)
@@ -313,8 +349,9 @@ class TransformerBlock(nn.Module):
         self.mlp = TransformerMLP(cfg, **fk)
 
     def forward(self, x, positions, mode="fresh", kv=None, rows=None,
-                start=None):
-        a = self.attn(self.ln_1(x), positions, mode, kv, rows, start)
+                start=None, table=None, write=None):
+        a = self.attn(self.ln_1(x), positions, mode, kv, rows, start, table,
+                      write)
         if self.config.parallel_residual:
             return x + a + self.mlp(self.ln_2(x))
         x = x + a
@@ -339,10 +376,39 @@ class KVCacheSpec:
         return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=device)}
 
+    def paged_cache(self, num_pages: int, page_size: int,
+                    device=None) -> Dict[str, Any]:
+        """Zeroed page pool k/v: (L, P, KV, page_size, D) each, no batch
+        axis. A per-slot page table maps positions to pages;
+        :meth:`dense_from_pages` reassembles the stacked layout."""
+        shape = (self.n_layer, num_pages, self.kv_heads, page_size,
+                 self.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+
+    def dense_from_pages(self, paged: Dict[str, Any],
+                         table) -> Dict[str, Any]:
+        """The dense (L, B, KV, pages_per_slot * page_size, D) view of a
+        page pool for a (B, pages_per_slot) table, as a new tensor per
+        side. Unmapped entries (sentinel ``P``) are clipped to page
+        ``P - 1``: only positions past a slot's length map there, and
+        attention masks them."""
+        B, max_pages = table.shape
+        out = {}
+        for key in ("k", "v"):
+            leaf = paged[key]                       # (L, P, KV, ps, D)
+            L, P, KV, ps, D = leaf.shape
+            ids = table.to(leaf.device).long().clamp(0, P - 1).reshape(-1)
+            g = leaf[:, ids].reshape(L, B, max_pages, KV, ps, D)
+            out[key] = g.permute(0, 1, 3, 2, 4, 5).reshape(
+                L, B, KV, max_pages * ps, D)
+        return out
+
 
 class TransformerLM(nn.Module):
     """Causal LM over any family preset: ``logits``, ``prefill``,
-    ``prefill_last`` and ``decode`` (see the module docstring)."""
+    ``prefill_last``, ``prefill_chunk``, ``decode`` and ``decode_paged``
+    (see the module docstring)."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -393,17 +459,23 @@ class TransformerLM(nn.Module):
         return self.embed_tokens.weight.device
 
     def _transform(self, input_ids, positions, mode="fresh", cache=None,
-                   rows=None, start=None):
+                   rows=None, start=None, table=None):
         cfg = self.config
         x = self.embed_tokens(input_ids)
         if cfg.pos_emb == "learned":
             x = x + self.embed_pos(positions)
         if cfg.embed_layernorm:
             x = self.embed_ln(x)
+        write = None
+        if mode == "paged":
+            _, P, _, ps, _ = cache["k"].shape
+            write = page_writes(positions, table, P, ps)
+        elif mode == "decode" and input_ids.shape[1] > 1:
+            write = _row_writes(positions, rows, cache["k"].shape[3])
         for li, block in enumerate(self.blocks):
             kv = (cache["k"][li], cache["v"][li]) if cache is not None \
                 else None
-            x = block(x, positions, mode, kv, rows, start)
+            x = block(x, positions, mode, kv, rows, start, table, write)
         return self.ln_f(x)
 
     def _project_head(self, x):
@@ -449,33 +521,63 @@ class TransformerLM(nn.Module):
         the vocabulary: T-1, or ``last_pos`` (int or (B,)) when the prompt
         was right-padded to a bucket width (causal attention keeps that
         position independent of the padding). Returns ((B, 1, V), cache)."""
-        B, T = input_ids.shape
         x, cache = self._prefill_hidden(input_ids, cache, rows)
-        if last_pos is None:
-            x = x[:, -1:]
-        else:
-            idx = torch.as_tensor(last_pos, device=self.device).long()
-            idx = idx.expand(B) if idx.dim() == 0 else idx
-            x = x[torch.arange(B, device=self.device), idx][:, None]
+        x = x[:, -1:] if last_pos is None else self._pick(x, last_pos)
         return self._project_head(x), cache
+
+    def _starts(self, start_pos, B: int):
+        start = torch.as_tensor(start_pos, device=self.device).long()
+        return start.expand(B) if start.dim() == 0 else start
+
+    def _pick(self, x, idx):
+        """(B, 1, C) rows of ``x`` at per-row index ``idx`` (int or (B,))."""
+        B = x.shape[0]
+        idx = self._starts(idx, B)
+        return x[torch.arange(B, device=self.device), idx][:, None]
 
     @torch.no_grad()
     def decode(self, input_ids, start_pos, cache):
-        """One token per row against ``cache`` (updated in place):
+        """T tokens per row against ``cache`` (updated in place):
         ``start_pos`` is the current cache length, an int for a uniform
-        batch or (B,) for slot-pooled decode. Returns (B, 1, V) logits."""
+        batch or (B,) for slot-pooled decode; token t of row b is written
+        at ``start[b] + t`` and sees the positions up to it. Returns
+        (B, T, V) logits."""
         B, T = input_ids.shape
-        start = torch.as_tensor(start_pos, device=self.device).long()
-        start = start.expand(B) if start.dim() == 0 else start
+        start = self._starts(start_pos, B)
         rows = torch.arange(B, device=self.device)
         x = self._transform(input_ids, self._positions(B, T, start),
                             "decode", cache, rows, start)
         return self._project_head(x)
 
-    def prefill_chunk(self, *args, **kwargs):
-        raise NotImplementedError("prefill_chunk (stall-free chunked "
-                                  "admission) is a later slice of the port")
+    @torch.no_grad()
+    def prefill_chunk(self, input_ids, start_pos, last_idx, cache,
+                      rows=None):
+        """Chunked serving prefill: a (B, C) chunk against ``cache`` rows
+        ``rows`` (default 0..B-1) at per-row offsets ``start_pos``, i.e.
+        :meth:`decode`'s multi-token path, projecting only chunk position
+        ``last_idx`` (int or (B,)). Right-padding past the true length
+        writes masked garbage that the next chunk or decode overwrites.
+        Returns (B, 1, V) logits."""
+        B, T = input_ids.shape
+        start = self._starts(start_pos, B)
+        if rows is None:
+            rows = torch.arange(B, device=self.device)
+        x = self._transform(input_ids, self._positions(B, T, start),
+                            "decode", cache, rows, start)
+        return self._project_head(self._pick(x, last_idx))
 
-    def decode_paged(self, *args, **kwargs):
-        raise NotImplementedError("decode_paged (paged KV) is a later slice "
-                                  "of the port")
+    @torch.no_grad()
+    def decode_paged(self, input_ids, start_pos, pages, table):
+        """:meth:`decode` over a page pool: ``pages`` is
+        :meth:`KVCacheSpec.paged_cache`'s dict, ``table`` the (B,
+        pages_per_slot) int32 page table on the device (sentinel =
+        ``P``). The step's K/V rows are written through the table in
+        place (sentinel and out-of-range entries are dropped) and
+        attention reads the pages where they lie, through
+        ``paged_decode_attention``. 1 <= T <= ``MAX_QUERY_ROWS``. Returns
+        (B, T, V) logits."""
+        B, T = input_ids.shape
+        start = self._starts(start_pos, B)
+        x = self._transform(input_ids, self._positions(B, T, start),
+                            "paged", pages, None, start, table)
+        return self._project_head(x)

@@ -67,6 +67,34 @@ def decode_attention_reference(q, k_cache, v_cache, lengths, scale,
     return torch.einsum("bhs,bhsd->bhd", p, v32).to(q.dtype)
 
 
+def window_attention_reference(q, k_cache, v_cache, starts, scale,
+                               alibi_slopes=None):
+    """T query rows per sequence over its cache rows, in fp32: q (B, T, H,
+    D), caches (B, KV, S, D); row t of sequence b sees positions ``<=
+    starts[b] + t`` with ALiBi ``slope·(pos − (starts[b] + t))``. This is
+    the window-masked einsum of the JAX ``CachedAttention``
+    (transformer_lm.py:494-593), which has no kernel there either.
+    Returns (B, T, H, D) in q's dtype."""
+    B, T, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    k32, v32 = k_cache.float(), v_cache.float()
+    if KV != H:
+        k32 = k32.repeat_interleave(H // KV, dim=1)
+        v32 = v32.repeat_interleave(H // KV, dim=1)
+    s = torch.einsum("bthd,bhsd->bhts", q.float(), k32) * scale
+    pos = torch.arange(S, device=q.device)
+    limit = starts.to(q.device).long().reshape(B, 1) \
+        + torch.arange(T, device=q.device)[None]                  # (B, T)
+    if alibi_slopes is not None:
+        rel = (pos[None, None, :] - limit[:, :, None]).float()       # (B,T,S)
+        s = s + alibi_slopes.float().to(q.device)[None, :, None, None] \
+            * rel[:, None]
+    s = s.masked_fill((pos[None, None, :] > limit[:, :, None])[:, None],
+                      NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bhsd->bthd", p, v32).to(q.dtype)
+
+
 def decode_attention(q, k_cache, v_cache, lengths, *,
                      scale: Optional[float] = None,
                      alibi_slopes: Optional[torch.Tensor] = None,

@@ -1,0 +1,172 @@
+"""Cached attention over a paged KV pool: the CUDA kernel's wrapper and its
+plain version.
+
+Port of ``deepspeed_tpu/ops/attention/paged_attention.py``. The kernel is
+``ops/csrc/paged_decode_attention.cu``, which replaces the TPU kernel
+``paged_decode_attention`` (paged_attention.py:125 in the JAX package;
+``pallas_call`` at :247, body ``_paged_kernel`` at :58). It reads the
+serving pool's pages in place through the per-slot page table, so no dense
+per-slot view of the cache is built. Its header says what bounds it on the
+H100 (bytes) and how it reads only live pages.
+
+Page layout: one layer's pool is (P, KV, page_size, D), positions-major, in
+the compute dtype, matching the contiguous cache's (B, KV, S, D). The JAX
+package stores (P, KV, D, page_size) for the TPU's lane tiling; tests
+compare the logical K/V by transposing. Table entry ``P`` means "unmapped"
+and is clipped to page ``P - 1``: it is only reached past a slot's live
+length, where every read is masked.
+
+:func:`paged_decode_attention` takes :func:`paged_decode_attention_reference`
+only for tensors on the CPU. For a CUDA tensor it launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .decode_attention import SUPPORTED_HEAD_DIMS, window_attention_reference
+
+__all__ = ["MAX_QUERY_ROWS", "page_writes", "paged_decode_attention",
+           "paged_decode_attention_reference"]
+
+# query rows per slot one call serves: plain decode (1) and speculative
+# verify (K + 1). The kernel keeps one online-softmax state per row in
+# registers; 8 is where that state (8 rows x 16 bytes of accumulator per
+# lane) still fits the register budget of a 256-thread block
+MAX_QUERY_ROWS = 8
+# page-table entries a block stages in shared memory (32 KB)
+MAX_TABLE_PAGES = 8192
+
+
+def page_writes(positions, table, num_pages: int, page_size: int):
+    """Where a step's cache rows land in the pool: position p of slot b goes
+    to ``pages[table[b, p // page_size], :, p % page_size]``. Positions past
+    the table and unmapped (sentinel ``num_pages``) entries are dropped, so
+    a free or padding row never touches a real page. ``positions`` and
+    ``table`` are (B, W) and (B, pages_per_slot) on one device. Returns
+    ``(sel, page ids, rows in page)`` over the flattened (B*W) positions
+    (one host sync)."""
+    max_pages = table.shape[1]
+    pidx = (positions // page_size).clamp(0, max_pages - 1)
+    page = table.long().gather(1, pidx)
+    ok = (positions >= 0) & (positions < max_pages * page_size) \
+        & (page < num_pages)
+    sel = ok.reshape(-1).nonzero()[:, 0]
+    return (sel, page.reshape(-1)[sel],
+            (positions % page_size).reshape(-1)[sel])
+
+
+def paged_decode_attention_reference(q, k_pages, v_pages, table, starts,
+                                     scale, alibi_slopes=None):
+    """Plain PyTorch twin of the kernel in fp32: clip sentinel page ids to
+    ``P - 1``, gather the live pages of each slot into a dense view, and
+    let row t of slot b attend positions ``<= starts[b] + t`` with ALiBi
+    ``slope·(pos − (starts[b] + t))``. Returns (B, T, H, D) in q's dtype."""
+    B, T = q.shape[:2]
+    P, KV, ps, D = k_pages.shape
+    starts = starts.to(q.device).long().reshape(B)
+    n_pages = min(table.shape[1],
+                  -(-(int(starts.max()) + T) // ps))       # live pages
+    ids = table[:, :n_pages].to(q.device).long().clamp(0, P - 1).reshape(-1)
+
+    def dense(pages):                                       # (B, KV, S, D)
+        g = pages[ids].reshape(B, n_pages, KV, ps, D).transpose(1, 2)
+        return g.reshape(B, KV, n_pages * ps, D)
+
+    return window_attention_reference(q, dense(k_pages), dense(v_pages),
+                                      starts, scale, alibi_slopes)
+
+
+def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
+                           scale: Optional[float] = None,
+                           alibi_slopes: Optional[torch.Tensor] = None,
+                           k_scale_pages=None,
+                           v_scale_pages=None) -> torch.Tensor:
+    """Attention of 1..``MAX_QUERY_ROWS`` query rows per slot over its
+    pages.
+
+    Args:
+      q: (B, T, H, D); row t of slot b attends positions
+        ``[0, starts[b] + t]`` (the caller has already written this step's
+        T rows into the pages).
+      k_pages, v_pages: one layer's pool (P, KV, page_size, D),
+        H % KV == 0 (query head h reads KV head h // (H // KV)).
+      table: (B, pages_per_slot) int32; ``P`` marks an unmapped entry.
+      starts: (B,) int32 cache length before this step's rows.
+      alibi_slopes: optional (H,) fp32 ALiBi slopes.
+      k_scale_pages, v_scale_pages: the int8 page variant, not ported yet.
+    Returns (B, T, H, D) in q's dtype. On CUDA each launch adds one to
+    ``paged_decode_attention.launches``.
+    """
+    if k_scale_pages is not None or v_scale_pages is not None:
+        raise NotImplementedError(
+            "int8 KV pages (kv_cache_quant scales) are a later slice of the "
+            "port")
+    if q.dim() != 4 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"paged_decode_attention wants q (B,T,H,D) and pages "
+                         f"(P,KV,ps,D); got {tuple(q.shape)}, "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    B, T, H, D = q.shape
+    P, KV, ps, Dp = k_pages.shape
+    if Dp != D or H % KV != 0 or table.dim() != 2 or table.shape[0] != B:
+        raise ValueError(f"pages {tuple(k_pages.shape)} / table "
+                         f"{tuple(table.shape)} do not fit q {tuple(q.shape)}")
+    if not 1 <= T <= MAX_QUERY_ROWS:
+        raise ValueError(f"paged kernel handles 1..{MAX_QUERY_ROWS} query "
+                         f"rows, got {T}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if not torch.is_tensor(starts) or starts.dim() == 0:
+        starts = torch.full((B,), int(starts), dtype=torch.int32,
+                            device=q.device)
+    if q.device.type == "cpu":
+        return paged_decode_attention_reference(q, k_pages, v_pages, table,
+                                                starts, scale, alibi_slopes)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention runs on cpu or cuda, not "
+                         f"{q.device.type}")
+    from ..op_builder import DTYPE_CODES, launch
+
+    if q.dtype not in DTYPE_CODES or D not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"paged kernel supports dtypes {list(DTYPE_CODES)} "
+                         f"and head dims {SUPPORTED_HEAD_DIMS}; got "
+                         f"{q.dtype}, D={D}")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise ValueError(f"q/page dtypes differ: {q.dtype}, {k_pages.dtype}, "
+                         f"{v_pages.dtype}")
+    for name, t, shape in (("table", table, (B, table.shape[1])),
+                           ("starts", starts, (B,))):
+        if t.shape != shape or t.dtype != torch.int32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {shape} int32 on "
+                             f"{q.device}; got {tuple(t.shape)} {t.dtype} "
+                             f"{t.device}")
+    if table.shape[1] > MAX_TABLE_PAGES:
+        raise ValueError(f"paged kernel stages at most {MAX_TABLE_PAGES} "
+                         f"table entries per slot, got {table.shape[1]}")
+    tensors = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages)]
+    if alibi_slopes is not None:
+        if alibi_slopes.shape != (H,) or alibi_slopes.dtype != torch.float32:
+            raise ValueError("alibi_slopes must be (H,) float32")
+        tensors.append(("alibi_slopes", alibi_slopes))
+    for name, t in tensors:
+        if t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"paged kernel needs {name} contiguous, 16-byte "
+                             f"aligned, on {q.device}")
+    out = torch.empty_like(q)
+    launch("paged_decode_attention", q.device, DTYPE_CODES[q.dtype],
+           q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+           table.data_ptr(), starts.data_ptr(),
+           alibi_slopes.data_ptr() if alibi_slopes is not None else None,
+           out.data_ptr(), B, T, H, KV, P, ps, table.shape[1], D,
+           float(scale))
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -47,4 +47,12 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ src, float* dst) 
   for (int i = 0; i < kN; ++i) dst[i] = to_float(vals[i]);
 }
 
+// The kN elements of T in a 16-byte word loaded earlier, as floats.
+template <typename T>
+__device__ __forceinline__ void unpack_vec(uint4 raw, float* dst) {
+  const T* vals = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int i = 0; i < Vec<T>::kN; ++i) dst[i] = to_float(vals[i]);
+}
+
 }  // namespace dstorch

@@ -42,6 +42,9 @@ SIGNATURES = {
     "flash_attention_fwd": ("dstorch_flash_attention_fwd",
                             [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _F, _I, _P]),
+    "paged_decode_attention": ("dstorch_paged_decode_attention",
+                               [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _F, _P]),
 }
 
 _LOCK = threading.Lock()

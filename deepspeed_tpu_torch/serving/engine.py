@@ -1,21 +1,34 @@
 """ServingEngine: request-level continuous batching over InferenceEngine
-(port of ``deepspeed_tpu/serving/engine.py``, serial bucketed admission over
-the contiguous slot pool).
+(port of ``deepspeed_tpu/serving/engine.py``).
 
 Requests arrive one at a time via :meth:`submit`. Each :meth:`step` grants
-free slots to queued requests, prefills each granted prompt straight into
-its slot's cache row (right-padded to a power-of-two bucket of at least 16,
-projecting the true last position), then runs ONE decode step for every
-live slot at batch = ``num_slots`` with per-slot cache offsets; finished
-sequences retire at once and their slot goes back to work (Orca-style
-iteration-level scheduling). Sampled tokens stay on the device during the
-step; one host fetch at the end of the step replays the bookkeeping in
-dispatch order.
+free slots to queued requests, seats them, runs at most one prefill chunk,
+then runs ONE decode step for every running slot at batch = ``num_slots``
+with per-slot cache offsets; finished sequences retire at once and their
+slot goes back to work (Orca-style iteration-level scheduling). Sampled
+tokens stay on the device during the step; one host fetch at the end of
+the step replays the bookkeeping in dispatch order.
 
-This slice serves ``prefill_chunk=0`` only: stall-free chunked admission
-(the JAX default), paged KV, speculative decoding, the pipelined
-``overlap`` step and the resilience/telemetry keys are later slices, and
-passing any of them raises ``NotImplementedError``.
+Admission. With ``prefill_chunk > 0`` (the default, 64, as in the JAX
+engine) admission is stall-free (Sarathi-style): a seed longer than the
+chunk is seated ``PREFILLING`` and streams in one chunk per step, and a
+per-step prefill token budget bounds the admission work a running request
+waits through. Shorter seeds are grouped by power-of-two bucket width and
+each group is prefilled in one batched call. With ``prefill_chunk=0`` every
+granted request is prefilled whole at admission (serial).
+
+KV storage. ``paged_kv=False`` keeps one contiguous cache row per slot
+(:class:`SlotPool`). ``paged_kv=True`` or a dict ``{"num_pages",
+"page_size", "prefix_cache", "kernel"}`` stores the cache in a page pool
+(:class:`PagedKVPool`): decode reads pages in place through the paged
+attention kernel, requests sharing a prompt prefix are seated on the
+cached pages (stall-free mode only: a hit enters the chunked path at its
+first uncached position), admission is page-denominated, and a step that
+runs out of pages preempts the youngest other request back to the queue.
+
+Speculative decoding, the pipelined ``overlap`` step and the resilience and
+telemetry keys are later slices; passing any of them raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -28,8 +41,10 @@ import torch
 
 from ..utils.logging import log_dist
 from .metrics import ServingMetrics
+from .paged_pool import PagedKVPool, PagePoolExhausted
 from .request import FinishReason, Request, RequestState
 from .resilience.errors import InvariantViolation, ServingStalledError
+from .resilience.preemption import select_victims
 from .scheduler import FIFOScheduler
 from .slot_pool import SlotPool
 
@@ -37,12 +52,14 @@ _MIN_PREFILL_BUCKET = 16
 
 # serving keys of the JAX engine that this port does not have yet; None or
 # False means "off" and is accepted, any other value raises
-NOT_PORTED = ("prefill_token_budget", "spec_decode", "paged_kv", "overlap",
-              "tracer", "registry", "strict_recompile", "timeline_capacity",
-              "deadline_default_ms", "step_wall_budget_ms", "guard_numerics",
-              "degradation", "preempt_queue_threshold",
-              "preempt_min_run_steps", "fault_injector", "cost_model", "slo",
-              "flight_recorder", "dump_dir", "priority", "clock", "role")
+NOT_PORTED = ("spec_decode", "overlap", "tracer", "registry",
+              "strict_recompile", "timeline_capacity", "deadline_default_ms",
+              "step_wall_budget_ms", "guard_numerics", "degradation",
+              "preempt_queue_threshold", "preempt_min_run_steps",
+              "fault_injector", "cost_model", "slo", "flight_recorder",
+              "dump_dir", "priority", "clock", "role")
+
+PAGED_KV_KEYS = ("num_pages", "page_size", "prefix_cache", "kernel")
 
 
 class ServingEngine:
@@ -61,7 +78,9 @@ class ServingEngine:
                  temperature: Optional[float] = None,
                  top_k: Optional[int] = None, top_p: Optional[float] = None,
                  seed: int = 0, monitor: Optional[Any] = None,
-                 prefill_chunk: int = 0, **not_ported: Any):
+                 prefill_chunk: int = 64,
+                 prefill_token_budget: Optional[int] = None,
+                 paged_kv: Any = False, **not_ported: Any):
         for key, val in not_ported.items():
             if key not in NOT_PORTED:
                 raise TypeError(f"unexpected ServingEngine argument {key!r}")
@@ -72,16 +91,60 @@ class ServingEngine:
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
                              f"{prefill_chunk}")
-        if prefill_chunk > 0:
-            raise NotImplementedError(
-                "prefill_chunk > 0 (stall-free chunked admission) is a later "
-                "slice of the port; pass prefill_chunk=0")
         self.engine = engine
         self._now = time.perf_counter
         self.device = engine.device
-        self.pool = SlotPool(engine.kv_cache_spec(), num_slots, self.device)
-        self.scheduler = FIFOScheduler(num_slots, max_queue_depth, policy,
-                                       capacity=self.pool.capacity)
+        spec = engine.kv_cache_spec()
+        capacity = int(spec.max_seq_len)
+        # chunk starts are multiples of the chunk width, so capacity %
+        # chunk == 0 keeps every chunk inside the allocation; auto-halve
+        # (the width is a latency knob, not a correctness contract)
+        chunk = min(int(prefill_chunk), capacity)
+        while chunk > 1 and capacity % chunk != 0:
+            chunk //= 2
+        if paged_kv:
+            knobs = dict(paged_kv) if isinstance(paged_kv, dict) else {}
+            unknown = sorted(set(knobs) - set(PAGED_KV_KEYS))
+            if unknown:
+                raise ValueError(f"unknown paged_kv keys: {unknown}; "
+                                 f"expected {'/'.join(PAGED_KV_KEYS)}")
+            page_size = knobs.get("page_size")
+            if page_size is None:
+                # one chunk fills one page
+                page_size = chunk if chunk > 0 else 64
+                page_size = max(1, min(page_size, capacity))
+                while page_size > 1 and capacity % page_size != 0:
+                    page_size //= 2
+            self.pool = PagedKVPool(
+                spec, num_slots, num_pages=knobs.get("num_pages"),
+                page_size=int(page_size), device=self.device,
+                prefix_cache=bool(knobs.get("prefix_cache", True)),
+                kernel=str(knobs.get("kernel", "auto")))
+        else:
+            self.pool = SlotPool(spec, num_slots, self.device)
+        self._paged = isinstance(self.pool, PagedKVPool)
+        self.scheduler = FIFOScheduler(
+            num_slots, max_queue_depth, policy, capacity=self.pool.capacity,
+            page_size=self.pool.page_size if self._paged else None,
+            num_pages=self.pool.num_pages if self._paged else None)
+        self._stall_free = chunk > 0 and policy == "continuous"
+        self.prefill_chunk = chunk if self._stall_free else 0
+        self.prefill_token_budget = None
+        if self._stall_free:
+            budget = (2 * chunk if prefill_token_budget is None
+                      else int(prefill_token_budget))
+            if budget < chunk:
+                raise ValueError(
+                    f"prefill_token_budget ({budget}) must be >= "
+                    f"prefill_chunk ({chunk}); a smaller budget could never "
+                    f"schedule the in-flight chunk")
+            self.prefill_token_budget = budget
+        # prefix-hit seating enters the chunked path at the first uncached
+        # position, so it needs stall-free mode
+        self._use_prefix = (self._paged and self.pool.prefix is not None
+                            and self._stall_free)
+        # seated PREFILLING requests, in order; step() advances the head
+        self._prefill_queue: List[Request] = []
         self.step_id = 0
         self.metrics = ServingMetrics(monitor, step_fn=lambda: self.step_id)
         cfg = engine._config
@@ -99,10 +162,18 @@ class ServingEngine:
         # (device tensor, callback) pairs replayed after the step's fetch
         self._deferred: List[Tuple[torch.Tensor, Callable]] = []
         self._next_id = 0
+        admission = (f"stall-free chunk={self.prefill_chunk} "
+                     f"budget={self.prefill_token_budget}"
+                     if self._stall_free else "serial")
+        storage = (f"paged page_size={self.pool.page_size} "
+                   f"num_pages={self.pool.num_pages} "
+                   f"prefix_cache={self.pool.prefix is not None} "
+                   f"kernel={self.pool.kernel}" if self._paged
+                   else "contiguous")
         log_dist(f"ServingEngine: slots={num_slots} policy={policy} "
                  f"capacity={self.pool.capacity} "
-                 f"max_queue_depth={max_queue_depth} admission=serial",
-                 ranks=[0])
+                 f"max_queue_depth={max_queue_depth} admission={admission} "
+                 f"kv={storage}", ranks=[0])
 
     # ------------------------------------------------------------------
     @property
@@ -157,52 +228,278 @@ class ServingEngine:
         return sum(1 for r in self._slot_req.values()
                    if r.state is RequestState.RUNNING)
 
-    def _admit(self, req: Request, finished: List[Request]) -> None:
-        slot = self.pool.alloc()
+    def _seat(self, req: Request, slot: int, state: RequestState) -> None:
+        req.slot = slot
+        req.state = state
+        req.last_admit_step = self.step_id
+        self._slot_req[slot] = req
+
+    def _emit_first(self, req: Request, token: int,
+                    finished: List[Request]) -> None:
+        """Host replay of a request's token sampled at the end of its
+        prefill (its first, or the next one after a preemption)."""
+        if req.first_token_time is None:
+            req.first_token_time = self._now()
+        req.output_tokens.append(token)
+        self._maybe_retire(req, token, finished)
+
+    # -- admission -------------------------------------------------------
+    def _admit_batch(self, group: List[Request], width: int,
+                     finished: List[Request]) -> None:
+        """Whole-seed admission of ``group`` (same bucket ``width``) in one
+        ``prefill_at`` call projecting each seed's true last position, the
+        K/V going straight into the slots (contiguous rows, or pages
+        through :meth:`PagedKVPool.admit_rows`). Rolls the whole group
+        back to clean QUEUED requests on an exception."""
+        n = len(group)
+        ids = np.zeros((n, width), np.int64)
+        last_pos = np.zeros((n,), np.int64)
+        lengths = np.zeros((n,), np.int64)
+        slots: List[int] = []
+        running_before = self._running_count()
+        # rollback snapshots: a preempted request keeps its tokens/stamps
+        n0s = [len(r.output_tokens) for r in group]
+        stamps = [(r.admit_time, r.first_token_time) for r in group]
         try:
-            T = req.prompt_len
-            width = self._bucket(T, self.pool.capacity)
-            ids = np.zeros((1, width), np.int64)
-            ids[0, :T] = req.prompt
-            running_before = self._running_count()
-            req.admit_time = self._now()
+            for i, req in enumerate(group):
+                T = req.seed_len
+                ids[i, :T] = req.seed_tokens
+                last_pos[i] = T - 1
+                lengths[i] = T
+                req.admit_time = self._now()
+                slots.append(self.pool.alloc())
+            t0 = self._now()
+            cache, rows = self.pool.prefill_target(slots, width)
             logits, _ = self.engine.prefill_at(
-                torch.as_tensor(ids, device=self.device), T - 1,
-                cache=self.pool.cache, rows=[slot])
-            self.pool.admit(slot, T)
+                torch.as_tensor(ids, device=self.device), last_pos,
+                cache=cache, rows=rows)
+            self.pool.admit_rows(cache, slots, lengths)
             tok = self._sample(logits)
-            self._cur[slot] = tok[0]
-            self.metrics.record_prefill(T, self._now() - req.admit_time,
+            self._cur[torch.as_tensor(slots, device=self.device)] = tok
+            self.metrics.record_prefill(int(lengths.sum()), self._now() - t0,
                                         blocking=running_before > 0)
-            req.slot = slot
-            self._slot_req[slot] = req
-            req.state = RequestState.RUNNING
+            for req, slot in zip(group, slots):
+                self._seat(req, slot, RequestState.RUNNING)
+                if self._use_prefix:
+                    self.pool.cache_prefix(slot, req.seed_tokens)
 
-            def _on_first_token(tok, req=req, slot=slot):
-                token = int(tok[0])
-                req.first_token_time = self._now()
-                req.output_tokens.append(token)
-                self._maybe_retire(req, token, finished)
+            def _on_tokens(tok, group=group):
+                for req, token in zip(group, tok):
+                    self._emit_first(req, int(token), finished)
 
-            self._defer(tok, _on_first_token)
+            self._defer(tok, _on_tokens)
         except Exception:
-            # undo the partial admission so the request re-queues cleanly
-            self._slot_req.pop(slot, None)
-            self.pool.release(slot)
-            req.state = RequestState.QUEUED
-            req.slot = None
-            req.admit_time = None
+            for i, req in enumerate(group):
+                if i < len(slots):
+                    self._slot_req.pop(slots[i], None)
+                    self.pool.release(slots[i])
+                req.state = RequestState.QUEUED
+                req.slot = None
+                req.admit_time, req.first_token_time = stamps[i]
+                del req.output_tokens[n0s[i]:]
             raise
 
+    def _admission_cost(self, req: Request) -> int:
+        """Prefill tokens a grant charges against the step budget: the
+        bucket width for a whole-seed admission, one chunk for a long seed
+        (only its first chunk can run this step)."""
+        T = req.seed_len
+        if T <= self.prefill_chunk:
+            return self._bucket(T, self.pool.capacity)
+        return self.prefill_chunk
+
+    # -- paged KV: page accounting and prefix-hit seating --------------
+    def _prefix_plan(self, hit_tokens: int, seed_len: int) -> int:
+        """Where a prefix-hit admission starts prefilling. A full hit still
+        prefills the LAST chunk again (its logits sample the next token,
+        as a cold chunked admission's do), and the start is aligned down
+        to a chunk multiple so every chunk stays inside the allocation."""
+        C = max(self.prefill_chunk, 1)
+        if hit_tokens >= seed_len:
+            pos0 = seed_len - min(C, seed_len)
+        else:
+            pos0 = min(hit_tokens, seed_len)
+        return (pos0 // C) * C
+
+    def _page_cost(self, req: Request) -> int:
+        """FRESH pages seating ``req`` allocates now: those covering its
+        uncached suffix (CoW forks included; shared prefix pages cost a
+        refcount). Decode-time growth is not charged: that is the
+        oversubscription bet, covered by trie eviction and pressure
+        preemption."""
+        ps = self.pool.page_size
+        seed = req.seed_len
+        pos0 = 0
+        if self._use_prefix:
+            hit = self.pool.prefix.peek(req.seed_tokens) * ps
+            pos0 = self._prefix_plan(hit, seed)
+        return (seed - 1) // ps - pos0 // ps + 1
+
+    def _grant_page_budget(self) -> int:
+        """Pages a grant may promise this step: free now, plus what trie
+        eviction could reclaim without preempting anyone."""
+        return self.pool.free_page_count + self.pool.evictable_page_count()
+
+    def _ensure_pages(self, slot: int, start: int, end: int) -> None:
+        """``ensure_writable`` with the pressure valve: when the pool is
+        exhausted (free list empty AND trie eviction dry), preempt the
+        youngest OTHER seated request, whose pages return to the free
+        list, and retry. Only with no victim left does the exhaustion
+        propagate (one request's footprint exceeding the whole pool,
+        which the submit-time page check rejects)."""
+        while True:
+            try:
+                self.pool.ensure_writable(slot, start, end)
+                return
+            except PagePoolExhausted:
+                victims = [r for r in select_victims(
+                    list(self._slot_req.values()), n=len(self._slot_req),
+                    current_step=self.step_id, min_run_steps=0)
+                    if r.slot != slot]
+                if not victims:
+                    raise
+                self._preempt_req(victims[0])
+
+    def _ensure_decode_pages(self, width: int) -> None:
+        """Back every RUNNING slot's next ``width`` write positions with
+        owned pages before the decode. PREFILLING slots are skipped: their
+        masked garbage writes hit unmapped entries (dropped) or pages the
+        seating already forked."""
+        for slot, req in list(self._slot_req.items()):
+            if req.state is RequestState.RUNNING:
+                idx = int(self.pool.starts[slot])
+                self._ensure_pages(slot, idx, idx + width)
+
+    def _admit_prefix_hit(self, req: Request) -> bool:
+        """Try to seat ``req`` through the prefix cache: map the cached
+        pages into a fresh slot and enter the chunked path at the first
+        uncached position. Returns False on a miss (the caller takes the
+        cold paths)."""
+        pool = self.pool
+        seed_len = req.seed_len
+        pages = pool.prefix.match(req.seed_tokens)
+        pos0 = self._prefix_plan(len(pages) * pool.page_size, seed_len)
+        self.metrics.record_prefix(pos0, seed_len)
+        if pos0 <= 0:
+            return False
+        now = self._now()     # before alloc: nothing may fail while the
+        slot = pool.alloc()   # slot is held but not yet seated
+        try:
+            pool.reset_row(slot)
+            pool.seat_prefix(slot, pages, pos0)
+        except PagePoolExhausted:
+            # the uncached suffix needs more fresh pages than remain:
+            # release (unmapping anything seated so far) and retry next
+            # step, once eviction or preemption has freed pages
+            pool.release(slot)
+            self.scheduler.requeue_front([req])
+            return True
+        except Exception:
+            pool.release(slot)
+            req.state = RequestState.QUEUED
+            raise
+        req.admit_time = now
+        req.prefill_pos = pos0
+        req.prefix_hit_tokens = pos0
+        self._seat(req, slot, RequestState.PREFILLING)
+        self._prefill_queue.append(req)
+        return True
+
+    def _admit_stall_free(self, granted: List[Request],
+                          finished: List[Request]) -> None:
+        """Seat every granted request: prefix hits and long seeds become
+        PREFILLING (their pages or rows fill chunk by chunk in later
+        steps); short seeds are grouped by bucket width and each group is
+        prefilled in one batched call."""
+        groups: dict = {}
+        for req in granted:
+            if self._use_prefix and self._admit_prefix_hit(req):
+                continue
+            T = req.seed_len
+            if T > self.prefill_chunk:
+                now = self._now()
+                slot = self.pool.alloc()
+                try:
+                    self.pool.reset_row(slot)
+                except Exception:
+                    self.pool.release(slot)
+                    raise
+                req.admit_time = now
+                req.prefill_pos = 0
+                self._seat(req, slot, RequestState.PREFILLING)
+                self._prefill_queue.append(req)
+            else:
+                groups.setdefault(self._bucket(T, self.pool.capacity),
+                                  []).append(req)
+        for width in sorted(groups):
+            self._admit_batch(groups[width], width, finished)
+
+    def _prefill_chunk_step(self, finished: List[Request]) -> None:
+        """Run AT MOST one prefill chunk, for the head of the prefill
+        queue, so a step's admission work stays bounded however long the
+        queued prompts are. The final chunk projects the seed's true last
+        position, samples its token and flips the request to RUNNING."""
+        if not self._prefill_queue:
+            return
+        req = self._prefill_queue[0]
+        slot = req.slot
+        C = self.prefill_chunk
+        pos = req.prefill_pos
+        seed = req.seed_tokens
+        seed_len = req.seed_len
+        L = min(C, seed_len - pos)
+        ids = np.zeros((1, C), np.int64)
+        ids[0, :L] = seed[pos:pos + L]
+        running_before = self._running_count()
+        t0 = self._now()
+        if self._paged:
+            # the chunk's pages are allocated or forked before it runs
+            # (under pressure this may preempt another request)
+            self._ensure_pages(slot, pos, pos + L)
+            logits = self.pool.run_prefill_chunk(self.engine, ids, slot, pos,
+                                                 L - 1)
+        else:
+            logits = self.engine.prefill_chunk(self.pool.cache, ids, slot,
+                                               pos, L - 1)
+        self.pool.starts[slot] = pos + L
+        req.prefill_pos = pos + L
+        req.chunks += 1
+        self.metrics.record_prefill(L, self._now() - t0,
+                                    blocking=running_before > 0)
+        if req.prefill_pos < seed_len:
+            return
+        tok = self._sample(logits)
+        self._cur[slot] = tok[0]
+        self._prefill_queue.pop(0)
+        req.state = RequestState.RUNNING
+        req.last_admit_step = self.step_id
+        if self._use_prefix:
+            self.pool.cache_prefix(slot, seed)
+        self._defer(tok, lambda tok, req=req: self._emit_first(
+            req, int(tok[0]), finished))
+
+    # -- decode and retirement -----------------------------------------
     def _decode_step(self, finished: List[Request], t0: float) -> None:
+        if self._paged:
+            # page the write position in BEFORE snapshotting the running
+            # set: under pressure this can preempt a victim out of it
+            self._ensure_decode_pages(1)
         running = [(slot, req) for slot, req in self._slot_req.items()
                    if req.state is RequestState.RUNNING]
         pos = torch.as_tensor(self.pool.positions(), device=self.device)
-        logits = self.engine.decode(self.pool.cache, self._cur[:, None], pos)
-        self.pool.advance(1)
+        tokens = self._cur[:, None]
+        if self._paged:
+            logits = self.pool.run_decode(self.engine, tokens, pos)
+        else:
+            logits = self.engine.decode(self.pool.cache, tokens, pos)
+        # only running rows grew; PREFILLING rows rode along as masked
+        # padding and keep their chunk offsets
+        deltas = np.zeros((self.pool.num_slots,), np.int32)
+        deltas[[slot for slot, _ in running]] = 1
+        self.pool.advance(deltas)
         nxt = self._sample(logits)
         # every row's next current token is this decode's sample for it
-        # (free rows hold values no live row ever reads)
+        # (other rows hold values no live row ever reads)
         self._cur = nxt
 
         def _on_decode(nxt, running=running):
@@ -236,23 +533,60 @@ class ServingEngine:
         self.metrics.record_finish(req)
         finished.append(req)
 
+    def _preempt_req(self, req: Request) -> None:
+        """Page-pressure preemption: release ``req``'s slot and pages and
+        requeue it at the TAIL with its generated tokens (re-queueing at
+        the head would hand it back its own pages at the next grant,
+        forever)."""
+        del self._slot_req[req.slot]
+        self.pool.release(req.slot)
+        req.slot = None
+        self._prefill_queue[:] = [r for r in self._prefill_queue
+                                  if r is not req]
+        req.prefill_pos = 0
+        req.admit_time = None
+        req.preemptions += 1
+        self.scheduler.requeue_back([req])
+        self.metrics.record_preemption(req)
+
     # ------------------------------------------------------------------
     def step(self) -> List[Request]:
-        """One scheduler iteration: admit into free slots, then one decode
-        step for every live slot. Returns the requests that finished.
+        """One scheduler iteration: admit into free slots, run at most one
+        prefill chunk, then one decode step for every running slot.
+        Returns the requests that finished.
 
-        Exception-safe: if the engine raises mid-step, no slot leaks —
-        granted-but-unadmitted requests go back to the head of the queue,
-        seated ones are FAILED (reason ``"error"``), the pool is reset, and
-        the error propagates."""
+        Exception-safe: if the engine raises mid-step, no slot or page
+        leaks. Granted-but-unadmitted and PREFILLING requests go back to
+        the head of the queue, running ones are FAILED (reason
+        ``"error"``), the pool is reset, and the error propagates."""
         finished: List[Request] = []
         self.step_id += 1
         t_step = self._now()
         running_at_entry = self._running_count()
-        granted = self.scheduler.grant(self.pool.free_count, self.live_count)
+        page_budget = self._grant_page_budget() if self._paged else None
+        page_cost = self._page_cost if self._paged else None
+        if self._stall_free:
+            # one chunk for the prefill-queue head runs this step: charge
+            # it up front so admissions + chunk stay within the budget
+            granted = self.scheduler.grant(
+                self.pool.free_count, self.live_count,
+                token_budget=self.prefill_token_budget,
+                cost=self._admission_cost,
+                spent=self.prefill_chunk if self._prefill_queue else 0,
+                page_budget=page_budget, page_cost=page_cost)
+        else:
+            granted = self.scheduler.grant(
+                self.pool.free_count, self.live_count,
+                page_budget=page_budget, page_cost=page_cost)
         try:
-            for req in granted:
-                self._admit(req, finished)
+            if self._stall_free:
+                self._admit_stall_free(granted, finished)
+                self._prefill_chunk_step(finished)
+            else:
+                for req in granted:
+                    self._admit_batch(
+                        [req], self._bucket(req.seed_len, self.pool.capacity),
+                        finished)
             if self._running_count():
                 self._decode_step(finished, self._now())
             self._drain_deferred()
@@ -266,9 +600,26 @@ class ServingEngine:
         return finished
 
     def _abort_step(self, granted: List[Request]) -> None:
-        """Mid-step exception recovery: never leak a slot."""
-        requeued = [r for r in granted if r.state is RequestState.QUEUED]
-        self.scheduler.requeue_front(requeued)
+        """Mid-step exception recovery: never leak a slot or a page.
+        Requests the failed admission rolled back re-join the queue head;
+        PREFILLING requests lose only cache state their seed rebuilds, so
+        they are requeued too (ahead of the granted ones: they are older);
+        running requests are FAILED; the pool restarts empty."""
+        # a granted request that page pressure already sent back to the
+        # queue this step is QUEUED too: requeue only those not there
+        self.scheduler.requeue_front(
+            [r for r in granted if r.state is RequestState.QUEUED
+             and all(r is not q for q in self.scheduler.queue)])
+        prefilling = sorted((r for r in self._slot_req.values()
+                             if r.state is RequestState.PREFILLING),
+                            key=lambda r: r.request_id)
+        for req in prefilling:
+            del self._slot_req[req.slot]
+            req.slot = None
+            req.admit_time = None
+            req.prefill_pos = 0
+        self.scheduler.requeue_front(prefilling)
+        self._prefill_queue.clear()
         for req in self._slot_req.values():
             req.state = RequestState.FAILED
             req.finish_reason = FinishReason.ERROR
@@ -313,22 +664,26 @@ class ServingEngine:
         return (self.scheduler.pending, len(self._slot_req),
                 len(self.metrics.finished), self.metrics.failed,
                 tuple(sorted((r.request_id, r.state.value,
-                              len(r.output_tokens))
+                              len(r.output_tokens), r.prefill_pos)
                              for r in self._slot_req.values())))
 
     def _stuck_dump(self) -> List[dict]:
         reqs = list(self._slot_req.values()) + list(self.scheduler.queue)
         return [{"request_id": r.request_id, "state": r.state.value,
-                 "slot": r.slot, "seed_len": r.seed_len,
+                 "slot": r.slot, "prefill_pos": r.prefill_pos,
+                 "seed_len": r.seed_len,
                  "new_tokens": len(r.output_tokens),
-                 "max_new_tokens": r.max_new_tokens} for r in reqs]
+                 "max_new_tokens": r.max_new_tokens,
+                 "preemptions": r.preemptions} for r in reqs]
 
     def check_invariants(self) -> None:
         """Audit engine/pool/scheduler bookkeeping; raises
-        :class:`InvariantViolation` listing every violation: leaked or
-        doubly-owned slots, a slot map that disagrees with its requests,
-        seated or queued requests in the wrong state, lengths outside the
-        allocation."""
+        :class:`InvariantViolation` listing every violation: the pool's
+        own audit (with paged KV: refcounts against held references,
+        leaked pages, unbacked live positions), leaked or doubly-owned
+        slots, a slot map that disagrees with its requests, seated or
+        queued requests in the wrong state, a prefill queue that disagrees
+        with the PREFILLING requests, lengths outside the allocation."""
         errors = list(self.pool.consistency_errors())
         seated = set(self._slot_req.keys())
         free = set(self.pool._free_set)
@@ -344,9 +699,16 @@ class ServingEngine:
                 errors.append(f"slot map disagrees: _slot_req[{slot}] has "
                               f"req {req.request_id} with req.slot="
                               f"{req.slot}")
-            if req.state is not RequestState.RUNNING:
+            if req.state not in (RequestState.RUNNING,
+                                 RequestState.PREFILLING):
                 errors.append(f"seated req {req.request_id} in state "
                               f"{req.state.value}")
+        prefilling = sorted(r.request_id for r in self._slot_req.values()
+                            if r.state is RequestState.PREFILLING)
+        queued = sorted(r.request_id for r in self._prefill_queue)
+        if prefilling != queued:
+            errors.append(f"PREFILLING seated requests {prefilling} != "
+                          f"prefill queue {queued}")
         for r in self.scheduler.queue:
             if r.state is not RequestState.QUEUED:
                 errors.append(f"queued req {r.request_id} in state "
@@ -362,5 +724,10 @@ class ServingEngine:
             raise InvariantViolation(errors)
 
     def stats(self) -> dict:
-        """Aggregate SLO snapshot (see ``ServingMetrics.snapshot``)."""
-        return self.metrics.snapshot()
+        """Aggregate SLO snapshot (see ``ServingMetrics.snapshot``); with
+        paged KV a ``"paging"`` sub-dict carries the page-pool and
+        prefix-cache counters (``PagedKVPool.page_stats``)."""
+        snap = self.metrics.snapshot()
+        if self._paged:
+            snap["paging"] = self.pool.page_stats()
+        return snap

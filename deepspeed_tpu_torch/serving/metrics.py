@@ -32,6 +32,7 @@ class ServingMetrics:
         self.finished: List[Request] = []
         self.rejected: Dict[str, int] = {}
         self.failed: int = 0
+        self.preempted: int = 0
         self.decode_steps: int = 0
         self.decode_tokens: int = 0
         self.slot_steps: int = 0
@@ -39,9 +40,14 @@ class ServingMetrics:
         self.prefill_tokens: int = 0
         self.prefill_dispatches: int = 0
         self.prefill_time: float = 0.0
-        # prefill wall time while decode slots were live (head-of-line
-        # blocking a stall-free admission policy would bound)
+        # prefill wall time while decode slots were live (the head-of-line
+        # blocking that stall-free admission bounds)
         self.stall_time: float = 0.0
+        # admission-time prefix-cache lookups (paged KV)
+        self.prefix_lookups: int = 0
+        self.prefix_hits: int = 0
+        self.prefix_hit_tokens: int = 0
+        self.prefix_lookup_tokens: int = 0
         # whole-step wall times of steps a RUNNING request waited through:
         # each is one user-visible inter-token gap, admissions included
         self.step_gaps: List[float] = []
@@ -66,6 +72,22 @@ class ServingMetrics:
         self.failed += 1
         self._emit([("serving/failed", 1.0),
                     (f"serving/failed/{reason.value}", 1.0)])
+
+    def record_preemption(self, req: Request) -> None:
+        """A seated request evicted back to the queue (its generated
+        tokens ride along and are prefilled again on resume)."""
+        self.preempted += 1
+        self._emit([("serving/preempted", 1.0)])
+
+    def record_prefix(self, hit_tokens: int, seed_len: int) -> None:
+        """One admission-time prefix-cache lookup: ``hit_tokens`` of the
+        ``seed_len``-token seed were served from cached pages (0 = miss)."""
+        self.prefix_lookups += 1
+        self.prefix_lookup_tokens += seed_len
+        if hit_tokens > 0:
+            self.prefix_hits += 1
+            self.prefix_hit_tokens += hit_tokens
+        self._emit([("serving/prefix_hit_tokens", float(hit_tokens))])
 
     def record_decode_step(self, emitted: int, live_slots: int,
                            step_s: float = 0.0) -> None:
@@ -117,11 +139,20 @@ class ServingMetrics:
             "completed": len(done),
             "rejected": dict(self.rejected),
             "failed": self.failed,
+            "preempted": self.preempted,
             "new_tokens": new_tokens,
             "decode_steps": self.decode_steps,
             "tokens_per_decode_step": (
                 self.decode_tokens / self.slot_steps
                 if self.slot_steps else None),
+            "prefix_lookups": self.prefix_lookups,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_rate": (self.prefix_hits / self.prefix_lookups
+                                if self.prefix_lookups else None),
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_token_hit_rate": (
+                self.prefix_hit_tokens / self.prefix_lookup_tokens
+                if self.prefix_lookup_tokens else None),
             "prefill_tokens": self.prefill_tokens,
             "prefill_dispatches": self.prefill_dispatches,
             "prefill_time_s": self.prefill_time,

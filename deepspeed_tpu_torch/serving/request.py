@@ -1,13 +1,17 @@
 """Request model for the serving subsystem (the port's copy of
 ``deepspeed_tpu/serving/request.py``, cut to what this slice serves).
 
-A :class:`Request` moves through ``QUEUED -> RUNNING -> FINISHED`` (or
-``REJECTED`` straight out of admission control, or ``FAILED`` when a step
-raised while it was seated). The object doubles as the per-request SLO
+A :class:`Request` moves through ``QUEUED -> [PREFILLING ->] RUNNING ->
+FINISHED`` (or ``REJECTED`` straight out of admission control, or
+``FAILED`` when a step raised while it was seated). ``PREFILLING`` is the
+stall-free stage in which a long prompt streams into its slot chunk by
+chunk; page-pressure preemption sends a seated request back to ``QUEUED``
+with its generated tokens, which its next admission prefills again
+(:attr:`Request.seed_tokens`). The object doubles as the per-request SLO
 record: the engine stamps times at each transition and the latencies are
 derived properties. Terminal reasons are closed ``str`` enums, so
-``req.finish_reason == "eos"`` works. The JAX package's chunked-prefill,
-preemption, deadline and multi-tenant fields arrive with those slices.
+``req.finish_reason == "eos"`` works. The JAX package's deadline,
+multi-tenant and speculative-decoding fields arrive with those slices.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import numpy as np
 
 class RequestState(enum.Enum):
     QUEUED = "queued"
+    PREFILLING = "prefilling"  # seated, prompt streaming in by chunks
     RUNNING = "running"
     FINISHED = "finished"
     REJECTED = "rejected"
@@ -74,7 +79,14 @@ class Request:
     reject_reason: Optional[RejectReason] = None
     finish_reason: Optional[FinishReason] = None
     slot: Optional[int] = None
+    prefill_pos: int = 0                    # seed tokens already written
+    #                                         into the slot (chunked prefill)
     output_tokens: List[int] = dataclasses.field(default_factory=list)
+    preemptions: int = 0                    # times bounced back to QUEUED
+    last_admit_step: int = -1               # engine step_id of last seating
+    prefix_hit_tokens: int = 0              # seed tokens skipped at seating
+    #                                         through the prefix cache
+    chunks: int = 0                         # chunked-prefill dispatches run
 
     submit_time: Optional[float] = None
     admit_time: Optional[float] = None      # prefill issued (slot granted)
@@ -92,8 +104,19 @@ class Request:
              np.asarray(self.output_tokens, np.int32)])
 
     @property
+    def seed_tokens(self) -> np.ndarray:
+        """What admission prefills into a slot: the prompt, plus, after a
+        preemption, everything generated so far. The last generated token
+        has not been fed through the model yet, so prefilling the whole
+        history and sampling at its last position gives exactly the token
+        the next decode step would have: greedy output is unchanged by a
+        preemption."""
+        return self.tokens() if self.output_tokens else \
+            np.asarray(self.prompt, np.int32)
+
+    @property
     def seed_len(self) -> int:
-        """Tokens admission prefills plus those already generated."""
+        """Tokens admission prefills: the prompt plus those generated."""
         return self.prompt_len + len(self.output_tokens)
 
     # -- derived SLO metrics (seconds; None until the inputs exist) ----

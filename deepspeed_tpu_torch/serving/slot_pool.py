@@ -7,13 +7,14 @@ KVCacheSpec` with batch = slots. Continuous batching never changes a shape:
 admitting, retiring and reusing slots move data inside the same tensors,
 and dead slots ride the decode step as masked padding.
 
-Admission writes IN PLACE: the engine's prefill writes the prompt's K/V
-straight into the slot's row of :attr:`cache` (the JAX pool prefills into a
-separate single-row cache and copies it over). Columns past the new
-prompt's length keep the previous occupant's values; attention never reads
-them, because each slot's length (:attr:`starts`) masks them and the next
-decode write lands exactly at that length. :meth:`admit` then records the
-length.
+Admission writes IN PLACE: :meth:`prefill_target` hands the engine this
+pool's cache and the slots' rows, so the prefill writes the prompt's K/V
+straight into them (the JAX pool prefills into a separate cache and copies
+it over). Columns past the new prompt's length keep the previous
+occupant's values; attention never reads them, because each slot's length
+(:attr:`starts`) masks them and the next write lands exactly at that
+length. :meth:`admit_rows` then records the lengths. The paged pool
+(``paged_pool.PagedKVPool``) keeps the same contract over pages.
 """
 
 from __future__ import annotations
@@ -34,12 +35,15 @@ class SlotPool:
         self.num_slots = num_slots
         self.capacity = int(spec.max_seq_len)
         self.device = device
-        self.cache: Dict[str, Any] = spec.stacked_cache(num_slots, device)
+        self.cache: Dict[str, Any] = self._fresh_cache()
         # per-slot cache lengths, host side: decode reads them every step
         self.starts = np.zeros((num_slots,), np.int32)
         self._free = list(range(num_slots))
         heapq.heapify(self._free)  # smallest slot first: deterministic
         self._free_set = set(self._free)
+
+    def _fresh_cache(self) -> Dict[str, Any]:
+        return self.spec.stacked_cache(self.num_slots, self.device)
 
     @property
     def free_count(self) -> int:
@@ -72,26 +76,36 @@ class SlotPool:
     def reset(self) -> None:
         """Recovery after a mid-step exception: free every slot and zero
         the cache."""
-        self.cache = self.spec.stacked_cache(self.num_slots, self.device)
+        self.cache = self._fresh_cache()
         self.starts[:] = 0
         self._free = list(range(self.num_slots))
         heapq.heapify(self._free)
         self._free_set = set(self._free)
 
-    def admit(self, slot: int, length: int) -> None:
-        """Record that ``slot``'s row now holds a ``length``-token prefill
-        (written in place by the engine, see the module docstring)."""
-        if length > self.capacity:
-            raise ValueError(f"sequence length {length} exceeds slot "
-                             f"capacity {self.capacity}")
-        self.starts[slot] = length
+    def reset_row(self, slot: int) -> None:
+        """Scrub ``slot`` before a chunked admission: its length drops to 0
+        (stale rows stay, masked, until the chunks overwrite them)."""
+        self.starts[slot] = 0
+
+    def prefill_target(self, slots, width: int):
+        """``(cache, rows)`` a whole-prompt prefill of ``len(slots)``
+        prompts at ``width`` writes into: this pool's cache, the slots'
+        own rows (``width`` is not needed: rows span the capacity)."""
+        return self.cache, list(slots)
+
+    def admit_rows(self, cache, slots, lengths) -> None:
+        """Record that ``slots`` now hold prefills of ``lengths`` tokens,
+        written in place by the engine into :meth:`prefill_target`'s
+        ``cache``."""
+        lengths = np.asarray(lengths, np.int32)
+        if np.any(lengths > self.capacity):
+            raise ValueError(f"sequence length {int(lengths.max())} exceeds "
+                             f"slot capacity {self.capacity}")
+        self.starts[np.asarray(slots, np.int64)] = lengths
 
     def advance(self, lengths) -> None:
-        """Advance the per-slot lengths after a decode step: by a scalar
-        for every slot, or by a (num_slots,) array."""
-        if np.ndim(lengths) == 0:
-            self.starts += int(lengths)
-            return
+        """Advance the per-slot lengths after a decode step by a
+        (num_slots,) array (0 for the rows that did not grow)."""
         lengths = np.asarray(lengths, np.int32)
         if lengths.shape != self.starts.shape:
             raise ValueError(f"advance lengths shape {lengths.shape} != "

@@ -7,7 +7,8 @@ test, never at import). Run on a GPU machine with
 Tolerances: fp32 inputs differ from the plain version only in summation
 order (1e-4 absolute on unit-scale outputs); bf16/fp16 add the rounding of
 p to the input dtype before the PV product and of the output (3e-2 on
-outputs below 4 in magnitude). lse is fp32 in every case (1e-3).
+outputs below 4 in magnitude). lse is fp32 in every case (1e-3). The paged
+kernel takes the same tolerances as the decode kernel it generalizes.
 """
 
 import math
@@ -19,6 +20,8 @@ from deepspeed_tpu_torch.ops.attention.decode_attention import (
     alibi_slopes, decode_attention, decode_attention_reference)
 from deepspeed_tpu_torch.ops.attention.flash_attention import (
     flash_attention, mha_reference)
+from deepspeed_tpu_torch.ops.attention.paged_attention import (
+    paged_decode_attention, paged_decode_attention_reference)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
@@ -73,6 +76,39 @@ def test_flash_kernel_matches_plain(gen, dtype, D, causal, T, S):
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 2, 5, 8])
+@pytest.mark.parametrize("H,KV,alibi", [(4, 4, False), (8, 2, False),
+                                        (4, 4, True)])
+def test_paged_kernel_matches_plain(gen, dtype, D, T, H, KV, alibi):
+    """Shuffled page ids, sentinels past each slot's live pages, starts on
+    and beside page boundaries, a slot at length 0 (one live position)
+    and one whose rows run to the last position of its table."""
+    B, ps, max_pages = 6, 16, 8
+    P = B * max_pages + 3
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(P, KV, ps, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(P, KV, ps, D, generator=gen, device="cuda").to(dtype)
+    starts = torch.tensor([0, 15, 16, 17, 77, max_pages * ps - T],
+                          dtype=torch.int32, device="cuda")
+    perm = torch.randperm(P, generator=gen, device="cuda")[:B * max_pages]
+    table = perm.reshape(B, max_pages).to(torch.int32)
+    live = (starts.long() + T + ps - 1) // ps
+    dead = torch.arange(max_pages, device="cuda")[None] >= live[:, None]
+    table = table.masked_fill(dead, P).contiguous()
+    slopes = alibi_slopes(H).cuda() if alibi else None
+    before = paged_decode_attention.launches
+    got = paged_decode_attention(q, k, v, table, starts, alibi_slopes=slopes)
+    want = paged_decode_attention_reference(q, k, v, table, starts,
+                                            1 / math.sqrt(D), slopes)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(gen):
     q = torch.randn(1, 8, 2, 48, generator=gen, device="cuda")
     with pytest.raises(ValueError, match="head dims"):
@@ -84,3 +120,11 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="int32"):
         decode_attention(q[:, 0], cache, cache,
                          torch.tensor([4], device="cuda"))
+    pages = torch.randn(3, 2, 4, 64, generator=gen, device="cuda")
+    table = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
+    starts = torch.zeros(1, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="query rows"):
+        paged_decode_attention(q[:, :1].expand(1, 9, 2, 64).contiguous(),
+                               pages, pages, table, starts)
+    with pytest.raises(ValueError, match="int32"):
+        paged_decode_attention(q[:, :1], pages, pages, table.long(), starts)

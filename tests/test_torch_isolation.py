@@ -18,6 +18,8 @@ from deepspeed_tpu_torch.ops.attention.decode_attention import \
     decode_attention
 from deepspeed_tpu_torch.ops.attention.flash_attention import \
     flash_attention
+from deepspeed_tpu_torch.ops.attention.paged_attention import \
+    paged_decode_attention
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "deepspeed_tpu"}
@@ -89,7 +91,11 @@ def test_cpu_tensors_never_reach_the_kernel_builder(monkeypatch):
     flash_attention(q, q, q)
     cache = torch.randn(1, 2, 8, 32)
     decode_attention(q[:, 0], cache, cache, 4)
+    pages = torch.randn(3, 2, 4, 32)
+    paged_decode_attention(q[:, :2], pages, pages,
+                           torch.tensor([[2, 0, 3]], dtype=torch.int32), 5)
     assert flash_attention.launches == 0 and decode_attention.launches == 0
+    assert paged_decode_attention.launches == 0
 
 
 def test_builder_targets_sm90a_in_the_ignored_build_dir(monkeypatch,

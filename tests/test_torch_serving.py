@@ -192,14 +192,23 @@ def test_no_slot_leaks_on_a_mid_step_error(stack):
 def test_unported_serving_keys_raise(stack):
     _, _, pcfg, state = stack
     model = P.TransformerLM(pcfg)
-    for key, val in (("prefill_chunk", 64), ("paged_kv", True),
-                     ("spec_decode", True), ("overlap", True)):
+    for key, val in (("spec_decode", True), ("overlap", True),
+                     ("priority", True)):
         with pytest.raises(NotImplementedError):
             dst.init_serving(model, config={"dtype": "float32"},
                              device="cpu", **{key: val})
+    with pytest.raises(ValueError, match="paged_kv keys"):
+        dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
+                         paged_kv={"pages": 4})
     srv = dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
-                           paged_kv=False, prefill_chunk=0)
-    assert srv.pool.num_slots == 4
+                           paged_kv=False, prefill_chunk=0, overlap=False)
+    assert srv.pool.num_slots == 4 and srv.prefill_chunk == 0
+    # the JAX defaults: stall-free chunk 64 (capped at the capacity), and
+    # the page pool sized from the chunk when paged_kv is on
+    srv = dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
+                           paged_kv=True)
+    assert srv.prefill_chunk == 64 and srv.prefill_token_budget == 128
+    assert srv.pool.page_size == 64 and srv.pool.kernel == "auto"
     with pytest.raises(ValueError, match="dtype"):
         dst.init_inference(P.TransformerLM(dataclasses.replace(
             pcfg, dtype=torch.bfloat16)), config={"dtype": "float32"},

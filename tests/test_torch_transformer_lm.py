@@ -127,10 +127,17 @@ def test_later_slices_raise():
             P.TransformerLM(dataclasses.replace(cfg, **bad))
     pm = P.TransformerLM(cfg)
     _, cache = pm.prefill(torch.zeros(1, 4, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="multi-token decode"):
-        pm.decode(torch.zeros(1, 2, dtype=torch.long), 4, cache)
-    with pytest.raises(NotImplementedError, match="prefill_chunk"):
-        pm.prefill_chunk(None, None, None)
+    # multi-token decode is ported: two tokens at once equal two steps
+    two = pm.decode(torch.tensor([[3, 5]]), 4,
+                    {k: v.clone() for k, v in cache.items()})
+    one = [pm.decode(torch.tensor([[t]]), 4 + i, cache)
+           for i, t in enumerate((3, 5))]
+    torch.testing.assert_close(two, torch.cat(one, dim=1), atol=1e-5,
+                               rtol=0)
+    with pytest.raises(ValueError, match="query rows"):
+        pages = pm.kv_cache_spec().paged_cache(4, 16)
+        pm.decode_paged(torch.zeros(1, 9, dtype=torch.long), 0, pages,
+                        torch.zeros(1, 4, dtype=torch.int32))
     with pytest.raises(ValueError, match="alibi"):
         P.TransformerLM(dataclasses.replace(
             cfg, pos_emb="alibi", use_flash_attention=True)).logits(

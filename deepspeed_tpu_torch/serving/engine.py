@@ -522,14 +522,22 @@ class ServingEngine:
             req.finish_reason = FinishReason.EOS
         elif len(req.output_tokens) >= req.max_new_tokens:
             req.finish_reason = FinishReason.LENGTH
-        elif int(self.pool.starts[req.slot]) >= self.pool.capacity:
+        elif req.slot is not None and \
+                int(self.pool.starts[req.slot]) >= self.pool.capacity:
             req.finish_reason = FinishReason.LENGTH_CAP
         else:
+            # a request preempted in the step that sampled this token
+            # waits in the queue; the token is now part of its seed
             return
         req.state = RequestState.FINISHED
         req.finish_time = self._now()
-        self.pool.release(req.slot)
-        del self._slot_req[req.slot]
+        if req.slot is None:
+            # preempted in the step that sampled its last token: it holds
+            # no slot, only its place in the queue
+            self.scheduler.queue.remove(req)
+        else:
+            self.pool.release(req.slot)
+            del self._slot_req[req.slot]
         self.metrics.record_finish(req)
         finished.append(req)
 

@@ -147,6 +147,55 @@ def test_oversubscribed_pool_drains_through_preemption(stack):
             req.tokens(), eng.generate(p[None], max_new_tokens=b)[0])
 
 
+@pytest.mark.parametrize("pressure,b_budget", [("decode_boundary", 6),
+                                               ("decode_boundary", 1),
+                                               ("inflight_chunk", 6)])
+def test_preempting_a_request_admitted_in_the_same_step(stack, pressure,
+                                                        b_budget):
+    """A short admission takes the last free page in the step where another
+    request needs one more: its running neighbour's decode crosses a page
+    boundary, or a long prompt's in-flight chunk (whose pages the grant
+    never charges) reaches a new page. The victim is the fresh admission,
+    whose first token the host has not replayed yet; that token must join
+    its seed for re-admission (or, when it was the last of its budget,
+    finish the request from the queue), and nothing may fail."""
+    eng = stack[2]
+    rng = np.random.default_rng(31)
+    if pressure == "decode_boundary":
+        # A (10 tokens, 1 page) decodes; its write reaches position 16 in
+        # step 7, the step B (1 page) is admitted into the last free page
+        num_pages, first, submit_after = 2, (10, 12), 6
+    else:
+        # A (40 tokens) streams one chunk a step; B is admitted in step 3,
+        # when A's last chunk needs its third page
+        num_pages, first, submit_after = 3, (40, 8), 2
+    a_prompt = rng.integers(0, 64, first[0]).astype(np.int32)
+    b_prompt = rng.integers(0, 64, 10).astype(np.int32)
+    srv = dst.ServingEngine(eng, num_slots=2, prefill_chunk=CHUNK,
+                            paged_kv={"page_size": PS, "num_pages": num_pages,
+                                      "prefix_cache": False})
+    a = srv.submit(a_prompt, max_new_tokens=first[1])
+    for _ in range(submit_after):
+        srv.step()
+    b = srv.submit(b_prompt, max_new_tokens=b_budget)
+    srv.step()
+    assert b.slot is None and b.preemptions == 1
+    assert len(b.output_tokens) == 1
+    assert b.state is (RequestState.FINISHED if b_budget == 1
+                       else RequestState.QUEUED)
+    assert (b in srv.scheduler.queue) is (b_budget > 1)
+    srv.check_invariants()
+    srv.run_until_drained(max_steps=100)
+    srv.check_invariants()
+    assert srv.metrics.failed == 0
+    assert srv.pool.free_page_count == srv.pool.num_pages
+    for req, p in ((a, a_prompt), (b, b_prompt)):
+        assert req.state is RequestState.FINISHED
+        np.testing.assert_array_equal(
+            req.tokens(),
+            eng.generate(p[None], max_new_tokens=req.max_new_tokens)[0])
+
+
 def test_page_aligned_duplicate_forks_copy_on_write(stack):
     """A page-aligned duplicate prompt fully hits the trie; its last chunk
     is prefilled again into a shared page, which must be forked."""

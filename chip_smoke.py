@@ -28,6 +28,26 @@ Phases, in order; any failure exits non-zero:
             kernel must run 12 times per decode step.
 4b. reference_paged  for 2 served requests (one a prefix hit), the paged
             path's chunked prefill and decode logits against the fp32 model.
+5.  int8 kernels  the int8_matmul kernel at TinyLlama-1.1B's decode shapes
+            (8 rows) and a 64-row prefill chunk, and the int8-cache variants
+            of the decode and paged kernels, each held against its plain
+            version and timed beside its bound and a library yardstick.
+6.  serve_int8  TinyLlama-1.1B at its published widths (random weights from
+            the seed, 22 layers, GQA 32/4) with int8 weights and the int8 KV
+            cache on the default path: ``init_serving(..., config={"dtype":
+            "int8"}, num_slots=8, prefill_chunk=64, paged_kv={"page_size": 64,
+            "num_pages": <traffic peak>, "prefix_cache": True, "kernel":
+            "auto"})`` with ``kv_cache_quant=True``; 16 requests, 8 sharing a
+            512-token prefix. Every request finishes with its budget, the
+            audits are clean, int8_matmul runs 7 x 22 times per model forward
+            and the int8 paged kernel 22 times per decode step.
+6b. serve_int8_contiguous  the same int8 engine, ``paged_kv=False,
+            prefill_chunk=0``: a few requests through the int8 decode kernel.
+7.  reference_int8  served logits (kernels) against the same int8 model with
+            every kernel off, through the paged path and the contiguous one;
+            printed, not held: the paged error with one kernel group on at a
+            time, the same comparison over a bf16 cache, and the error
+            against the unquantized bf16 model.
 
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +56,7 @@ The last two lines are a ``{"kernels": [...]}`` object and
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -73,7 +94,20 @@ LSE_ATOL = 1e-3
 # relative rounding) and the residual stream is rounded about twice per
 # layer over 12 layers, which compounds to a few percent at most; a wrong
 # kernel (mask, GQA map, cache offset) gives errors of order 1.
+# The same limit holds the int8 model's served logits (kernels) against the
+# same int8 model with every kernel off. The two differ only at bf16
+# rounding level (summation order in int8_matmul, p rounded to bf16 in the
+# attention kernels), but TinyLlama's 22 random layers grow any such
+# difference to about 3%: on the H100, seeds 0 and 1, each source alone
+# gave 0.029-0.032, all together 0.032-0.034, and a bf16 cache in place of
+# the int8 one 0.031-0.034, so the int8 cache does not amplify it. The
+# limit leaves 1.5x over that floor; the int8 weights themselves move the
+# logits by 10% from the bf16 model's, and a wrong kernel by order 1.
 LOGITS_REL_TOL = 5e-2
+
+# bf16 decode and paged kernel times recorded in PERF.md (H100, 700 W), for
+# the side-by-side check that the int8 variants left the bf16 ones alone
+RECORDED_BF16_MS = {"decode_attention": 0.0124, "paged_decode_attention": 0.0130}
 
 KERNELS = {
     "decode_attention": dict(
@@ -85,9 +119,27 @@ KERNELS = {
     "paged_decode_attention": dict(
         source="deepspeed_tpu_torch/ops/csrc/paged_decode_attention.cu",
         replaces="deepspeed_tpu/ops/attention/paged_attention.py:125"),
+    "int8_matmul": dict(
+        source="deepspeed_tpu_torch/ops/csrc/int8_matmul.cu",
+        replaces="deepspeed_tpu/ops/quantization/int8_matmul.py:143"),
+    "decode_attention_int8": dict(
+        source="deepspeed_tpu_torch/ops/csrc/decode_attention.cu",
+        replaces="deepspeed_tpu/ops/attention/decode_attention.py:203"),
+    "paged_decode_attention_int8": dict(
+        source="deepspeed_tpu_torch/ops/csrc/paged_decode_attention.cu",
+        replaces="deepspeed_tpu/ops/attention/paged_attention.py:125"),
 }
 PAGED_KV = {"page_size": 64, "num_pages": 128, "prefix_cache": True,
             "kernel": "auto"}
+# TinyLlama-1.1B (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-3T
+# config.json): vocab 32000, hidden 2048, intermediate 5632, 22 layers, 32
+# heads over 4 KV heads, 2048 positions, rms_norm_eps 1e-5, rope_theta 1e4,
+# untied head
+TINYLLAMA = dict(vocab_size=32000, n_embd=2048, n_layer=22, n_head=32,
+                 n_kv_head=4, mlp_ratio=2.75, max_seq_len=2048,
+                 layer_norm_epsilon=1e-5, rope_theta=10000.0)
+# projections per layer that run int8_matmul: q, k, v, o, gate, up, down
+PROJECTIONS = 7
 
 
 def log(msg: str) -> None:
@@ -151,6 +203,12 @@ def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> tuple:
     return err, rel
 
 
+def rel_err(got, want) -> float:
+    """Max over positions of ||got - want|| / ||want|| (rows of logits)."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
 def bound(nbytes: float, flops: float) -> dict:
     """The card's least time for the work, and what bounds it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
@@ -158,29 +216,54 @@ def bound(nbytes: float, flops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def reset_launches() -> None:
+def _counters() -> dict:
+    """Each kernel variant's (wrapper, launch-count attribute)."""
     from deepspeed_tpu_torch.ops.attention.decode_attention import \
         decode_attention
     from deepspeed_tpu_torch.ops.attention.flash_attention import \
         flash_attention
     from deepspeed_tpu_torch.ops.attention.paged_attention import \
         paged_decode_attention
+    from deepspeed_tpu_torch.ops.quantization.int8_matmul import int8_matmul
 
-    for fn in (decode_attention, flash_attention, paged_decode_attention):
-        fn.launches = 0
+    return {"decode_attention": (decode_attention, "launches"),
+            "flash_attention_fwd": (flash_attention, "launches"),
+            "paged_decode_attention": (paged_decode_attention, "launches"),
+            "int8_matmul": (int8_matmul, "launches"),
+            "decode_attention_int8": (decode_attention, "int8_launches"),
+            "paged_decode_attention_int8": (paged_decode_attention,
+                                            "int8_launches")}
+
+
+def reset_launches() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    from deepspeed_tpu_torch.ops.attention.decode_attention import \
-        decode_attention
-    from deepspeed_tpu_torch.ops.attention.flash_attention import \
-        flash_attention
-    from deepspeed_tpu_torch.ops.attention.paged_attention import \
-        paged_decode_attention
+    return {name: getattr(fn, attr) for name, (fn, attr) in
+            _counters().items()}
 
-    return {"decode_attention": decode_attention.launches,
-            "flash_attention_fwd": flash_attention.launches,
-            "paged_decode_attention": paged_decode_attention.launches}
+
+class ForwardCounter:
+    """Counts the model forwards (one ``_transform`` each: every layer's
+    projections run once per forward) inside a ``with`` block."""
+
+    def __init__(self, model):
+        self.model, self.n = model, 0
+
+    def __enter__(self):
+        inner = self.model._transform
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return inner(*args, **kwargs)
+
+        self.model._transform = counted
+        return self
+
+    def __exit__(self, *exc):
+        del self.model._transform     # the class's method again
 
 
 def sync(device: str) -> None:
@@ -298,6 +381,22 @@ def phase_kernels(gen: torch.Generator) -> dict:
     return results
 
 
+def slot_tables(gen: torch.Generator, T: int, P: int, ps: int,
+                per_slot: int):
+    """The paged kernel phases' 8 slots: ragged starts on and beside page
+    boundaries (room for T rows each), and a (8, per_slot) int32 table of
+    shuffled page ids out of P with the sentinel P past each slot's live
+    pages. Returns (table, starts)."""
+    dev, B, S = "cuda", 8, ps * per_slot
+    starts = torch.tensor([0, 63, 64, S - 1 - T, 517, 300, 128, 999 - T],
+                          dtype=torch.int32, device=dev)
+    perm = torch.randperm(P, generator=gen, device=dev)[:B * per_slot]
+    table = perm.reshape(B, per_slot).to(torch.int32)
+    live = (starts.long() + T + ps - 1) // ps
+    dead = torch.arange(per_slot, device=dev)[None] >= live[:, None]
+    return table.masked_fill(dead, P).contiguous(), starts
+
+
 def paged_kernel(gen: torch.Generator) -> dict:
     """The paged kernel at the serving path's shapes: 8 slots, GPT-2 heads,
     64-position pages, 16 pages per slot, shuffled page ids, sentinels past
@@ -317,13 +416,7 @@ def paged_kernel(gen: torch.Generator) -> dict:
         k = torch.randn(L, P, KV, ps, D, generator=gen, device=dev).to(bf16)
         v = torch.randn(L, P, KV, ps, D, generator=gen, device=dev).to(bf16)
         q = torch.randn(B, T, H, D, generator=gen, device=dev).to(bf16)
-        starts = torch.tensor([0, 63, 64, S - 1 - T, 517, 300, 128, 999 - T],
-                              dtype=torch.int32, device=dev)
-        perm = torch.randperm(P, generator=gen, device=dev)[:B * per_slot]
-        table = perm.reshape(B, per_slot).to(torch.int32)
-        live = (starts.long() + T + ps - 1) // ps
-        dead = torch.arange(per_slot, device=dev)[None] >= live[:, None]
-        return q, k, v, table.masked_fill(dead, P).contiguous(), starts
+        return (q, k, v) + slot_tables(gen, T, P, ps, per_slot)
 
     err = rel = 0.0
     cases = [(T, 12, 12, False) for T in (1, 4, 8)] + [(1, 12, 4, False),
@@ -516,8 +609,7 @@ def phase_reference(ref, reqs, served_fn, label: str,
         with torch.no_grad():
             want = ref.logits(torch.as_tensor(full, device=device))[0]
         want = want[len(prompt) - 1:]
-        rel = ((served.float() - want).norm(dim=-1)
-               / want.norm(dim=-1)).max().item()
+        rel = rel_err(served, want)
         assert math.isfinite(rel) and rel <= LOGITS_REL_TOL, \
             f"{label}: request {req.request_id}: served logits vs fp32 " \
             f"reference rel err {rel} > {LOGITS_REL_TOL}"
@@ -528,6 +620,24 @@ def phase_reference(ref, reqs, served_fn, label: str,
         f"{[r.prefix_hit_tokens for r in reqs]}): max per-position "
         f"||served - fp32|| / ||fp32|| = {worst:.4g} (tol {LOGITS_REL_TOL})")
     return worst
+
+
+def shared_prefix_traffic(rng, vocab: int, n_shared: int = 8,
+                          n_cold: int = 8):
+    """The paged phases' traffic: 8 prompts on one 512-token prefix, 8 cold
+    ones (32-768 tokens, the first short), budgets 64-128. The first prompt
+    is a shared one (it runs before the rest arrive)."""
+    prefix = rng.integers(0, vocab, 512)
+    shared = [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
+              for n in rng.integers(16, 257, n_shared)]
+    cold_lens = rng.integers(32, 769, n_cold)
+    # one short prompt, so the run has a whole-prompt (bucketed) admission
+    cold_lens[0] = rng.integers(32, 65)
+    cold = [rng.integers(0, vocab, int(n)) for n in cold_lens]
+    rest = shared[1:] + cold
+    prompts = [shared[0]] + [rest[i] for i in rng.permutation(len(rest))]
+    budgets = rng.integers(64, 129, len(prompts))
+    return [p.astype(np.int32) for p in prompts], budgets
 
 
 def phase_serve_paged(model, seed: int, device: str = "cuda"):
@@ -553,17 +663,7 @@ def phase_serve_paged(model, seed: int, device: str = "cuda"):
     warm.run_until_drained()
     del warm
     srv = server()
-    prefix = rng.integers(0, vocab, 512)
-    shared = [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
-              for n in rng.integers(16, 257, 8)]
-    cold_lens = rng.integers(32, 769, 8)
-    # one short prompt, so the run has a whole-prompt (bucketed) admission
-    cold_lens[0] = rng.integers(32, 65)
-    cold = [rng.integers(0, vocab, int(n)) for n in cold_lens]
-    rest = shared[1:] + cold
-    prompts = [shared[0]] + [rest[i] for i in rng.permutation(len(rest))]
-    prompts = [p.astype(np.int32) for p in prompts]
-    budgets = rng.integers(64, 129, 16)
+    prompts, budgets = shared_prefix_traffic(rng, vocab)
     assert all(len(p) + n <= 1024 for p, n in zip(prompts, budgets))
 
     sync(device)
@@ -617,6 +717,465 @@ def phase_serve_paged(model, seed: int, device: str = "cuda"):
     return srv, reqs, launches
 
 
+def int8_matmul_kernel(gen: torch.Generator) -> dict:
+    """int8_matmul at TinyLlama's projection shapes: the decode step's 8
+    rows through the 7 projections of one layer (q, k, v, o: K 2048 to N
+    2048, 256, 256, 2048; gate, up: 2048 to 5632; down: 5632 to 2048) and a
+    64-row prefill chunk through gate. The JSON row is one decode layer: the
+    sum of its 7 calls. Weights are N(0, 0.02) quantized per channel;
+    each shape is timed over enough weight copies to pass the 50 MB L2, as
+    22 layers' weights do."""
+    from deepspeed_tpu_torch.ops.quantization.int8_matmul import (
+        int8_matmul, int8_matmul_reference, quantize_columns)
+
+    dev, bf16 = "cuda", torch.bfloat16
+    layer = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048),
+             (2048, 5632), (2048, 5632), (5632, 2048)]
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 nbytes=0, flops=0)
+    err = rel = 0.0
+    rows = []
+    for M, (K, N) in [(8, kn) for kn in layer] + [(64, (2048, 5632))]:
+        wf = torch.randn(N, K, generator=gen, device=dev) * 0.02
+        q, s = quantize_columns(wf.t())
+        w, s = q.t().contiguous(), s.reshape(-1).contiguous()
+        x = torch.randn(M, K, generator=gen, device=dev).to(bf16)
+        got = int8_matmul(x, w, s)
+        want = int8_matmul_reference(x, w, s, torch.float32)
+        e, r = compare(got, want, f"int8_matmul M={M} K={K} N={N}")
+        err, rel = max(err, e), max(rel, r)
+        copies = max(1, -(-200 * 2 ** 20 // (N * K)))
+        wc = w.expand(copies, N, K).contiguous()
+        ms = cuda_ms(lambda: [int8_matmul(x, wc[i], s)
+                              for i in range(copies)], reps=2) / copies
+        plain_ms = cuda_ms(lambda: int8_matmul_reference(x, w, s), reps=2)
+        # the yardstick: cuBLAS on weights dequantized to bf16 ahead of
+        # time, reading twice the bytes
+        wd = (wc.float() * s[:, None]).to(bf16)
+        lib_ms = cuda_ms(lambda: [F.linear(x, wd[i])
+                                  for i in range(copies)], reps=2) / copies
+        del wc, wd
+        nbytes = M * K * 2 + N * K + N * 4 + M * N * 2
+        flops = 2 * M * N * K
+        b = bound(nbytes, flops)
+        rows.append(f"M={M} K={K} N={N}: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f}, bf16 F.linear {lib_ms:.4f}, bound "
+                    f"{b['bound_ms']:.4f} ({b['bound_by']}), row rel {r:.3g}")
+        if M == 8:
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("nbytes", nbytes),
+                             ("flops", flops)):
+                total[key] += val
+    for row in rows:
+        log(f"[int8_kernels] int8_matmul {row}")
+    out = dict(max_abs_err=err, ms=total["ms"], plain_ms=total["plain_ms"],
+               library_ms=total["library_ms"],
+               **bound(total["nbytes"], total["flops"]))
+    log(f"[int8_kernels] int8_matmul one decode layer (7 calls, M=8): "
+        f"max|err| {err:.3g} (tol {OUT_ATOL}), row rel {rel:.3g} (tol "
+        f"{ROW_REL_TOL}); kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, bf16 F.linear {out['library_ms']:.4f} ms, "
+        f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
+def int8_decode_kernel(gen: torch.Generator, L: int, H: int, KV: int,
+                       S: int, lengths: list, label: str) -> dict:
+    """The int8-cache decode kernel over ``L`` layers' (B, KV, S, 64)
+    caches quantized per row, B = len(lengths) slots at those ragged
+    lengths, ``H`` query heads: held against its plain version with and
+    without ALiBi on the first and last layer, timed over the layers in
+    turn (past the L2, as a decode step reads them)."""
+    from deepspeed_tpu_torch.ops.attention.decode_attention import (
+        alibi_slopes, decode_attention, decode_attention_reference,
+        quantize_kv_rows)
+
+    dev, bf16, D, B = "cuda", torch.bfloat16, 64, len(lengths)
+    k8, ks = quantize_kv_rows(torch.randn(L, B, KV, S, D, generator=gen,
+                                          device=dev))
+    v8, vs = quantize_kv_rows(torch.randn(L, B, KV, S, D, generator=gen,
+                                          device=dev))
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(bf16)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    scale = 1.0 / math.sqrt(D)
+    err = rel = 0.0
+    for sl in (None, alibi_slopes(H).to(dev)):
+        for layer in (0, L - 1):
+            got = decode_attention(q, k8[layer], v8[layer], lengths,
+                                   alibi_slopes=sl, k_scale=ks[layer],
+                                   v_scale=vs[layer])
+            want = decode_attention_reference(q, k8[layer], v8[layer],
+                                              lengths, scale, sl, ks[layer],
+                                              vs[layer])
+            e, r = compare(got, want, f"int8 decode kernel vs plain at "
+                           f"{label} (alibi={sl is not None})")
+            err, rel = max(err, e), max(rel, r)
+    ms = cuda_ms(lambda: [decode_attention(q, k8[i], v8[i], lengths,
+                                           k_scale=ks[i], v_scale=vs[i])
+                          for i in range(L)], reps=4) / L
+    plain_ms = cuda_ms(lambda: [decode_attention_reference(
+        q, k8[i], v8[i], lengths, scale, None, ks[i], vs[i])
+        for i in range(L)], reps=1) / L
+    # the yardstick: SDPA over the cache dequantized to bf16 ahead of time
+    kd = (k8.float() * ks[..., None]).to(bf16)
+    vd = (v8.float() * vs[..., None]).to(bf16)
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] < lengths[:, None].long())[:, None, None, :]
+    lib_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
+        q[:, :, None, :], kd[i], vd[i], attn_mask=mask,
+        enable_gqa=KV != H) for i in range(L)], reps=4) / L
+    live = int(lengths.sum())
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               **bound(2 * KV * live * (D + 4) + 2 * B * H * D * 2 + 4 * B,
+                       4 * H * live * D))
+    log(f"[int8_kernels] decode_attention_int8 at {label}: B={B} H={H} "
+        f"KV={KV} D={D} S={S} lengths {lengths.tolist()}, {L} layers: "
+        f"max|err| {err:.3g}, row rel {rel:.3g} (tol {ROW_REL_TOL}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on a bf16 copy "
+        f"{lib_ms:.4f} ms, bound {out['bound_ms']:.4f} ms")
+    return out
+
+
+def int8_paged_kernel(gen: torch.Generator) -> dict:
+    """The int8 paged kernel with TinyLlama's heads (32 over 4 KV heads,
+    D=64): 8 slots, 64-position pages, 16 pages per slot, shuffled ids,
+    sentinels past each slot's live pages; T 1/4/8 and ALiBi checked, T=1
+    timed over 22 layers' pools (95 MB, past the L2)."""
+    from deepspeed_tpu_torch.ops.attention.decode_attention import (
+        alibi_slopes, decode_attention, quantize_kv_rows)
+    from deepspeed_tpu_torch.ops.attention.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+
+    dev, bf16 = "cuda", torch.bfloat16
+    L, B, H, KV, D, ps, per_slot = 22, 8, 32, 4, 64, 64, 16
+    S = ps * per_slot
+    P = B * per_slot + 4
+    scale = 1.0 / math.sqrt(D)
+    k8, ks = quantize_kv_rows(torch.randn(L, P, KV, ps, D, generator=gen,
+                                          device=dev))
+    v8, vs = quantize_kv_rows(torch.randn(L, P, KV, ps, D, generator=gen,
+                                          device=dev))
+
+    def inputs(T):
+        q = torch.randn(B, T, H, D, generator=gen, device=dev).to(bf16)
+        return (q,) + slot_tables(gen, T, P, ps, per_slot)
+
+    err = rel = 0.0
+    for T, alibi in ((1, False), (4, False), (8, False), (1, True),
+                     (8, True)):
+        q, table, starts = inputs(T)
+        sl = alibi_slopes(H).to(dev) if alibi else None
+        for layer in (0, L - 1):
+            args = (q, k8[layer], v8[layer], table, starts)
+            got = paged_decode_attention(*args, alibi_slopes=sl,
+                                         k_scale_pages=ks[layer],
+                                         v_scale_pages=vs[layer])
+            want = paged_decode_attention_reference(*args, scale, sl,
+                                                    ks[layer], vs[layer])
+            e, r = compare(got, want, f"int8 paged kernel vs plain (T={T}, "
+                           f"alibi={alibi})")
+            err, rel = max(err, e), max(rel, r)
+    q, table, starts = inputs(1)
+    ms = cuda_ms(lambda: [paged_decode_attention(
+        q, k8[i], v8[i], table, starts, k_scale_pages=ks[i],
+        v_scale_pages=vs[i]) for i in range(L)], reps=4) / L
+    plain_ms = eager_ms(lambda: [paged_decode_attention_reference(
+        q, k8[i], v8[i], table, starts, scale, None, ks[i], vs[i])
+        for i in range(L)], reps=2) / L
+    ids = table.long().clamp(max=P - 1).reshape(-1)
+
+    def dense(x):
+        g = x[:, ids].reshape(L, B, per_slot, KV, ps, *x.shape[4:])
+        return g.transpose(2, 3).reshape(L, B, KV, S, *x.shape[4:]) \
+            .contiguous()
+
+    dk, dv, dks, dvs = (dense(x) for x in (k8, v8, ks, vs))
+    q1, lengths = q[:, 0].contiguous(), (starts + 1).contiguous()
+    dense_ms = cuda_ms(lambda: [decode_attention(
+        q1, dk[i], dv[i], lengths, k_scale=dks[i], v_scale=dvs[i])
+        for i in range(L)], reps=4) / L
+    live = int((starts.long() + 1).sum())
+    pages_read = int(((starts.long() + ps) // ps).sum())
+    out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               **bound(2 * KV * live * (D + 4) + 2 * B * H * D * 2
+                       + 4 * (pages_read + B), 4 * H * live * D))
+    log(f"[int8_kernels] paged_decode_attention_int8 B={B} H={H} KV={KV} "
+        f"D={D} page {ps} x {per_slot} pages/slot, P={P} shuffled; checked T "
+        f"1/4/8 and ALiBi: max|err| {err:.3g}, row rel {rel:.3g} (tol "
+        f"{ROW_REL_TOL}); T=1 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library none, bound {out['bound_ms']:.4f} ms")
+    log(f"[int8_kernels] decode_attention_int8 on the gathered dense view, "
+        f"same lengths: {dense_ms:.4f} ms (paged/dense {ms / dense_ms:.3f})")
+    return out
+
+
+def phase_int8_kernels(gen: torch.Generator) -> dict:
+    """The int8 rows. The int8 decode kernel is checked at the bf16 row's
+    shapes (GPT-2 heads, printed beside it) and at the shapes
+    ``serve_int8_contiguous`` gives it (TinyLlama's 22 layers, GQA 32/4, 4
+    slots of 2048 positions), which make its JSON row."""
+    int8_decode_kernel(gen, 12, 12, 12, 1024,
+                       [1, 517, 1024, 1, 300, 1024, 64, 999], "gpt2 shapes")
+    return {"int8_matmul": int8_matmul_kernel(gen),
+            "decode_attention_int8": int8_decode_kernel(
+                gen, TINYLLAMA["n_layer"], TINYLLAMA["n_head"],
+                TINYLLAMA["n_kv_head"], TINYLLAMA["max_seq_len"],
+                [1, 2048, 1100, 517], "serve_int8_contiguous shapes"),
+            "paged_decode_attention_int8": int8_paged_kernel(gen)}
+
+
+def tinyllama(seed: int, device: str = "cuda", **overrides):
+    """TinyLlama-1.1B at its published widths with the int8 KV cache,
+    random N(0, 0.02) weights drawn on ``device`` from ``seed``."""
+    from deepspeed_tpu_torch.models.transformer_lm import (
+        TransformerLM, transformer_config)
+
+    cfg = transformer_config("llama", **{**TINYLLAMA, **overrides},
+                             kv_cache_quant=True, dtype=torch.bfloat16)
+    model = TransformerLM(cfg, device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def module_bytes(module) -> int:
+    return sum(t.numel() * t.element_size()
+               for t in module.state_dict().values())
+
+
+def phase_serve_int8(model, seed: int, device: str = "cuda"):
+    """The default serving path with int8 weights and the int8 KV cache:
+    ``init_serving`` quantizes the model (dtype=int8), a throwaway server on
+    the same engine warms the shapes, then 16 requests run."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    L = model.config.n_layer
+    bf16_bytes = module_bytes(model)
+    rng = np.random.default_rng(seed + 2)
+    vocab = model.config.vocab_size
+    prompts, budgets = shared_prefix_traffic(rng, vocab)
+    ps = PAGED_KV["page_size"]
+    # page budget from the traffic's peak: the 8 largest requests resident at
+    # once, plus the shared prefix's cached pages
+    need = sorted(-(-(len(p) + int(n)) // ps) for p, n in zip(prompts,
+                                                                 budgets))
+    paged_kv = dict(PAGED_KV, num_pages=sum(need[-8:]) + 512 // ps)
+    srv = dst.init_serving(model, config={"dtype": "int8"}, num_slots=8,
+                           prefill_chunk=64, paged_kv=paged_kv, seed=seed,
+                           device=device)
+    int8_bytes = module_bytes(srv.engine.module)
+    pool = srv.pool
+    assert pool.cache["k"].dtype == torch.int8 and \
+        pool.cache["v"].dtype == torch.int8, "the KV pages are not int8"
+    assert pool.cache["k_scale"].dtype == torch.float32
+    warm = dst.ServingEngine(srv.engine, num_slots=8, prefill_chunk=64,
+                             paged_kv=paged_kv, seed=seed)
+    for n in (1000, 40):
+        warm.submit(rng.integers(0, vocab, n), max_new_tokens=4)
+    warm.run_until_drained()
+    del warm
+
+    sync(device)
+    with ForwardCounter(srv.engine.module) as forwards:
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs = [srv.submit(prompts[0], max_new_tokens=int(budgets[0]))]
+        while reqs[0].state is not RequestState.RUNNING:
+            srv.step()
+        reqs += [srv.submit(p, max_new_tokens=int(n))
+                 for p, n in zip(prompts[1:], budgets[1:])]
+        srv.run_until_drained()
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    n_fwd = forwards.n
+
+    bad = [(r.request_id, r.state.value, len(r.output_tokens), int(n))
+           for r, n in zip(reqs, budgets)
+           if r.state is not RequestState.FINISHED
+           or len(r.output_tokens) != n]
+    assert not bad, f"requests not FINISHED with their budget: {bad}"
+    srv.check_invariants()
+    held = len(pool.prefix.page_counts())
+    assert (pool.table == pool.num_pages).all() and \
+        pool.free_page_count + held == pool.num_pages, \
+        f"pages leaked: {pool.free_page_count} free + {held} cached != " \
+        f"{pool.num_pages}"
+    st = srv.stats()
+    steps = st["decode_steps"]
+    assert st["prefix_hit_tokens"] > 0, "no request was seated on the cache"
+    assert launches["int8_matmul"] == PROJECTIONS * L * n_fwd, \
+        f"int8_matmul ran {launches['int8_matmul']} times in {n_fwd} " \
+        f"forwards (want {PROJECTIONS} x {L} per forward)"
+    assert launches["paged_decode_attention_int8"] == L * steps, \
+        f"int8 paged kernel ran {launches['paged_decode_attention_int8']} " \
+        f"times in {steps} decode steps (want {L} per step)"
+    assert launches["paged_decode_attention"] == 0 and \
+        launches["decode_attention"] == 0, "a bf16 cache kernel ran"
+    log(f"[serve_int8] tinyllama-1.1B widths ({L} layers, GQA "
+        f"{model.config.n_head}/{model.config.kv_heads}), dtype=int8, "
+        f"kv_cache_quant, 8 slots, prefill_chunk=64, paged_kv={paged_kv}; 16 "
+        f"requests (8 share a 512-token prefix; prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}, new "
+        f"{int(budgets.min())}-{int(budgets.max())}): {st['new_tokens']} "
+        f"tokens in {wall:.2f} s wall, {steps} decode steps, {n_fwd} model "
+        f"forwards")
+    log(f"[serve_int8] tokens/s {st['tokens_per_s']:.1f}")
+    log(f"[serve_int8] TTFT p50 {st['ttft_p50_ms']:.2f} ms p99 "
+        f"{st['ttft_p99_ms']:.2f} ms")
+    log(f"[serve_int8] step gap p50 {st['step_gap_p50_ms']:.2f} ms p99 "
+        f"{st['step_gap_p99_ms']:.2f} ms")
+    log(f"[serve_int8] weight bytes resident: int8 tier {int8_bytes} vs bf16 "
+        f"{bf16_bytes} ({int8_bytes / bf16_bytes:.3f}x)")
+    log(f"[serve_int8] prefix-hit tokens {st['prefix_hit_tokens']} "
+        f"({st['prefix_hits']} hits of {st['prefix_lookups']} lookups); "
+        f"preempted {st['preempted']}")
+    log(f"[serve_int8] page stats {st['paging']}")
+    log(f"[serve_int8] launches {launches}")
+    return srv, reqs, launches
+
+
+def phase_serve_int8_contiguous(srv_int8, seed: int,
+                                device: str = "cuda") -> dict:
+    """The int8 engine over contiguous slots, whole-prompt admission: a few
+    requests, decode through the int8 decode kernel."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    eng = srv_int8.engine
+    L = eng.module.config.n_layer
+    srv = dst.ServingEngine(eng, num_slots=4, prefill_chunk=0,
+                            paged_kv=False, seed=seed)
+    assert srv.pool.cache["k"].dtype == torch.int8
+    rng = np.random.default_rng(seed + 3)
+    vocab = eng.module.config.vocab_size
+    prompts = [rng.integers(0, vocab, int(n)).astype(np.int32)
+               for n in rng.integers(32, 513, 6)]
+    budgets = rng.integers(32, 65, 6)
+    sync(device)
+    with ForwardCounter(eng.module) as forwards:
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs = [srv.submit(p, max_new_tokens=int(n))
+                for p, n in zip(prompts, budgets)]
+        srv.run_until_drained()
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    bad = [(r.request_id, r.state.value) for r, n in zip(reqs, budgets)
+           if r.state is not RequestState.FINISHED
+           or len(r.output_tokens) != n]
+    assert not bad, f"requests not FINISHED with their budget: {bad}"
+    srv.check_invariants()
+    st = srv.stats()
+    steps = st["decode_steps"]
+    assert launches["decode_attention_int8"] == L * steps, \
+        f"int8 decode kernel ran {launches['decode_attention_int8']} times " \
+        f"in {steps} decode steps (want {L} per step)"
+    assert launches["int8_matmul"] == PROJECTIONS * L * forwards.n
+    log(f"[serve_int8_contiguous] 4 slots, prefill_chunk=0, paged_kv=False; "
+        f"6 requests (prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))}, new {int(budgets.min())}-"
+        f"{int(budgets.max())}): {st['new_tokens']} tokens in {wall:.2f} s "
+        f"wall, {steps} decode steps; tokens/s {st['tokens_per_s']:.1f}; "
+        f"TTFT p50 {st['ttft_p50_ms']:.2f} ms p99 {st['ttft_p99_ms']:.2f} ms; "
+        f"step gap p50 {st['step_gap_p50_ms']:.2f} ms p99 "
+        f"{st['step_gap_p99_ms']:.2f} ms; launches {launches}")
+    return reqs, launches
+
+
+def int8_variant(srv_int8, seed: int, matmul: str = "off",
+                 attention: str = "off", kv_cache_quant: bool = True):
+    """A server of a copy of the int8 model with its kernel switches set
+    (``"auto"`` or ``"off"``): ``matmul`` for the QuantDense projections,
+    ``attention`` for the decode, flash and paged kernels (``"off"``: the
+    plain versions and the page pool's dense composition). With
+    ``kv_cache_quant=False`` the cache is bf16."""
+    import deepspeed_tpu_torch as dst
+
+    module = copy.deepcopy(srv_int8.engine.module)
+    module.replace_config(int8_kernel=matmul, decode_kernel=attention,
+                          use_flash_attention=attention,
+                          kv_cache_quant=kv_cache_quant)
+    eng = dst.init_inference(module, config={"dtype": "bfloat16"},
+                             device=srv_int8.device)
+    return dst.ServingEngine(eng, num_slots=srv_int8.pool.num_slots,
+                             prefill_chunk=srv_int8.prefill_chunk,
+                             paged_kv=dict(PAGED_KV, kernel=attention),
+                             seed=seed)
+
+
+def phase_reference_int8(srv_int8, bf16_ref, reqs, contiguous_reqs,
+                         seed: int, device: str = "cuda") -> float:
+    """Teacher-force served requests through the int8 model with every
+    kernel on and with every kernel off, on the paged path (``reqs``) and
+    on the contiguous one (``contiguous_reqs``, bucketed prefill then the
+    int8 decode kernel): every position within LOGITS_REL_TOL. Printed, not
+    held: the paged error with one kernel group on at a time, the same
+    comparison over a bf16 cache, and the error against the unquantized
+    bf16 model (plain attention, full-context logits)."""
+    def paged(srv):
+        return [served_paged_logits(srv, np.asarray(r.prompt),
+                                    np.asarray(r.output_tokens)[:-1])
+                for r in reqs]
+
+    kernels = paged(srv_int8)
+    off = int8_variant(srv_int8, seed)
+    plain = paged(off)
+    worst = 0.0
+    for req, got, want in zip(reqs, kernels, plain):
+        rel = rel_err(got, want)
+        assert math.isfinite(rel) and rel <= LOGITS_REL_TOL, \
+            f"reference_int8: request {req.request_id}: served int8 logits " \
+            f"vs kernels off rel err {rel} > {LOGITS_REL_TOL}"
+        worst = max(worst, rel)
+    worst_contig = 0.0
+    for req in contiguous_reqs:
+        prompt, out = np.asarray(req.prompt), np.asarray(req.output_tokens)
+        got = served_path_logits(srv_int8.engine, prompt, out[:-1])
+        want = served_path_logits(off.engine, prompt, out[:-1])
+        rel = rel_err(got, want)
+        assert math.isfinite(rel) and rel <= LOGITS_REL_TOL, \
+            f"reference_int8: contiguous request {req.request_id}: served " \
+            f"int8 logits vs kernels off rel err {rel} > {LOGITS_REL_TOL}"
+        worst_contig = max(worst_contig, rel)
+    del off
+
+    def vs(a, b):
+        return max(rel_err(x, y) for x, y in zip(a, b))
+
+    only_matmul = vs(paged(int8_variant(srv_int8, seed, matmul="auto")),
+                     plain)
+    only_attention = vs(paged(int8_variant(srv_int8, seed,
+                                           attention="auto")), plain)
+    bf16_cache = vs(paged(int8_variant(srv_int8, seed, "auto", "auto",
+                                       kv_cache_quant=False)),
+                    paged(int8_variant(srv_int8, seed,
+                                       kv_cache_quant=False)))
+    worst_bf16 = 0.0
+    for req, got in zip(reqs, kernels):
+        full = np.concatenate([req.prompt, req.output_tokens[:-1]])[None]
+        with torch.no_grad():
+            want = bf16_ref.logits(torch.as_tensor(full, device=device))[0]
+        want = want[req.prompt_len - 1:]
+        assert got.shape == want.shape
+        worst_bf16 = max(worst_bf16, rel_err(got, want))
+    log(f"[reference_int8] paged: {len(reqs)} requests teacher-forced "
+        f"(prompts {[r.prompt_len for r in reqs]}, prefix-hit tokens when "
+        f"served {[r.prefix_hit_tokens for r in reqs]}): max per-position "
+        f"||int8 kernels - int8 plain|| / ||int8 plain|| = {worst:.4g} (tol "
+        f"{LOGITS_REL_TOL})")
+    log(f"[reference_int8] contiguous: {len(contiguous_reqs)} requests "
+        f"(prompts {[r.prompt_len for r in contiguous_reqs]}): "
+        f"{worst_contig:.4g} (tol {LOGITS_REL_TOL})")
+    log(f"[reference_int8] paged, not held: int8_matmul alone on "
+        f"{only_matmul:.4g}; attention kernels alone on "
+        f"{only_attention:.4g}; every kernel on over a bf16 cache "
+        f"{bf16_cache:.4g}; int8 kernels against the unquantized bf16 model "
+        f"{worst_bf16:.4g}")
+    return worst
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -630,6 +1189,10 @@ def main(argv=None) -> int:
 
     card = phase_build()
     results = phase_kernels(gen)
+    log("[kernels] bf16 times beside PERF.md's (H100 80GB HBM3, 700 W): "
+        + ", ".join(f"{name} {results[name]['ms']:.4f} ms (recorded {ms})"
+                    for name, ms in RECORDED_BF16_MS.items()))
+    results.update(phase_int8_kernels(gen))
     model = gpt2_small(args.seed)
     srv, reqs, launches = phase_serve(model, args.seed)
     ref = fp32_reference(model, srv.engine)
@@ -643,12 +1206,30 @@ def main(argv=None) -> int:
     phase_reference(ref, (hit, cold),
                     lambda p, c: served_paged_logits(psrv, p, c),
                     "reference_paged")
-    # each kernel's launches over the two serving runs (each counted from 0
+    del model, srv, ref, psrv
+    runs = [launches, paged_launches]
+
+    llama = tinyllama(args.seed)
+    bf16_ref = copy.deepcopy(llama)
+    bf16_ref.replace_config(kv_cache_quant=False, decode_kernel="off",
+                            use_flash_attention=False)
+    qsrv, qreqs, int8_launches = phase_serve_int8(llama, args.seed)
+    runs.append(int8_launches)
+    creqs, contig_launches = phase_serve_int8_contiguous(qsrv, args.seed)
+    runs.append(contig_launches)
+    qhit = next(r for r in qreqs if r.prefix_hit_tokens > 0)
+    qcold = max((r for r in qreqs if r.prefix_hit_tokens == 0),
+                key=lambda r: r.prompt_len)
+    phase_reference_int8(qsrv, bf16_ref, (qhit, qcold), (creqs[0], creqs[-1]),
+                         args.seed)
+    # each kernel's launches over the serving runs (each counted from 0
     # just before its run and read just after)
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
-                    launches=launches[name] + paged_launches[name],
+                    launches=sum(run[name] for run in runs),
                     **results[name])
                for name in KERNELS]
+    missing = [k["name"] for k in kernels if k["launches"] == 0]
+    assert not missing, f"kernels never launched while serving: {missing}"
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

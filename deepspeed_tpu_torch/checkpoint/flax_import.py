@@ -11,7 +11,12 @@ JAX. The mapping:
   ``bias`` carries over;
 * a LayerNorm/RMSNorm ``scale`` becomes ``weight``;
 * ``embed_tokens/embedding`` and ``embed_pos/embedding`` carry over;
-* ``lm_head/kernel`` (C, V) becomes ``lm_head.weight`` (V, C).
+* ``lm_head/kernel`` (C, V) becomes ``lm_head.weight`` (V, C);
+* a JAX ``QuantDense`` (the int8 tier's ``quantize_lm_params`` tree) has an
+  int8 ``kernel`` (K, N_pad) and an fp32 ``scale`` (1, N_pad), its feature
+  count padded to 128 lanes; they become the port's ``QuantDense.weight``
+  (N, K) int8 and ``scale`` (N,) fp32 with the pad columns (zero weights,
+  scale 1) dropped, for a model built with ``int8_weights=True``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from ..models.transformer_lm import TransformerConfig
+from ..ops.quantization.convert import DENSE_KEYS
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -35,12 +41,29 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _leaf(path: str, arr: np.ndarray):
+def _features(cfg: TransformerConfig, dense: str) -> int:
+    """A projection's true output features (a QuantDense stores them padded
+    to 128 in the JAX tree)."""
+    hidden = int(cfg.mlp_ratio * cfg.n_embd)
+    return {"q_proj": cfg.n_head * cfg.head_dim,
+            "k_proj": cfg.kv_heads * cfg.head_dim,
+            "v_proj": cfg.kv_heads * cfg.head_dim,
+            "o_proj": cfg.n_embd, "gate_proj": hidden, "up_proj": hidden,
+            "down_proj": cfg.n_embd, "lm_head": cfg.vocab_size}[dense]
+
+
+def _leaf(cfg: TransformerConfig, path: str, arr: np.ndarray):
     """(torch-side suffix, tensor-ready array) for one flax leaf name."""
     *mods, name = path.split("/")
     mod = ".".join(mods)
+    quant = mods and mods[-1] in DENSE_KEYS
+    if name == "kernel" and arr.dtype == np.int8:
+        n = _features(cfg, mods[-1])
+        return f"{mod}.weight", np.ascontiguousarray(arr[:, :n].T)
     if name == "kernel":
         return f"{mod}.weight", np.ascontiguousarray(arr.T)
+    if name == "scale" and quant:             # a QuantDense channel scale
+        return f"{mod}.scale", arr.reshape(-1)[:_features(cfg, mods[-1])]
     if name in ("scale", "embedding"):
         return f"{mod}.weight", arr
     if name == "bias":
@@ -48,11 +71,21 @@ def _leaf(path: str, arr: np.ndarray):
     raise KeyError(f"unknown flax parameter leaf {path!r}")
 
 
+def _tensor(cfg: TransformerConfig, key: str, arr: np.ndarray):
+    """int8 weights stay int8 and channel scales fp32; every other leaf
+    takes ``cfg.dtype``."""
+    if arr.dtype == np.int8:
+        return torch.from_numpy(np.array(arr))
+    out = torch.from_numpy(np.array(arr, dtype=np.float32))
+    return out if key.endswith(".scale") else out.to(cfg.dtype)
+
+
 def state_dict_from_flax(cfg: TransformerConfig,
                          params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's ``TransformerLM(cfg).state_dict()`` from a flax params
-    tree, in ``cfg.dtype``. Raises on a leaf the bridge does not know or a
-    layer count that disagrees with ``cfg.n_layer``."""
+    tree, in ``cfg.dtype`` (int8 weights and their fp32 scales as they
+    are). Raises on a leaf the bridge does not know or a layer count that
+    disagrees with ``cfg.n_layer``."""
     sd: Dict[str, np.ndarray] = {}
     for path, arr in _flatten(params).items():
         if path.startswith("blocks/block/"):
@@ -60,10 +93,9 @@ def state_dict_from_flax(cfg: TransformerConfig,
                 raise ValueError(f"{path}: leading dim {arr.shape[0]} != "
                                  f"n_layer {cfg.n_layer}")
             for li in range(cfg.n_layer):
-                key, val = _leaf(path[len("blocks/block/"):], arr[li])
+                key, val = _leaf(cfg, path[len("blocks/block/"):], arr[li])
                 sd[f"blocks.{li}.{key}"] = val
         else:
-            key, val = _leaf(path, arr)
+            key, val = _leaf(cfg, path, arr)
             sd[key] = val
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(cfg.dtype)
-            for k, v in sd.items()}
+    return {k: _tensor(cfg, k, v) for k, v in sd.items()}

@@ -2,9 +2,11 @@
 JSON surface as a plain dataclass.
 
 Keys for features this port does not have yet raise instead of being
-ignored: tensor parallelism above 1, weight quantization, ZeRO-Inference,
-checkpoint loading, and the CUDA-graph/Triton switches (graph capture of the
-decode step is later work).
+ignored: tensor parallelism above 1, ZeRO-Inference, checkpoint loading, and
+the CUDA-graph/Triton switches (graph capture of the decode step is later
+work). Weight quantization (``dtype="int8"`` or ``quant.enabled``) is
+accepted; the engine serves it through the int8 compute tier or raises for
+the storage tier it has no kernel for.
 """
 
 from __future__ import annotations
@@ -17,7 +19,10 @@ import torch
 _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "float16": torch.float16, "fp16": torch.float16,
            "half": torch.float16, "bfloat16": torch.bfloat16,
-           "bf16": torch.bfloat16}
+           "bf16": torch.bfloat16,
+           # int8 weights: activations in bf16 (the JAX jnp_dtype)
+           "int8": torch.bfloat16}
+_QUANT_DEFAULTS = {"enabled": False, "bits": 8, "group_size": 0}
 
 # key -> the value that means "off" (anything else raises)
 _NOT_PORTED = {"enable_cuda_graph": False, "use_triton": False,
@@ -27,7 +32,7 @@ _NOT_PORTED = {"enable_cuda_graph": False, "use_triton": False,
 
 @dataclasses.dataclass
 class DeepSpeedInferenceConfig:
-    dtype: str = "bfloat16"  # float32 | float16 | bfloat16
+    dtype: str = "bfloat16"  # float32 | float16 | bfloat16 | int8
     tensor_parallel: Dict[str, Any] = dataclasses.field(default_factory=dict)
     quant: Dict[str, Any] = dataclasses.field(default_factory=dict)
     max_out_tokens: int = 1024
@@ -65,11 +70,19 @@ class DeepSpeedInferenceConfig:
         out = cls(**cfg)
         if int(out.tensor_parallel.get("tp_size", 1)) != 1:
             raise NotImplementedError("tensor parallelism is not ported yet")
-        if out.quant.get("enabled", False):
-            raise NotImplementedError("weight quantization (int8) is not "
-                                      "ported yet")
+        unknown = sorted(set(out.quant) - set(_QUANT_DEFAULTS))
+        if unknown:
+            raise ValueError(f"unknown quant keys {unknown}; expected "
+                             f"{sorted(_QUANT_DEFAULTS)}")
+        out.quant = {**_QUANT_DEFAULTS, **out.quant}
         out.torch_dtype()
         return out
+
+    @property
+    def quant_enabled(self) -> bool:
+        """Weight-only int8: ``quant.enabled`` or ``dtype="int8"`` (the JAX
+        engine's ``_quant_enabled``)."""
+        return bool(self.quant.get("enabled")) or "int8" in str(self.dtype)
 
     @property
     def mp_size(self) -> int:
@@ -77,9 +90,6 @@ class DeepSpeedInferenceConfig:
 
     def torch_dtype(self) -> torch.dtype:
         key = str(self.dtype).replace("torch.", "")
-        if key == "int8":
-            raise NotImplementedError("dtype=int8 (weight quantization) is "
-                                      "not ported yet")
         if key not in _DTYPES:
             raise ValueError(f"unsupported inference dtype {self.dtype!r}; "
                              f"supported: {sorted(_DTYPES)}")

@@ -6,9 +6,20 @@ serving path's bucketed prefill, projecting one position),
 ``prefill_chunk`` (one chunk of a long prompt into a slot's cache row),
 ``decode`` (one token per row against a cache updated in place),
 ``decode_paged`` (the same over a page pool), ``sample`` and
-``generate``. Parameters are cast to the config dtype and moved to the
-engine's device once, as the JAX engine's ``_finalize_params`` casts them.
-Capturing the decode step as a CUDA graph is later work.
+``generate``. The model is moved to the engine's device once; its
+parameters are already in the config dtype (the engine checks), as the JAX
+engine's ``_finalize_params`` casts them. Capturing the decode step as a
+CUDA graph is later work.
+
+Weight-only int8 (``dtype="int8"`` or ``quant.enabled`` with 8 bits) on a
+``TransformerLM`` in bf16 on one device is the JAX engine's int8 COMPUTE
+tier: every projection named in ``DENSE_KEYS`` (the vocabulary head only
+with ``int8_head``) is swapped, in place and on the device, for a
+``QuantDense`` running the CUDA ``int8_matmul`` kernel, and the model's
+config becomes ``int8_weights=True``. The JAX STORAGE tier (group-quantized
+weights dequantized inside each compiled program, for fp32, TP > 1 or
+non-LM modules; ``_maybe_quantize``/``_dequant`` there) has no kernel and
+is not ported: it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,6 +31,7 @@ import torch
 from torch import nn
 
 from ..accelerator import resolve_device
+from ..ops.quantization.convert import DENSE_KEYS, quantize_lm_params
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
 
@@ -80,9 +92,46 @@ class InferenceEngine:
                 f"so build the model with dtype={self.dtype}")
         if model_parameters is not None:
             model.load_state_dict(model_parameters)
-        self.module = model.to(device=self.device, dtype=self.dtype).eval()
+        # a TransformerLM's parameters are in its config dtype already; a
+        # cast would also reach an int8 model's fp32 scales
+        self.module = (model.to(device=self.device) if model_dtype is not None
+                       else model.to(device=self.device, dtype=self.dtype))
+        self.module.eval()
+        if self._config.quant_enabled:
+            if not self._use_int8_compute():
+                raise NotImplementedError(
+                    "the int8 storage tier (group-quantized weights "
+                    "dequantized per call: fp32 or fp16, bits != 8, TP > 1, "
+                    "non-TransformerLM modules or an int8_weights model) is "
+                    "not ported; the int8 compute tier needs a bf16 "
+                    "TransformerLM on one device")
+            self._quantize_structured()
         log_dist(f"InferenceEngine: device={self.device} "
                  f"dtype={self._config.dtype}", ranks=[0])
+
+    # ------------------------------------------------------------------
+    # int8 compute tier (JAX engine.py:189-219)
+    # ------------------------------------------------------------------
+    def _use_int8_compute(self) -> bool:
+        cfg = getattr(self.module, "config", None)
+        return (self._config.quant_enabled
+                and int(self._config.quant["bits"]) == 8
+                and self._config.mp_size == 1
+                and self.dtype == torch.bfloat16
+                and hasattr(self.module, "replace_config")
+                and not cfg.int8_weights)
+
+    def _quantize_structured(self) -> None:
+        """Swap the model's projections for QuantDense in place (the head
+        only with ``int8_head``) and mark its config ``int8_weights``; the
+        config's ``int8_kernel`` reaches the new layers through
+        ``replace_config``."""
+        cfg = self.module.config
+        head = set() if cfg.int8_head else {"lm_head"}
+        _, n_dense = quantize_lm_params(self.module, DENSE_KEYS - head)
+        self.module.replace_config(int8_weights=True)
+        log_dist(f"inference int8 compute tier: {n_dense} linear layers -> "
+                 f"QuantDense (CUDA int8_matmul)", ranks=[0])
 
     # ------------------------------------------------------------------
     def kv_cache_spec(self):
@@ -93,6 +142,12 @@ class InferenceEngine:
                               torch.is_tensor(input_ids) else input_ids)
         ids = ids.to(self.device, torch.long)
         return ids[None] if ids.dim() == 1 else ids
+
+    @torch.no_grad()
+    def forward(self, input_ids) -> torch.Tensor:
+        """Full-context (B, T, V) fp32 logits, no cache (the JAX engine's
+        ``forward`` for LM modules)."""
+        return self.module.logits(self._ids(input_ids))
 
     @torch.no_grad()
     def prefill_at(self, input_ids, last_pos=None, cache=None, rows=None):

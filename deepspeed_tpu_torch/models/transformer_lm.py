@@ -18,7 +18,12 @@ KV cache: per-layer K/V live in one stacked tensor per side,
 stores positions-minor ``(L, B, KV, D, S)`` for TPU lane tiling; the CUDA
 decode kernel reads contiguous rows instead. The paged pool
 (``KVCacheSpec.paged_cache``) is ``(L, P, KV, page_size, D)`` on the same
-principle. Caches are updated IN PLACE (``prefill`` writes the prompt rows
+principle. With ``kv_cache_quant`` the K/V leaves are int8 and two more,
+``k_scale``/``v_scale`` (the same shapes without D, fp32), hold one scale
+per cached row (``quantize_kv_rows``); every write quantizes the rows it
+stores, attention folds the scales into its scores and probabilities, and
+fresh prefill attention still reads the full-precision K/V, as in the JAX
+package. Caches are updated IN PLACE (``prefill`` writes the prompt rows
 it is given, ``decode``/``prefill_chunk`` the step's positions of each
 sequence, ``decode_paged`` the step's positions through the page table);
 the JAX package returns new arrays instead.
@@ -32,9 +37,11 @@ cache (``prefill_chunk``) is the window-masked einsum, which has no kernel
 in the JAX package either. On CPU tensors every wrapper takes its plain
 version.
 
-Not in this port yet (each raises ``NotImplementedError``): ``int8_weights``
-and ``kv_cache_quant``. This port serves only; there is no training loss,
-so ``dropout``, ``remat`` and ``loss_chunk`` have no effect here.
+Int8 weights (``int8_weights``): every projection is a ``QuantDense``
+(int8 weight, fp32 scale per output channel) running the CUDA
+``int8_matmul`` kernel; the vocabulary head stays full precision unless
+``int8_head``. This port serves only; there is no training loss, so
+``dropout``, ``remat`` and ``loss_chunk`` have no effect here.
 """
 
 from __future__ import annotations
@@ -51,10 +58,12 @@ from torch import nn
 from ..ops.attention.decode_attention import (alibi_slopes,
                                               decode_attention,
                                               decode_attention_reference,
+                                              quantize_kv_rows,
                                               window_attention_reference)
 from ..ops.attention.flash_attention import NEG_INF, flash_attention
 from ..ops.attention.paged_attention import (page_writes,
                                              paged_decode_attention)
+from ..ops.quantization.linear import QuantDense
 
 __all__ = ["TransformerConfig", "FAMILY_PRESETS", "transformer_config",
            "apply_rotary", "alibi_slopes", "CachedAttention",
@@ -108,10 +117,15 @@ class TransformerConfig:
     # lengths[b] rows, so it has no granule and this is kept for config
     # compatibility only
     decode_block: Optional[int] = None
-    kv_cache_quant: bool = False        # not ported yet: raises
-    kv_cache_packed: Optional[bool] = None  # TPU int32 container: unused
-    int8_weights: bool = False          # not ported yet: raises
-    int8_kernel: str = "auto"           # only with int8_weights
+    # int8 K/V rows with an fp32 scale per row
+    kv_cache_quant: bool = False
+    # the TPU's int32 container for int8 rows (lossless packing for its
+    # sublane tiling): the port keeps plain int8 rows; compatibility only
+    kv_cache_packed: Optional[bool] = None
+    int8_weights: bool = False          # projections as QuantDense
+    # "auto" | "on": the int8_matmul kernel on CUDA tensors; "off": the
+    # plain version (only with int8_weights)
+    int8_kernel: str = "auto"
     int8_head: bool = False             # only with int8_weights
     loss_chunk: int = 0                 # training only: no effect here
 
@@ -195,6 +209,38 @@ def _norm(cfg: TransformerConfig, **fk) -> nn.Module:
     return nn.LayerNorm(cfg.n_embd, eps=cfg.layer_norm_epsilon, **fk)
 
 
+def _dense(cfg: TransformerConfig, in_features: int, out_features: int,
+           bias: bool, **fk) -> nn.Module:
+    """nn.Linear, or its int8-at-rest serving twin when ``cfg.int8_weights``
+    (the JAX ``_dense``): a QuantDense whose int8 weights and fp32 scales
+    the inference engine's int8 tier or the weight bridge fill in."""
+    if cfg.int8_weights:
+        return QuantDense(in_features, out_features, bias=bias,
+                          kernel_mode=cfg.int8_kernel, **fk)
+    return nn.Linear(in_features, out_features, bias=bias, **fk)
+
+
+def _write_rows(kv: Dict[str, Any], idx, k_rows, v_rows) -> None:
+    """Store K/V rows (..., D) at ``buf[idx]`` in one layer's cache leaves;
+    an int8 cache quantizes them per row and stores their scales at the same
+    index of ``k_scale``/``v_scale``."""
+    for side, rows in (("k", k_rows), ("v", v_rows)):
+        buf = kv[side]
+        if f"{side}_scale" in kv:
+            rows, sc = quantize_kv_rows(rows)
+            kv[f"{side}_scale"][idx] = sc
+        buf[idx] = rows.to(buf.dtype)
+
+
+def _scales(kv: Dict[str, Any], sel=None) -> Dict[str, Any]:
+    """An int8 cache's ``k_scale``/``v_scale`` keywords (rows ``sel`` of
+    them when given); empty for a full-precision cache."""
+    if "k_scale" not in kv:
+        return {}
+    return {name: kv[name] if sel is None else kv[name][sel]
+            for name in ("k_scale", "v_scale")}
+
+
 def _fresh_reference(q, k, v, slopes=None):
     """Plain causal attention over fresh q/k/v (B, T, H|KV, D) in fp32,
     with optional ALiBi ``slope·(kpos − qpos)``: the JAX einsum path."""
@@ -235,19 +281,20 @@ class CachedAttention(nn.Module):
     start[b] + t``), ``"paged"`` (as decode, over one layer's page pool
     through the page ``table``).
 
-    ``write`` is ``(sel, a, b)`` from :func:`_row_writes` or
-    ``page_writes``, computed once per forward for every layer: the
-    flattened token rows ``sel`` that land in the cache, and where
-    (``buf[a, :, b]``)."""
+    ``kv`` is one layer's cache leaves (``k``, ``v`` and, for an int8 cache,
+    ``k_scale``, ``v_scale``). ``write`` is ``(sel, a, b)`` from
+    :func:`_row_writes` or ``page_writes``, computed once per forward for
+    every layer: the flattened token rows ``sel`` that land in the cache,
+    and where (``buf[a, :, b]``)."""
 
     def __init__(self, cfg: TransformerConfig, **fk):
         super().__init__()
         self.config = cfg
         H, KV, D, C = cfg.n_head, cfg.kv_heads, cfg.head_dim, cfg.n_embd
-        self.q_proj = nn.Linear(C, H * D, bias=cfg.qkv_bias, **fk)
-        self.k_proj = nn.Linear(C, KV * D, bias=cfg.qkv_bias, **fk)
-        self.v_proj = nn.Linear(C, KV * D, bias=cfg.qkv_bias, **fk)
-        self.o_proj = nn.Linear(H * D, C, bias=cfg.qkv_bias, **fk)
+        self.q_proj = _dense(cfg, C, H * D, cfg.qkv_bias, **fk)
+        self.k_proj = _dense(cfg, C, KV * D, cfg.qkv_bias, **fk)
+        self.v_proj = _dense(cfg, C, KV * D, cfg.qkv_bias, **fk)
+        self.o_proj = _dense(cfg, H * D, C, cfg.qkv_bias, **fk)
 
     def _use_flash(self, T: int) -> bool:
         use = self.config.use_flash_attention
@@ -260,6 +307,17 @@ class CachedAttention(nn.Module):
             raise ValueError("use_flash_attention=True does not compose with "
                              "pos_emb='alibi' (no bias hook in the kernel)")
         return True
+
+    def _attend_cache(self, q, kv, lengths, slopes):
+        """One query row per sequence, (B, 1, H, D), over the first
+        ``lengths[b]`` positions of cache row b: the decode kernel, or its
+        plain version with ``decode_kernel="off"``."""
+        if self.config.decode_kernel == "off":
+            return decode_attention_reference(
+                q[:, 0], kv["k"], kv["v"], lengths,
+                1.0 / math.sqrt(q.shape[-1]), slopes, **_scales(kv))
+        return decode_attention(q[:, 0].contiguous(), kv["k"], kv["v"],
+                                lengths, alibi_slopes=slopes, **_scales(kv))
 
     def forward(self, x, positions, mode: str = "fresh", kv=None,
                 rows=None, start=None, table=None, write=None):
@@ -275,39 +333,41 @@ class CachedAttention(nn.Module):
             k = apply_rotary(k, positions, rotary_dim=rd, theta=cfg.rope_theta)
         slopes = alibi_slopes(H).to(x.device) \
             if cfg.pos_emb == "alibi" else None
+        if mode == "prefill" and T == 1 and cfg.kv_cache_quant:
+            # the JAX module attends a one-token prompt through its cache,
+            # which for an int8 cache means the quantized row: write it, then
+            # attend over the rows written (a subset of the cache's batch)
+            _write_rows(kv, (rows, slice(None), 0), k[:, 0], v[:, 0])
+            y = self._attend_cache(
+                q, {key: leaf[rows] for key, leaf in kv.items()},
+                torch.ones(B, dtype=torch.int32, device=x.device), slopes)
+            return self.o_proj(y.to(x.dtype).reshape(B, 1, H * D))
 
         if mode == "paged" or (mode == "decode" and T > 1):
-            k_buf, v_buf = kv
             sel, a, b = write
-            k_buf[a, :, b] = k.reshape(B * T, KV, D)[sel].to(k_buf.dtype)
-            v_buf[a, :, b] = v.reshape(B * T, KV, D)[sel].to(v_buf.dtype)
+            _write_rows(kv, (a, slice(None), b),
+                        k.reshape(B * T, KV, D)[sel],
+                        v.reshape(B * T, KV, D)[sel])
             if mode == "paged":
+                sc = {f"{name}_pages": val
+                      for name, val in _scales(kv).items()}
                 y = paged_decode_attention(
-                    q.contiguous(), k_buf, v_buf, table,
-                    start.to(torch.int32), alibi_slopes=slopes)
+                    q.contiguous(), kv["k"], kv["v"], table,
+                    start.to(torch.int32), alibi_slopes=slopes, **sc)
             else:
-                y = window_attention_reference(q, k_buf[rows], v_buf[rows],
-                                               start, 1.0 / math.sqrt(D),
-                                               slopes)
+                y = window_attention_reference(
+                    q, kv["k"][rows], kv["v"][rows], start,
+                    1.0 / math.sqrt(D), slopes, **_scales(kv, rows))
             return self.o_proj(y.to(x.dtype).reshape(B, T, H * D))
 
         if mode == "decode":
-            k_buf, v_buf = kv
-            k_buf[rows, :, start] = k[:, 0].to(k_buf.dtype)
-            v_buf[rows, :, start] = v[:, 0].to(v_buf.dtype)
-            lengths = (start + 1).to(torch.int32)
-            if cfg.decode_kernel == "off":
-                y = decode_attention_reference(q[:, 0], k_buf, v_buf, lengths,
-                                               1.0 / math.sqrt(D), slopes)
-            else:
-                y = decode_attention(q[:, 0].contiguous(), k_buf, v_buf,
-                                     lengths, alibi_slopes=slopes)
+            _write_rows(kv, (rows, slice(None), start), k[:, 0], v[:, 0])
+            y = self._attend_cache(q, kv, (start + 1).to(torch.int32), slopes)
             return self.o_proj(y.to(x.dtype).reshape(B, 1, H * D))
 
         if mode == "prefill":
-            k_buf, v_buf = kv
-            k_buf[rows, :, :T] = k.transpose(1, 2).to(k_buf.dtype)
-            v_buf[rows, :, :T] = v.transpose(1, 2).to(v_buf.dtype)
+            _write_rows(kv, (rows, slice(None), slice(0, T)),
+                        k.transpose(1, 2), v.transpose(1, 2))
         if self._use_flash(T):
             y, _ = flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=True)
@@ -322,11 +382,10 @@ class TransformerMLP(nn.Module):
         self.config = cfg
         hidden = int(cfg.mlp_ratio * cfg.n_embd)
         if cfg.activation == "swiglu":
-            self.gate_proj = nn.Linear(cfg.n_embd, hidden, bias=cfg.mlp_bias,
-                                       **fk)
-        self.up_proj = nn.Linear(cfg.n_embd, hidden, bias=cfg.mlp_bias, **fk)
-        self.down_proj = nn.Linear(hidden, cfg.n_embd, bias=cfg.mlp_bias,
-                                   **fk)
+            self.gate_proj = _dense(cfg, cfg.n_embd, hidden, cfg.mlp_bias,
+                                    **fk)
+        self.up_proj = _dense(cfg, cfg.n_embd, hidden, cfg.mlp_bias, **fk)
+        self.down_proj = _dense(cfg, hidden, cfg.n_embd, cfg.mlp_bias, **fk)
 
     def forward(self, x):
         act = self.config.activation
@@ -368,40 +427,51 @@ class KVCacheSpec:
     head_dim: int
     dtype: torch.dtype
     max_seq_len: int
+    quant: bool = False     # int8 K/V rows + fp32 k_scale/v_scale leaves
+
+    def _leaves(self, shape, device) -> Dict[str, Any]:
+        if not self.quant:
+            return {side: torch.zeros(shape, dtype=self.dtype, device=device)
+                    for side in ("k", "v")}
+        out = {side: torch.zeros(shape, dtype=torch.int8, device=device)
+               for side in ("k", "v")}
+        out.update({f"{side}_scale": torch.zeros(
+            shape[:-1], dtype=torch.float32, device=device)
+            for side in ("k", "v")})
+        return out
 
     def stacked_cache(self, batch_size: int, device=None) -> Dict[str, Any]:
-        """Zeroed layer-stacked k/v: (L, B, KV, S, D) each."""
-        shape = (self.n_layer, batch_size, self.kv_heads, self.max_seq_len,
-                 self.head_dim)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+        """Zeroed layer-stacked k/v: (L, B, KV, S, D) each (int8 with
+        (L, B, KV, S) fp32 scales when ``quant``)."""
+        return self._leaves((self.n_layer, batch_size, self.kv_heads,
+                             self.max_seq_len, self.head_dim), device)
 
     def paged_cache(self, num_pages: int, page_size: int,
                     device=None) -> Dict[str, Any]:
         """Zeroed page pool k/v: (L, P, KV, page_size, D) each, no batch
-        axis. A per-slot page table maps positions to pages;
+        axis (int8 with (L, P, KV, page_size) fp32 scale pages when
+        ``quant``). A per-slot page table maps positions to pages;
         :meth:`dense_from_pages` reassembles the stacked layout."""
-        shape = (self.n_layer, num_pages, self.kv_heads, page_size,
-                 self.head_dim)
-        return {"k": torch.zeros(shape, dtype=self.dtype, device=device),
-                "v": torch.zeros(shape, dtype=self.dtype, device=device)}
+        return self._leaves((self.n_layer, num_pages, self.kv_heads,
+                             page_size, self.head_dim), device)
 
     def dense_from_pages(self, paged: Dict[str, Any],
                          table) -> Dict[str, Any]:
         """The dense (L, B, KV, pages_per_slot * page_size, D) view of a
         page pool for a (B, pages_per_slot) table, as a new tensor per
-        side. Unmapped entries (sentinel ``P``) are clipped to page
-        ``P - 1``: only positions past a slot's length map there, and
-        attention masks them."""
+        leaf (scales: (L, B, KV, pages_per_slot * page_size)). Unmapped
+        entries (sentinel ``P``) are clipped to page ``P - 1``: only
+        positions past a slot's length map there, and attention masks
+        them."""
         B, max_pages = table.shape
         out = {}
-        for key in ("k", "v"):
-            leaf = paged[key]                       # (L, P, KV, ps, D)
-            L, P, KV, ps, D = leaf.shape
+        for key, leaf in paged.items():             # (L, P, KV, ps[, D])
+            L, P, KV, ps = leaf.shape[:4]
+            rest = leaf.shape[4:]
             ids = table.to(leaf.device).long().clamp(0, P - 1).reshape(-1)
-            g = leaf[:, ids].reshape(L, B, max_pages, KV, ps, D)
-            out[key] = g.permute(0, 1, 3, 2, 4, 5).reshape(
-                L, B, KV, max_pages * ps, D)
+            g = leaf[:, ids].reshape(L, B, max_pages, KV, ps, *rest)
+            out[key] = g.transpose(2, 3).reshape(L, B, KV, max_pages * ps,
+                                                 *rest)
         return out
 
 
@@ -413,12 +483,6 @@ class TransformerLM(nn.Module):
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
         cfg = config
-        if cfg.int8_weights:
-            raise NotImplementedError("int8_weights (the int8_matmul slice) "
-                                      "is not ported yet")
-        if cfg.kv_cache_quant:
-            raise NotImplementedError("kv_cache_quant (int8 KV cache) is not "
-                                      "ported yet")
         self.config = cfg
         fk = dict(dtype=cfg.dtype, device=device)
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.n_embd, **fk)
@@ -429,7 +493,15 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(TransformerBlock(cfg, **fk)
                                     for _ in range(cfg.n_layer))
         self.ln_f = _norm(cfg, **fk)
-        if not cfg.tie_word_embeddings:
+        if cfg.int8_weights and cfg.int8_head and \
+                not cfg.tie_word_embeddings:
+            # fp32 logits from the int8 kernel, as the JAX head
+            self.lm_head = QuantDense(cfg.n_embd, cfg.vocab_size, bias=False,
+                                      dtype=torch.float32,
+                                      kernel_mode=cfg.int8_kernel,
+                                      device=device)
+        elif not cfg.tie_word_embeddings:
+            # full precision, the default of the int8 tier too
             self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False,
                                      **fk)
 
@@ -448,11 +520,26 @@ class TransformerLM(nn.Module):
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
 
+    def replace_config(self, **changes) -> TransformerConfig:
+        """Give the model and every submodule ``dataclasses.replace(config,
+        **changes)``, and every QuantDense the config's ``int8_kernel`` as
+        its ``kernel_mode``: the config owns the kernel switches. Changes
+        that alter parameter shapes are not supported. Returns the new
+        config."""
+        cfg = dataclasses.replace(self.config, **changes)
+        for mod in self.modules():
+            if isinstance(mod, QuantDense):
+                mod.kernel_mode = cfg.int8_kernel
+            elif hasattr(mod, "config"):
+                mod.config = cfg
+        return cfg
+
     def kv_cache_spec(self) -> KVCacheSpec:
         cfg = self.config
         return KVCacheSpec(n_layer=cfg.n_layer, kv_heads=cfg.kv_heads,
                            head_dim=cfg.head_dim, dtype=cfg.dtype,
-                           max_seq_len=cfg.max_seq_len)
+                           max_seq_len=cfg.max_seq_len,
+                           quant=cfg.kv_cache_quant)
 
     @property
     def device(self) -> torch.device:
@@ -473,17 +560,21 @@ class TransformerLM(nn.Module):
         elif mode == "decode" and input_ids.shape[1] > 1:
             write = _row_writes(positions, rows, cache["k"].shape[3])
         for li, block in enumerate(self.blocks):
-            kv = (cache["k"][li], cache["v"][li]) if cache is not None \
-                else None
+            kv = {key: leaf[li] for key, leaf in cache.items()} \
+                if cache is not None else None
             x = block(x, positions, mode, kv, rows, start, table, write)
         return self.ln_f(x)
 
     def _project_head(self, x):
         """Vocabulary projection, fp32 logits. Tied: in ``dtype`` (flax
-        ``Embed.attend`` promotes both operands to it); untied: in fp32."""
+        ``Embed.attend`` promotes both operands to it); untied: in fp32, or
+        through the int8 kernel with bf16 inputs when the head is a
+        QuantDense (``int8_head``)."""
         if self.config.tie_word_embeddings:
             w = self.embed_tokens.weight
             return F.linear(x.to(w.dtype), w).float()
+        if isinstance(self.lm_head, QuantDense):
+            return self.lm_head(x).float()
         return F.linear(x.float(), self.lm_head.weight.float())
 
     def _positions(self, B: int, T: int, offset=None):

@@ -10,11 +10,12 @@ per-slot view of the cache is built. Its header says what bounds it on the
 H100 (bytes) and how it reads only live pages.
 
 Page layout: one layer's pool is (P, KV, page_size, D), positions-major, in
-the compute dtype, matching the contiguous cache's (B, KV, S, D). The JAX
-package stores (P, KV, D, page_size) for the TPU's lane tiling; tests
-compare the logical K/V by transposing. Table entry ``P`` means "unmapped"
-and is clipped to page ``P - 1``: it is only reached past a slot's live
-length, where every read is masked.
+the compute dtype, matching the contiguous cache's (B, KV, S, D); for the
+int8 KV cache the pages are int8 with fp32 scale pages (P, KV, page_size),
+one scale per cached row. The JAX package stores (P, KV, D, page_size) for
+the TPU's lane tiling; tests compare the logical K/V by transposing. Table
+entry ``P`` means "unmapped" and is clipped to page ``P - 1``: it is only
+reached past a slot's live length, where every read is masked.
 
 :func:`paged_decode_attention` takes :func:`paged_decode_attention_reference`
 only for tensors on the CPU. For a CUDA tensor it launches the kernel or
@@ -61,11 +62,14 @@ def page_writes(positions, table, num_pages: int, page_size: int):
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, table, starts,
-                                     scale, alibi_slopes=None):
+                                     scale, alibi_slopes=None,
+                                     k_scale_pages=None, v_scale_pages=None):
     """Plain PyTorch twin of the kernel in fp32: clip sentinel page ids to
     ``P - 1``, gather the live pages of each slot into a dense view, and
     let row t of slot b attend positions ``<= starts[b] + t`` with ALiBi
-    ``slope·(pos − (starts[b] + t))``. Returns (B, T, H, D) in q's dtype."""
+    ``slope·(pos − (starts[b] + t))``. Int8 pages pass their (P, KV,
+    page_size) scale pages, gathered the same way and folded into the
+    scores and probabilities. Returns (B, T, H, D) in q's dtype."""
     B, T = q.shape[:2]
     P, KV, ps, D = k_pages.shape
     starts = starts.to(q.device).long().reshape(B)
@@ -73,12 +77,15 @@ def paged_decode_attention_reference(q, k_pages, v_pages, table, starts,
                   -(-(int(starts.max()) + T) // ps))       # live pages
     ids = table[:, :n_pages].to(q.device).long().clamp(0, P - 1).reshape(-1)
 
-    def dense(pages):                                       # (B, KV, S, D)
-        g = pages[ids].reshape(B, n_pages, KV, ps, D).transpose(1, 2)
-        return g.reshape(B, KV, n_pages * ps, D)
+    def dense(pages):                               # (B, KV, S[, D])
+        g = pages[ids].reshape(B, n_pages, KV, ps, *pages.shape[3:])
+        return g.transpose(1, 2).reshape(B, KV, n_pages * ps,
+                                         *pages.shape[3:])
 
+    scales = {} if k_scale_pages is None else dict(
+        k_scale=dense(k_scale_pages), v_scale=dense(v_scale_pages))
     return window_attention_reference(q, dense(k_pages), dense(v_pages),
-                                      starts, scale, alibi_slopes)
+                                      starts, scale, alibi_slopes, **scales)
 
 
 def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
@@ -98,14 +105,16 @@ def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
       table: (B, pages_per_slot) int32; ``P`` marks an unmapped entry.
       starts: (B,) int32 cache length before this step's rows.
       alibi_slopes: optional (H,) fp32 ALiBi slopes.
-      k_scale_pages, v_scale_pages: the int8 page variant, not ported yet.
+      k_scale_pages, v_scale_pages: (P, KV, page_size) fp32 per-row scales
+        of int8 pages (row value = int8 * scale); both or neither.
     Returns (B, T, H, D) in q's dtype. On CUDA each launch adds one to
-    ``paged_decode_attention.launches``.
+    ``paged_decode_attention.launches``, or to
+    ``paged_decode_attention.int8_launches`` for int8 pages.
     """
-    if k_scale_pages is not None or v_scale_pages is not None:
-        raise NotImplementedError(
-            "int8 KV pages (kv_cache_quant scales) are a later slice of the "
-            "port")
+    quantized = k_scale_pages is not None
+    if quantized != (v_scale_pages is not None):
+        raise ValueError("provide both k_scale_pages and v_scale_pages or "
+                         "neither")
     if q.dim() != 4 or k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
         raise ValueError(f"paged_decode_attention wants q (B,T,H,D) and pages "
                          f"(P,KV,ps,D); got {tuple(q.shape)}, "
@@ -123,9 +132,15 @@ def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
     if not torch.is_tensor(starts) or starts.dim() == 0:
         starts = torch.full((B,), int(starts), dtype=torch.int32,
                             device=q.device)
+    if quantized and (k_scale_pages.shape != k_pages.shape[:3]
+                      or v_scale_pages.shape != k_scale_pages.shape):
+        raise ValueError(f"scale pages must be {tuple(k_pages.shape[:3])}; "
+                         f"got {tuple(k_scale_pages.shape)}, "
+                         f"{tuple(v_scale_pages.shape)}")
     if q.device.type == "cpu":
-        return paged_decode_attention_reference(q, k_pages, v_pages, table,
-                                                starts, scale, alibi_slopes)
+        return paged_decode_attention_reference(
+            q, k_pages, v_pages, table, starts, scale, alibi_slopes,
+            k_scale_pages, v_scale_pages)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cpu or cuda, not "
                          f"{q.device.type}")
@@ -135,9 +150,10 @@ def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
         raise ValueError(f"paged kernel supports dtypes {list(DTYPE_CODES)} "
                          f"and head dims {SUPPORTED_HEAD_DIMS}; got "
                          f"{q.dtype}, D={D}")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
-        raise ValueError(f"q/page dtypes differ: {q.dtype}, {k_pages.dtype}, "
-                         f"{v_pages.dtype}")
+    page_dtype = torch.int8 if quantized else q.dtype
+    if not (page_dtype == k_pages.dtype == v_pages.dtype):
+        raise ValueError(f"page dtypes must be {page_dtype}: got "
+                         f"{k_pages.dtype}, {v_pages.dtype} for q {q.dtype}")
     for name, t, shape in (("table", table, (B, table.shape[1])),
                            ("starts", starts, (B,))):
         if t.shape != shape or t.dtype != torch.int32 \
@@ -149,6 +165,12 @@ def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
         raise ValueError(f"paged kernel stages at most {MAX_TABLE_PAGES} "
                          f"table entries per slot, got {table.shape[1]}")
     tensors = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages)]
+    if quantized:
+        if k_scale_pages.dtype != torch.float32 \
+                or v_scale_pages.dtype != torch.float32:
+            raise ValueError("k_scale_pages/v_scale_pages must be float32")
+        tensors += [("k_scale_pages", k_scale_pages),
+                    ("v_scale_pages", v_scale_pages)]
     if alibi_slopes is not None:
         if alibi_slopes.shape != (H,) or alibi_slopes.dtype != torch.float32:
             raise ValueError("alibi_slopes must be (H,) float32")
@@ -158,15 +180,24 @@ def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
                 or t.data_ptr() % 16:
             raise ValueError(f"paged kernel needs {name} contiguous, 16-byte "
                              f"aligned, on {q.device}")
+    slopes = alibi_slopes.data_ptr() if alibi_slopes is not None else None
     out = torch.empty_like(q)
+    if quantized:
+        launch("paged_decode_attention", q.device, DTYPE_CODES[q.dtype],
+               q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+               k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
+               table.data_ptr(), starts.data_ptr(), slopes, out.data_ptr(),
+               B, T, H, KV, P, ps, table.shape[1], D, float(scale),
+               symbol="dstorch_paged_decode_attention_int8")
+        paged_decode_attention.int8_launches += 1
+        return out
     launch("paged_decode_attention", q.device, DTYPE_CODES[q.dtype],
            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-           table.data_ptr(), starts.data_ptr(),
-           alibi_slopes.data_ptr() if alibi_slopes is not None else None,
-           out.data_ptr(), B, T, H, KV, P, ps, table.shape[1], D,
-           float(scale))
+           table.data_ptr(), starts.data_ptr(), slopes, out.data_ptr(), B, T,
+           H, KV, P, ps, table.shape[1], D, float(scale))
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.int8_launches = 0

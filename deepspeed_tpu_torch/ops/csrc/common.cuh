@@ -55,4 +55,34 @@ __device__ __forceinline__ void unpack_vec(uint4 raw, float* dst) {
   for (int i = 0; i < Vec<T>::kN; ++i) dst[i] = to_float(vals[i]);
 }
 
+// The 16 int8 values of a 16-byte word loaded earlier, as floats. Each byte,
+// offset to unsigned (b + 128), becomes the low mantissa byte of 2^23 through
+// one byte permute, and one subtraction of 2^23 + 128 leaves b: exact, and
+// cheaper than the int-to-float conversion unit.
+__device__ __forceinline__ void unpack_i8x16(uint4 raw, float* dst) {
+  const uint32_t words[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t u = words[j] ^ 0x80808080u;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      dst[4 * j + b] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + b)) - 8388736.f;
+  }
+}
+
+// The int8 KV-cache kernels round the V-scaled probabilities to the compute
+// dtype before the PV product, as the TPU kernel does: bf16 for bf16 queries,
+// fp32 (no rounding) for fp32 and fp16 queries.
+template <typename T> __device__ __forceinline__ float round_p_int8(float p) { return p; }
+template <> __device__ __forceinline__ float round_p_int8<__nv_bfloat16>(float p) {
+  return round_through<__nv_bfloat16>(p);
+}
+
+// Load 16 contiguous elements of T (16-byte aligned) as floats.
+template <typename T>
+__device__ __forceinline__ void load_16(const T* __restrict__ src, float* dst) {
+#pragma unroll
+  for (int j = 0; j < 16 / Vec<T>::kN; ++j) load_vec(src + j * Vec<T>::kN, dst + j * Vec<T>::kN);
+}
+
 }  // namespace dstorch

@@ -33,18 +33,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of the C entry points (csrc/common.cuh, DtypeCode)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-# C signatures: every entry point returns its launch's cudaGetLastError()
+# library (csrc/<library>.cu) -> {C entry point: argtypes}; every entry point
+# returns its launch's cudaGetLastError()
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "decode_attention": ("dstorch_decode_attention",
-                         [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _P]),
-    "flash_attention_fwd": ("dstorch_flash_attention_fwd",
-                            [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                             _F, _I, _P]),
-    "paged_decode_attention": ("dstorch_paged_decode_attention",
-                               [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _I, _F, _P]),
+    "decode_attention": {
+        "dstorch_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     _I, _I, _F, _P],
+        "dstorch_decode_attention_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _I, _F, _P]},
+    "flash_attention_fwd": {
+        "dstorch_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _F, _I, _P]},
+    "paged_decode_attention": {
+        "dstorch_paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
+                                           _I, _I, _I, _I, _I, _I, _I, _F,
+                                           _P],
+        "dstorch_paged_decode_attention_int8": [_I, _P, _P, _P, _P, _P, _P,
+                                                _P, _P, _P, _I, _I, _I, _I,
+                                                _I, _I, _I, _I, _F, _P]},
+    "int8_matmul": {
+        "dstorch_int8_matmul": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _P]},
 }
 
 _LOCK = threading.Lock()
@@ -130,21 +139,23 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             (path,) = build([name])
             lib = ctypes.CDLL(str(path))
-            symbol, argtypes = SIGNATURES[name]
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for symbol, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
 
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call kernel ``name``'s C entry point on ``device`` and PyTorch's
-    current stream there (appended as the last argument); raise if the
-    launch reported an error."""
-    symbol, _ = SIGNATURES[name]
+def launch(name: str, device: torch.device, *args,
+           symbol: str = None) -> None:
+    """Call library ``name``'s C entry point ``symbol`` (default
+    ``dstorch_<name>``) on ``device`` and PyTorch's current stream there
+    (appended as the last argument); raise if the launch reported an
+    error."""
+    symbol = symbol or f"dstorch_{name}"
     fn = getattr(load(name), symbol)
     with torch.cuda.device(device):  # the runtime launches on its device
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
-        raise KernelLaunchError(f"{name}: CUDA error {err} at launch")
+        raise KernelLaunchError(f"{symbol}: CUDA error {err} at launch")

@@ -13,7 +13,10 @@ slots mapping it plus the trie nodes caching it. Admission maps a trie
 hit's pages for free and prefills only the uncached suffix; the first
 write into a shared page forks it (copy-on-write).
 
-Storage is ``KVCacheSpec.paged_cache``: k/v ``(L, P, KV, page_size, D)``.
+Storage is ``KVCacheSpec.paged_cache``: k/v ``(L, P, KV, page_size, D)``,
+plus fp32 scale pages ``k_scale``/``v_scale`` ``(L, P, KV, page_size)``
+for an int8 KV cache; every page operation (CoW copy, admission and chunk
+scatter, dense view) carries every leaf.
 Decode reads the pages in place: :meth:`run_decode` calls the model's
 ``decode_paged``, which writes the step's rows through the table and
 attends through ``paged_decode_attention`` (the CUDA kernel for a pool on
@@ -220,9 +223,10 @@ class PagedKVPool(SlotPool):
         super().reset_row(slot)
 
     def _copy_page(self, src: int, dst: int) -> None:
-        """One page-to-page K/V copy across all layers (the CoW fork)."""
-        for key in ("k", "v"):
-            self.cache[key][:, dst] = self.cache[key][:, src]
+        """One page-to-page copy of every cache leaf across all layers (the
+        CoW fork; an int8 cache's scale pages go with their rows)."""
+        for leaf in self.cache.values():
+            leaf[:, dst] = leaf[:, src]
 
     def ensure_writable(self, slot: int, start: int, end: int) -> int:
         """Make positions ``[start, end)`` of ``slot`` safely writable
@@ -313,16 +317,16 @@ class PagedKVPool(SlotPool):
     def _scatter_cols(self, dense: Dict[str, Any], tables, positions) -> None:
         """Write the dense view's rows at ``positions`` ((B, W) absolute,
         aligned with the dense batch) back into the pages through
-        ``tables`` ((B, pages_per_slot)); sentinel entries and positions
-        past the table are dropped."""
+        ``tables`` ((B, pages_per_slot)), every leaf (scales too);
+        sentinel entries and positions past the table are dropped."""
         B, W = positions.shape
         sel, page, offs = page_writes(positions, tables, self.num_pages,
                                       self.page_size)
         rows = torch.arange(B, device=positions.device)[:, None] \
             .expand(B, W).reshape(-1)[sel]
         cols = positions.reshape(-1)[sel]
-        for key in ("k", "v"):
-            self.cache[key][:, page, :, offs] = dense[key][:, rows, :, cols]
+        for key, leaf in self.cache.items():
+            leaf[:, page, :, offs] = dense[key][:, rows, :, cols]
 
     def run_decode(self, engine: Any, tokens, pos) -> torch.Tensor:
         """One decode step for every slot over the pages (updated in
@@ -386,6 +390,13 @@ class PagedKVPool(SlotPool):
     # ------------------------------------------------------------------
     # audit / stats
     # ------------------------------------------------------------------
+    @property
+    def page_nbytes(self) -> int:
+        """Bytes one page occupies across every cache leaf and layer (an
+        int8 cache's scale pages included)."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for leaf in self.cache.values()) // self.num_pages
+
     def page_stats(self) -> dict:
         free = len(self._free_pages)
         stats = {"pages_total": self.num_pages,
@@ -394,7 +405,8 @@ class PagedKVPool(SlotPool):
                  "refcounted_pages": int(np.sum(self.page_refs > 1)),
                  "cow_copies": self.cow_copies,
                  "page_evictions": self.page_evictions,
-                 "page_size": self.page_size}
+                 "page_size": self.page_size,
+                 "page_bytes": self.page_nbytes}
         if self.prefix is not None:
             stats.update(
                 prefix_hits=self.prefix.hits,

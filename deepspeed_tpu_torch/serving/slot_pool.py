@@ -1,11 +1,12 @@
 """Fixed-shape slot pool of per-slot KV cache (port of
 ``deepspeed_tpu/serving/slot_pool.py``).
 
-The pool owns ONE stacked cache, k/v ``(L, num_slots, KV, S, D)``, allocated
-through the model's :class:`~deepspeed_tpu_torch.models.transformer_lm.
-KVCacheSpec` with batch = slots. Continuous batching never changes a shape:
-admitting, retiring and reusing slots move data inside the same tensors,
-and dead slots ride the decode step as masked padding.
+The pool owns ONE stacked cache, k/v ``(L, num_slots, KV, S, D)`` (int8 with
+fp32 ``k_scale``/``v_scale`` ``(L, num_slots, KV, S)`` for an int8 KV cache),
+allocated through the model's ``KVCacheSpec`` with batch = slots.
+Continuous batching never changes a shape: admitting, retiring and reusing
+slots move data inside the same tensors, and dead slots ride the decode
+step as masked padding.
 
 Admission writes IN PLACE: :meth:`prefill_target` hands the engine this
 pool's cache and the slots' rows, so the prefill writes the prompt's K/V

@@ -8,7 +8,15 @@ Tolerances: fp32 inputs differ from the plain version only in summation
 order (1e-4 absolute on unit-scale outputs); bf16/fp16 add the rounding of
 p to the input dtype before the PV product and of the output (3e-2 on
 outputs below 4 in magnitude). lse is fp32 in every case (1e-3). The paged
-kernel takes the same tolerances as the decode kernel it generalizes.
+kernel takes the same tolerances as the decode kernel it generalizes, and
+the int8-cache variants the same again (their scaled probabilities are
+rounded to bf16 for bf16 queries only).
+
+int8_matmul: the kernel and the plain version both round x to bf16 and sum
+exact bf16 x int8 products in fp32, so an fp32 output differs in summation
+order only (1e-5, relative to each output and, for outputs that cancel,
+to the largest one); a bf16/fp16 output adds one rounding of the output
+(2^-9 / 2^-11 relative, allowed twice).
 """
 
 import math
@@ -22,6 +30,8 @@ from deepspeed_tpu_torch.ops.attention.flash_attention import (
     flash_attention, mha_reference)
 from deepspeed_tpu_torch.ops.attention.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
+from deepspeed_tpu_torch.ops.quantization.int8_matmul import (
+    int8_matmul, int8_matmul_reference)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
@@ -128,3 +138,104 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(gen):
                                pages, pages, table, starts)
     with pytest.raises(ValueError, match="int32"):
         paged_decode_attention(q[:, :1], pages, pages, table.long(), starts)
+    # an int8 cache needs int8 rows and fp32 scales; a float cache no scales
+    scales = torch.ones(1, 2, 8, device="cuda")
+    with pytest.raises(ValueError, match="dtypes"):
+        decode_attention(q[:, 0], cache, cache, starts + 4, k_scale=scales,
+                         v_scale=scales)
+    with pytest.raises(ValueError, match="int8 weights"):
+        int8_matmul(q[0, 0], torch.zeros(3, 64, device="cuda"),
+                    torch.ones(3, device="cuda"))
+
+
+def _int8_rows(gen, *shape):
+    """Random int8 rows with fp32 per-row scales around 0.01 (values of
+    order 1, as a quantized unit-variance cache holds)."""
+    q8 = torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sc = torch.rand(shape[:-1], generator=gen, device="cuda") * 0.01 + 0.005
+    return q8, sc
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("alibi", [False, True])
+def test_int8_decode_kernel_matches_plain(gen, dtype, D, H, KV, alibi):
+    B, S = 5, 300
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+    k8, ks = _int8_rows(gen, B, KV, S, D)
+    v8, vs = _int8_rows(gen, B, KV, S, D)
+    lengths = torch.tensor([0, 1, 77, 299, 300], dtype=torch.int32,
+                           device="cuda")
+    slopes = alibi_slopes(H).cuda() if alibi else None
+    before = decode_attention.int8_launches
+    got = decode_attention(q, k8, v8, lengths, alibi_slopes=slopes,
+                           k_scale=ks, v_scale=vs)
+    want = decode_attention_reference(q, k8, v8, lengths, 1 / math.sqrt(D),
+                                      slopes, ks, vs)
+    torch.cuda.synchronize()
+    assert decode_attention.int8_launches == before + 1
+    assert torch.isfinite(got.float()).all() and (got[0] == 0).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 2, 5, 8])
+@pytest.mark.parametrize("H,KV,alibi", [(4, 4, False), (8, 2, False),
+                                        (4, 4, True)])
+def test_int8_paged_kernel_matches_plain(gen, dtype, D, T, H, KV, alibi):
+    """The paged test's layout (shuffled ids, sentinels, a slot at length
+    0, one running to its table's end) over int8 pages with scale pages."""
+    B, ps, max_pages = 6, 16, 8
+    P = B * max_pages + 3
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+    k8, ks = _int8_rows(gen, P, KV, ps, D)
+    v8, vs = _int8_rows(gen, P, KV, ps, D)
+    starts = torch.tensor([0, 15, 16, 17, 77, max_pages * ps - T],
+                          dtype=torch.int32, device="cuda")
+    perm = torch.randperm(P, generator=gen, device="cuda")[:B * max_pages]
+    table = perm.reshape(B, max_pages).to(torch.int32)
+    live = (starts.long() + T + ps - 1) // ps
+    dead = torch.arange(max_pages, device="cuda")[None] >= live[:, None]
+    table = table.masked_fill(dead, P).contiguous()
+    slopes = alibi_slopes(H).cuda() if alibi else None
+    before = paged_decode_attention.int8_launches
+    got = paged_decode_attention(q, k8, v8, table, starts,
+                                 alibi_slopes=slopes, k_scale_pages=ks,
+                                 v_scale_pages=vs)
+    want = paged_decode_attention_reference(q, k8, v8, table, starts,
+                                            1 / math.sqrt(D), slopes, ks, vs)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.int8_launches == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 64, 300])
+@pytest.mark.parametrize("K,N", [(2048, 256), (64, 1), (40, 200),
+                                 (5632, 2048), (1000, 77)])
+@pytest.mark.parametrize("xdtype,odtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.float16, torch.float32), (torch.bfloat16, torch.float16)])
+def test_int8_matmul_matches_plain(gen, M, K, N, xdtype, odtype):
+    """Decode (M <= 16, K % 16 == 0: the GEMV) and prefill (the tiled
+    kernel, also every K % 16 != 0) at odd and TinyLlama shapes."""
+    x = torch.randn(M, K, generator=gen, device="cuda").to(xdtype)
+    w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=gen, device="cuda") * 1e-3 + 1e-4
+    before = int8_matmul.launches
+    got = int8_matmul(x, w, s, out_dtype=odtype)
+    want = int8_matmul_reference(x, w, s, torch.float32)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1 and got.dtype == odtype
+    # the output rounding, relative (bf16 2^-9, fp16 2^-11, with a factor
+    # 2); summation order, absolute against the largest output
+    rtol = {torch.float32: 1e-5, torch.bfloat16: 2 ** -8,
+            torch.float16: 2 ** -10}[odtype]
+    torch.testing.assert_close(got.float(), want, rtol=rtol,
+                               atol=1e-5 * float(want.abs().max()))

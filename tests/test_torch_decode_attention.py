@@ -56,6 +56,15 @@ def test_free_slot_row_is_finite_and_int8_is_a_later_slice():
     out = decode_attention(q, cache, cache, torch.tensor([0, 1],
                                                          dtype=torch.int32))
     assert torch.isfinite(out).all() and (out[0] == 0).all()
-    with pytest.raises(NotImplementedError, match="int8"):
-        decode_attention(q, cache, cache, 1, k_scale=torch.ones(2, 2, S),
-                         v_scale=torch.ones(2, 2, S))
+    # the int8 cache is ported: unit scales over int8 rows equal the plain
+    # attention over the same values, a free row stays 0, and one scale
+    # tensor without the other is refused
+    c8 = (cache * 20).round().clamp(-127, 127).to(torch.int8)
+    ones = torch.ones(2, 2, S)
+    lengths = torch.tensor([0, 5], dtype=torch.int32)
+    got = decode_attention(q, c8, c8, lengths, k_scale=ones, v_scale=ones)
+    want = decode_attention(q, c8.float(), c8.float(), lengths)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert (got[0] == 0).all()
+    with pytest.raises(ValueError, match="both"):
+        decode_attention(q, c8, c8, 1, k_scale=ones)

@@ -20,6 +20,7 @@ from deepspeed_tpu_torch.ops.attention.flash_attention import \
     flash_attention
 from deepspeed_tpu_torch.ops.attention.paged_attention import \
     paged_decode_attention
+from deepspeed_tpu_torch.ops.quantization import QuantDense, int8_matmul
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "deepspeed_tpu"}
@@ -94,8 +95,19 @@ def test_cpu_tensors_never_reach_the_kernel_builder(monkeypatch):
     pages = torch.randn(3, 2, 4, 32)
     paged_decode_attention(q[:, :2], pages, pages,
                            torch.tensor([[2, 0, 3]], dtype=torch.int32), 5)
+    # the int8 variants and the int8 matmul, directly and through the layer
+    c8, sc = cache.to(torch.int8), torch.ones(1, 2, 8)
+    decode_attention(q[:, 0], c8, c8, 4, k_scale=sc, v_scale=sc)
+    p8, psc = pages.to(torch.int8), torch.ones(3, 2, 4)
+    paged_decode_attention(q[:, :2], p8, p8,
+                           torch.tensor([[2, 0, 3]], dtype=torch.int32), 5,
+                           k_scale_pages=psc, v_scale_pages=psc)
+    int8_matmul(q[0], torch.ones(5, 32, dtype=torch.int8), torch.ones(5))
+    QuantDense(32, 5)(q)
     assert flash_attention.launches == 0 and decode_attention.launches == 0
-    assert paged_decode_attention.launches == 0
+    assert paged_decode_attention.launches == 0 and int8_matmul.launches == 0
+    assert decode_attention.int8_launches == 0
+    assert paged_decode_attention.int8_launches == 0
 
 
 def test_builder_targets_sm90a_in_the_ignored_build_dir(monkeypatch,

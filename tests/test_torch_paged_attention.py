@@ -71,13 +71,20 @@ def test_plain_version_matches_jax_kernel(T, H, KV, alibi):
 
 
 def test_int8_pages_are_a_later_slice():
+    """Ported since: int8 pages with scale pages equal plain pages holding
+    the dequantized rows; scale pages of the wrong shape are refused."""
     q = torch.randn(1, 1, 2, 8)
-    pages = torch.randn(2, 2, 4, 8)
-    table = torch.zeros(1, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="int8"):
-        paged_decode_attention(q, pages, pages, table, 0,
-                               k_scale_pages=torch.ones(2, 2, 4),
-                               v_scale_pages=torch.ones(2, 2, 4))
+    p8 = torch.randint(-127, 128, (2, 2, 4, 8), dtype=torch.int8)
+    sc = torch.rand(2, 2, 4) + 0.5
+    table = torch.tensor([[1, 0]], dtype=torch.int32)
+    got = paged_decode_attention(q, p8, p8, table, 5, k_scale_pages=sc,
+                                 v_scale_pages=sc)
+    deq = p8.float() * sc[..., None]
+    want = paged_decode_attention(q, deq, deq, table, 5)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="scale pages"):
+        paged_decode_attention(q, p8, p8, table, 0, k_scale_pages=sc[:1],
+                               v_scale_pages=sc[:1])
 
 
 TINY = dict(vocab_size=64, max_seq_len=64, n_embd=32, n_layer=2, n_head=4,

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+import deepspeed_tpu_torch as dst
 from deepspeed_tpu.models import transformer_lm as J
 from deepspeed_tpu_torch.checkpoint.flax_import import state_dict_from_flax
 from deepspeed_tpu_torch.models import transformer_lm as P
@@ -122,9 +123,14 @@ def test_later_slices_raise():
     cfg = P.transformer_config("gpt2", vocab_size=64, max_seq_len=64,
                                n_embd=32, n_layer=1, n_head=4,
                                dtype=torch.float32)
-    for bad in (dict(int8_weights=True), dict(kv_cache_quant=True)):
-        with pytest.raises(NotImplementedError):
-            P.TransformerLM(dataclasses.replace(cfg, **bad))
+    # int8 weights and the int8 KV cache are ported; the JAX engine's int8
+    # storage tier (here: fp32 with quantization on) has no kernel and raises
+    for ported in (dict(int8_weights=True), dict(kv_cache_quant=True)):
+        P.TransformerLM(dataclasses.replace(cfg, **ported))
+    with pytest.raises(NotImplementedError, match="storage tier"):
+        dst.init_inference(P.TransformerLM(cfg), device="cpu",
+                           config={"dtype": "float32",
+                                   "quant": {"enabled": True}})
     pm = P.TransformerLM(cfg)
     _, cache = pm.prefill(torch.zeros(1, 4, dtype=torch.long))
     # multi-token decode is ported: two tokens at once equal two steps

@@ -49,6 +49,28 @@ Phases, in order; any failure exits non-zero:
             time, the same comparison over a bf16 cache, and the error
             against the unquantized bf16 model.
 
+8.  train_kernels  the flash-attention backward kernels (dq, dkv) at GPT-2
+            medium's training shape (B=10, H=16, D=64, T=1024, bf16, causal),
+            a non-causal case and a ragged T (with the flash forward's out
+            and lse at the same shapes), and the ln_linear forward and
+            backward-dx kernels at its qkv and fc shapes (M=10240, C=1024,
+            N=3072 / 4096) and a ragged M; each held against its plain
+            version and timed beside its bound and a library yardstick.
+9.  train   GPT-2 medium at its published widths (random weights from the
+            seed) at the JAX bench's flagship configuration through
+            ``initialize`` and ``train_batch``: bf16 with fp32 master
+            weights, ZeRO stage 2, Adam (lr 3e-4, weight decay 0.1),
+            clipping 1.0, micro-batch 10 x gas 16 x seq 1024,
+            ``remat_policy="dots"``; two warm-up steps, then timed steps on
+            fixed batches cycled. The loss is finite and ends below its
+            value at initialisation, and the flash forward, dq and dkv
+            kernels each run 24 times per micro-batch (no forward recompute).
+10. train_fused  the same with ``fused_ln_linear=True``: the ln_linear
+            forward and backward-dx kernels also run 48 times a micro-batch.
+11. reference_train  one flagship micro-batch's loss and every parameter's
+            gradient with the kernels on (flash; flash + ln_linear) against
+            the plain arm (einsum attention, unfused), same weights.
+
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -104,6 +126,16 @@ LSE_ATOL = 1e-3
 # limit leaves 1.5x over that floor; the int8 weights themselves move the
 # logits by 10% from the bf16 model's, and a wrong kernel by order 1.
 LOGITS_REL_TOL = 5e-2
+# reference_train: one GPT-2 medium micro-batch in bf16, the kernel arms'
+# loss and each parameter's gradient (relative L2 norm) against the plain
+# arm's on the same weights. Both round to bf16 (2^-9 relative), at other
+# places (the plain arm rounds the score and probability products, the
+# flash kernels p and their outputs), over 24 layers: on the H100 the
+# loss agreed within 3.2e-5 and the worst gradient (wte) within 4.2e-3.
+# The limits leave 30x and 5x; a wrong mask, scale, delta or head mapping
+# moves gradients by order 1.
+TRAIN_LOSS_TOL = 1e-3
+TRAIN_GRAD_TOL = 2e-2
 
 # bf16 decode and paged kernel times recorded in PERF.md (H100, 700 W), for
 # the side-by-side check that the int8 variants left the bf16 ones alone
@@ -128,6 +160,18 @@ KERNELS = {
     "paged_decode_attention_int8": dict(
         source="deepspeed_tpu_torch/ops/csrc/paged_decode_attention.cu",
         replaces="deepspeed_tpu/ops/attention/paged_attention.py:125"),
+    "flash_attention_dq": dict(
+        source="deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        replaces="deepspeed_tpu/ops/attention/flash_attention.py:210"),
+    "flash_attention_dkv": dict(
+        source="deepspeed_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+        replaces="deepspeed_tpu/ops/attention/flash_attention.py:253"),
+    "ln_linear_fwd": dict(
+        source="deepspeed_tpu_torch/ops/csrc/ln_linear.cu",
+        replaces="deepspeed_tpu/ops/transformer/ln_linear.py:52"),
+    "ln_linear_bwd_dx": dict(
+        source="deepspeed_tpu_torch/ops/csrc/ln_linear.cu",
+        replaces="deepspeed_tpu/ops/transformer/ln_linear.py:75"),
 }
 PAGED_KV = {"page_size": 64, "num_pages": 128, "prefix_cache": True,
             "kernel": "auto"}
@@ -224,7 +268,11 @@ def _counters() -> dict:
         flash_attention
     from deepspeed_tpu_torch.ops.attention.paged_attention import \
         paged_decode_attention
+    from deepspeed_tpu_torch.ops.attention.flash_attention import (
+        flash_attention_dkv, flash_attention_dq)
     from deepspeed_tpu_torch.ops.quantization.int8_matmul import int8_matmul
+    from deepspeed_tpu_torch.ops.transformer.ln_linear import (
+        ln_linear_bwd_dx, ln_linear_fwd)
 
     return {"decode_attention": (decode_attention, "launches"),
             "flash_attention_fwd": (flash_attention, "launches"),
@@ -232,7 +280,11 @@ def _counters() -> dict:
             "int8_matmul": (int8_matmul, "launches"),
             "decode_attention_int8": (decode_attention, "int8_launches"),
             "paged_decode_attention_int8": (paged_decode_attention,
-                                            "int8_launches")}
+                                            "int8_launches"),
+            "flash_attention_dq": (flash_attention_dq, "launches"),
+            "flash_attention_dkv": (flash_attention_dkv, "launches"),
+            "ln_linear_fwd": (ln_linear_fwd, "launches"),
+            "ln_linear_bwd_dx": (ln_linear_bwd_dx, "launches")}
 
 
 def reset_launches() -> None:
@@ -1176,6 +1228,360 @@ def phase_reference_int8(srv_int8, bf16_ref, reqs, contiguous_reqs,
     return worst
 
 
+# ---------------------------------------------------------------------------
+# training
+# GPT-2 medium (openai-community/gpt2-medium config.json; the JAX bench's
+# flagship, bench.py:188-208): vocab 50257, 1024 positions, 1024/24/16
+GPT2_MEDIUM = dict(vocab_size=50257, n_positions=1024, n_embd=1024,
+                   n_layer=24, n_head=16)
+MICRO_BS, GAS, SEQ = 10, 16, 1024
+
+
+def flagship_config(gas: int) -> dict:
+    """bench.py's DeepSpeed config, with ``gas`` micro-batches a step."""
+    return {"train_micro_batch_size_per_gpu": MICRO_BS,
+            "gradient_accumulation_steps": gas, "bf16": {"enabled": True},
+            "zero_optimization": {"stage": 2},
+            "optimizer": {"type": "Adam",
+                          "params": {"lr": 3e-4, "weight_decay": 0.1}},
+            "gradient_clipping": 1.0, "steps_per_print": 1000000}
+
+
+def compare_rows(got, want, what: str) -> tuple:
+    """The row rule for gradients: every row (last axis) within ROW_REL_TOL
+    of the plain row's norm, the norm floored at 1% of the median row's
+    (a row whose exact value vanishes, as the first query's dq under causal
+    attention with one key, holds only rounding noise on both sides).
+    Returns (max |err|, max row relative error)."""
+    got, want = got.float(), want.float()
+    norms = want.norm(dim=-1)
+    floor = 1e-2 * norms.flatten().median().clamp_min(1e-30)
+    err = (got - want).abs().max().item()
+    rel = ((got - want).norm(dim=-1) / norms.clamp_min(floor)).max().item()
+    assert math.isfinite(rel) and rel <= ROW_REL_TOL, \
+        f"{what}: max row rel err {rel} > {ROW_REL_TOL}"
+    return err, rel
+
+
+def flash_backward_kernels(gen: torch.Generator) -> tuple:
+    from deepspeed_tpu_torch.ops.attention.flash_attention import (
+        attention_delta, flash_attention, flash_attention_dkv,
+        flash_attention_dq, flash_dkv_reference, flash_dq_reference,
+        mha_reference)
+
+    dev, bf16 = "cuda", torch.bfloat16
+    H, D = 16, 64
+    scale = 1.0 / math.sqrt(D)
+    stats = {"fwd": [0.0, 0.0], "dq": [0.0, 0.0], "dkv": [0.0, 0.0]}
+    lse_err = 0.0
+
+    def inputs(B, T, S):
+        q, do = (torch.randn(B, T, H, D, generator=gen, device=dev).to(bf16)
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, H, D, generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+        return q, k, v, do
+
+    def check(q, k, v, do, causal, label):
+        nonlocal lse_err
+        out, lse = flash_attention(q, k, v, causal=causal)
+        # the forward at the training shapes, whose (out, lse) the
+        # backward kernels and their plain versions both take
+        ref_out, ref_lse = mha_reference(q, k, v, causal=causal)
+        e, r = compare_rows(out, ref_out, f"flash forward kernel vs plain "
+                            f"({label})")
+        stats["fwd"] = [max(stats["fwd"][0], e), max(stats["fwd"][1], r)]
+        le = (lse - ref_lse).abs().max().item()
+        assert math.isfinite(le) and le <= LSE_ATOL, \
+            f"flash lse vs plain ({label}): max |err| {le} > {LSE_ATOL}"
+        lse_err = max(lse_err, le)
+        del ref_out, ref_lse
+        delta = attention_delta(out, do)
+        args = (q, k, v, do, lse, delta, causal, scale)
+        for name, got, want in (
+                ("dq", (flash_attention_dq(*args),),
+                 (flash_dq_reference(*args),)),
+                ("dkv", flash_attention_dkv(*args),
+                 flash_dkv_reference(*args))):
+            for g, w in zip(got, want):
+                e, r = compare_rows(g, w, f"flash {name} kernel vs plain "
+                                    f"({label})")
+                stats[name] = [max(stats[name][0], e), max(stats[name][1], r)]
+        return args
+
+    check(*inputs(4, 512, 512), False, "non-causal T=S=512")
+    check(*inputs(2, 1000, 1000), True, "causal ragged T=1000")
+    B, T = MICRO_BS, SEQ
+    q, k, v, do = inputs(B, T, T)
+    args = check(q, k, v, do, True, f"causal B={B} T={T}")
+    ms_dq = cuda_ms(lambda: flash_attention_dq(*args), reps=3)
+    ms_dkv = cuda_ms(lambda: flash_attention_dkv(*args), reps=3)
+    plain_dq = cuda_ms(lambda: flash_dq_reference(*args), reps=1)
+    plain_dkv = cuda_ms(lambda: flash_dkv_reference(*args), reps=1)
+    # the library yardstick: SDPA forward and forward + backward through
+    # autograd (one backward computes dq, dk and dv together), each captured
+    # whole in a CUDA graph as the kernels are; its backward is the
+    # difference
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+        sdpa_fwd(), (qt, kt, vt), dot), reps=3)
+    lib_bwd = lib_fwd_bwd - cuda_ms(sdpa_fwd, reps=3)
+    tok = B * T * H * D * 2                 # one bf16 (B, T, H, D) tensor
+    stat_bytes = B * H * T * 4
+    pairs = B * H * T * (T + 1) // 2        # causal (query, key) pairs
+    out = {
+        "flash_attention_dq": dict(
+            max_abs_err=stats["dq"][0], ms=ms_dq, plain_ms=plain_dq,
+            library_ms=lib_bwd,
+            **bound(5 * tok + 2 * stat_bytes, 3 * 2 * D * pairs)),
+        "flash_attention_dkv": dict(
+            max_abs_err=stats["dkv"][0], ms=ms_dkv, plain_ms=plain_dkv,
+            library_ms=lib_bwd,
+            **bound(6 * tok + 2 * stat_bytes, 4 * 2 * D * pairs)),
+    }
+    log(f"[train_kernels] flash_attention_fwd at the same three shapes: "
+        f"max|err| {stats['fwd'][0]:.3g}, row rel {stats['fwd'][1]:.3g} "
+        f"(tol {ROW_REL_TOL}), lse max|err| {lse_err:.3g} (tol {LSE_ATOL})")
+    for name in ("dq", "dkv"):
+        r = out[f"flash_attention_{name}"]
+        log(f"[train_kernels] flash_attention_{name} B={B} H={H} D={D} "
+            f"T={T} causal (checked also non-causal 512, causal 1000): "
+            f"max|err| {stats[name][0]:.3g}, row rel {stats[name][1]:.3g} "
+            f"(tol {ROW_REL_TOL}); kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    ms_fwd = cuda_ms(lambda: flash_attention(q, k, v), reps=3)
+    log(f"[train_kernels] SDPA backward (dq, dk, dv in one call) "
+        f"{lib_bwd:.4f} ms; SDPA forward + backward {lib_fwd_bwd:.4f} ms; "
+        f"port forward {ms_fwd:.4f} + dq + dkv = "
+        f"{ms_fwd + ms_dq + ms_dkv:.4f} ms")
+    return out, stats["fwd"][0]
+
+
+def ln_linear_kernels(gen: torch.Generator) -> dict:
+    from deepspeed_tpu_torch.ops.transformer.ln_linear import (
+        BLOCK_M, ln_linear_bwd_dx, ln_linear_bwd_dx_reference, ln_linear_fwd,
+        ln_linear_fwd_reference)
+
+    dev, bf16 = "cuda", torch.bfloat16
+    C = GPT2_MEDIUM["n_embd"]
+    M = MICRO_BS * SEQ
+    stats = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
+    times = {}
+
+    def inputs(m, n):
+        x = torch.randn(m, C, generator=gen, device=dev).to(bf16)
+        g = (1 + 0.1 * torch.randn(C, generator=gen, device=dev)).to(bf16)
+        b = (0.1 * torch.randn(C, generator=gen, device=dev)).to(bf16)
+        w = (torch.randn(n, C, generator=gen, device=dev) * 0.02).to(bf16)
+        bias = (0.02 * torch.randn(n, generator=gen, device=dev)).to(bf16)
+        dy = torch.randn(m, n, generator=gen, device=dev).to(bf16)
+        return x, g, b, w, bias, dy
+
+    def track(key, pair):
+        stats[key] = [max(a, b) for a, b in zip(stats[key], pair)]
+
+    for label, m, n in (("qkv", M, 3 * C), ("fc", M, 4 * C),
+                        ("ragged", 1000, 3 * C)):
+        x, g, b, w, bias, dy = inputs(m, n)
+        y, mean, rstd = ln_linear_fwd(x, g, b, w, bias)
+        ry, rmean, rrstd = ln_linear_fwd_reference(x, g, b, w, bias, 1e-5)
+        track("fwd", compare_rows(y, ry, f"ln_linear_fwd ({label})"))
+        stat_err = max((mean - rmean).abs().max().item(),
+                       ((rstd - rrstd) / rrstd).abs().max().item())
+        assert stat_err <= 1e-4, f"ln_linear stats ({label}): {stat_err}"
+        dx, dg, db = ln_linear_bwd_dx(dy, w, x, g, mean, rstd)
+        rdx, rdg, rdb = ln_linear_bwd_dx_reference(dy, w, x, g, mean, rstd)
+        track("bwd", compare_rows(dx, rdx, f"ln_linear_bwd_dx ({label})"))
+        for got, want in ((dg.sum(0), rdg.sum(0)), (db.sum(0), rdb.sum(0))):
+            track("bwd", compare_rows(got[None], want[None],
+                                      f"ln_linear dgamma/dbeta ({label})"))
+        if label == "ragged":
+            continue
+        xg = x.detach().requires_grad_()
+        gg, bg = (t.detach().requires_grad_() for t in (g, b))
+
+        def lib_fwd(x, g, b):
+            return F.linear(F.layer_norm(x, (C,), g, b, 1e-5), w, bias)
+
+        tiles = -(-m // BLOCK_M)
+        times[label] = t = dict(
+            fwd=cuda_ms(lambda: ln_linear_fwd(x, g, b, w, bias), reps=3),
+            fwd_plain=cuda_ms(lambda: ln_linear_fwd_reference(
+                x, g, b, w, bias, 1e-5), reps=1),
+            fwd_lib=cuda_ms(lambda: lib_fwd(x, g, b), reps=3),
+            bwd=cuda_ms(lambda: ln_linear_bwd_dx(dy, w, x, g, mean, rstd),
+                        reps=3),
+            bwd_plain=cuda_ms(lambda: ln_linear_bwd_dx_reference(
+                dy, w, x, g, mean, rstd), reps=1),
+            fwd_bound=bound(2 * (m * C + n * C + n + 2 * C + m * n) + 8 * m,
+                            2 * m * C * n),
+            bwd_bound=bound(2 * (m * n + n * C + 2 * m * C + C) + 8 * m
+                            + 8 * tiles * C, 2 * m * C * n))
+        # the autograd of the two for dx, dgamma and dbeta (the kernel's
+        # outputs), captured with its forward; the forward's time taken off
+        t["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(
+            lib_fwd(xg, gg, bg), (xg, gg, bg), dy), reps=3) - t["fwd_lib"]
+        log(f"[train_kernels] ln_linear {label} M={m} C={C} N={n}: forward "
+            f"kernel {t['fwd']:.4f} ms, plain {t['fwd_plain']:.4f} ms, "
+            f"F.layer_norm + F.linear {t['fwd_lib']:.4f} ms, bound "
+            f"{t['fwd_bound']['bound_ms']:.4f} ms "
+            f"({t['fwd_bound']['bound_by']}); backward-dx kernel "
+            f"{t['bwd']:.4f} ms, plain {t['bwd_plain']:.4f} ms, autograd of "
+            f"the two {t['bwd_lib']:.4f} ms, bound "
+            f"{t['bwd_bound']['bound_ms']:.4f} ms")
+    log(f"[train_kernels] ln_linear max|err| forward {stats['fwd'][0]:.3g} "
+        f"row rel {stats['fwd'][1]:.3g}; backward-dx {stats['bwd'][0]:.3g} "
+        f"row rel {stats['bwd'][1]:.3g} (tol {ROW_REL_TOL}); qkv, fc and "
+        f"ragged M=1000")
+    qkv = times["qkv"]
+    return {"ln_linear_fwd": dict(
+                max_abs_err=stats["fwd"][0], ms=qkv["fwd"],
+                plain_ms=qkv["fwd_plain"], library_ms=qkv["fwd_lib"],
+                **qkv["fwd_bound"]),
+            "ln_linear_bwd_dx": dict(
+                max_abs_err=stats["bwd"][0], ms=qkv["bwd"],
+                plain_ms=qkv["bwd_plain"], library_ms=qkv["bwd_lib"],
+                **qkv["bwd_bound"])}
+
+
+def phase_train_kernels(gen: torch.Generator, results: dict) -> None:
+    """Adds the training kernels' rows to ``results``; the flash
+    forward's max |err| becomes the largest over its serving and training
+    shapes."""
+    flash, fwd_err = flash_backward_kernels(gen)
+    results.update(flash)
+    fwd = results["flash_attention_fwd"]
+    fwd["max_abs_err"] = max(fwd["max_abs_err"], fwd_err)
+    results.update(ln_linear_kernels(gen))
+    torch.cuda.empty_cache()
+    return results
+
+
+def gpt2_medium(seed: int, device: str = "cuda", **overrides):
+    """GPT-2 medium at its published widths with the flagship's switches
+    (bf16, ``remat_policy="dots"``), fp32 random weights from ``seed`` as
+    a fresh model's; ``overrides`` replace config fields (a rehearsal
+    narrows the widths)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config(**{**GPT2_MEDIUM, "dtype": torch.bfloat16,
+                        "remat": True, "remat_policy": "dots",
+                        "use_flash_attention": True, **overrides})
+    model = GPT2LMHeadModel(cfg, device=device, param_dtype=torch.float32)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def token_batches(seed: int, rows: int, vocab: int, seq: int = SEQ):
+    """Two fixed batches of Zipf-distributed tokens (text's skew: a model
+    learns their frequencies within steps), cycled by the train phases."""
+    rng = np.random.default_rng(seed)
+    return [{"input_ids": ((rng.zipf(1.2, (rows, seq)) - 1) % vocab
+                           ).astype(np.int32)} for _ in range(2)]
+
+
+def phase_train(model, seed: int, gas: int, steps: int, label: str,
+                device: str = "cuda") -> tuple:
+    """Two warm-up steps, then ``steps`` timed steps; returns (engine,
+    losses, launches). The second warm-up step keeps Adam's first steps out
+    of the timed ones: they move every weight by about lr at once, and at
+    width 1024 the loss rises after the second update before it falls, so
+    the last loss is held below the loss at initialisation."""
+    import deepspeed_tpu_torch as dst
+
+    cfg = model.config
+    engine, *_ = dst.initialize(model=model, config=flagship_config(gas),
+                                device=device)
+    batches = token_batches(seed, MICRO_BS * gas, cfg.vocab_size,
+                            cfg.n_positions)
+    warm = [float(engine.train_batch(batch=batches[i])) for i in (1, 0)]
+    sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    losses = [engine.train_batch(batch=batches[(i + 1) % 2])
+              for i in range(steps)]
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    losses = [float(x) for x in losses]
+    assert all(math.isfinite(x) for x in losses), f"{label}: losses {losses}"
+    # below the loss at initialisation (the first warm-up step), not the
+    # first timed step, which follows Adam's second update
+    assert losses[-1] < warm[0], \
+        f"{label}: loss did not fall: warm-up {warm}, then {losses}"
+    L, micros = cfg.n_layer, gas * steps
+    want = {"flash_attention_fwd": L * micros, "flash_attention_dq": L * micros,
+            "flash_attention_dkv": L * micros,
+            "ln_linear_fwd": 2 * L * micros if cfg.fused else 0,
+            "ln_linear_bwd_dx": 2 * L * micros if cfg.fused else 0}
+    got = {k: launches[k] for k in want}
+    assert got == want, f"{label}: launches {got}, want {want}"
+    tokens = micros * MICRO_BS * cfg.n_positions
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    log(f"[{label}] GPT-2 {cfg.n_embd}/{cfg.n_layer}/{cfg.n_head} vocab "
+        f"{cfg.vocab_size} seq {cfg.n_positions}, micro {MICRO_BS} x gas "
+        f"{gas}, fused_ln_linear={cfg.fused}, remat "
+        f"{cfg.remat_policy}: warm-up losses {[round(x, 4) for x in warm]}, "
+        f"then {steps} steps "
+        f"{[round(x, 4) for x in losses]}; {tokens} tokens in {wall:.2f} s: "
+        f"{tokens / wall:.1f} tokens/s, {wall / steps * 1e3:.1f} ms a step, "
+        f"{wall / micros * 1e3:.1f} ms a micro-batch; peak "
+        f"{peak / 2 ** 30:.2f} GiB allocated; launches {got}")
+    return engine, losses, launches
+
+
+def grads_of(model, batch) -> tuple:
+    model.zero_grad(set_to_none=True)
+    loss = model(batch)
+    loss.backward()
+    grads = {k: p.grad.float() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def phase_reference_train(seed: int, device: str = "cuda", **overrides):
+    """The kernel arms' loss and gradients against the plain arm's on one
+    flagship micro-batch, the same weights (``overrides`` as in
+    :func:`gpt2_medium`)."""
+    model = gpt2_medium(seed, device, **overrides).to(torch.bfloat16)
+    cfg = model.config
+    batch = token_batches(seed + 7, MICRO_BS, cfg.vocab_size,
+                          cfg.n_positions)[0]
+    arms = {}
+    for name, flash, fused in (("plain", False, False),
+                               ("flash", True, False),
+                               ("flash+ln_linear", True, True)):
+        model.replace_config(use_flash_attention=flash, fused_ln_linear=fused)
+        arms[name] = grads_of(model, batch)
+    plain_loss, plain_grads = arms.pop("plain")
+    for name, (loss, grads) in arms.items():
+        loss_rel = abs(loss - plain_loss) / abs(plain_loss)
+        rels = {k: ((g - plain_grads[k]).norm()
+                    / plain_grads[k].norm().clamp_min(1e-30)).item()
+                for k, g in grads.items()}
+        worst = max(rels, key=rels.get)
+        log(f"[reference_train] {name} vs plain: loss {loss:.6f} vs "
+            f"{plain_loss:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_TOL}); "
+            f"gradient rel norm err max {rels[worst]:.4g} ({worst}), median "
+            f"{float(np.median(list(rels.values()))):.4g} (tol "
+            f"{TRAIN_GRAD_TOL})")
+        assert loss_rel <= TRAIN_LOSS_TOL, f"reference_train {name}: loss"
+        assert rels[worst] <= TRAIN_GRAD_TOL, \
+            f"reference_train {name}: {worst} rel err {rels[worst]}"
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1193,6 +1599,7 @@ def main(argv=None) -> int:
         + ", ".join(f"{name} {results[name]['ms']:.4f} ms (recorded {ms})"
                     for name, ms in RECORDED_BF16_MS.items()))
     results.update(phase_int8_kernels(gen))
+    phase_train_kernels(gen, results)
     model = gpt2_small(args.seed)
     srv, reqs, launches = phase_serve(model, args.seed)
     ref = fp32_reference(model, srv.engine)
@@ -1222,14 +1629,28 @@ def main(argv=None) -> int:
                 key=lambda r: r.prompt_len)
     phase_reference_int8(qsrv, bf16_ref, (qhit, qcold), (creqs[0], creqs[-1]),
                          args.seed)
-    # each kernel's launches over the serving runs (each counted from 0
-    # just before its run and read just after)
+    del llama, bf16_ref, qsrv
+    torch.cuda.empty_cache()
+
+    _, _, train_launches = phase_train(gpt2_medium(args.seed), args.seed,
+                                       GAS, 3, "train")
+    runs.append(train_launches)
+    torch.cuda.empty_cache()
+    _, _, fused_launches = phase_train(
+        gpt2_medium(args.seed, fused_ln_linear=True), args.seed,
+        GAS, 2, "train_fused")
+    runs.append(fused_launches)
+    torch.cuda.empty_cache()
+    phase_reference_train(args.seed)
+    # each kernel's launches over the serving and training runs (each
+    # counted from 0 just before its run and read just after)
     kernels = [dict(name=name, route="cuda", **KERNELS[name],
                     launches=sum(run[name] for run in runs),
                     **results[name])
                for name in KERNELS]
     missing = [k["name"] for k in kernels if k["launches"] == 0]
-    assert not missing, f"kernels never launched while serving: {missing}"
+    assert not missing, f"kernels never launched on the main paths: " \
+        f"{missing}"
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,46 @@ __version__ = "0.1.0"
 
 from .accelerator import get_accelerator  # noqa: F401
 from .inference.engine import InferenceEngine  # noqa: F401
+from .runtime.config import DeepSpeedConfig  # noqa: F401
+from .runtime.engine import DeepSpeedEngine
 from .serving.engine import NOT_PORTED, ServingEngine
 from .utils.logging import log_dist, logger  # noqa: F401
+
+
+def initialize(args=None, model: Any = None, optimizer=None,
+               model_parameters: Any = None, training_data=None,
+               lr_scheduler=None, mpu=None, dist_init_required=None,
+               collate_fn=None, config: Union[str, Dict, None] = None,
+               config_params: Union[str, Dict, None] = None, loss_fn=None,
+               sharding_rules=None, mesh=None, device: Optional[Any] = None):
+    """Build the training engine; returns ``(engine, optimizer,
+    training_dataloader, lr_scheduler)`` as the JAX ``initialize`` does.
+
+    ``model`` is an ``nn.Module`` whose ``forward(batch)`` returns the loss
+    (``GPT2LMHeadModel``); the optimizer comes from the config's
+    ``optimizer`` block (the returned optimizer is its ``OptimizerDef``).
+    ``device`` defaults to ``cuda``. A client optimizer object, a pipeline
+    module and the hybrid engine are not ported and raise."""
+    if config is None and config_params is not None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    if config is None:
+        raise ValueError("DeepSpeed requires --deepspeed_config or config=")
+    if optimizer is not None:
+        raise NotImplementedError("a client optimizer object is not ported; "
+                                  "configure the optimizer block instead")
+    if type(model).__name__ == "PipelineModule":
+        raise NotImplementedError("pipeline parallelism is not ported to "
+                                  "the PyTorch/CUDA package yet")
+    engine = DeepSpeedEngine(model=model, loss_fn=loss_fn,
+                             model_parameters=model_parameters, config=config,
+                             training_data=training_data,
+                             lr_scheduler=lr_scheduler, collate_fn=collate_fn,
+                             device=device, sharding_rules=sharding_rules,
+                             mesh=mesh)
+    return (engine, engine.optimizer_def, engine.training_dataloader,
+            engine.lr_scheduler)
 
 
 def init_inference(model: Any = None, config: Union[Dict, None] = None,

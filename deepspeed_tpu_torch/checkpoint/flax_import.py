@@ -1,5 +1,5 @@
-"""Weight bridge: the JAX package's ``TransformerLM`` parameter tree to the
-port's ``state_dict``.
+"""Weight bridges: the JAX package's ``TransformerLM`` and
+``GPT2LMHeadModel`` parameter trees to the port's ``state_dict``s.
 
 The input is the flax ``params`` tree as nested dicts of numpy arrays (the
 caller converts device arrays with ``np.asarray``); nothing here imports
@@ -17,6 +17,12 @@ JAX. The mapping:
   count padded to 128 lanes; they become the port's ``QuantDense.weight``
   (N, K) int8 and ``scale`` (N,) fp32 with the pad columns (zero weights,
   scale 1) dropped, for a model built with ``int8_weights=True``.
+
+GPT-2 (:func:`gpt2_state_dict_from_flax`) has ``wte``/``wpe`` embeddings,
+the scanned ``blocks/block/{ln_1, attn/qkv, attn/proj, ln_2, mlp/fc,
+mlp/proj}`` and ``ln_f``, mapped by the same rules. The JAX model's tree is
+the same with ``fused_ln_linear=True`` (its ``_LNParams``/``_DenseParams``
+register the same names), so one bridge serves both arms.
 """
 
 from __future__ import annotations
@@ -99,3 +105,30 @@ def state_dict_from_flax(cfg: TransformerConfig,
             key, val = _leaf(cfg, path, arr)
             sd[key] = val
     return {k: _tensor(cfg, k, v) for k, v in sd.items()}
+
+
+def gpt2_state_dict_from_flax(cfg, params: Mapping[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """The port's ``GPT2LMHeadModel(cfg).state_dict()`` (fp32) from a JAX
+    GPT-2 params tree of numpy arrays; raises on an unknown leaf or a
+    layer count that disagrees with ``cfg.n_layer``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, arr in _flatten(params).items():
+        if path.startswith("blocks/block/"):
+            if arr.shape[0] != cfg.n_layer:
+                raise ValueError(f"{path}: leading dim {arr.shape[0]} != "
+                                 f"n_layer {cfg.n_layer}")
+            layers = [(f"blocks.{li}.", arr[li]) for li in range(cfg.n_layer)]
+            path = path[len("blocks/block/"):]
+        else:
+            layers = [("", arr)]
+        *mods, name = path.split("/")
+        if name not in ("kernel", "bias", "scale", "embedding"):
+            raise KeyError(f"unknown flax parameter leaf {path!r}")
+        suffix = "bias" if name == "bias" else "weight"
+        for prefix, val in layers:
+            if name == "kernel":
+                val = val.T
+            sd[f"{prefix}{'.'.join(mods)}.{suffix}"] = torch.from_numpy(
+                np.array(val, dtype=np.float32))
+    return sd

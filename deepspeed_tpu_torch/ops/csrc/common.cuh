@@ -85,4 +85,30 @@ __device__ __forceinline__ void load_16(const T* __restrict__ src, float* dst) {
   for (int j = 0; j < 16 / Vec<T>::kN; ++j) load_vec(src + j * Vec<T>::kN, dst + j * Vec<T>::kN);
 }
 
+// Rows [row0, row0 + nrows) of one attention head (D elements each, rows
+// row_stride elements apart), zero past `limit`, into a padded fp32 tile
+// (row stride D + 1 avoids shared-memory bank conflicts), by a block of
+// kThreads threads with 16-byte loads.
+template <typename T, int D, int kThreads>
+__device__ __forceinline__ void load_tile_f32(float* tile, const T* __restrict__ base,
+                                              size_t row_stride, int row0, int nrows,
+                                              int limit) {
+  constexpr int kVec = Vec<T>::kN;
+  constexpr int kPerRow = D / kVec;
+  for (int idx = threadIdx.x; idx < nrows * kPerRow; idx += kThreads) {
+    const int r = idx / kPerRow;
+    const int c = (idx % kPerRow) * kVec;
+    const int t = row0 + r;
+    float vals[kVec];
+    if (t < limit) {
+      load_vec(base + (size_t)t * row_stride + c, vals);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) vals[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) tile[r * (D + 1) + c + i] = vals[i];
+  }
+}
+
 }  // namespace dstorch

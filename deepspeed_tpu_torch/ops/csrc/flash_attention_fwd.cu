@@ -41,30 +41,6 @@ template <int D> constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(kBM * (D + 1) + 2 * kBN * (D + 1) + kBM * kLdP);
 }
 
-// rows [row0, row0 + nrows) of one head, zero past `limit`, into a padded
-// fp32 tile (row stride D + 1 avoids shared-memory bank conflicts)
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* tile, const T* __restrict__ base,
-                                          size_t row_stride, int row0, int nrows,
-                                          int limit) {
-  constexpr int kVec = Vec<T>::kN;
-  constexpr int kPerRow = D / kVec;
-  for (int idx = threadIdx.x; idx < nrows * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow;
-    const int c = (idx % kPerRow) * kVec;
-    const int t = row0 + r;
-    float vals[kVec];
-    if (t < limit) {
-      load_vec(base + (size_t)t * row_stride + c, vals);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) vals[i] = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) tile[r * (D + 1) + c + i] = vals[i];
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -93,7 +69,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + ((size_t)b * Tk * KV + kvh) * D;
   const T* vb = v + ((size_t)b * Tk * KV + kvh) * D;
 
-  load_tile<T, D>(Qs, qb, q_row, m0, kBM, Tq);
+  load_tile_f32<T, D, kThreads>(Qs, qb, q_row, m0, kBM, Tq);
 
   float m_i[4], l_i[4], acc[4][kDJ];
 #pragma unroll
@@ -107,8 +83,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_end = causal ? min(Tk, m0 + kBM) : Tk;
   for (int n0 = 0; n0 < n_end; n0 += kBN) {
     __syncthreads();  // the previous tile's readers are done with Ks/Vs/Ps
-    load_tile<T, D>(Ks, kb, kv_row, n0, kBN, Tk);
-    load_tile<T, D>(Vs, vb, kv_row, n0, kBN, Tk);
+    load_tile_f32<T, D, kThreads>(Ks, kb, kv_row, n0, kBN, Tk);
+    load_tile_f32<T, D, kThreads>(Vs, vb, kv_row, n0, kBN, Tk);
     __syncthreads();
 
     float s[4][4];

@@ -54,6 +54,14 @@ SIGNATURES = {
                                                 _I, _I, _I, _I, _F, _P]},
     "int8_matmul": {
         "dstorch_int8_matmul": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _P]},
+    "flash_attention_bwd": {
+        "dstorch_flash_attention_dq": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I,
+                                                                    _P],
+        "dstorch_flash_attention_dkv": [_I] + [_P] * 8 + [_I] * 6 + [_F, _I,
+                                                                     _P]},
+    "ln_linear": {
+        "dstorch_ln_linear_fwd": [_I] + [_P] * 8 + [_I, _I, _I, _F, _P],
+        "dstorch_ln_linear_bwd_dx": [_I] + [_P] * 9 + [_I, _I, _I, _P]},
 }
 
 _LOCK = threading.Lock()

@@ -12,6 +12,15 @@ kernel takes the same tolerances as the decode kernel it generalizes, and
 the int8-cache variants the same again (their scaled probabilities are
 rounded to bf16 for bf16 queries only).
 
+The training kernels (flash dq and dkv, ln_linear forward and
+backward-dx) compute in fp32 with their plain versions' roundings (ds and p
+rounded to the input dtype in the attention backward, the normalized rows
+in ln_linear), so they are held relative to each output's largest element
+(at least 1e-2, for gradients that vanish in exact arithmetic): fp32 to
+1e-4 (summation order), bf16/fp16 to 2e-2 (an output rounding, and
+a rounded intermediate that lands on the other side of a rounding boundary
+when the fp32 sums before it differ in their last bits).
+
 int8_matmul: the kernel and the plain version both round x to bf16 and sum
 exact bf16 x int8 products in fp32, so an fp32 output differs in summation
 order only (1e-5, relative to each output and, for outputs that cancel,
@@ -30,8 +39,14 @@ from deepspeed_tpu_torch.ops.attention.flash_attention import (
     flash_attention, mha_reference)
 from deepspeed_tpu_torch.ops.attention.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference)
+from deepspeed_tpu_torch.ops.attention.flash_attention import (
+    attention_delta, flash_attention_dkv, flash_attention_dq,
+    flash_dkv_reference, flash_dq_reference)
 from deepspeed_tpu_torch.ops.quantization.int8_matmul import (
     int8_matmul, int8_matmul_reference)
+from deepspeed_tpu_torch.ops.transformer.ln_linear import (
+    ln_linear, ln_linear_bwd_dx, ln_linear_bwd_dx_reference, ln_linear_fwd,
+    ln_linear_fwd_reference)
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
@@ -239,3 +254,119 @@ def test_int8_matmul_matches_plain(gen, M, K, N, xdtype, odtype):
             torch.float16: 2 ** -10}[odtype]
     torch.testing.assert_close(got.float(), want, rtol=rtol,
                                atol=1e-5 * float(want.abs().max()))
+
+
+TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+def _close_to_max(got, want, tol, what):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all(), what
+    # floored at 1e-2: the inputs are unit-scale, so a gradient that is
+    # zero in exact arithmetic (one key: dq = 0) is held to 1e-2 * tol
+    err = (got - want).abs().max().item() / max(want.abs().max().item(),
+                                                1e-2)
+    assert err <= tol, f"{what}: {err} > {tol}"
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("causal,T,S,H,KV", [
+    (True, 128, 128, 4, 4), (True, 100, 100, 4, 2), (False, 70, 200, 4, 4),
+    (True, 1, 1, 2, 2), (False, 129, 65, 8, 2)])
+def test_flash_backward_kernels_match_plain(gen, dtype, D, causal, T, S, H,
+                                            KV):
+    B = 2
+    q, do = (torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal=causal)
+    delta = attention_delta(out, do)
+    scale = 1 / math.sqrt(D)
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    dq = flash_attention_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_dk, want_dv = flash_dkv_reference(q, k, v, do, lse, delta, causal,
+                                           scale)
+    _close_to_max(dq, flash_dq_reference(q, k, v, do, lse, delta, causal,
+                                         scale), TRAIN_TOL[dtype], "dq")
+    _close_to_max(dk, want_dk, TRAIN_TOL[dtype], "dk")
+    _close_to_max(dv, want_dv, TRAIN_TOL[dtype], "dv")
+
+
+def test_flash_autograd_launches_both_backward_kernels(gen):
+    q, k, v = (torch.randn(2, 96, 4, 64, generator=gen, device="cuda")
+               .requires_grad_() for _ in range(3))
+    before = (flash_attention_dq.launches, flash_attention_dkv.launches)
+    out, _ = flash_attention(q, k, v)
+    # a strided cotangent: the backward makes it contiguous itself
+    g = torch.randn(2, 4, 96, 64, generator=gen, device="cuda").transpose(1, 2)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (flash_attention_dq.launches, flash_attention_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    qc, kc, vc = (x.detach().cpu().requires_grad_() for x in (q, k, v))
+    ref, _ = flash_attention(qc, kc, vc)
+    ref.backward(g.cpu())
+    for got, want in ((q, qc), (k, kc), (v, vc)):
+        _close_to_max(got.grad.cpu(), want.grad, 1e-4, "grad")
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("M,C,N", [(128, 128, 128), (70, 96, 50),
+                                   (33, 1536, 130), (1, 32, 1),
+                                   (300, 1024, 640)])
+def test_ln_linear_kernels_match_plain(gen, dtype, M, C, N):
+    x = (torch.randn(M, C, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+    g = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+    b = (0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+    w = (torch.randn(N, C, generator=gen, device="cuda") / math.sqrt(C)
+         ).to(dtype)
+    bias = (0.1 * torch.randn(N, generator=gen, device="cuda")).to(dtype)
+    dy = torch.randn(M, N, generator=gen, device="cuda").to(dtype)
+    before = (ln_linear_fwd.launches, ln_linear_bwd_dx.launches)
+    y, mean, rstd = ln_linear_fwd(x, g, b, w, bias)
+    dx, dg, db = ln_linear_bwd_dx(dy, w, x, g, mean, rstd)
+    torch.cuda.synchronize()
+    assert (ln_linear_fwd.launches, ln_linear_bwd_dx.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ry, rmean, rrstd = ln_linear_fwd_reference(x, g, b, w, bias, 1e-5)
+    torch.testing.assert_close(mean, rmean, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rstd, rrstd, atol=0, rtol=1e-5)
+    _close_to_max(y, ry, TRAIN_TOL[dtype], "y")
+    rdx, rdg, rdb = ln_linear_bwd_dx_reference(dy, w, x, g, mean, rstd)
+    assert dg.shape == rdg.shape
+    _close_to_max(dx, rdx, TRAIN_TOL[dtype], "dx")
+    _close_to_max(dg.sum(0), rdg.sum(0), 1e-4, "dgamma")
+    _close_to_max(db.sum(0), rdb.sum(0), 1e-4, "dbeta")
+
+
+def test_ln_linear_autograd_and_refusals(gen):
+    x = torch.randn(4, 16, 256, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    ln = torch.nn.LayerNorm(256, device="cuda", dtype=torch.bfloat16)
+    fc = torch.nn.Linear(256, 384, device="cuda", dtype=torch.bfloat16)
+    before = (ln_linear_fwd.launches, ln_linear_bwd_dx.launches)
+    y = ln_linear(x, ln.weight, ln.bias, fc.weight, fc.bias)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (ln_linear_fwd.launches, ln_linear_bwd_dx.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert all(p.grad is not None for p in (*ln.parameters(),
+                                            *fc.parameters()))
+    # a shape the gate refuses raises on the card: no silent plain path
+    xr = torch.randn(8, 48, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="does not tile"):
+        ln_linear(xr, torch.ones(48, device="cuda"),
+                  torch.zeros(48, device="cuda"),
+                  torch.randn(8, 48, device="cuda"),
+                  torch.zeros(8, device="cuda"))
+    with pytest.raises(ValueError, match="does not tile"):
+        ln_linear_fwd(xr, torch.ones(48, device="cuda"),
+                      torch.zeros(48, device="cuda"),
+                      torch.randn(8, 48, device="cuda"),
+                      torch.zeros(8, device="cuda"))

@@ -1,0 +1,107 @@
+"""The port's fused LayerNorm→Linear against the JAX package's.
+
+The JAX side is ``jax.vjp`` of its ``ln_linear`` at the smallest shape its
+gate takes (m = c = n = 128), so its Pallas forward and backward-dx kernels
+run in interpret mode on the CPU; a ragged shape (c = 100) takes its plain
+fallback. The port takes its kernels' plain versions on the CPU at the
+first shape, and its own fallback at the ragged one. The JAX function takes
+W as (C, N) and the port as (N, C) (``nn.Linear``'s layout). Inputs come
+from numpy with a seed; everything is fp32, so y and the gradients of x,
+gamma, beta, W and b agree within 2e-5 of their largest element (summation
+order only).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepspeed_tpu.ops.transformer.ln_linear import ln_linear as jax_ln
+from deepspeed_tpu.ops.transformer.ln_linear import \
+    supports_fused as jax_supports
+from deepspeed_tpu_torch.ops.transformer.ln_linear import (
+    BLOCK_M, LN_SAVE_NAMES, ln_linear, ln_linear_bwd_dx,
+    ln_linear_bwd_dx_reference, ln_linear_fwd, supports_fused)
+
+RTOL = 2e-5
+
+
+def _inputs(m, c, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, c)).astype(np.float32)
+    gamma = (1.0 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    w = (rng.standard_normal((c, n)) / np.sqrt(c)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(n)).astype(np.float32)
+    dy = rng.standard_normal((m, n)).astype(np.float32)
+    return x, gamma, beta, w, bias, dy
+
+
+def _close(got, want, what):
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err <= RTOL, f"{what}: {err}"
+
+
+@pytest.mark.parametrize("m,c,n", [(128, 128, 128), (96, 100, 72)])
+def test_forward_and_grads_match_jax(m, c, n):
+    x, gamma, beta, w, bias, dy = _inputs(m, c, n)
+    assert jax_supports(m, c, n) == (c == 128)
+    assert supports_fused(m, c, n) == (c == 128)
+    y, vjp = jax.vjp(lambda *a: jax_ln(*a), *map(jnp.asarray,
+                                                  (x, gamma, beta, w, bias)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    want[3] = want[3].T        # dW in the port's (N, C) layout
+    args = [torch.from_numpy(a).requires_grad_()
+            for a in (x, gamma, beta, np.ascontiguousarray(w.T), bias)]
+    got_y = ln_linear(*args)
+    got_y.backward(torch.from_numpy(dy))
+    _close(got_y.detach().numpy(), np.asarray(y), "y")
+    for name, a, ref in zip(("x", "gamma", "beta", "W", "b"), args, want):
+        _close(a.grad.numpy(), ref, f"d{name}")
+
+
+def test_leading_dims_and_refusals():
+    x, gamma, beta, w, bias, _ = _inputs(2 * 40, 64, 48, seed=1)
+    t = [torch.from_numpy(a) for a in (x, gamma, beta,
+                                       np.ascontiguousarray(w.T), bias)]
+    flat = ln_linear(*t)
+    y3 = ln_linear(t[0].view(2, 40, 64), *t[1:])
+    assert y3.shape == (2, 40, 48)
+    torch.testing.assert_close(y3.reshape(80, 48), flat, atol=0, rtol=0)
+    # the gate is the CUDA kernels' own: C a multiple of 32, at most 1536
+    assert supports_fused(7, 32, 3) and supports_fused(10240, 1536, 4096)
+    assert not supports_fused(64, 1568, 64) and not supports_fused(64, 48, 64)
+    # a refused shape on the CPU takes the plain composition (a CUDA
+    # tensor raises; tests/test_torch_cuda_kernels.py holds that)
+    xr, wr = torch.randn(4, 48), torch.randn(8, 48)
+    want = torch.nn.functional.linear(
+        torch.nn.functional.layer_norm(xr, (48,), eps=1e-5), wr)
+    torch.testing.assert_close(
+        ln_linear(xr, torch.ones(48), torch.zeros(48), wr, torch.zeros(8)),
+        want, atol=2e-5, rtol=2e-5)
+    assert LN_SAVE_NAMES == ("ln_linear_out", "ln_linear_stats")
+
+
+def test_kernel_wrappers_take_their_plain_versions_on_the_cpu():
+    """Partials are one row per BLOCK_M rows, a ragged last tile included,
+    and sum to dgamma and dbeta."""
+    m, c, n = 70, 64, 40
+    x, gamma, beta, w, bias, dy = (torch.from_numpy(a) for a in
+                                   _inputs(m, c, n, seed=2))
+    w = w.t().contiguous()
+    y, mean, rstd = ln_linear_fwd(x, gamma, beta, w, bias)
+    assert y.shape == (m, n) and mean.shape == rstd.shape == (m,)
+    torch.testing.assert_close(mean, x.mean(1), atol=1e-6, rtol=0)
+    dx, dg, db = ln_linear_bwd_dx(dy, w, x, gamma, mean, rstd)
+    assert dg.shape == db.shape == (-(-m // BLOCK_M), c)
+    xs = [t.clone().requires_grad_() for t in (x, gamma, beta)]
+    ref = torch.nn.functional.layer_norm(xs[0], (c,), xs[1], xs[2], 1e-5)
+    (ref @ w.t()).backward(dy)
+    torch.testing.assert_close(dx, xs[0].grad, atol=1e-5, rtol=0)
+    torch.testing.assert_close(dg.sum(0), xs[1].grad, atol=1e-4, rtol=0)
+    torch.testing.assert_close(db.sum(0), xs[2].grad, atol=1e-4, rtol=0)
+    assert ln_linear_fwd.launches == ln_linear_bwd_dx.launches == 0
+    for got, want in zip((dx, dg, db), ln_linear_bwd_dx_reference(
+            dy, w, x, gamma, mean, rstd)):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)

@@ -71,6 +71,30 @@ Phases, in order; any failure exits non-zero:
             gradient with the kernels on (flash; flash + ln_linear) against
             the plain arm (einsum attention, unfused), same weights.
 
+12. sparse_kernels  the block-sparse forward, dq and dkv kernels at the
+            training shape (B=1, H=12, D=64, T=8192, bf16, the BigBird
+            layout below, causal), at blocks 128 and 256, on a bidirectional
+            Fixed layout with horizontal globals, per-head layouts, a layout
+            with empty query rows and in fp32; each held against its plain
+            version and timed beside its bound and a library yardstick (SDPA
+            with the layout expanded to a token mask). The flash forward, dq
+            and dkv kernels are held once at B=1, H=12, T=8192 as well.
+13. train_sparse  GPT-2 small widths (768/12/12, vocab 50257) at 8192
+            positions with ``sparse_attention=BigBirdSparsityConfig(
+            num_heads=12, block=512, num_random_blocks=1,
+            num_sliding_window_blocks=3, num_global_blocks=1,
+            attention="unidirectional")``, ``remat=True`` (policy "full"),
+            bf16, micro-batch 1, gas 1, ZeRO stage 0, AdamW lr 1e-4 (the JAX
+            package's benchmarks/sparse_lowdensity_bench.py model rows):
+            two warm-up steps, then timed steps; the loss falls, and the
+            sparse forward runs 24 times, dq and dkv 12 times a micro-batch.
+            Then its flash-dense arm (``use_flash_attention=True``, no
+            layout) the same way, and the two arms' tokens/s side by side.
+14. reference_sparse  one micro-batch's loss and every parameter's gradient
+            with the sparse kernels against the same weights with attention
+            through the gather formulation (the JAX package's non-kernel
+            route), remat "full".
+
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
 """
@@ -172,6 +196,15 @@ KERNELS = {
     "ln_linear_bwd_dx": dict(
         source="deepspeed_tpu_torch/ops/csrc/ln_linear.cu",
         replaces="deepspeed_tpu/ops/transformer/ln_linear.py:75"),
+    "block_sparse_fwd": dict(
+        source="deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+        replaces="deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:68"),
+    "block_sparse_dq": dict(
+        source="deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+        replaces="deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:164"),
+    "block_sparse_dkv": dict(
+        source="deepspeed_tpu_torch/ops/csrc/block_sparse_attention.cu",
+        replaces="deepspeed_tpu/ops/sparse_attention/pallas_kernel.py:206"),
 }
 PAGED_KV = {"page_size": 64, "num_pages": 128, "prefix_cache": True,
             "kernel": "auto"}
@@ -271,6 +304,8 @@ def _counters() -> dict:
     from deepspeed_tpu_torch.ops.attention.flash_attention import (
         flash_attention_dkv, flash_attention_dq)
     from deepspeed_tpu_torch.ops.quantization.int8_matmul import int8_matmul
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
+        block_sparse_dkv, block_sparse_dq, block_sparse_fwd)
     from deepspeed_tpu_torch.ops.transformer.ln_linear import (
         ln_linear_bwd_dx, ln_linear_fwd)
 
@@ -284,7 +319,10 @@ def _counters() -> dict:
             "flash_attention_dq": (flash_attention_dq, "launches"),
             "flash_attention_dkv": (flash_attention_dkv, "launches"),
             "ln_linear_fwd": (ln_linear_fwd, "launches"),
-            "ln_linear_bwd_dx": (ln_linear_bwd_dx, "launches")}
+            "ln_linear_bwd_dx": (ln_linear_bwd_dx, "launches"),
+            "block_sparse_fwd": (block_sparse_fwd, "launches"),
+            "block_sparse_dq": (block_sparse_dq, "launches"),
+            "block_sparse_dkv": (block_sparse_dkv, "launches")}
 
 
 def reset_launches() -> None:
@@ -1487,19 +1525,45 @@ def token_batches(seed: int, rows: int, vocab: int, seq: int = SEQ):
                            ).astype(np.int32)} for _ in range(2)]
 
 
-def phase_train(model, seed: int, gas: int, steps: int, label: str,
+TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv", "ln_linear_fwd", "ln_linear_bwd_dx",
+                 "block_sparse_fwd", "block_sparse_dq", "block_sparse_dkv")
+
+
+def micro_batch_launches(cfg) -> dict:
+    """Each training kernel's launches in one micro-batch of a GPT-2 with
+    ``cfg``: the attention forward (block-sparse with a layout, else flash)
+    once a layer, twice when the block is recomputed (remat "full" or
+    "dots_plain"); its dq and dkv once a layer; with ``fused_ln_linear``
+    the ln_linear forward twice as often as the attention forward and the
+    backward-dx twice a layer."""
+    L = cfg.n_layer
+    runs = 2 if cfg.remat and cfg.remat_policy != "dots" else 1
+    attn = "block_sparse" if cfg.sparse_attention is not None \
+        else "flash_attention"
+    want = dict.fromkeys(TRAIN_KERNELS, 0)
+    want.update({f"{attn}_fwd": runs * L, f"{attn}_dq": L,
+                 f"{attn}_dkv": L})
+    if cfg.fused:
+        want.update(ln_linear_fwd=2 * runs * L, ln_linear_bwd_dx=2 * L)
+    return want
+
+
+def phase_train(model, seed: int, config: dict, steps: int, label: str,
                 device: str = "cuda") -> tuple:
-    """Two warm-up steps, then ``steps`` timed steps; returns (engine,
-    losses, launches). The second warm-up step keeps Adam's first steps out
-    of the timed ones: they move every weight by about lr at once, and at
-    width 1024 the loss rises after the second update before it falls, so
-    the last loss is held below the loss at initialisation."""
+    """Two warm-up steps, then ``steps`` timed steps through
+    ``initialize(config=config)``; returns (engine, losses, launches,
+    tokens/s). The second warm-up step keeps Adam's first steps out of the
+    timed ones: they move every weight by about lr at once, and at width
+    1024 the loss rises after the second update before it falls, so the
+    last loss is held below the loss at initialisation."""
     import deepspeed_tpu_torch as dst
 
     cfg = model.config
-    engine, *_ = dst.initialize(model=model, config=flagship_config(gas),
-                                device=device)
-    batches = token_batches(seed, MICRO_BS * gas, cfg.vocab_size,
+    engine, *_ = dst.initialize(model=model, config=config, device=device)
+    micro, gas = (config["train_micro_batch_size_per_gpu"],
+                  config["gradient_accumulation_steps"])
+    batches = token_batches(seed, micro * gas, cfg.vocab_size,
                             cfg.n_positions)
     warm = [float(engine.train_batch(batch=batches[i])) for i in (1, 0)]
     sync(device)
@@ -1518,25 +1582,25 @@ def phase_train(model, seed: int, gas: int, steps: int, label: str,
     # first timed step, which follows Adam's second update
     assert losses[-1] < warm[0], \
         f"{label}: loss did not fall: warm-up {warm}, then {losses}"
-    L, micros = cfg.n_layer, gas * steps
-    want = {"flash_attention_fwd": L * micros, "flash_attention_dq": L * micros,
-            "flash_attention_dkv": L * micros,
-            "ln_linear_fwd": 2 * L * micros if cfg.fused else 0,
-            "ln_linear_bwd_dx": 2 * L * micros if cfg.fused else 0}
+    micros = gas * steps
+    want = {k: n * micros for k, n in micro_batch_launches(cfg).items()}
     got = {k: launches[k] for k in want}
     assert got == want, f"{label}: launches {got}, want {want}"
-    tokens = micros * MICRO_BS * cfg.n_positions
+    tokens = micros * micro * cfg.n_positions
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    layout = "none" if cfg.sparse_attention is None else \
+        type(cfg.sparse_attention).__name__
     log(f"[{label}] GPT-2 {cfg.n_embd}/{cfg.n_layer}/{cfg.n_head} vocab "
-        f"{cfg.vocab_size} seq {cfg.n_positions}, micro {MICRO_BS} x gas "
-        f"{gas}, fused_ln_linear={cfg.fused}, remat "
+        f"{cfg.vocab_size} seq {cfg.n_positions}, micro {micro} x gas "
+        f"{gas}, sparse layout {layout}, fused_ln_linear={cfg.fused}, remat "
         f"{cfg.remat_policy}: warm-up losses {[round(x, 4) for x in warm]}, "
         f"then {steps} steps "
         f"{[round(x, 4) for x in losses]}; {tokens} tokens in {wall:.2f} s: "
         f"{tokens / wall:.1f} tokens/s, {wall / steps * 1e3:.1f} ms a step, "
         f"{wall / micros * 1e3:.1f} ms a micro-batch; peak "
-        f"{peak / 2 ** 30:.2f} GiB allocated; launches {got}")
-    return engine, losses, launches
+        f"{peak / 2 ** 30:.2f} GiB allocated; launches "
+        f"{ {k: n for k, n in got.items() if n} }")
+    return engine, losses, launches, tokens / wall
 
 
 def grads_of(model, batch) -> tuple:
@@ -1546,6 +1610,25 @@ def grads_of(model, batch) -> tuple:
     grads = {k: p.grad.float() for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
     return loss.item(), grads
+
+
+def hold_gradients(phase: str, what: str, arm: tuple, ref: tuple) -> None:
+    """Log and hold one arm's (loss, gradients) against the reference
+    arm's: the loss within TRAIN_LOSS_TOL relative, every parameter's
+    gradient within TRAIN_GRAD_TOL in relative L2 norm."""
+    (loss, grads), (ref_loss, ref_grads) = arm, ref
+    loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+    rels = {k: ((g - ref_grads[k]).norm()
+                / ref_grads[k].norm().clamp_min(1e-30)).item()
+            for k, g in grads.items()}
+    worst = max(rels, key=rels.get)
+    log(f"[{phase}] {what}: loss {loss:.6f} vs {ref_loss:.6f} (rel "
+        f"{loss_rel:.3g}, tol {TRAIN_LOSS_TOL}); gradient rel norm err max "
+        f"{rels[worst]:.4g} ({worst}), median "
+        f"{float(np.median(list(rels.values()))):.4g} (tol {TRAIN_GRAD_TOL})")
+    assert loss_rel <= TRAIN_LOSS_TOL, f"{phase} {what}: loss"
+    assert rels[worst] <= TRAIN_GRAD_TOL, \
+        f"{phase} {what}: {worst} rel err {rels[worst]}"
 
 
 def phase_reference_train(seed: int, device: str = "cuda", **overrides):
@@ -1562,21 +1645,327 @@ def phase_reference_train(seed: int, device: str = "cuda", **overrides):
                                ("flash+ln_linear", True, True)):
         model.replace_config(use_flash_attention=flash, fused_ln_linear=fused)
         arms[name] = grads_of(model, batch)
-    plain_loss, plain_grads = arms.pop("plain")
-    for name, (loss, grads) in arms.items():
-        loss_rel = abs(loss - plain_loss) / abs(plain_loss)
-        rels = {k: ((g - plain_grads[k]).norm()
-                    / plain_grads[k].norm().clamp_min(1e-30)).item()
-                for k, g in grads.items()}
-        worst = max(rels, key=rels.get)
-        log(f"[reference_train] {name} vs plain: loss {loss:.6f} vs "
-            f"{plain_loss:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_TOL}); "
-            f"gradient rel norm err max {rels[worst]:.4g} ({worst}), median "
-            f"{float(np.median(list(rels.values()))):.4g} (tol "
-            f"{TRAIN_GRAD_TOL})")
-        assert loss_rel <= TRAIN_LOSS_TOL, f"reference_train {name}: loss"
-        assert rels[worst] <= TRAIN_GRAD_TOL, \
-            f"reference_train {name}: {worst} rel err {rels[worst]}"
+    plain = arms.pop("plain")
+    for name, arm in arms.items():
+        hold_gradients("reference_train", f"{name} vs plain", arm, plain)
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# block-sparse attention training
+# GPT-2 small widths (openai-community/gpt2 config.json) at 8192 positions
+# with the BigBird layout of the JAX package's own model-level use of its
+# sparse kernels (benchmarks/sparse_lowdensity_bench.py:118-171)
+GPT2_SMALL_8K = dict(vocab_size=50257, n_positions=8192, n_embd=768,
+                     n_layer=12, n_head=12)
+BIGBIRD = dict(num_heads=12, block=512, num_random_blocks=1,
+               num_sliding_window_blocks=3, num_global_blocks=1,
+               attention="unidirectional")
+SPARSE_TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": 1, "gradient_accumulation_steps": 1,
+    "zero_optimization": {"stage": 0},
+    "optimizer": {"type": "AdamW", "params": {"lr": 1e-4}},
+    "bf16": {"enabled": True}, "steps_per_print": 10 ** 9}
+
+
+def bigbird(**overrides):
+    from deepspeed_tpu_torch.ops.sparse_attention import BigBirdSparsityConfig
+
+    return BigBirdSparsityConfig(**{**BIGBIRD, **overrides})
+
+
+def live_pairs(layout: np.ndarray, block: int, causal: bool) -> int:
+    """(query, key) pairs a layout keeps, over its heads, after token-level
+    causal masking: what the kernels compute for these inputs."""
+    h, i, j = np.nonzero(layout)
+    full = block * block
+    if not causal:
+        return int(len(h) * full)
+    return int(full * (j < i).sum() + block * (block + 1) // 2 * (j == i).sum())
+
+
+def sparse_kernel_check(gen, layout, block: int, T: int, causal: bool,
+                        dtype=torch.bfloat16) -> dict:
+    """The three block-sparse kernels against their plain versions on one
+    layout (row rule, lse within LSE_ATOL); returns the inputs, schedule
+    and (max |err|) per kernel for timing."""
+    from deepspeed_tpu_torch.ops.attention.flash_attention import \
+        attention_delta
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
+        block_sparse_dkv, block_sparse_dkv_reference, block_sparse_dq,
+        block_sparse_dq_reference, block_sparse_fwd,
+        block_sparse_fwd_reference, schedule)
+
+    B, H, D = 1, layout.shape[0], 64
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    idx, cnt, idx_t, cnt_t = schedule(layout, "cuda")
+    scale = 1.0 / math.sqrt(D)
+    label = f"block {block} T={T} causal={causal} {dtype}"
+    out, lse = block_sparse_fwd(q, k, v, idx, cnt, block, causal, scale)
+    ref, ref_lse = block_sparse_fwd_reference(q, k, v, idx, cnt, block,
+                                              causal, scale)
+    err = {"fwd": compare_rows(out, ref, f"block_sparse_fwd ({label})")[0]}
+    le = (lse - ref_lse).abs().max().item()
+    assert math.isfinite(le) and le <= LSE_ATOL, \
+        f"block_sparse lse ({label}): max |err| {le} > {LSE_ATOL}"
+    del ref, ref_lse
+    delta = attention_delta(out, do)
+    args = (q, k, v, do, lse, delta)
+    dq = block_sparse_dq(*args, idx, cnt, block, causal, scale)
+    err["dq"] = compare_rows(dq, block_sparse_dq_reference(
+        *args, idx, cnt, block, causal, scale),
+        f"block_sparse_dq ({label})")[0]
+    dk, dv = block_sparse_dkv(*args, idx_t, cnt_t, block, causal, scale)
+    want_dk, want_dv = block_sparse_dkv_reference(*args, idx_t, cnt_t, block,
+                                                  causal, scale)
+    err["dkv"] = max(compare_rows(dk, want_dk, f"block_sparse dk ({label})")[0],
+                     compare_rows(dv, want_dv, f"block_sparse dv ({label})")[0])
+    return dict(args=args, sched=(idx, cnt, idx_t, cnt_t), scale=scale,
+                err=err, lse_err=le)
+
+
+def phase_sparse_kernels(gen: torch.Generator) -> dict:
+    """The block-sparse kernels' rows of the kernel table, at the training
+    shape, after the listed checks; and the flash kernels held once at
+    B=1, H=12, T=8192 (the dense arm's shape)."""
+    from deepspeed_tpu_torch.ops.attention.flash_attention import (
+        attention_delta, flash_attention, flash_attention_dkv,
+        flash_attention_dq, flash_dkv_reference, flash_dq_reference,
+        mha_reference)
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig)
+    from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
+        _token_mask, block_sparse_dkv, block_sparse_dkv_reference,
+        block_sparse_dq, block_sparse_dq_reference, block_sparse_fwd,
+        block_sparse_fwd_reference)
+
+    T, H, D = GPT2_SMALL_8K["n_positions"], 12, 64
+    errs = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    lse_err = 0.0
+
+    def track(res):
+        nonlocal lse_err
+        for key in errs:
+            errs[key] = max(errs[key], res["err"][key])
+        lse_err = max(lse_err, res["lse_err"])
+
+    # the other checked cases first, each freed before the next
+    empty = np.tril(np.ones((H, 8, 8), np.int32))
+    empty[:, 3] = 0                               # query block 3: no key
+    empty[::2, 5, 6] = 1                          # a block in row 5's future
+    empty[1::2, 6, :6] = 0                        # row 6: its diagonal only
+    cases = [
+        ("BigBird block 128", bigbird(block=128).make_layout(T), 128, T,
+         True, torch.bfloat16),
+        ("BigBird block 256", bigbird(block=256).make_layout(T), 256, T,
+         True, torch.bfloat16),
+        ("Fixed bidirectional, horizontal globals, T=2048",
+         FixedSparsityConfig(num_heads=H, block=128, num_local_blocks=4,
+                             num_global_blocks=1,
+                             horizontal_global_attention=True
+                             ).make_layout(2048), 128, 2048, False,
+         torch.bfloat16),
+        ("BigBird per-head layouts, T=2048", bigbird(
+            block=128, different_layout_per_head=True).make_layout(2048),
+         128, 2048, True, torch.bfloat16),
+        ("empty query rows, T=2048", empty, 256, 2048, True, torch.bfloat16),
+        ("BigBird block 512, fp32, T=4096", bigbird().make_layout(4096),
+         512, 4096, True, torch.float32),
+    ]
+    for label, layout, block, t, causal, dtype in cases:
+        track(sparse_kernel_check(gen, layout, block, t, causal, dtype))
+        log(f"[sparse_kernels] checked {label}: within the row rule")
+        torch.cuda.empty_cache()
+
+    block = BIGBIRD["block"]
+    layout = bigbird().make_layout(T)
+    res = sparse_kernel_check(gen, layout, block, T, True)
+    track(res)
+    args, (idx, cnt, idx_t, cnt_t), scale = \
+        res["args"], res["sched"], res["scale"]
+    q, k, v, do = args[:4]
+    fwd = (q, k, v, idx, cnt, block, True, scale)
+    dq_args = (*args, idx, cnt, block, True, scale)
+    dkv_args = (*args, idx_t, cnt_t, block, True, scale)
+    times = dict(
+        fwd=cuda_ms(lambda: block_sparse_fwd(*fwd), reps=5),
+        dq=cuda_ms(lambda: block_sparse_dq(*dq_args), reps=5),
+        dkv=cuda_ms(lambda: block_sparse_dkv(*dkv_args), reps=5))
+    plain = dict(
+        fwd=cuda_ms(lambda: block_sparse_fwd_reference(*fwd), reps=1,
+                    replays=3),
+        dq=cuda_ms(lambda: block_sparse_dq_reference(*dq_args), reps=1,
+                   replays=3),
+        dkv=cuda_ms(lambda: block_sparse_dkv_reference(*dkv_args), reps=1,
+                    replays=3))
+    torch.cuda.empty_cache()
+    # the library yardstick: one SDPA call with the layout expanded to a
+    # (1, H, T, T) boolean token mask computes the same function; its
+    # backward (dq, dk, dv in one call) is captured whole with its forward
+    # and the forward's time taken off, as for the flash rows
+    mask = _token_mask(idx, cnt, block, T, True)[None]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def masked_sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+
+    lib_fwd = cuda_ms(masked_sdpa, reps=2)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        masked_sdpa(), (qt, kt, vt), dot), reps=2) - lib_fwd
+    del mask
+    torch.cuda.empty_cache()
+
+    def causal_sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    dense_fwd = cuda_ms(causal_sdpa, reps=3)
+    dense_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+        causal_sdpa(), (qt, kt, vt), dot), reps=3)
+
+    pairs = live_pairs(layout, block, True)
+    tok = q.numel() * q.element_size()          # one (B, T, H, D) tensor
+    stat = q.shape[0] * H * T * 4
+    sched = sum(t.numel() * 4 for t in (idx, cnt, idx_t, cnt_t))
+    rows = {
+        "block_sparse_fwd": dict(
+            max_abs_err=errs["fwd"], ms=times["fwd"], plain_ms=plain["fwd"],
+            library_ms=lib_fwd,
+            **bound(4 * tok + stat + sched // 2, 2 * 2 * D * pairs)),
+        "block_sparse_dq": dict(
+            max_abs_err=errs["dq"], ms=times["dq"], plain_ms=plain["dq"],
+            library_ms=lib_bwd,
+            **bound(5 * tok + 2 * stat + sched // 2, 3 * 2 * D * pairs)),
+        "block_sparse_dkv": dict(
+            max_abs_err=errs["dkv"], ms=times["dkv"], plain_ms=plain["dkv"],
+            library_ms=lib_bwd,
+            **bound(6 * tok + 2 * stat + sched // 2, 4 * 2 * D * pairs)),
+    }
+    for name, r in rows.items():
+        log(f"[sparse_kernels] {name} B=1 H={H} D={D} T={T} BigBird block "
+            f"{block} causal, {pairs} live pairs: max|err| "
+            f"{r['max_abs_err']:.3g} (row rule {ROW_REL_TOL}); kernel "
+            f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, masked SDPA "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    log(f"[sparse_kernels] lse max|err| {lse_err:.3g} (tol {LSE_ATOL}); "
+        f"port forward + dq + dkv {sum(times.values()):.4f} ms against "
+        f"masked SDPA forward + backward {lib_fwd + lib_bwd:.4f} ms "
+        f"(factor {sum(times.values()) / (lib_fwd + lib_bwd):.2f}); causal "
+        f"dense SDPA forward {dense_fwd:.4f} ms, forward + backward "
+        f"{dense_fwd_bwd:.4f} ms")
+    del qt, kt, vt, res, args, q, k, v, do, fwd, dq_args, dkv_args
+    torch.cuda.empty_cache()
+
+    # the flash kernels at the dense arm's shape, once
+    q, k, v, do = (torch.randn(1, T, H, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = flash_attention(q, k, v, causal=True)
+    ref, ref_lse = mha_reference(q, k, v, causal=True)
+    e_fwd = compare_rows(out, ref, "flash forward at T=8192")[0]
+    le = (lse - ref_lse).abs().max().item()
+    assert math.isfinite(le) and le <= LSE_ATOL, f"flash lse at T=8192: {le}"
+    del ref, ref_lse
+    fargs = (q, k, v, do, lse, attention_delta(out, do), True, scale)
+    e_dq = compare_rows(flash_attention_dq(*fargs), flash_dq_reference(*fargs),
+                        "flash dq at T=8192")[0]
+    dk, dv = flash_attention_dkv(*fargs)
+    want_dk, want_dv = flash_dkv_reference(*fargs)
+    e_dkv = max(compare_rows(dk, want_dk, "flash dk at T=8192")[0],
+                compare_rows(dv, want_dv, "flash dv at T=8192")[0])
+    del want_dk, want_dv
+    flash = [cuda_ms(lambda: flash_attention(q, k, v), reps=3),
+             cuda_ms(lambda: flash_attention_dq(*fargs), reps=3),
+             cuda_ms(lambda: flash_attention_dkv(*fargs), reps=3)]
+    log(f"[sparse_kernels] flash forward, dq, dkv at B=1 H={H} T={T} "
+        f"causal: max|err| {e_fwd:.3g} / {e_dq:.3g} / {e_dkv:.3g} (row "
+        f"rule), lse {le:.3g}; {flash[0]:.4f} + {flash[1]:.4f} + "
+        f"{flash[2]:.4f} = {sum(flash):.4f} ms a layer against the sparse "
+        f"kernels' {sum(times.values()):.4f} ms (sparse/dense "
+        f"{sum(times.values()) / sum(flash):.3f})")
+    del q, k, v, do, fargs
+    torch.cuda.empty_cache()
+    return rows
+
+
+def gpt2_small_8k(seed: int, device: str = "cuda", sparse: bool = True,
+                  **overrides):
+    """GPT-2 small widths at 8192 positions with the JAX bench's model-row
+    switches (bf16, ``remat=True`` with the JAX default policy "full"): the
+    BigBird layout, or with ``sparse=False`` the flash-dense arm; fp32
+    random weights from ``seed`` (GPT-2's init). ``overrides`` replace
+    config fields (a rehearsal narrows the widths)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    fields = {**GPT2_SMALL_8K, "dtype": torch.bfloat16, "remat": True,
+              "remat_policy": "full", **overrides}
+    if sparse:
+        fields.setdefault("sparse_attention", bigbird(
+            num_heads=fields["n_head"],
+            block=min(BIGBIRD["block"], fields["n_positions"] // 4)))
+    else:
+        fields["use_flash_attention"] = True
+    model = GPT2LMHeadModel(GPT2Config(**fields), device=device,
+                            param_dtype=torch.float32)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def phase_train_sparse(seed: int, steps: int, device: str = "cuda",
+                       **overrides) -> list:
+    """``train_sparse``: the sparse arm, then the flash-dense arm of the
+    same model on the same batches; returns each arm's launches."""
+    runs, rates = [], {}
+    for label, sparse in (("train_sparse", True), ("train_sparse_dense",
+                                                   False)):
+        model = gpt2_small_8k(seed, device, sparse, **overrides)
+        engine, _, launches, rate = phase_train(
+            model, seed, SPARSE_TRAIN_CONFIG, steps, label, device)
+        runs.append(launches)
+        rates[label] = rate
+        del engine, model
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    log(f"[train_sparse] tokens/s: sparse {rates['train_sparse']:.1f}, "
+        f"flash-dense {rates['train_sparse_dense']:.1f} (sparse/dense "
+        f"{rates['train_sparse'] / rates['train_sparse_dense']:.3f})")
+    return runs
+
+
+def phase_reference_sparse(seed: int, device: str = "cuda", **overrides):
+    """One micro-batch's loss and every parameter's gradient with the sparse
+    kernels against the same weights with the model's sparse-attention call
+    pointed at the gather formulation (the JAX package's non-kernel route)
+    for that arm only; remat "full" in both, so one layer's gather scores
+    (about 1 GB in fp32 at T=8192) are live at a time."""
+    from deepspeed_tpu_torch.models import gpt2 as gpt2_module
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention
+
+    model = gpt2_small_8k(seed, device, **overrides).to(torch.bfloat16)
+    cfg = model.config
+    batch = token_batches(seed + 7, 1, cfg.vocab_size, cfg.n_positions)[0]
+    reset_launches()
+    kernel_arm = grads_of(model, batch)
+    launched = read_launches()["block_sparse_fwd"]
+    kernel_route = gpt2_module.block_sparse_flash_attention
+    gpt2_module.block_sparse_flash_attention = (
+        lambda q, k, v, layout, block, causal: block_sparse_attention(
+            q, k, v, layout, block, causal=causal))
+    try:
+        reset_launches()
+        gather_arm = grads_of(model, batch)
+        assert read_launches()["block_sparse_fwd"] == 0
+    finally:
+        gpt2_module.block_sparse_flash_attention = kernel_route
+    assert launched == 2 * cfg.n_layer, launched
+    hold_gradients("reference_sparse",
+                   "sparse kernels vs gather formulation", kernel_arm,
+                   gather_arm)
     del model
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -1600,6 +1989,7 @@ def main(argv=None) -> int:
                     for name, ms in RECORDED_BF16_MS.items()))
     results.update(phase_int8_kernels(gen))
     phase_train_kernels(gen, results)
+    results.update(phase_sparse_kernels(gen))
     model = gpt2_small(args.seed)
     srv, reqs, launches = phase_serve(model, args.seed)
     ref = fp32_reference(model, srv.engine)
@@ -1632,16 +2022,18 @@ def main(argv=None) -> int:
     del llama, bf16_ref, qsrv
     torch.cuda.empty_cache()
 
-    _, _, train_launches = phase_train(gpt2_medium(args.seed), args.seed,
-                                       GAS, 3, "train")
+    _, _, train_launches, _ = phase_train(
+        gpt2_medium(args.seed), args.seed, flagship_config(GAS), 3, "train")
     runs.append(train_launches)
     torch.cuda.empty_cache()
-    _, _, fused_launches = phase_train(
+    _, _, fused_launches, _ = phase_train(
         gpt2_medium(args.seed, fused_ln_linear=True), args.seed,
-        GAS, 2, "train_fused")
+        flagship_config(GAS), 2, "train_fused")
     runs.append(fused_launches)
     torch.cuda.empty_cache()
     phase_reference_train(args.seed)
+    runs.extend(phase_train_sparse(args.seed, 3))
+    phase_reference_sparse(args.seed)
     # each kernel's launches over the serving and training runs (each
     # counted from 0 just before its run and read just after)
     kernels = [dict(name=name, route="cuda", **KERNELS[name],

@@ -30,16 +30,24 @@ the H100 says otherwise.
 Activation checkpointing (``remat``) wraps each block in non-reentrant
 ``torch.utils.checkpoint``. ``remat_policy="full"`` recomputes the whole
 block in the backward; ``"dots"`` keeps the matrix products' outputs and
-the outputs of the flash and ln_linear operators (the JAX ``ATTN_SAVE_NAMES``
-and ``LN_SAVE_NAMES``), so neither forward kernel runs again;
+the outputs of the flash, block-sparse and ln_linear operators (the JAX
+``ATTN_SAVE_NAMES`` and ``LN_SAVE_NAMES``), so no forward kernel runs again;
 ``"dots_plain"`` keeps the products only. Dropout draws its masks from a
 ``torch.Generator`` seeded per block and forward, so a recomputed block
 draws the same masks.
 
+``sparse_attention`` (a ``SparsityConfig`` from ``ops.sparse_attention``)
+takes the JAX model's route ahead of both arms: every layer attends only
+its layout's blocks, causally, through the block-sparse kernel operator
+(``ops.sparse_attention.block_sparse_kernel``: its CUDA kernels on a card,
+its plain versions on the CPU) when ``supports_pallas(block, T)`` holds,
+else through the gather formulation. The JAX model takes its kernel on a
+TPU only; both routes compute the same function.
+
 ``scan_unroll`` is accepted for config compatibility and has no effect:
 the blocks are a Python loop in eager PyTorch, not a ``lax.scan``.
-``sparse_attention``, ``sequence_parallel`` and ``loss_chunk`` are not
-ported and raise unless off.
+``sequence_parallel`` and ``loss_chunk`` are not ported and raise unless
+off.
 """
 
 from __future__ import annotations
@@ -55,6 +63,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.attention.flash_attention import FLASH_OP, flash_attention
+from ..ops.sparse_attention.block_sparse_kernel import (
+    SPARSE_OP, block_sparse_flash_attention, supports_pallas)
+from ..ops.sparse_attention.sparse_self_attention import \
+    block_sparse_attention
 from ..ops.transformer.ln_linear import LN_LINEAR_OP, ln_linear
 from .transformer_lm import to_torch_dtype
 
@@ -65,7 +77,8 @@ REMAT_POLICIES = ("full", "dots", "dots_plain")
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 # what each policy keeps; everything else is recomputed ("full" keeps
 # nothing and runs without a policy)
-_SAVED_OPS = {"dots": frozenset(_DOTS + (FLASH_OP, LN_LINEAR_OP)),
+_SAVED_OPS = {"dots": frozenset(_DOTS + (FLASH_OP, SPARSE_OP,
+                                         LN_LINEAR_OP)),
               "dots_plain": frozenset(_DOTS)}
 
 
@@ -84,14 +97,17 @@ class GPT2Config:
     use_flash_attention: Any = "auto"   # True | False | "auto"
     sequence_parallel: Optional[str] = None     # not ported
     scan_unroll: int = 1         # accepted, no effect (module docstring)
-    sparse_attention: Optional[Any] = None      # not ported
+    sparse_attention: Optional[Any] = None      # a SparsityConfig
     fused_ln_linear: Any = "auto"   # True | False | "auto" (= off)
     loss_chunk: int = 0          # not ported
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", to_torch_dtype(self.dtype))
-        for key, off in (("sparse_attention", None),
-                         ("sequence_parallel", None), ("loss_chunk", 0)):
+        if self.sparse_attention is not None and self.sequence_parallel:
+            raise ValueError("sparse_attention does not compose with "
+                             "sequence_parallel (the layout is over the "
+                             "full sequence)")
+        for key, off in (("sequence_parallel", None), ("loss_chunk", 0)):
             if getattr(self, key) not in (off, False):
                 raise NotImplementedError(
                     f"GPT2Config.{key} is not ported to the PyTorch/CUDA "
@@ -167,6 +183,21 @@ class CausalSelfAttention(nn.Module):
             return x.device.type == "cuda" and self.config.dropout == 0
         return bool(use)
 
+    def _sparse(self, q, k, v, gen):
+        """The JAX model's sparse route (gpt2.py:194-222): the kernel
+        operator where the granule tiles, else the gather formulation."""
+        if gen is not None:      # dropout > 0 and not deterministic
+            raise ValueError("sparse_attention does not support "
+                             "attention-probability dropout")
+        scfg = self.config.sparse_attention
+        T = q.shape[1]
+        layout = scfg.make_layout(T)
+        if supports_pallas(scfg.block, T):
+            return block_sparse_flash_attention(q, k, v, layout, scfg.block,
+                                                causal=True)
+        return block_sparse_attention(q, k, v, layout, scfg.block,
+                                      causal=True)
+
     def forward(self, x, gen=None, ln: Optional[nn.LayerNorm] = None):
         """``x`` is LN'd already, or (with ``ln``) raw for the fused
         ln_linear kernel."""
@@ -176,7 +207,9 @@ class CausalSelfAttention(nn.Module):
         qkv = _ln_linear(ln, self.qkv, x) if ln is not None \
             else _linear(self.qkv, x)
         q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(C, dim=-1))
-        if self._use_flash(x):
+        if cfg.sparse_attention is not None:
+            y = self._sparse(q, k, v, gen)
+        elif self._use_flash(x):
             # the split leaves strided views; the kernels take contiguous
             y, _ = flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=True)

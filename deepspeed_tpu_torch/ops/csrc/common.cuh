@@ -111,4 +111,40 @@ __device__ __forceinline__ void load_tile_f32(float* tile, const T* __restrict__
   }
 }
 
+// s[i][j] += a[row i] . b[col j] and t[i][j] += c[row i] . e[col j] over D,
+// for the thread's rows ty*4+i and columns tx+16j of two padded 64-row tiles
+// each (row stride D + 1, as load_tile_f32 writes them): the score and dO V^T
+// tiles of the attention backward kernels, 256 threads as 16 x 16
+template <int D>
+__device__ __forceinline__ void two_score_tiles(const float* a, const float* b, const float* c,
+                                                const float* e, int ty, int tx, float s[4][4],
+                                                float t[4][4]) {
+  constexpr int kLd = D + 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float av[4], bv[4], cv[4], ev[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = a[(ty * 4 + i) * kLd + d];
+      cv[i] = c[(ty * 4 + i) * kLd + d];
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      bv[j] = b[(tx + 16 * j) * kLd + d];
+      ev[j] = e[(tx + 16 * j) * kLd + d];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] += av[i] * bv[j];
+        t[i][j] += cv[i] * ev[j];
+      }
+  }
+}
+
 }  // namespace dstorch

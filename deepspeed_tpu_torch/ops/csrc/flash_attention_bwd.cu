@@ -50,40 +50,6 @@ template <int D> constexpr size_t dkv_smem_bytes() {
   return sizeof(float) * (size_t)(4 * kTile * (D + 1) + 2 * kTile * kLdS + 2 * kTile);
 }
 
-// s[i][j] += a[row i] . b[col j] and t[i][j] += c[row i] . e[col j] over D,
-// for the thread's rows ty*4+i and columns tx+16j of two padded tiles each
-template <int D>
-__device__ __forceinline__ void two_score_tiles(const float* a, const float* b, const float* c,
-                                                const float* e, int ty, int tx, float s[4][4],
-                                                float t[4][4]) {
-  constexpr int kLd = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4], cv[4], ev[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = a[(ty * 4 + i) * kLd + d];
-      cv[i] = c[(ty * 4 + i) * kLd + d];
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bv[j] = b[(tx + 16 * j) * kLd + d];
-      ev[j] = e[(tx + 16 * j) * kLd + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] += av[i] * bv[j];
-        t[i][j] += cv[i] * ev[j];
-      }
-  }
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,

@@ -21,6 +21,9 @@ in ln_linear), so they are held relative to each output's largest element
 a rounded intermediate that lands on the other side of a rounding boundary
 when the fp32 sums before it differ in their last bits).
 
+The block-sparse kernels take the flash kernels' tolerances: the forward
+those of the flash forward, dq and dkv those of the flash backward.
+
 int8_matmul: the kernel and the plain version both round x to bf16 and sum
 exact bf16 x int8 products in fp32, so an fp32 output differs in summation
 order only (1e-5, relative to each output and, for outputs that cancel,
@@ -30,6 +33,7 @@ to the largest one); a bf16/fp16 output adds one rounding of the output
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,6 +48,12 @@ from deepspeed_tpu_torch.ops.attention.flash_attention import (
     flash_dkv_reference, flash_dq_reference)
 from deepspeed_tpu_torch.ops.quantization.int8_matmul import (
     int8_matmul, int8_matmul_reference)
+from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
+    block_sparse_dkv, block_sparse_dkv_reference, block_sparse_dq,
+    block_sparse_dq_reference, block_sparse_flash_attention, block_sparse_fwd,
+    block_sparse_fwd_reference, schedule)
+from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
+    BigBirdSparsityConfig, FixedSparsityConfig)
 from deepspeed_tpu_torch.ops.transformer.ln_linear import (
     ln_linear, ln_linear_bwd_dx, ln_linear_bwd_dx_reference, ln_linear_fwd,
     ln_linear_fwd_reference)
@@ -370,3 +380,101 @@ def test_ln_linear_autograd_and_refusals(gen):
                       torch.zeros(48, device="cuda"),
                       torch.randn(8, 48, device="cuda"),
                       torch.zeros(8, device="cuda"))
+
+
+def _sparse_layout(kind, H, n, block):
+    """(H, n, n) layouts: BigBird unidirectional with one layout per head;
+    Fixed bidirectional with horizontal globals; a hand-made one with empty
+    rows and a block above the diagonal."""
+    if kind == "bigbird":
+        return BigBirdSparsityConfig(
+            num_heads=H, block=block, different_layout_per_head=True,
+            num_random_blocks=1, num_sliding_window_blocks=3,
+            num_global_blocks=1, attention="unidirectional").make_layout(
+                n * block)
+    if kind == "fixed":
+        return FixedSparsityConfig(
+            num_heads=H, block=block, num_local_blocks=2, num_global_blocks=1,
+            horizontal_global_attention=True).make_layout(n * block)
+    layout = np.tril(np.ones((H, n, n), np.int32))
+    layout[0, 1] = 0                 # head 0: query block 1 attends nothing
+    layout[1, 0, 2] = 1              # head 1: row 0 lists a future block
+    layout[-1, 2:, 1] = 0
+    return layout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block", [128, 256, 512])
+@pytest.mark.parametrize("kind,causal", [("bigbird", True), ("fixed", False),
+                                         ("empty", True), ("empty", False)])
+def test_block_sparse_kernels_match_plain(gen, dtype, block, kind, causal):
+    B, H, D, n = 2, 3, 64, 4
+    _check_block_sparse(gen, dtype, B, H, D, n, block,
+                        _sparse_layout(kind, H, n, block), causal)
+
+
+@pytest.mark.parametrize("D", [32, 128])
+def test_block_sparse_kernels_head_dims(gen, D):
+    _check_block_sparse(gen, torch.bfloat16, 1, 2, D, 6, 128,
+                        _sparse_layout("bigbird", 2, 6, 128), True)
+
+
+def _check_block_sparse(gen, dtype, B, H, D, n, block, layout, causal):
+    T = n * block
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    idx, cnt, idx_t, cnt_t = schedule(layout, "cuda")
+    scale = 1 / math.sqrt(D)
+    before = (block_sparse_fwd.launches, block_sparse_dq.launches,
+              block_sparse_dkv.launches)
+    out, lse = block_sparse_fwd(q, k, v, idx, cnt, block, causal, scale)
+    want, want_lse = block_sparse_fwd_reference(q, k, v, idx, cnt, block,
+                                                causal, scale)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    delta = attention_delta(out, do)
+    args = (q, k, v, do, lse, delta)
+    dq = block_sparse_dq(*args, idx, cnt, block, causal, scale)
+    dk, dv = block_sparse_dkv(*args, idx_t, cnt_t, block, causal, scale)
+    torch.cuda.synchronize()
+    assert (block_sparse_fwd.launches, block_sparse_dq.launches,
+            block_sparse_dkv.launches) == tuple(x + 1 for x in before)
+    _close_to_max(dq, block_sparse_dq_reference(*args, idx, cnt, block,
+                                                causal, scale),
+                  TRAIN_TOL[dtype], "dq")
+    want_dk, want_dv = block_sparse_dkv_reference(*args, idx_t, cnt_t, block,
+                                                  causal, scale)
+    _close_to_max(dk, want_dk, TRAIN_TOL[dtype], "dk")
+    _close_to_max(dv, want_dv, TRAIN_TOL[dtype], "dv")
+
+
+def test_block_sparse_autograd_and_refusals(gen):
+    layout = _sparse_layout("bigbird", 4, 4, 128)
+    q, k, v = (torch.randn(2, 512, 4, 64, generator=gen, device="cuda")
+               .requires_grad_() for _ in range(3))
+    before = (block_sparse_fwd.launches, block_sparse_dq.launches,
+              block_sparse_dkv.launches)
+    out = block_sparse_flash_attention(q, k, v, layout, 128, causal=True)
+    g = torch.randn(2, 4, 512, 64, generator=gen, device="cuda")
+    out.backward(g.transpose(1, 2))          # a strided cotangent
+    torch.cuda.synchronize()
+    assert (block_sparse_fwd.launches, block_sparse_dq.launches,
+            block_sparse_dkv.launches) == tuple(x + 1 for x in before)
+    qc, kc, vc = (x.detach().cpu().requires_grad_() for x in (q, k, v))
+    ref = block_sparse_flash_attention(qc, kc, vc, layout, 128, causal=True)
+    ref.backward(g.cpu().transpose(1, 2))
+    _close_to_max(out.detach().cpu(), ref.detach(), 1e-4, "out")
+    for got, want in ((q, qc), (k, kc), (v, vc)):
+        _close_to_max(got.grad.cpu(), want.grad, 1e-4, "grad")
+    # what the kernels do not take raises on the card: no plain path
+    idx, cnt, _, _ = schedule(layout, "cuda")
+    x = torch.randn(1, 512, 4, 48, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="head dims"):
+        block_sparse_fwd(x, x, x, idx, cnt, 128, True, 1.0)
+    x = torch.randn(1, 512, 4, 64, generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        block_sparse_fwd(x, x, x, idx.long(), cnt, 128, True, 1.0)
+    with pytest.raises(ValueError, match="grouped-query"):
+        block_sparse_fwd(x, x[:, :, :2].contiguous(), x, idx, cnt, 128, True,
+                         1.0)

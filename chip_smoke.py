@@ -53,9 +53,11 @@ Phases, in order; any failure exits non-zero:
             medium's training shape (B=10, H=16, D=64, T=1024, bf16, causal),
             a non-causal case and a ragged T (with the flash forward's out
             and lse at the same shapes), and the ln_linear forward and
-            backward-dx kernels at its qkv and fc shapes (M=10240, C=1024,
-            N=3072 / 4096) and a ragged M; each held against its plain
-            version and timed beside its bound and a library yardstick.
+            backward-dx kernels (bf16: wgmma) at its qkv and fc shapes
+            (M=10240, C=1024, N=3072 / 4096), a ragged M and, at M=2048,
+            the wide C the JAX gate takes (1600: N=4800 / 6400; 2048: N=6144
+            / 8192; 4096: N=4096); each held against its plain version and
+            timed beside its bound and a library yardstick.
 9.  train   GPT-2 medium at its published widths (random weights from the
             seed) at the JAX bench's flagship configuration through
             ``initialize`` and ``train_batch``: bf16 with fp32 master
@@ -1403,6 +1405,11 @@ def flash_backward_kernels(gen: torch.Generator) -> tuple:
 
 
 def ln_linear_kernels(gen: torch.Generator) -> dict:
+    """The ln_linear forward and backward-dx kernels (bf16: wgmma) against
+    their plain versions, at the flagship's qkv and fc shapes, a ragged M,
+    and the wide C that the JAX gate takes (GPT-2 XL's 1600, gpt2-1.3b's
+    2048, the gate's top 4096) at M=2048; each timed beside its bound, its
+    plain version and the library calls. Returns the qkv shape's rows."""
     from deepspeed_tpu_torch.ops.transformer.ln_linear import (
         BLOCK_M, ln_linear_bwd_dx, ln_linear_bwd_dx_reference, ln_linear_fwd,
         ln_linear_fwd_reference)
@@ -1413,11 +1420,11 @@ def ln_linear_kernels(gen: torch.Generator) -> dict:
     stats = {"fwd": [0.0, 0.0], "bwd": [0.0, 0.0]}
     times = {}
 
-    def inputs(m, n):
-        x = torch.randn(m, C, generator=gen, device=dev).to(bf16)
-        g = (1 + 0.1 * torch.randn(C, generator=gen, device=dev)).to(bf16)
-        b = (0.1 * torch.randn(C, generator=gen, device=dev)).to(bf16)
-        w = (torch.randn(n, C, generator=gen, device=dev) * 0.02).to(bf16)
+    def inputs(m, c, n):
+        x = torch.randn(m, c, generator=gen, device=dev).to(bf16)
+        g = (1 + 0.1 * torch.randn(c, generator=gen, device=dev)).to(bf16)
+        b = (0.1 * torch.randn(c, generator=gen, device=dev)).to(bf16)
+        w = (torch.randn(n, c, generator=gen, device=dev) * 0.02).to(bf16)
         bias = (0.02 * torch.randn(n, generator=gen, device=dev)).to(bf16)
         dy = torch.randn(m, n, generator=gen, device=dev).to(bf16)
         return x, g, b, w, bias, dy
@@ -1425,9 +1432,13 @@ def ln_linear_kernels(gen: torch.Generator) -> dict:
     def track(key, pair):
         stats[key] = [max(a, b) for a, b in zip(stats[key], pair)]
 
-    for label, m, n in (("qkv", M, 3 * C), ("fc", M, 4 * C),
-                        ("ragged", 1000, 3 * C)):
-        x, g, b, w, bias, dy = inputs(m, n)
+    shapes = [("qkv", M, C, 3 * C), ("fc", M, C, 4 * C),
+              ("ragged", 1000, C, 3 * C)]
+    for c, ns in ((1600, (4800, 6400)), (2048, (6144, 8192)),
+                  (4096, (4096,))):
+        shapes += [(f"C={c} N={n}", 2048, c, n) for n in ns]
+    for label, m, c, n in shapes:
+        x, g, b, w, bias, dy = inputs(m, c, n)
         y, mean, rstd = ln_linear_fwd(x, g, b, w, bias)
         ry, rmean, rrstd = ln_linear_fwd_reference(x, g, b, w, bias, 1e-5)
         track("fwd", compare_rows(y, ry, f"ln_linear_fwd ({label})"))
@@ -1446,7 +1457,7 @@ def ln_linear_kernels(gen: torch.Generator) -> dict:
         gg, bg = (t.detach().requires_grad_() for t in (g, b))
 
         def lib_fwd(x, g, b):
-            return F.linear(F.layer_norm(x, (C,), g, b, 1e-5), w, bias)
+            return F.linear(F.layer_norm(x, (c,), g, b, 1e-5), w, bias)
 
         tiles = -(-m // BLOCK_M)
         times[label] = t = dict(
@@ -1458,15 +1469,15 @@ def ln_linear_kernels(gen: torch.Generator) -> dict:
                         reps=3),
             bwd_plain=cuda_ms(lambda: ln_linear_bwd_dx_reference(
                 dy, w, x, g, mean, rstd), reps=1),
-            fwd_bound=bound(2 * (m * C + n * C + n + 2 * C + m * n) + 8 * m,
-                            2 * m * C * n),
-            bwd_bound=bound(2 * (m * n + n * C + 2 * m * C + C) + 8 * m
-                            + 8 * tiles * C, 2 * m * C * n))
+            fwd_bound=bound(2 * (m * c + n * c + n + 2 * c + m * n) + 8 * m,
+                            2 * m * c * n),
+            bwd_bound=bound(2 * (m * n + n * c + 2 * m * c + c) + 8 * m
+                            + 8 * tiles * c, 2 * m * c * n))
         # the autograd of the two for dx, dgamma and dbeta (the kernel's
         # outputs), captured with its forward; the forward's time taken off
         t["bwd_lib"] = cuda_ms(lambda: torch.autograd.grad(
             lib_fwd(xg, gg, bg), (xg, gg, bg), dy), reps=3) - t["fwd_lib"]
-        log(f"[train_kernels] ln_linear {label} M={m} C={C} N={n}: forward "
+        log(f"[train_kernels] ln_linear {label} M={m} C={c} N={n}: forward "
             f"kernel {t['fwd']:.4f} ms, plain {t['fwd_plain']:.4f} ms, "
             f"F.layer_norm + F.linear {t['fwd_lib']:.4f} ms, bound "
             f"{t['fwd_bound']['bound_ms']:.4f} ms "
@@ -1476,8 +1487,8 @@ def ln_linear_kernels(gen: torch.Generator) -> dict:
             f"{t['bwd_bound']['bound_ms']:.4f} ms")
     log(f"[train_kernels] ln_linear max|err| forward {stats['fwd'][0]:.3g} "
         f"row rel {stats['fwd'][1]:.3g}; backward-dx {stats['bwd'][0]:.3g} "
-        f"row rel {stats['bwd'][1]:.3g} (tol {ROW_REL_TOL}); qkv, fc and "
-        f"ragged M=1000")
+        f"row rel {stats['bwd'][1]:.3g} (tol {ROW_REL_TOL}); statistics "
+        f"within 1e-4; {len(shapes)} shapes")
     qkv = times["qkv"]
     return {"ln_linear_fwd": dict(
                 max_abs_err=stats["fwd"][0], ms=qkv["fwd"],

@@ -2,11 +2,16 @@
 JSON surface as a plain dataclass.
 
 Keys for features this port does not have yet raise instead of being
-ignored: tensor parallelism above 1, ZeRO-Inference, checkpoint loading, and
-the CUDA-graph/Triton switches (graph capture of the decode step is later
-work). Weight quantization (``dtype="int8"`` or ``quant.enabled``) is
+ignored: tensor parallelism above 1, ZeRO-Inference and checkpoint loading.
+Weight quantization (``dtype="int8"`` or ``quant.enabled``) is
 accepted; the engine serves it through the int8 compute tier or raises for
 the storage tier it has no kernel for.
+
+The CUDA switches parse as they do in the JAX package, where they are
+no-ops: ``use_triton`` and ``triton_autotune`` mean nothing to a port whose
+kernels are hand-written CUDA C++, and are recorded only. ``enable_cuda_graph``
+is recorded as well: it is to become the switch for capturing the decode
+step in a CUDA graph (ROADMAP.md queue 1); today the step runs eagerly.
 """
 
 from __future__ import annotations
@@ -25,9 +30,7 @@ _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
 _QUANT_DEFAULTS = {"enabled": False, "bits": 8, "group_size": 0}
 
 # key -> the value that means "off" (anything else raises)
-_NOT_PORTED = {"enable_cuda_graph": False, "use_triton": False,
-               "triton_autotune": False, "zero": {}, "checkpoint": None,
-               "injection_policy": None}
+_NOT_PORTED = {"zero": {}, "checkpoint": None, "injection_policy": None}
 
 
 @dataclasses.dataclass
@@ -41,6 +44,10 @@ class DeepSpeedInferenceConfig:
     replace_method: str = "auto"
     replace_with_kernel_inject: bool = False
     return_tuple: bool = True
+    # accepted and recorded, no-ops (module docstring)
+    enable_cuda_graph: bool = False
+    use_triton: bool = False
+    triton_autotune: bool = False
     # sampling defaults for generate() and serving
     temperature: float = 1.0
     top_k: int = 0

@@ -60,8 +60,8 @@ SIGNATURES = {
         "dstorch_flash_attention_dkv": [_I] + [_P] * 8 + [_I] * 6 + [_F, _I,
                                                                      _P]},
     "ln_linear": {
-        "dstorch_ln_linear_fwd": [_I] + [_P] * 8 + [_I, _I, _I, _F, _P],
-        "dstorch_ln_linear_bwd_dx": [_I] + [_P] * 9 + [_I, _I, _I, _P]},
+        "dstorch_ln_linear_fwd": [_I] + [_P] * 9 + [_I, _I, _I, _F, _P],
+        "dstorch_ln_linear_bwd_dx": [_I] + [_P] * 10 + [_I, _I, _I, _P]},
     "block_sparse_attention": {
         "dstorch_block_sparse_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I,
                                                                   _P],

@@ -14,19 +14,24 @@ function it casts gamma, beta, W and bias to x's dtype, and:
 * when the shape gate (:func:`supports_fused`) takes the shape, it runs the
   custom operator ``dstorch::ln_linear``: the forward kernel gives ``(y,
   mean, rstd)`` (fp32 row statistics); the backward-dx kernel gives dx and
-  per-32-row partials of dgamma and dbeta, summed here; dW and db are
+  per-``BLOCK_M``-row partials of dgamma and dbeta, summed here; dW and db are
   plain products from the normalized rows recomputed with the saved
   statistics, as ``_ln_linear_vjp_bwd`` (:219-232) leaves them to XLA;
 * otherwise, on a CPU tensor, it takes the plain composition of the JAX
   fallback (:265-277), differentiated by autograd; on a CUDA tensor it
   raises, so no call on the card leaves the kernels silently.
 
-The gate is the CUDA kernels' own (what a block can tile), not the TPU's
-128-lane rule: C a multiple of 32 and at most 1536; any M and N.
+The gate is the CUDA kernels' own, not the TPU's 128-lane rule. bf16 and
+fp16 run wgmma GEMMs fed by TMA: C a multiple of 64 and N a multiple of 8,
+any M, which takes every shape the JAX gate takes (C ≤ 4096, multiples of
+128) and more (GPT-2 XL's C = 1600). fp32 keeps the FMA kernels: C a
+multiple of 32 and at most 1536, any M and N.
 
 The kernel wrappers :func:`ln_linear_fwd` and :func:`ln_linear_bwd_dx` take
 their plain versions only for CPU tensors; a CUDA tensor launches the
-kernel (adding one to the wrapper's ``launches``) or raises.
+kernels (one wrapper call adds one to its ``launches``: the 16-bit forward
+is a statistics pass and the GEMM, the backward the GEMM and a finishing
+pass) or raises.
 """
 
 from __future__ import annotations
@@ -38,14 +43,29 @@ import torch
 # checkpoint-policy names of the forward's outputs in the JAX package; the
 # port's policy names the operator (LN_LINEAR_OP) that produces them
 LN_SAVE_NAMES = ("ln_linear_out", "ln_linear_stats")
-BLOCK_M = 32       # rows a kernel block owns (one partial row per block)
-CHUNK = 32         # C must be a multiple of this
-MAX_C = 1536       # a (32, C) fp32 tile of dn fits in shared memory
+BLOCK_M = 128      # rows per dgamma / dbeta partial (the GEMMs' row tile)
+BWD_BLOCK_C = 128  # 16-bit backward: columns of C per tile (row partials)
+K_SLICE = 64       # 16-bit: C must be a multiple of this
+N_ALIGN = 8        # 16-bit: N must be a multiple of this (16-byte rows)
+CHUNK = 32         # fp32: C must be a multiple of this
+MAX_C = 1536       # fp32: a (32, C) fp32 tile of dn fits in shared memory
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 
 
-def supports_fused(m: int, c: int, n: int) -> bool:
-    """Whether the kernels take an (m, c) x against an (n, c) weight."""
+def supports_fused(m: int, c: int, n: int,
+                   dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the kernels for ``dtype`` take an (m, c) x against an (n, c)
+    weight (see the module docstring)."""
+    if dtype in _WGMMA_DTYPES:
+        return (m >= 1 and n >= 1 and n % N_ALIGN == 0 and c >= K_SLICE
+                and c % K_SLICE == 0)
     return m >= 1 and n >= 1 and c % CHUNK == 0 and CHUNK <= c <= MAX_C
+
+
+def _gate_rule(dtype) -> str:
+    if dtype in _WGMMA_DTYPES:
+        return f"C a multiple of {K_SLICE}, N of {N_ALIGN}"
+    return f"C a multiple of {CHUNK}, at most {MAX_C}"
 
 
 def _stats(x2, eps: float):
@@ -113,9 +133,9 @@ def ln_linear_fwd(x2, gamma, beta, weight, bias, eps: float = 1e-5):
     N = weight.shape[0]
     if not _cuda(x2):
         return ln_linear_fwd_reference(x2, gamma, beta, weight, bias, eps)
-    if not supports_fused(M, C, N):
+    if not supports_fused(M, C, N, x2.dtype):
         raise ValueError(f"ln_linear kernel does not tile M={M}, C={C}, "
-                         f"N={N} (C a multiple of {CHUNK}, at most {MAX_C})")
+                         f"N={N} ({_gate_rule(x2.dtype)})")
     from ..op_builder import launch
 
     code = _code(x2.dtype, x=x2, gamma=gamma, beta=beta, weight=weight,
@@ -123,10 +143,14 @@ def ln_linear_fwd(x2, gamma, beta, weight, bias, eps: float = 1e-5):
     y = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
     mean = torch.empty(M, dtype=torch.float32, device=x2.device)
     rstd = torch.empty_like(mean)
+    scratch = None  # 16-bit: gamma and beta in fp32, read a slice a stage
+    if x2.dtype in _WGMMA_DTYPES:
+        scratch = torch.empty(2 * C, dtype=torch.float32, device=x2.device)
     launch("ln_linear", x2.device, code, x2.data_ptr(), gamma.data_ptr(),
            beta.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-           mean.data_ptr(), rstd.data_ptr(), M, C, N, float(eps),
-           symbol="dstorch_ln_linear_fwd")
+           mean.data_ptr(), rstd.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), M, C, N,
+           float(eps), symbol="dstorch_ln_linear_fwd")
     ln_linear_fwd.launches += 1
     return y, mean, rstd
 
@@ -138,9 +162,9 @@ def ln_linear_bwd_dx(dy, weight, x2, gamma, mean, rstd):
     N = weight.shape[0]
     if not _cuda(x2):
         return ln_linear_bwd_dx_reference(dy, weight, x2, gamma, mean, rstd)
-    if not supports_fused(M, C, N):
+    if not supports_fused(M, C, N, x2.dtype):
         raise ValueError(f"ln_linear kernel does not tile M={M}, C={C}, "
-                         f"N={N} (C a multiple of {CHUNK}, at most {MAX_C})")
+                         f"N={N} ({_gate_rule(x2.dtype)})")
     from ..op_builder import launch
 
     code = _code(x2.dtype, dy=dy, weight=weight, x=x2, gamma=gamma,
@@ -149,9 +173,14 @@ def ln_linear_bwd_dx(dy, weight, x2, gamma, mean, rstd):
     dx = torch.empty_like(x2)
     dg = torch.empty((tiles, C), dtype=torch.float32, device=x2.device)
     db = torch.empty_like(dg)
+    scratch = None  # 16-bit: dxh (M, C) and the row partials, fp32
+    if x2.dtype in _WGMMA_DTYPES:
+        scratch = torch.empty(M * C + 2 * M * -(-C // BWD_BLOCK_C),
+                              dtype=torch.float32, device=x2.device)
     launch("ln_linear", x2.device, code, dy.data_ptr(), weight.data_ptr(),
            x2.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-           dx.data_ptr(), dg.data_ptr(), db.data_ptr(), M, C, N,
+           dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
+           None if scratch is None else scratch.data_ptr(), M, C, N,
            symbol="dstorch_ln_linear_bwd_dx")
     ln_linear_bwd_dx.launches += 1
     return dx, dg, db
@@ -186,11 +215,15 @@ def _ln_bwd(ctx, dy, _dmean, _drstd):
     dx, dg_parts, db_parts = ln_linear_bwd_dx(dy, weight, x, gamma, mean,
                                               rstd)
     # dW and db as the JAX package leaves them to XLA: the normalized rows
-    # recomputed from the saved statistics, one plain product
-    xh = (x.float() - mean[:, None]) * rstd[:, None]
-    nmat = (xh * gamma.float() + beta.float()).to(x.dtype)
+    # recomputed from the saved statistics, one plain product. The rows are
+    # formed as the forward kernel forms them (x * rstd - mean * rstd, then
+    # * gamma + beta, in fp32, rounded to x's dtype) in two elementwise
+    # passes, and db is summed in fp32 without an fp32 copy of dy.
+    xh = torch.addcmul((-mean * rstd)[:, None], x, rstd[:, None])
+    nmat = torch.addcmul(beta.float(), xh, gamma.float(),
+                         out=torch.empty_like(x))
     dw = (dy.t() @ nmat).to(weight.dtype)
-    db = dy.float().sum(0).to(ctx.bias_dtype)
+    db = dy.sum(0, dtype=torch.float32).to(ctx.bias_dtype)
     return (dx, dg_parts.sum(0).to(gamma.dtype),
             db_parts.sum(0).to(beta.dtype), dw, db, None)
 
@@ -216,11 +249,11 @@ def ln_linear(x, gamma, beta, weight, bias,
     n = weight.shape[0]
     x2 = x.reshape(-1, c)
     m = x2.shape[0]
-    if not supports_fused(m, c, n):
+    if not supports_fused(m, c, n, x.dtype):
         if _cuda(x):
             raise ValueError(f"ln_linear kernel does not tile M={m}, C={c}, "
-                             f"N={n} (C a multiple of {CHUNK}, at most "
-                             f"{MAX_C}); use fused_ln_linear=False")
+                             f"N={n} ({_gate_rule(x.dtype)}); use "
+                             f"fused_ln_linear=False")
         return _plain(x2, gamma, beta, weight, bias, eps).reshape(*lead, n)
     dt = x.dtype
     y, _, _ = LN_LINEAR_OP(x2.contiguous(), gamma.to(dt), beta.to(dt),

@@ -326,10 +326,21 @@ def test_flash_autograd_launches_both_backward_kernels(gen):
         _close_to_max(got.grad.cpu(), want.grad, 1e-4, "grad")
 
 
-@pytest.mark.parametrize("dtype", list(TOL))
-@pytest.mark.parametrize("M,C,N", [(128, 128, 128), (70, 96, 50),
-                                   (33, 1536, 130), (1, 32, 1),
-                                   (300, 1024, 640)])
+# fp32 keeps the FMA kernels' shapes (C a multiple of 32, at most 1536);
+# bf16 and fp16 take the wgmma kernels' gate (C a multiple of 64, N of 8):
+# ragged M against the 128-row tile, C from one K slice to the top of the
+# JAX gate and GPT-2 XL's 1600 (ragged against the 128-column backward
+# tile), N from one 8-column group to ragged against the forward tile
+LN_LINEAR_SHAPES = [
+    (torch.float32, M, C, N) for M, C, N in
+    [(128, 128, 128), (70, 96, 50), (33, 1536, 130), (1, 32, 1),
+     (300, 1024, 640)]] + [
+    (dtype, M, C, N) for dtype in (torch.bfloat16, torch.float16)
+    for M in (1, 33, 1000) for C in (64, 1024, 1600, 4096)
+    for N in (8, 136, 3072)]
+
+
+@pytest.mark.parametrize("dtype,M,C,N", LN_LINEAR_SHAPES)
 def test_ln_linear_kernels_match_plain(gen, dtype, M, C, N):
     x = (torch.randn(M, C, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
     g = (1 + 0.1 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
@@ -380,6 +391,60 @@ def test_ln_linear_autograd_and_refusals(gen):
                       torch.zeros(48, device="cuda"),
                       torch.randn(8, 48, device="cuda"),
                       torch.zeros(8, device="cuda"))
+    # bf16 refusals of the wgmma kernels: C not a multiple of 64, N not of 8
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    for c, n in ((96, 64), (128, 12)):
+        xb = torch.randn(8, c, **bf)
+        args = (torch.ones(c, **bf), torch.zeros(c, **bf),
+                torch.randn(n, c, **bf), torch.zeros(n, **bf))
+        with pytest.raises(ValueError, match="does not tile"):
+            ln_linear(xb, *args)
+        with pytest.raises(ValueError, match="does not tile"):
+            ln_linear_fwd(xb, *args)
+        with pytest.raises(ValueError, match="does not tile"):
+            ln_linear_bwd_dx(torch.randn(8, n, **bf), args[2], xb, args[0],
+                             torch.zeros(8, device="cuda"),
+                             torch.ones(8, device="cuda"))
+
+
+@pytest.mark.parametrize("n_embd", [1600, 2048, 4096])
+def test_fused_ln_linear_model_at_wide_c(gen, n_embd):
+    """``fused_ln_linear=True`` on a bf16 GPT-2 layer at GPT-2 XL's, the
+    1.3B's and the JAX gate's top width runs the kernels (qkv and fc, once
+    each way), and its loss and gradients match the unfused model's; a
+    width the gate refuses raises."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config(vocab_size=256, n_positions=64, n_embd=n_embd,
+                     n_layer=1, n_head=n_embd // 64, dtype=torch.bfloat16,
+                     use_flash_attention=False, fused_ln_linear=True)
+    model = GPT2LMHeadModel(cfg, device="cuda").to(torch.bfloat16)
+    model.init_weights(gen)
+    batch = {"input_ids": torch.randint(0, 256, (2, 64), generator=gen,
+                                        device="cuda")}
+    out = []
+    for fused in (True, False):
+        model.replace_config(fused_ln_linear=fused)
+        model.zero_grad(set_to_none=True)
+        before = (ln_linear_fwd.launches, ln_linear_bwd_dx.launches)
+        loss = model(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = (ln_linear_fwd.launches - before[0],
+               ln_linear_bwd_dx.launches - before[1])
+        assert got == ((2, 2) if fused else (0, 0))
+        out.append((loss.item(), {k: p.grad.float()
+                                  for k, p in model.named_parameters()}))
+    (loss_f, grads_f), (loss_u, grads_u) = out
+    assert abs(loss_f - loss_u) <= 1e-2 * abs(loss_u)
+    for k, g in grads_u.items():
+        _close_to_max(grads_f[k], g, 5e-2, k)
+    refused = GPT2Config(vocab_size=256, n_positions=64, n_embd=1000,
+                         n_layer=1, n_head=8, dtype=torch.bfloat16,
+                         use_flash_attention=False, fused_ln_linear=True)
+    model = GPT2LMHeadModel(refused, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError, match="does not tile"):
+        model(batch)
 
 
 def _sparse_layout(kind, H, n, block):

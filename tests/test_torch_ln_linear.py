@@ -8,7 +8,9 @@ first shape, and its own fallback at the ragged one. The JAX function takes
 W as (C, N) and the port as (N, C) (``nn.Linear``'s layout). Inputs come
 from numpy with a seed; everything is fp32, so y and the gradients of x,
 gamma, beta, W and b agree within 2e-5 of their largest element (summation
-order only).
+order only). One shape the JAX gate takes and the port's old C ≤ 1536 gate
+refused, (128, 2048, 128), goes through the port's custom operator (the
+kernels' plain versions on the CPU) against the JAX Pallas kernels.
 """
 
 import jax
@@ -20,8 +22,9 @@ import torch
 from deepspeed_tpu.ops.transformer.ln_linear import ln_linear as jax_ln
 from deepspeed_tpu.ops.transformer.ln_linear import \
     supports_fused as jax_supports
+from deepspeed_tpu_torch.ops.transformer import ln_linear as port_ln
 from deepspeed_tpu_torch.ops.transformer.ln_linear import (
-    BLOCK_M, LN_SAVE_NAMES, ln_linear, ln_linear_bwd_dx,
+    BLOCK_M, LN_LINEAR_OP, LN_SAVE_NAMES, ln_linear, ln_linear_bwd_dx,
     ln_linear_bwd_dx_reference, ln_linear_fwd, supports_fused)
 
 RTOL = 2e-5
@@ -69,9 +72,23 @@ def test_leading_dims_and_refusals():
     y3 = ln_linear(t[0].view(2, 40, 64), *t[1:])
     assert y3.shape == (2, 40, 48)
     torch.testing.assert_close(y3.reshape(80, 48), flat, atol=0, rtol=0)
-    # the gate is the CUDA kernels' own: C a multiple of 32, at most 1536
-    assert supports_fused(7, 32, 3) and supports_fused(10240, 1536, 4096)
-    assert not supports_fused(64, 1568, 64) and not supports_fused(64, 48, 64)
+    # the gate is the CUDA kernels' own. fp32 (FMA kernels): C a multiple
+    # of 32, at most 1536, any N
+    f32 = torch.float32
+    assert supports_fused(7, 32, 3, f32) and supports_fused(10240, 1536, 4096,
+                                                            f32)
+    assert not supports_fused(64, 1568, 64, f32)
+    assert not supports_fused(64, 48, 64, f32)
+    # bf16 / fp16 (wgmma kernels, bf16 by default): C a multiple of 64, N of
+    # 8, any M; no cap on C
+    for dt in (torch.bfloat16, torch.float16):
+        assert supports_fused(1, 64, 8, dt) and supports_fused(10240, 4096,
+                                                               3072, dt)
+        assert supports_fused(2048, 1600, 4800, dt)
+        assert not supports_fused(7, 32, 8, dt)      # C % 64
+        assert not supports_fused(64, 96, 64, dt)    # C % 64
+        assert not supports_fused(64, 64, 12, dt)    # N % 8
+    assert supports_fused(10240, 1536, 4096) and not supports_fused(7, 32, 3)
     # a refused shape on the CPU takes the plain composition (a CUDA
     # tensor raises; tests/test_torch_cuda_kernels.py holds that)
     xr, wr = torch.randn(4, 48), torch.randn(8, 48)
@@ -105,3 +122,78 @@ def test_kernel_wrappers_take_their_plain_versions_on_the_cpu():
     for got, want in zip((dx, dg, db), ln_linear_bwd_dx_reference(
             dy, w, x, gamma, mean, rstd)):
         torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def test_bf16_gate_takes_every_shape_the_jax_gate_takes():
+    ms = (1, 8, 100, 128, 256, 512, 1000, 1024, 2048, 10240)
+    cs = tuple(range(32, 4097 + 256, 32)) + (100, 1600)
+    ns = (1, 8, 50, 128, 136, 384, 512, 640, 3000, 3072, 4096, 4800, 8192)
+    taken = 0
+    for m in ms:
+        for c in cs:
+            for n in ns:
+                if jax_supports(m, c, n):
+                    taken += 1
+                    assert supports_fused(m, c, n), (m, c, n)
+                    assert supports_fused(m, c, n, torch.float16), (m, c, n)
+    assert taken > 500
+    # the JAX gate's top (C = 4096) is inside, and so is GPT-2 XL's C = 1600,
+    # which the JAX package runs through its XLA composition
+    assert jax_supports(10240, 4096, 4096) and supports_fused(10240, 4096,
+                                                              4096)
+    assert not jax_supports(2048, 1600, 4800)
+    assert supports_fused(2048, 1600, 4800)
+
+
+def test_wide_c_through_the_operator_matches_jax(monkeypatch):
+    """(128, 2048, 128): the JAX gate takes it, the old port gate (C ≤ 1536)
+    refused it. fp32 through ``dstorch::ln_linear`` (the kernels' plain
+    versions on the CPU) against the JAX Pallas kernels in interpret mode;
+    then bf16 through ``ln_linear``, which now takes the operator."""
+    m, c, n = 128, 2048, 128
+    assert jax_supports(m, c, n) and supports_fused(m, c, n)
+    assert not supports_fused(m, c, n, torch.float32)   # the FMA kernels' cap
+    x, gamma, beta, w, bias, dy = _inputs(m, c, n, seed=3)
+    y, vjp = jax.jit(lambda *a: jax.vjp(jax_ln, *a))(
+        *map(jnp.asarray, (x, gamma, beta, w, bias)))
+    want = [np.asarray(g) for g in jax.jit(vjp)(jnp.asarray(dy))]
+    want[3] = want[3].T
+    args = [torch.from_numpy(a).requires_grad_()
+            for a in (x, gamma, beta, np.ascontiguousarray(w.T), bias)]
+    got_y, _, _ = LN_LINEAR_OP(*args, 1e-5)
+    got_y.backward(torch.from_numpy(dy))
+    _close(got_y.detach().numpy(), np.asarray(y), "y")
+    for name, a, ref in zip(("x", "gamma", "beta", "W", "b"), args, want):
+        _close(a.grad.numpy(), ref, f"d{name}")
+
+    calls = []
+    for name in ("ln_linear_fwd_reference", "ln_linear_bwd_dx_reference"):
+        real = getattr(port_ln, name)
+        monkeypatch.setattr(port_ln, name, lambda *a, _r=real, _n=name:
+                            calls.append(_n) or _r(*a))
+    xb = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+    p = [torch.from_numpy(a).to(torch.bfloat16) for a in
+         (gamma, beta, np.ascontiguousarray(w.T), bias)]
+    ln_linear(xb, *p).float().sum().backward()
+    assert calls == ["ln_linear_fwd_reference", "ln_linear_bwd_dx_reference"]
+    assert xb.grad is not None and torch.isfinite(xb.grad).all()
+
+
+def test_partials_have_block_m_rows_with_a_ragged_last_tile():
+    m, c, n = 2 * BLOCK_M + 5, 64, 16
+    x, gamma, _, w, _, dy = (torch.from_numpy(a) for a in
+                             _inputs(m, c, n, seed=4))
+    w = w.t().contiguous()
+    xf = x.double()
+    mean = xf.mean(1)
+    rstd = ((xf - mean[:, None]) ** 2).mean(1).add(1e-5).rsqrt()
+    _, dg, db = ln_linear_bwd_dx(dy, w, x, gamma, mean.float(), rstd.float())
+    assert dg.shape == db.shape == (3, c)
+    dn = dy.double() @ w.double()
+    xh = (xf - mean[:, None]) * rstd[:, None]
+    for i, rows in enumerate((slice(0, 128), slice(128, 256),
+                              slice(256, m))):
+        torch.testing.assert_close(dg[i].double(), (dn * xh)[rows].sum(0),
+                                   atol=1e-4, rtol=0)
+        torch.testing.assert_close(db[i].double(), dn[rows].sum(0),
+                                   atol=1e-4, rtol=0)

@@ -10,7 +10,10 @@ Phases, in order; any failure exits non-zero:
             the serving path's shapes, and time the kernel, the plain version,
             one PyTorch library call computing the same function (none
             reads a page table, so none for the paged kernel), and the
-            card's bound for the same work.
+            card's bound for the same work. The flash forward and dk/dv
+            kernels (their design, wgmma or fma, in the kernels line) are
+            also timed at every admission width (B=1, H=12, T 16..1024)
+            beside their bounds and SDPA's forward and backward.
 3. serve    GPT-2 small at its published widths (random weights from the
             seed), bf16, through ``init_serving(..., num_slots=8,
             prefill_chunk=0)``: 16 requests, run until drained; every request
@@ -57,7 +60,10 @@ Phases, in order; any failure exits non-zero:
             (M=10240, C=1024, N=3072 / 4096), a ragged M and, at M=2048,
             the wide C the JAX gate takes (1600: N=4800 / 6400; 2048: N=6144
             / 8192; 4096: N=4096); each held against its plain version and
-            timed beside its bound and a library yardstick.
+            timed beside its bound and a library yardstick. The flash forward
+            and dk/dv kernels' other design (fma: fp32, and D=32) is held
+            against the plain versions at small shapes, and the fp32
+            ln_linear kernels at C=2048 are held and timed once.
 9.  train   GPT-2 medium at its published widths (random weights from the
             seed) at the JAX bench's flagship configuration through
             ``initialize`` and ``train_batch``: bf16 with fp32 master
@@ -80,7 +86,8 @@ Phases, in order; any failure exits non-zero:
             with empty query rows and in fp32; each held against its plain
             version and timed beside its bound and a library yardstick (SDPA
             with the layout expanded to a token mask). The flash forward, dq
-            and dkv kernels are held once at B=1, H=12, T=8192 as well.
+            and dkv kernels are held and timed once at B=1, H=12, T=8192 as
+            well, the forward and dkv beside their bounds and SDPA's.
 13. train_sparse  GPT-2 small widths (768/12/12, vocab 50257) at 8192
             positions with ``sparse_attention=BigBirdSparsityConfig(
             num_heads=12, block=512, num_random_blocks=1,
@@ -385,11 +392,70 @@ def phase_build() -> str:
     return card
 
 
+def flash_times(q, k, v, do, label: str, reps: int,
+                other: bool = True) -> dict:
+    """The flash forward and dk/dv kernels at one causal bf16 shape, each
+    timed beside its bound and SDPA's time for the same function: its
+    forward, and its backward (dq, dk and dv in one call, captured with its
+    forward and the forward's time taken off); and with ``other``, for the
+    record of the grid rule (``block_rows``), both again with the other
+    block size. Logs one line."""
+    import importlib
+
+    fa = importlib.import_module(
+        "deepspeed_tpu_torch.ops.attention.flash_attention")
+    B, T, H, D = q.shape
+    out, lse = fa.flash_attention(q, k, v)
+    args = (q, k, v, do, lse, fa.attention_delta(out, do), True,
+            1.0 / math.sqrt(D))
+    fwd = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=reps)
+    dkv = cuda_ms(lambda: fa.flash_attention_dkv(*args), reps=reps)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rows = fa.block_rows(D, B * H * -(-T // 128), sms)
+    alt = ""
+    if other:
+        rule = fa.block_rows
+        fa.block_rows = lambda *_: 192 - rows          # 64 <-> 128
+        try:
+            fwd_alt = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=reps)
+            dkv_alt = cuda_ms(lambda: fa.flash_attention_dkv(*args),
+                              reps=reps)
+        finally:
+            fa.block_rows = rule
+        alt = (f"; {192 - rows}-row blocks: forward {fwd_alt:.4f}, dkv "
+               f"{dkv_alt:.4f}")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    sdpa_fwd = cuda_ms(sdpa, reps=reps)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
+        sdpa(), (qt, kt, vt), dot), reps=reps) - sdpa_fwd
+    tok = q.numel() * q.element_size()      # one (B, T, H, D) tensor
+    stat = B * H * T * 4                    # lse or delta
+    pairs = B * H * T * (T + 1) // 2        # causal (query, key) pairs
+    r = dict(fwd=fwd, fwd_bound=bound(4 * tok + stat, 2 * 2 * D * pairs),
+             sdpa_fwd=sdpa_fwd, dkv=dkv,
+             dkv_bound=bound(6 * tok + 2 * stat, 4 * 2 * D * pairs),
+             sdpa_bwd=sdpa_bwd, design=fa.flash_design(q.dtype, D))
+    log(f"[flash_times] {label} B={B} H={H} D={D} T={T} causal "
+        f"({r['design']}, {rows}-row blocks): forward {fwd:.4f} ms (bound "
+        f"{r['fwd_bound']['bound_ms']:.4f}, {r['fwd_bound']['bound_by']}; "
+        f"SDPA {sdpa_fwd:.4f}); dkv {dkv:.4f} ms (bound "
+        f"{r['dkv_bound']['bound_ms']:.4f}, {r['dkv_bound']['bound_by']}; "
+        f"SDPA backward {sdpa_bwd:.4f}){alt}")
+    return r
+
+
 def phase_kernels(gen: torch.Generator) -> dict:
     from deepspeed_tpu_torch.ops.attention.decode_attention import (
         alibi_slopes, decode_attention, decode_attention_reference)
     from deepspeed_tpu_torch.ops.attention.flash_attention import (
-        flash_attention, mha_reference)
+        attention_delta, flash_attention, flash_attention_dkv,
+        flash_dkv_reference, mha_reference)
 
     dev, bf16 = "cuda", torch.bfloat16
     results = {}
@@ -437,12 +503,14 @@ def phase_kernels(gen: torch.Generator) -> dict:
         f"{results['decode_attention']['bound_ms']:.4f} ms")
 
     # -- flash forward: admission prefill at every bucket width -------------
+    # (the dk/dv kernel at the same widths: a prompt's backward, held and
+    # timed here beside the forward)
     B = 1
-    err = rel = lse_err = 0.0
+    err = rel = lse_err = dkv_err = 0.0
     per_t = {}
     for T in (16, 32, 64, 128, 256, 512, 1024):
-        qf, kf, vf = (torch.randn(B, T, H, D, generator=gen, device=dev)
-                      .to(bf16) for _ in range(3))
+        qf, kf, vf, dof = (torch.randn(B, T, H, D, generator=gen, device=dev)
+                           .to(bf16) for _ in range(4))
         out, lse = flash_attention(qf, kf, vf, causal=True)
         ref, ref_lse = mha_reference(qf, kf, vf, causal=True)
         e, r = compare(out, ref, f"flash kernel vs plain at T={T}")
@@ -450,24 +518,30 @@ def phase_kernels(gen: torch.Generator) -> dict:
         assert math.isfinite(le) and le <= LSE_ATOL, \
             f"flash lse vs plain at T={T}: max |err| {le} > {LSE_ATOL}"
         err, rel, lse_err = max(err, e), max(rel, r), max(lse_err, le)
-        per_t[T] = cuda_ms(lambda: flash_attention(qf, kf, vf), reps=20)
+        dargs = (qf, kf, vf, dof, lse, attention_delta(out, dof), True, scale)
+        for g, w in zip(flash_attention_dkv(*dargs),
+                        flash_dkv_reference(*dargs)):
+            dkv_err = max(dkv_err, compare_rows(
+                g, w, f"flash dkv kernel vs plain at T={T}")[0])
+        per_t[T] = flash_times(qf, kf, vf, dof, "serving", reps=20,
+                               other=T == 1024)
     T = 1024
-    ms = per_t[T]
+    ms = per_t[T]["fwd"]
     plain_ms = cuda_ms(lambda: mha_reference(qf, kf, vf), reps=2)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (qf, kf, vf))
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True), reps=20)
     results["flash_attention_fwd"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **bound(4 * B * T * H * D * esize + 4 * B * H * T,
-                4 * B * H * D * (T * (T + 1) // 2)))
-    log(f"[kernels] flash_attention_fwd B=1 H={H} D={D} causal, T 16..1024: "
-        f"max|err| out {err:.3g} (tol {OUT_ATOL}), row rel "
-        f"{rel:.3g} (tol {ROW_REL_TOL}), "
-        f"lse {lse_err:.3g} (tol {LSE_ATOL}); per-T kernel ms "
-        + ", ".join(f"{t}:{v:.4f}" for t, v in per_t.items()))
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        library_ms=per_t[T]["sdpa_fwd"], design=per_t[T]["design"],
+        **per_t[T]["fwd_bound"])
+    log(f"[kernels] flash_attention_fwd B=1 H={H} D={D} causal, T 16..1024 "
+        f"({per_t[T]['design']}): max|err| out {err:.3g} (tol {OUT_ATOL}), "
+        f"row rel {rel:.3g} (tol {ROW_REL_TOL}), lse {lse_err:.3g} (tol "
+        f"{LSE_ATOL}); dkv max|err| {dkv_err:.3g} (row rule); per-T kernel "
+        "ms forward " + ", ".join(f"{t}:{v['fwd']:.4f}"
+                                  for t, v in per_t.items())
+        + "; dkv " + ", ".join(f"{t}:{v['dkv']:.4f}"
+                               for t, v in per_t.items()))
     log(f"[kernels] flash_attention_fwd T={T}: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+        f"{plain_ms:.4f} ms, sdpa {per_t[T]['sdpa_fwd']:.4f} ms, bound "
         f"{results['flash_attention_fwd']['bound_ms']:.4f} ms")
     results["paged_decode_attention"] = paged_kernel(gen)
     return results
@@ -1351,39 +1425,37 @@ def flash_backward_kernels(gen: torch.Generator) -> tuple:
 
     check(*inputs(4, 512, 512), False, "non-causal T=S=512")
     check(*inputs(2, 1000, 1000), True, "causal ragged T=1000")
+    fma_design_check(gen)
     B, T = MICRO_BS, SEQ
     q, k, v, do = inputs(B, T, T)
     args = check(q, k, v, do, True, f"causal B={B} T={T}")
     ms_dq = cuda_ms(lambda: flash_attention_dq(*args), reps=3)
-    ms_dkv = cuda_ms(lambda: flash_attention_dkv(*args), reps=3)
     plain_dq = cuda_ms(lambda: flash_dq_reference(*args), reps=1)
     plain_dkv = cuda_ms(lambda: flash_dkv_reference(*args), reps=1)
-    # the library yardstick: SDPA forward and forward + backward through
-    # autograd (one backward computes dq, dk and dv together), each captured
-    # whole in a CUDA graph as the kernels are; its backward is the
-    # difference
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    dot = do.transpose(1, 2)
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-    lib_fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-        sdpa_fwd(), (qt, kt, vt), dot), reps=3)
-    lib_bwd = lib_fwd_bwd - cuda_ms(sdpa_fwd, reps=3)
+    # the forward and dkv beside their bounds and the library yardstick:
+    # SDPA forward, and its backward (dq, dk and dv together)
+    times = flash_times(q, k, v, do, "training", reps=3)
+    lib_bwd = times["sdpa_bwd"]
+    # D=128 at the same tokens (8 heads): the one-warpgroup blocks that
+    # block_rows picks there, beside the two-warpgroup ones
+    q8, k8, v8, do8 = (torch.randn(B, T, 8, 128, generator=gen, device=dev)
+                       .to(bf16) for _ in range(4))
+    compare_rows(flash_attention(q8, k8, v8)[0], mha_reference(q8, k8, v8)[0],
+                 "flash forward kernel vs plain (D=128)")
+    flash_times(q8, k8, v8, do8, "training D=128", reps=3)
+    del q8, k8, v8, do8
     tok = B * T * H * D * 2                 # one bf16 (B, T, H, D) tensor
     stat_bytes = B * H * T * 4
     pairs = B * H * T * (T + 1) // 2        # causal (query, key) pairs
     out = {
         "flash_attention_dq": dict(
             max_abs_err=stats["dq"][0], ms=ms_dq, plain_ms=plain_dq,
-            library_ms=lib_bwd,
+            library_ms=lib_bwd, design="fma",
             **bound(5 * tok + 2 * stat_bytes, 3 * 2 * D * pairs)),
         "flash_attention_dkv": dict(
-            max_abs_err=stats["dkv"][0], ms=ms_dkv, plain_ms=plain_dkv,
-            library_ms=lib_bwd,
-            **bound(6 * tok + 2 * stat_bytes, 4 * 2 * D * pairs)),
+            max_abs_err=stats["dkv"][0], ms=times["dkv"], plain_ms=plain_dkv,
+            library_ms=lib_bwd, design=times["design"],
+            **times["dkv_bound"]),
     }
     log(f"[train_kernels] flash_attention_fwd at the same three shapes: "
         f"max|err| {stats['fwd'][0]:.3g}, row rel {stats['fwd'][1]:.3g} "
@@ -1396,12 +1468,48 @@ def flash_backward_kernels(gen: torch.Generator) -> tuple:
             f"(tol {ROW_REL_TOL}); kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
-    ms_fwd = cuda_ms(lambda: flash_attention(q, k, v), reps=3)
     log(f"[train_kernels] SDPA backward (dq, dk, dv in one call) "
-        f"{lib_bwd:.4f} ms; SDPA forward + backward {lib_fwd_bwd:.4f} ms; "
-        f"port forward {ms_fwd:.4f} + dq + dkv = "
-        f"{ms_fwd + ms_dq + ms_dkv:.4f} ms")
+        f"{lib_bwd:.4f} ms; SDPA forward + backward "
+        f"{times['sdpa_fwd'] + lib_bwd:.4f} ms; port forward "
+        f"{times['fwd']:.4f} + dq + dkv = "
+        f"{times['fwd'] + ms_dq + times['dkv']:.4f} ms")
     return out, stats["fwd"][0]
+
+
+def fma_design_check(gen: torch.Generator) -> None:
+    """The flash forward and dk/dv kernels' FMA design, which the main
+    paths (bf16, D=64) no longer run: fp32 at D=64 and bf16 at D=32, GQA
+    and a ragged T, each against its plain version (fp32 within 1e-4 of
+    each output's largest element, summation order only; bf16 by the row
+    rule)."""
+    from deepspeed_tpu_torch.ops.attention.flash_attention import (
+        attention_delta, flash_attention, flash_attention_dkv, flash_design,
+        flash_dkv_reference, mha_reference)
+
+    errs = []
+    for dtype, D in ((torch.float32, 64), (torch.bfloat16, 32)):
+        assert flash_design(dtype, D) == "fma"
+        q, do = (torch.randn(2, 129, 8, D, generator=gen, device="cuda")
+                 .to(dtype) for _ in range(2))
+        k, v = (torch.randn(2, 129, 2, D, generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        out, lse = flash_attention(q, k, v)
+        ref, _ = mha_reference(q, k, v)
+        args = (q, k, v, do, lse, attention_delta(out, do), True,
+                1 / math.sqrt(D))
+        pairs = [(out, ref), *zip(flash_attention_dkv(*args),
+                                  flash_dkv_reference(*args))]
+        for got, want in pairs:
+            if dtype == torch.float32:
+                e = ((got - want).abs().max()
+                     / want.abs().max().clamp_min(1e-2)).item()
+                assert e <= 1e-4, f"fma design fp32: {e} > 1e-4"
+            else:
+                e = compare_rows(got, want, "fma design bf16 D=32")[1]
+            errs.append(e)
+    log(f"[train_kernels] flash forward and dkv, fma design (fp32 D=64, bf16 "
+        f"D=32, GQA 8/2, T=129): within their limits, worst "
+        f"{max(errs):.3g}")
 
 
 def ln_linear_kernels(gen: torch.Generator) -> dict:
@@ -1485,6 +1593,7 @@ def ln_linear_kernels(gen: torch.Generator) -> dict:
             f"{t['bwd']:.4f} ms, plain {t['bwd_plain']:.4f} ms, autograd of "
             f"the two {t['bwd_lib']:.4f} ms, bound "
             f"{t['bwd_bound']['bound_ms']:.4f} ms")
+    ln_linear_fp32_wide(gen)
     log(f"[train_kernels] ln_linear max|err| forward {stats['fwd'][0]:.3g} "
         f"row rel {stats['fwd'][1]:.3g}; backward-dx {stats['bwd'][0]:.3g} "
         f"row rel {stats['bwd'][1]:.3g} (tol {ROW_REL_TOL}); statistics "
@@ -1498,6 +1607,45 @@ def ln_linear_kernels(gen: torch.Generator) -> dict:
                 max_abs_err=stats["bwd"][0], ms=qkv["bwd"],
                 plain_ms=qkv["bwd_plain"], library_ms=qkv["bwd_lib"],
                 **qkv["bwd_bound"])}
+
+
+def ln_linear_fp32_wide(gen: torch.Generator) -> None:
+    """The fp32 ln_linear kernels (FMA units) at C=2048, a width the fp32
+    gate took only once its shared memory stopped growing with C: forward
+    and backward-dx held against their plain versions (1e-4 of each output's
+    largest element: fp32 throughout, summation order only) and timed once
+    beside them."""
+    from deepspeed_tpu_torch.ops.transformer.ln_linear import (
+        ln_linear_bwd_dx, ln_linear_bwd_dx_reference, ln_linear_fwd,
+        ln_linear_fwd_reference)
+
+    m = c = n = 2048
+    x = torch.randn(m, c, generator=gen, device="cuda")
+    g = 1 + 0.1 * torch.randn(c, generator=gen, device="cuda")
+    b = 0.1 * torch.randn(c, generator=gen, device="cuda")
+    w = torch.randn(n, c, generator=gen, device="cuda") / math.sqrt(c)
+    bias = 0.1 * torch.randn(n, generator=gen, device="cuda")
+    dy = torch.randn(m, n, generator=gen, device="cuda")
+    y, mean, rstd = ln_linear_fwd(x, g, b, w, bias)
+    got = [y, *ln_linear_bwd_dx(dy, w, x, g, mean, rstd)]
+    want = [ln_linear_fwd_reference(x, g, b, w, bias, 1e-5)[0],
+            *ln_linear_bwd_dx_reference(dy, w, x, g, mean, rstd)]
+    for name, a, r in zip(("y", "dx", "dgamma", "dbeta"), got,
+                          [want[0], want[1], want[2].sum(0), want[3].sum(0)]):
+        a = a.sum(0) if name in ("dgamma", "dbeta") else a
+        e = ((a - r).abs().max() / r.abs().max().clamp_min(1e-2)).item()
+        assert e <= 1e-4, f"ln_linear fp32 C={c} {name}: {e} > 1e-4"
+    t = dict(fwd=cuda_ms(lambda: ln_linear_fwd(x, g, b, w, bias), reps=3),
+             fwd_plain=cuda_ms(lambda: ln_linear_fwd_reference(
+                 x, g, b, w, bias, 1e-5), reps=1),
+             bwd=cuda_ms(lambda: ln_linear_bwd_dx(dy, w, x, g, mean, rstd),
+                         reps=3),
+             bwd_plain=cuda_ms(lambda: ln_linear_bwd_dx_reference(
+                 dy, w, x, g, mean, rstd), reps=1))
+    log(f"[train_kernels] ln_linear fp32 M={m} C={c} N={n} (fma): within "
+        f"1e-4 of the plain versions; forward kernel {t['fwd']:.4f} ms, plain "
+        f"{t['fwd_plain']:.4f} ms; backward-dx kernel {t['bwd']:.4f} ms, "
+        f"plain {t['bwd_plain']:.4f} ms")
 
 
 def phase_train_kernels(gen: torch.Generator, results: dict) -> None:
@@ -1611,7 +1759,36 @@ def phase_train(model, seed: int, config: dict, steps: int, label: str,
         f"{wall / micros * 1e3:.1f} ms a micro-batch; peak "
         f"{peak / 2 ** 30:.2f} GiB allocated; launches "
         f"{ {k: n for k, n in got.items() if n} }")
+    if device == "cuda":
+        # one more step traced: the device's busy share is its kernels'
+        # time over the untraced step's wall time
+        dev_ms, top = traced_device_ms(
+            lambda: engine.train_batch(batch=batches[0]))
+        step_ms = wall / steps * 1e3
+        busy = (f"{dev_ms:.1f} ms of kernels against {step_ms:.1f} ms a step "
+                f"untraced: device busy {dev_ms / step_ms:.3f}, idle "
+                f"{1 - dev_ms / step_ms:.3f}" if dev_ms > 0 else
+                "device time not measured (the profiler saw no kernel)")
+        log(f"[{label}] traced step: {busy}; largest kernels "
+            + "; ".join(f"{name[:60]} {ms:.1f}" for name, ms in top))
     return engine, losses, launches, tokens / wall
+
+
+def traced_device_ms(fn) -> tuple:
+    """Runs ``fn`` once under ``torch.profiler`` and returns the device
+    time of the kernels it launched (ms, summed over the CUDA events) and
+    the six largest kernels by name, as (ms, [(name, ms), ...])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    return (sum(ms for _, ms in rows),
+            sorted(rows, key=lambda r: -r[1])[:6])
 
 
 def grads_of(model, batch) -> tuple:
@@ -1889,9 +2066,9 @@ def phase_sparse_kernels(gen: torch.Generator) -> dict:
     e_dkv = max(compare_rows(dk, want_dk, "flash dk at T=8192")[0],
                 compare_rows(dv, want_dv, "flash dv at T=8192")[0])
     del want_dk, want_dv
-    flash = [cuda_ms(lambda: flash_attention(q, k, v), reps=3),
-             cuda_ms(lambda: flash_attention_dq(*fargs), reps=3),
-             cuda_ms(lambda: flash_attention_dkv(*fargs), reps=3)]
+    ft = flash_times(q, k, v, do, "dense arm", reps=3)
+    flash = [ft["fwd"], cuda_ms(lambda: flash_attention_dq(*fargs), reps=3),
+             ft["dkv"]]
     log(f"[sparse_kernels] flash forward, dq, dkv at B=1 H={H} T={T} "
         f"causal: max|err| {e_fwd:.3g} / {e_dq:.3g} / {e_dkv:.3g} (row "
         f"rule), lse {le:.3g}; {flash[0]:.4f} + {flash[1]:.4f} + "
@@ -1992,6 +2169,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    t_start = time.perf_counter()
 
     card = phase_build()
     results = phase_kernels(gen)
@@ -2054,6 +2232,8 @@ def main(argv=None) -> int:
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     assert not missing, f"kernels never launched on the main paths: " \
         f"{missing}"
+    log(f"[smoke] every phase passed in {time.perf_counter() - t_start:.1f} s "
+        f"(the build included)")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,13 @@ flash_attention_bwd.cu``, replacing ``_bwd_dq_kernel`` (:210, launched at
 :315) and ``_bwd_dkv_kernel`` (:253, launched at :340). Each source's
 header says what bounds it on the H100.
 
+The forward and dk/dv kernels have two designs each, and
+:func:`flash_design` names the one a call runs: ``"wgmma"`` (the tensor
+cores, fed by TMA) for bf16 and fp16 at D = 64 and 128, ``"fma"`` (the fp32
+FMA units) for fp32, whose 1e-4 tolerance TF32 products miss, and for D =
+32, whose 64-byte rows are below the 128-byte swizzle atom. The dq kernel is
+the FMA design in every case.
+
 Layout is the JAX package's: q (B, T, H, D); k/v (B, S, KV, D) with
 H % KV == 0 (grouped-query heads are mapped inside the kernels, so callers
 do not repeat K/V); out (B, T, H, D); lse (B, H, T) fp32.
@@ -37,6 +44,34 @@ import torch
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)
+
+
+def flash_design(dtype: torch.dtype, D: int) -> str:
+    """The design the forward and dk/dv kernels run for ``dtype`` and head
+    dim ``D`` (see the module docstring): ``"wgmma"`` or ``"fma"``."""
+    if dtype in (torch.bfloat16, torch.float16) and D in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
+
+
+def block_rows(D: int, tiles_of_128: int, sm_count: int) -> int:
+    """Rows a block of the wgmma design takes (query rows in the forward,
+    keys in dk/dv): 128, two consumer warpgroups, unless that grid
+    (``tiles_of_128`` blocks) would leave some of the card's ``sm_count``
+    SMs idle, or D = 128, whose 128-row blocks spill registers; then 64, one
+    warpgroup."""
+    return 64 if D == 128 or tiles_of_128 < sm_count else 128
+
+
+def _design_code(t, D: int, heads: int, rows: int) -> int:
+    """The C entry points' design argument for a kernel over ``heads``
+    (batch x heads) rows of ``rows`` positions: 0 the FMA design, 1 the
+    wgmma design with 128-row blocks, 2 with 64-row blocks."""
+    if flash_design(t.dtype, D) == "fma":
+        return 0
+    sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+    return 1 if block_rows(D, heads * -(-rows // 128), sms) == 128 else 2
 
 
 def _repeat_kv(x, H: int):
@@ -176,7 +211,8 @@ def _flash_forward(q, k, v, causal: bool, scale: float):
     code = _check_cuda(D, q.dtype, q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    launch("flash_attention_fwd", q.device, code, q.data_ptr(), k.data_ptr(),
+    launch("flash_attention_fwd", q.device, code,
+           _design_code(q, D, B * H, T), q.data_ptr(), k.data_ptr(),
            v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, T, S, H, KV, D,
            float(scale), int(bool(causal)))
     flash_attention.launches += 1
@@ -228,7 +264,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = True,
     """(dk, dv) from the forward's lse and ``delta`` (see
     :func:`flash_dkv_reference`); a KV head's gradient sums its query
     heads'. CPU tensors take the plain version; CUDA tensors launch the dkv
-    kernel (``flash_attention_dkv.launches``)."""
+    kernel of :func:`flash_design`'s design
+    (``flash_attention_dkv.launches``)."""
     _check(q, k, v, causal)
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -240,7 +277,8 @@ def flash_attention_dkv(q, k, v, do, lse, delta, causal: bool = True,
 
     code = _check_bwd(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    launch("flash_attention_bwd", q.device, code, q.data_ptr(), k.data_ptr(),
+    launch("flash_attention_bwd", q.device, code,
+           _design_code(q, D, B * KV, S), q.data_ptr(), k.data_ptr(),
            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
            dk.data_ptr(), dv.data_ptr(), B, T, S, H, KV, D, float(scale),
            int(bool(causal)), symbol="dstorch_flash_attention_dkv")

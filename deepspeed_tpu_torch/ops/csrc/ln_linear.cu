@@ -56,12 +56,16 @@
 //    a multiple of 64 (whole K slices) and N a multiple of 8 (16-byte TMA
 //    strides for dy and y); any M.
 //
-// fp32 keeps the FMA kernels below (TF32 wgmma would miss the fp32
-// tolerance): a block of 32 rows computes their statistics, keeps the
-// normalized rows in shared memory and runs the product on the FMA units
-// (each thread a 4 x 4 output block); the backward keeps a (32, C) fp32 tile
-// of dn in shared memory, so C is a multiple of 32 and at most 1536, and a
-// block makes four passes of 32 rows to write 128-row partials.
+// fp32 keeps the FMA units (TF32 wgmma would miss the fp32 tolerance), in
+// the 16-bit kernels' structure so that shared memory does not grow with C:
+// the forward takes its statistics from the same row-statistics pass and
+// walks C in 32-column slices, normalizing each slice of x as it is loaded
+// (a block 32 rows x 128 columns of y, each thread a 4 x 4 block); the
+// backward computes dn for 128 rows x 128 columns of C in four passes of 32
+// rows, writes dxh and the row partials to the same scratch as the 16-bit
+// backward and its column sums as one row of the partials, and the same
+// finishing pass forms dx. So the fp32 gate is C a multiple of 32, any M
+// and N, which takes every shape the JAX gate takes (C <= 4096).
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -70,21 +74,13 @@ namespace {
 
 // ---------------------------------------------------------------- fp32: FMA
 constexpr int kBM = 32;       // rows per pass of a block
-constexpr int kBN = 128;      // output columns per tile
-constexpr int kBK = 32;       // reduction chunk
+constexpr int kBN = 128;      // output columns per tile (forward: of N; backward: of C)
+constexpr int kBK = 32;       // reduction chunk: C (forward) or N (backward) walks in these
 constexpr int kLdW = kBN + 4; // padded row of the (kBK, kBN) fp32 B tile
 constexpr int kLdD = kBK + 1;
-constexpr int kFwdTiles = 4;  // output tiles per forward block
 constexpr int kThreads = 256;
 constexpr int kMaxSmem = 232448;  // the H100's opt-in limit a block
 constexpr int kPartRows = 128;    // rows per dgamma / dbeta partial (all dtypes)
-
-constexpr size_t kWBytes = sizeof(float) * kBK * kLdW;
-
-template <typename T> size_t fwd_smem_bytes(int C) { return kWBytes + sizeof(T) * kBM * C; }
-inline size_t bwd_smem_bytes(int C) {
-  return kWBytes + sizeof(float) * ((size_t)kBM * C + kBM * kLdD + 4 * kBM);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -110,202 +106,147 @@ __device__ __forceinline__ void mma_chunk(LoadA a_at, const float* Ws, int ty, i
   }
 }
 
-template <typename T>
+// y tile of kBM rows x kBN columns. C is walked in kBK slices and each
+// slice of x is normalized as it is loaded, from the statistics that
+// ln_stats_kernel wrote first, so shared memory does not grow with C.
 __global__ void __launch_bounds__(kThreads)
-ln_linear_fwd_kernel(const T* __restrict__ x, const T* __restrict__ gamma,
-                     const T* __restrict__ beta, const T* __restrict__ w,
-                     const T* __restrict__ bias, T* __restrict__ y, float* __restrict__ mean,
-                     float* __restrict__ rstd, int M, int C, int N, float eps) {
-  constexpr int kVec = Vec<T>::kN;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ws = reinterpret_cast<float*>(smem_raw);
-  T* As = reinterpret_cast<T*>(smem_raw + kWBytes);
-
-  const int m0 = blockIdx.x * kBM;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-
-  // statistics and the normalized rows: warp w owns rows 4w .. 4w+3
-  for (int r = warp * 4; r < warp * 4 + 4; ++r) {
-    const int row = m0 + r;
-    T* arow = As + (size_t)r * C;
-    if (row >= M) {
-      for (int c = lane; c < C; c += 32) arow[c] = from_float<T>(0.f);
-      continue;
-    }
-    const T* xrow = x + (size_t)row * C;
-    float s = 0.f;
-    for (int c = lane * kVec; c < C; c += 32 * kVec) {
-      float v[kVec];
-      load_vec(xrow + c, v);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) s += v[i];
-    }
-    const float mu = warp_sum(s) / C;
-    float ss = 0.f;
-    for (int c = lane * kVec; c < C; c += 32 * kVec) {
-      float v[kVec];
-      load_vec(xrow + c, v);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) ss += (v[i] - mu) * (v[i] - mu);
-    }
-    const float rs = rsqrtf(warp_sum(ss) / C + eps);
-    for (int c = lane * kVec; c < C; c += 32 * kVec) {
-      float v[kVec], g[kVec], b[kVec];
-      load_vec(xrow + c, v);
-      load_vec(gamma + c, g);
-      load_vec(beta + c, b);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) arow[c + i] = from_float<T>((v[i] - mu) * rs * g[i] + b[i]);
-    }
-    if (blockIdx.y == 0 && lane == 0) {
-      mean[row] = mu;
-      rstd[row] = rs;
-    }
-  }
-  __syncthreads();
-
+ln_linear_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
+                     const float* __restrict__ beta, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ y,
+                     const float* __restrict__ mean, const float* __restrict__ rstd, int M,
+                     int C, int N) {
+  __shared__ __align__(16) float Ws[kBK * kLdW];
+  __shared__ float As[kBM * kLdD];
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
+  const int tid = threadIdx.x;
   const int ty = tid >> 5, tx = tid & 31;  // rows ty*4 .. +3, columns tx*4 .. +3
-  auto a_at = [&](int r, int kk) { return to_float(As[(size_t)r * C + kk]); };
-  for (int t = 0; t < kFwdTiles; ++t) {
-    const int n0 = (blockIdx.y * kFwdTiles + t) * kBN;
-    if (n0 >= N) break;
-    float acc[4][4] = {};
-    for (int k0 = 0; k0 < C; k0 += kBK) {
-      // W rows n0 .. n0+127, columns k0 .. k0+31, transposed into Ws[k][n]
-      for (int v = tid; v < kBN * kBK / kVec; v += kThreads) {
-        const int nr = v / (kBK / kVec), kc = (v % (kBK / kVec)) * kVec;
-        float vals[kVec];
-        if (n0 + nr < N) {
-          load_vec(w + (size_t)(n0 + nr) * C + k0 + kc, vals);
-        } else {
-#pragma unroll
-          for (int i = 0; i < kVec; ++i) vals[i] = 0.f;
-        }
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) Ws[(kc + i) * kLdW + nr] = vals[i];
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < C; k0 += kBK) {
+    // x rows m0 .. m0+31, columns k0 .. k0+31, normalized
+    for (int v = tid; v < kBM * kBK / 4; v += kThreads) {
+      const int r = v / (kBK / 4), kc = (v % (kBK / 4)) * 4;
+      const int row = m0 + r;
+      float xv[4] = {0.f, 0.f, 0.f, 0.f}, g[4], b[4];
+      float mu = 0.f, rs = 0.f;
+      if (row < M) {
+        mu = mean[row];
+        rs = rstd[row];
+        load_vec(x + (size_t)row * C + k0 + kc, xv);
       }
-      __syncthreads();
-      mma_chunk([&](int r, int kk) { return a_at(r, k0 + kk); }, Ws, ty, tx, acc);
-      __syncthreads();
+      load_vec(gamma + k0 + kc, g);
+      load_vec(beta + k0 + kc, b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) As[r * kLdD + kc + i] = row < M ? (xv[i] - mu) * rs * g[i] + b[i] : 0.f;
     }
+    // W rows n0 .. n0+127, columns k0 .. k0+31, transposed into Ws[k][n]
+    for (int v = tid; v < kBN * kBK / 4; v += kThreads) {
+      const int nr = v / (kBK / 4), kc = (v % (kBK / 4)) * 4;
+      float vals[4] = {0.f, 0.f, 0.f, 0.f};
+      if (n0 + nr < N) load_vec(w + (size_t)(n0 + nr) * C + k0 + kc, vals);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ty * 4 + i;
-      if (row >= M) continue;
+      for (int i = 0; i < 4; ++i) Ws[(kc + i) * kLdW + nr] = vals[i];
+    }
+    __syncthreads();
+    mma_chunk([&](int r, int kk) { return As[r * kLdD + kk]; }, Ws, ty, tx, acc);
+    __syncthreads();
+  }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx * 4 + j;
-        if (col < N)
-          y[(size_t)row * N + col] = from_float<T>(acc[i][j] + to_float(bias[col]));
-      }
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+    if (row >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (col < N) y[(size_t)row * N + col] = acc[i][j] + bias[col];
     }
   }
 }
 
-template <typename T>
+// dn = dy W for kPartRows rows (four passes of kBM) x kBN columns of C, and
+// its LayerNorm-backward epilogue as the 16-bit backward's: dxh = dn * gamma
+// in fp32 to the (M, C) scratch, the row partials sum(dxh) and sum(dxh * xh)
+// over the tile's columns to the (C / kBN, M, 2) scratch, and the tile's
+// column sums of dn * xh and dn as its row of the dgamma / dbeta partials;
+// ln_bwd_finish_kernel forms dx. Shared memory does not grow with C.
 __global__ void __launch_bounds__(kThreads)
-ln_linear_bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ w,
-                        const T* __restrict__ x, const T* __restrict__ gamma,
+ln_linear_bwd_dx_kernel(const float* __restrict__ dy, const float* __restrict__ w,
+                        const float* __restrict__ x, const float* __restrict__ gamma,
                         const float* __restrict__ mean, const float* __restrict__ rstd,
-                        T* __restrict__ dx, float* __restrict__ dg_parts,
-                        float* __restrict__ db_parts, int M, int C, int N) {
-  constexpr int kVec = Vec<T>::kN;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ws = reinterpret_cast<float*>(smem_raw);
-  float* dn = Ws + kBK * kLdW;     // (kBM, C)
-  float* Ds = dn + (size_t)kBM * C;  // (kBM, kBK + 1) chunk of dy
-  float* mean_s = Ds + kBM * kLdD;
-  float* rstd_s = mean_s + kBM;
-  float* m1_s = rstd_s + kBM;
-  float* m2_s = m1_s + kBM;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+                        float* __restrict__ dxh, float* __restrict__ row_parts,
+                        float* __restrict__ dg_parts, float* __restrict__ db_parts, int M, int C,
+                        int N) {
+  __shared__ __align__(16) float Ws[kBK * kLdW];
+  __shared__ float Ds[kBM * kLdD];  // a kBK chunk of dy's rows
+  __shared__ float red[8 * kBN * 2];
+  const int tid = threadIdx.x, lane = tid & 31;
   const int ty = tid >> 5, tx = tid & 31;
+  const int c0 = blockIdx.y * kBN, cl = tx * 4;  // this thread's columns c0 + cl .. + 3
+  const bool col_ok = c0 + cl < C;               // C % 32 == 0: all four or none
+  float g[4] = {0.f, 0.f, 0.f, 0.f}, cs_g[4] = {0.f, 0.f, 0.f, 0.f}, cs_b[4] = {0.f, 0.f, 0.f, 0.f};
+  if (col_ok) load_vec(gamma + c0 + cl, g);
   for (int pass = 0; pass < kPartRows / kBM; ++pass) {
     const int m0 = blockIdx.x * kPartRows + pass * kBM;
     if (m0 >= M) break;
-
-    // dn = dy W, 128 columns at a time
-    for (int c0 = 0; c0 < C; c0 += kBN) {
-      float acc[4][4] = {};
-      for (int k0 = 0; k0 < N; k0 += kBK) {
-        for (int idx = tid; idx < kBM * kBK; idx += kThreads) {
-          const int r = idx / kBK, kk = idx % kBK;
-          const int row = m0 + r, col = k0 + kk;
-          Ds[r * kLdD + kk] = (row < M && col < N) ? to_float(dy[(size_t)row * N + col]) : 0.f;
-        }
-        for (int v = tid; v < kBK * kBN / kVec; v += kThreads) {
-          const int kr = v / (kBN / kVec), cc = (v % (kBN / kVec)) * kVec;
-          float vals[kVec];
-          if (k0 + kr < N && c0 + cc < C) {
-            load_vec(w + (size_t)(k0 + kr) * C + c0 + cc, vals);
-          } else {
-  #pragma unroll
-            for (int i = 0; i < kVec; ++i) vals[i] = 0.f;
-          }
-  #pragma unroll
-          for (int i = 0; i < kVec; ++i) Ws[kr * kLdW + cc + i] = vals[i];
-        }
-        __syncthreads();
-        mma_chunk([&](int r, int kk) { return Ds[r * kLdD + kk]; }, Ws, ty, tx, acc);
-        __syncthreads();
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < N; k0 += kBK) {
+      for (int idx = tid; idx < kBM * kBK; idx += kThreads) {
+        const int r = idx / kBK, kk = idx % kBK;
+        const int row = m0 + r, col = k0 + kk;
+        Ds[r * kLdD + kk] = (row < M && col < N) ? dy[(size_t)row * N + col] : 0.f;
       }
-  #pragma unroll
-      for (int i = 0; i < 4; ++i)
-  #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = c0 + tx * 4 + j;
-          if (c < C) dn[(ty * 4 + i) * C + c] = acc[i][j];
-        }
+      for (int v = tid; v < kBK * kBN / 4; v += kThreads) {
+        const int kr = v / (kBN / 4), cc = (v % (kBN / 4)) * 4;
+        float vals[4] = {0.f, 0.f, 0.f, 0.f};
+        if (k0 + kr < N && c0 + cc < C) load_vec(w + (size_t)(k0 + kr) * C + c0 + cc, vals);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) Ws[kr * kLdW + cc + i] = vals[i];
+      }
+      __syncthreads();
+      mma_chunk([&](int r, int kk) { return Ds[r * kLdD + kk]; }, Ws, ty, tx, acc);
+      __syncthreads();
     }
-    __syncthreads();
-
-    // per-row means of dxh and dxh * xh: warp w owns rows 4w .. 4w+3
-    for (int r = warp * 4; r < warp * 4 + 4; ++r) {
-      const int row = m0 + r;
-      if (row >= M) {
-        if (lane == 0) mean_s[r] = rstd_s[r] = m1_s[r] = m2_s[r] = 0.f;
-        continue;
-      }
-      const float mu = mean[row], rs = rstd[row];
+    // rows ty*4 + i of the pass (warp-uniform), columns cl .. cl+3
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + ty * 4 + i;
+      if (row >= M) continue;
       float s1 = 0.f, s2 = 0.f;
-      for (int c = lane; c < C; c += 32) {
-        const float xh = (to_float(x[(size_t)row * C + c]) - mu) * rs;
-        const float dxh = dn[r * C + c] * to_float(gamma[c]);
-        s1 += dxh;
-        s2 += dxh * xh;
+      if (col_ok) {
+        const float mu = mean[row], rs = rstd[row];
+        float xv[4], d[4];
+        load_vec(x + (size_t)row * C + c0 + cl, xv);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float xh = (xv[j] - mu) * rs, dn = acc[i][j];
+          d[j] = dn * g[j];
+          s1 += d[j];
+          s2 += d[j] * xh;
+          cs_g[j] += dn * xh;
+          cs_b[j] += dn;
+        }
+        *reinterpret_cast<float4*>(dxh + (size_t)row * C + c0 + cl) =
+            make_float4(d[0], d[1], d[2], d[3]);
       }
       s1 = warp_sum(s1);
       s2 = warp_sum(s2);
-      if (lane == 0) {
-        mean_s[r] = mu;
-        rstd_s[r] = rs;
-        m1_s[r] = s1 / C;
-        m2_s[r] = s2 / C;
-      }
+      if (lane == 0)
+        *reinterpret_cast<float2*>(row_parts + ((size_t)blockIdx.y * M + row) * 2) =
+            make_float2(s1, s2);
     }
-    __syncthreads();
-
-    // dx, and this block's rows of the dgamma / dbeta partial sums
-    for (int c = tid; c < C; c += kThreads) {
-      const float g = to_float(gamma[c]);
-      float dg = 0.f, db = 0.f;
-      for (int r = 0; r < kBM; ++r) {
-        const int row = m0 + r;
-        if (row >= M) break;
-        const float xh = (to_float(x[(size_t)row * C + c]) - mean_s[r]) * rstd_s[r];
-        const float d = dn[r * C + c];
-        dg += d * xh;
-        db += d;
-        dx[(size_t)row * C + c] = from_float<T>(rstd_s[r] * (d * g - m1_s[r] - xh * m2_s[r]));
-      }
-      // the same thread owns column c in every pass: no race
-      float* dgp = dg_parts + (size_t)blockIdx.x * C + c;
-      float* dbp = db_parts + (size_t)blockIdx.x * C + c;
-      *dgp = pass == 0 ? dg : *dgp + dg;
-      *dbp = pass == 0 ? db : *dbp + db;
-    }
-    __syncthreads();
+  }
+  // column partials: the 8 warps, in a fixed order
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    red[(ty * kBN + cl + j) * 2] = cs_g[j];
+    red[(ty * kBN + cl + j) * 2 + 1] = cs_b[j];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < 2 * kBN; idx += kThreads) {
+    const int c = idx >> 1, q = idx & 1;
+    float sum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < 8; ++wi) sum += red[(wi * kBN + c) * 2 + q];
+    if (c0 + c < C) (q == 0 ? dg_parts : db_parts)[(size_t)blockIdx.x * C + c0 + c] = sum;
   }
 }
 
@@ -320,26 +261,6 @@ constexpr int kBoxBytes = 64 * kTileK * 2;       // a 64 x 64 box of W
 constexpr int kBwdBC = 128;          // columns of C per backward tile
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-template <typename T> __device__ __forceinline__ float2 unpack2(uint32_t v);
-template <> __device__ __forceinline__ float2 unpack2<__nv_bfloat16>(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&v));
-}
-template <> __device__ __forceinline__ float2 unpack2<__half>(uint32_t v) {
-  return __half22float2(*reinterpret_cast<__half2*>(&v));
-}
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 h = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-template <typename T> __device__ __forceinline__ float2 load2(const T* p) {
-  return unpack2<T>(*reinterpret_cast<const uint32_t*>(p));
-}
-
 // (x - mu) * rs * g + b for a pair of x's dtype, in fp32 as two FMAs an
 // element: fma(x, rs, -mu * rs), then fma(., g, b); rounded back to T.
 template <typename T>
@@ -353,9 +274,9 @@ __device__ __forceinline__ void consumer_bar_sync() {
 }
 
 // mean and rstd (M,) fp32, one warp per row: two passes over the row (the
-// second from L1/L2), var = mean((x - mean)^2) as the TPU kernel. Threads
-// 0 .. C-1 of the grid also write gamma and beta as fp32 into gb (2C), the
-// GEMM's per-slice copy source.
+// second from L1/L2), var = mean((x - mean)^2) as the TPU kernel. For the
+// 16-bit GEMM, threads 0 .. C-1 of the grid also write gamma and beta as
+// fp32 into gb (2C), its per-slice copy source; the fp32 GEMM passes none.
 template <typename T>
 __global__ void __launch_bounds__(256)
 ln_stats_kernel(const T* __restrict__ x, const T* __restrict__ gamma, const T* __restrict__ beta,
@@ -363,7 +284,7 @@ ln_stats_kernel(const T* __restrict__ x, const T* __restrict__ gamma, const T* _
                 int M, int C, float eps) {
   constexpr int kVec = Vec<T>::kN;
   const int gi = blockIdx.x * 256 + threadIdx.x;
-  if (gi < C) {
+  if (gb != nullptr && gi < C) {
     gb[gi] = to_float(gamma[gi]);
     gb[C + gi] = to_float(beta[gi]);
   }
@@ -720,8 +641,25 @@ ln_linear_bwd_wgmma(const __grid_constant__ CUtensorMap dy_map,
   }
 }
 
+// Four elements of T as fp32, and back (rounded once): 16-byte aligned.
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  v[0] = r.x, v[1] = r.y, v[2] = r.z, v[3] = r.w;
+}
+template <typename T> __device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = unpack2<T>(r.x), hi = unpack2<T>(r.y);
+  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <typename T> __device__ __forceinline__ void store4(T* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack2<T>(v[0], v[1]), pack2<T>(v[2], v[3]));
+}
+
 // dx = rstd * (dxh - s1 / C - xh * s2 / C), one warp per row, with s1, s2
-// the sums of the row partials over the column tiles.
+// the sums of the row partials over the column tiles (every dtype).
 template <typename T>
 __global__ void __launch_bounds__(256)
 ln_bwd_finish_kernel(const float* __restrict__ dxh, const float* __restrict__ row_parts,
@@ -741,17 +679,15 @@ ln_bwd_finish_kernel(const float* __restrict__ dxh, const float* __restrict__ ro
   const float mu = mean[row], rs = rstd[row];
   const size_t off = (size_t)row * C;
   for (int c = lane * 4; c < C; c += 128) {
-    const float4 d = *reinterpret_cast<const float4*>(dxh + off + c);
-    const uint2 xr = *reinterpret_cast<const uint2*>(x + off + c);
-    const float2 x01 = unpack2<T>(xr.x), x23 = unpack2<T>(xr.y);
-    const float dv[4] = {d.x, d.y, d.z, d.w}, xv[4] = {x01.x, x01.y, x23.x, x23.y};
-    float o[4];
+    float dv[4], xv[4], o[4];
+    load4(dxh + off + c, dv);
+    load4(x + off + c, xv);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float xh = __fmul_rn(__fsub_rn(xv[i], mu), rs);
       o[i] = __fmul_rn(rs, __fsub_rn(__fsub_rn(dv[i], m1), __fmul_rn(xh, m2)));
     }
-    *reinterpret_cast<uint2*>(dx + off + c) = make_uint2(pack2<T>(o[0], o[1]), pack2<T>(o[2], o[3]));
+    store4(dx + off + c, o);
   }
 }
 
@@ -773,9 +709,7 @@ cudaError_t allow_smem(Kernel kernel, bool* configured) {
   return err;
 }
 
-bool fma_shape_ok(int M, int C, int N) {
-  return M > 0 && N > 0 && C > 0 && C % kBK == 0 && bwd_smem_bytes(C) <= (size_t)kMaxSmem;
-}
+bool fma_shape_ok(int M, int C, int N) { return M > 0 && N > 0 && C > 0 && C % kBK == 0; }
 bool wgmma_shape_ok(int M, int C, int N) {
   return M > 0 && N > 0 && N % 8 == 0 && C > 0 && C % kTileK == 0;
 }
@@ -784,29 +718,37 @@ cudaError_t launch_fwd_fp32(const void* x, const void* g, const void* b, const v
                             const void* bias, void* y, float* mean, float* rstd, int M, int C,
                             int N, float eps, cudaStream_t stream) {
   if (!fma_shape_ok(M, C, N)) return cudaErrorInvalidValue;
-  static bool configured = false;
-  cudaError_t err = allow_smem(ln_linear_fwd_kernel<float>, &configured);
+  const float* xf = static_cast<const float*>(x);
+  const float *gf = static_cast<const float*>(g), *bf = static_cast<const float*>(b);
+  ln_stats_kernel<float><<<(M + 7) / 8, 256, 0, stream>>>(xf, gf, bf, nullptr, mean, rstd, M, C,
+                                                         eps);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dim3 grid((M + kBM - 1) / kBM, (N + kBN * kFwdTiles - 1) / (kBN * kFwdTiles));
-  ln_linear_fwd_kernel<float><<<grid, kThreads, fwd_smem_bytes<float>(C), stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
-      static_cast<const float*>(w), static_cast<const float*>(bias), static_cast<float*>(y),
-      mean, rstd, M, C, N, eps);
+  dim3 grid((M + kBM - 1) / kBM, (N + kBN - 1) / kBN);
+  ln_linear_fwd_kernel<<<grid, kThreads, 0, stream>>>(
+      xf, gf, bf, static_cast<const float*>(w), static_cast<const float*>(bias),
+      static_cast<float*>(y), mean, rstd, M, C, N);
   return cudaGetLastError();
 }
 
 cudaError_t launch_bwd_fp32(const void* dy, const void* w, const void* x, const void* g,
                             const float* mean, const float* rstd, void* dx, float* dg_parts,
-                            float* db_parts, int M, int C, int N, cudaStream_t stream) {
+                            float* db_parts, float* scratch, int M, int C, int N,
+                            cudaStream_t stream) {
   if (!fma_shape_ok(M, C, N)) return cudaErrorInvalidValue;
-  static bool configured = false;
-  cudaError_t err = allow_smem(ln_linear_bwd_dx_kernel<float>, &configured);
+  static_assert(kBN == kBwdBC, "the fp32 and 16-bit backward share the scratch layout");
+  const int tiles_c = (C + kBN - 1) / kBN;
+  float* dxh = scratch;                        // (M, C)
+  float* row_parts = scratch + (size_t)M * C;  // (tiles_c, M, 2)
+  const float* xf = static_cast<const float*>(x);
+  ln_linear_bwd_dx_kernel<<<dim3((M + kPartRows - 1) / kPartRows, tiles_c), kThreads, 0,
+                            stream>>>(static_cast<const float*>(dy), static_cast<const float*>(w),
+                                      xf, static_cast<const float*>(g), mean, rstd, dxh,
+                                      row_parts, dg_parts, db_parts, M, C, N);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ln_linear_bwd_dx_kernel<float><<<(M + kPartRows - 1) / kPartRows, kThreads, bwd_smem_bytes(C),
-                                   stream>>>(
-      static_cast<const float*>(dy), static_cast<const float*>(w), static_cast<const float*>(x),
-      static_cast<const float*>(g), mean, rstd, static_cast<float*>(dx), dg_parts, db_parts, M,
-      C, N);
+  ln_bwd_finish_kernel<float><<<(M + 7) / 8, 256, 0, stream>>>(
+      dxh, row_parts, xf, mean, rstd, static_cast<float*>(dx), M, C, tiles_c);
   return cudaGetLastError();
 }
 
@@ -874,7 +816,7 @@ cudaError_t launch_bwd_wgmma(const void* dy, const void* w, const void* x, const
 
 // C entry points bound with ctypes. Each returns its launches' cudaGetLastError().
 // Forward scratch: 2 C floats (gamma and beta in fp32) for bf16 / fp16,
-// unused for fp32.
+// unused (null) for fp32.
 extern "C" int dstorch_ln_linear_fwd(int dtype, const void* x, const void* gamma,
                                      const void* beta, const void* w, const void* bias,
                                      void* y, void* mean, void* rstd, void* scratch, int M,
@@ -897,8 +839,8 @@ extern "C" int dstorch_ln_linear_fwd(int dtype, const void* x, const void* gamma
   }
 }
 
-// Backward-dx scratch: (M * C + 2 * M * ceil(C / 128)) floats for bf16 /
-// fp16 (dxh and the row partials), unused for fp32.
+// Backward-dx scratch: (M * C + 2 * M * ceil(C / 128)) floats for every
+// dtype (dxh and the row partials).
 extern "C" int dstorch_ln_linear_bwd_dx(int dtype, const void* dy, const void* w,
                                         const void* x, const void* gamma, const void* mean,
                                         const void* rstd, void* dx, void* dg_parts,
@@ -911,7 +853,7 @@ extern "C" int dstorch_ln_linear_bwd_dx(int dtype, const void* dy, const void* w
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return (int)launch_bwd_fp32(dy, w, x, gamma, mu, rs, dx, dg, db, M, C, N, st);
+      return (int)launch_bwd_fp32(dy, w, x, gamma, mu, rs, dx, dg, db, sc, M, C, N, st);
     case kBFloat16:
       return (int)launch_bwd_wgmma<__nv_bfloat16>(dy, w, x, gamma, mu, rs, dx, dg, db, sc, M, C,
                                                   N, st);

@@ -43,8 +43,9 @@ SIGNATURES = {
         "dstorch_decode_attention_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _I, _F, _P]},
     "flash_attention_fwd": {
-        "dstorch_flash_attention_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I,
-                                        _I, _I, _I, _F, _I, _P]},
+        "dstorch_flash_attention_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _I, _I, _F, _I, _P],
+        "dstorch_wgmma_pack_probe": [_I, _P, _P, _P, _P, _P]},
     "paged_decode_attention": {
         "dstorch_paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
                                            _I, _I, _I, _I, _I, _I, _I, _F,
@@ -57,8 +58,8 @@ SIGNATURES = {
     "flash_attention_bwd": {
         "dstorch_flash_attention_dq": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I,
                                                                     _P],
-        "dstorch_flash_attention_dkv": [_I] + [_P] * 8 + [_I] * 6 + [_F, _I,
-                                                                     _P]},
+        "dstorch_flash_attention_dkv": [_I, _I] + [_P] * 8 + [_I] * 6 + [
+            _F, _I, _P]},
     "ln_linear": {
         "dstorch_ln_linear_fwd": [_I] + [_P] * 9 + [_I, _I, _I, _F, _P],
         "dstorch_ln_linear_bwd_dx": [_I] + [_P] * 10 + [_I, _I, _I, _P]},

@@ -24,14 +24,15 @@ function it casts gamma, beta, W and bias to x's dtype, and:
 The gate is the CUDA kernels' own, not the TPU's 128-lane rule. bf16 and
 fp16 run wgmma GEMMs fed by TMA: C a multiple of 64 and N a multiple of 8,
 any M, which takes every shape the JAX gate takes (C ≤ 4096, multiples of
-128) and more (GPT-2 XL's C = 1600). fp32 keeps the FMA kernels: C a
-multiple of 32 and at most 1536, any M and N.
+128) and more (GPT-2 XL's C = 1600). fp32 keeps the FMA units, in kernels
+whose shared memory does not grow with C: C a multiple of 32, any M and N,
+which also takes every shape the JAX gate takes.
 
 The kernel wrappers :func:`ln_linear_fwd` and :func:`ln_linear_bwd_dx` take
 their plain versions only for CPU tensors; a CUDA tensor launches the
-kernels (one wrapper call adds one to its ``launches``: the 16-bit forward
-is a statistics pass and the GEMM, the backward the GEMM and a finishing
-pass) or raises.
+kernels (one wrapper call adds one to its ``launches``: the forward is a
+statistics pass and the GEMM, the backward the GEMM and a finishing pass)
+or raises.
 """
 
 from __future__ import annotations
@@ -44,11 +45,10 @@ import torch
 # port's policy names the operator (LN_LINEAR_OP) that produces them
 LN_SAVE_NAMES = ("ln_linear_out", "ln_linear_stats")
 BLOCK_M = 128      # rows per dgamma / dbeta partial (the GEMMs' row tile)
-BWD_BLOCK_C = 128  # 16-bit backward: columns of C per tile (row partials)
+BWD_BLOCK_C = 128  # backward: columns of C per tile (row partials)
 K_SLICE = 64       # 16-bit: C must be a multiple of this
 N_ALIGN = 8        # 16-bit: N must be a multiple of this (16-byte rows)
 CHUNK = 32         # fp32: C must be a multiple of this
-MAX_C = 1536       # fp32: a (32, C) fp32 tile of dn fits in shared memory
 _WGMMA_DTYPES = (torch.bfloat16, torch.float16)
 
 
@@ -59,13 +59,13 @@ def supports_fused(m: int, c: int, n: int,
     if dtype in _WGMMA_DTYPES:
         return (m >= 1 and n >= 1 and n % N_ALIGN == 0 and c >= K_SLICE
                 and c % K_SLICE == 0)
-    return m >= 1 and n >= 1 and c % CHUNK == 0 and CHUNK <= c <= MAX_C
+    return m >= 1 and n >= 1 and c >= CHUNK and c % CHUNK == 0
 
 
 def _gate_rule(dtype) -> str:
     if dtype in _WGMMA_DTYPES:
         return f"C a multiple of {K_SLICE}, N of {N_ALIGN}"
-    return f"C a multiple of {CHUNK}, at most {MAX_C}"
+    return f"C a multiple of {CHUNK}"
 
 
 def _stats(x2, eps: float):
@@ -173,15 +173,13 @@ def ln_linear_bwd_dx(dy, weight, x2, gamma, mean, rstd):
     dx = torch.empty_like(x2)
     dg = torch.empty((tiles, C), dtype=torch.float32, device=x2.device)
     db = torch.empty_like(dg)
-    scratch = None  # 16-bit: dxh (M, C) and the row partials, fp32
-    if x2.dtype in _WGMMA_DTYPES:
-        scratch = torch.empty(M * C + 2 * M * -(-C // BWD_BLOCK_C),
-                              dtype=torch.float32, device=x2.device)
+    # dxh (M, C) and the row partials, fp32, for every dtype
+    scratch = torch.empty(M * C + 2 * M * -(-C // BWD_BLOCK_C),
+                          dtype=torch.float32, device=x2.device)
     launch("ln_linear", x2.device, code, dy.data_ptr(), weight.data_ptr(),
            x2.data_ptr(), gamma.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-           dx.data_ptr(), dg.data_ptr(), db.data_ptr(),
-           None if scratch is None else scratch.data_ptr(), M, C, N,
-           symbol="dstorch_ln_linear_bwd_dx")
+           dx.data_ptr(), dg.data_ptr(), db.data_ptr(), scratch.data_ptr(),
+           M, C, N, symbol="dstorch_ln_linear_bwd_dx")
     ln_linear_bwd_dx.launches += 1
     return dx, dg, db
 

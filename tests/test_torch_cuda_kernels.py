@@ -21,6 +21,14 @@ in ln_linear), so they are held relative to each output's largest element
 a rounded intermediate that lands on the other side of a rounding boundary
 when the fp32 sums before it differ in their last bits).
 
+The flash forward and dk/dv kernels run the wgmma design for bf16/fp16 at
+D = 64 and 128 and the FMA design otherwise (``flash_design``), so the grids
+below reach both; the tensor cores sum in another order than the plain
+version, which the same limits cover. The wgmma designs pack the fp32
+accumulator into 16-bit A fragments in registers: one test pins that
+packing alone on a 64 x 64 tile, with small integers, so that the result is
+exact.
+
 The block-sparse kernels take the flash kernels' tolerances: the forward
 those of the flash forward, dq and dkv those of the flash backward.
 
@@ -308,6 +316,36 @@ def test_flash_backward_kernels_match_plain(gen, dtype, D, causal, T, S, H,
     _close_to_max(dv, want_dv, TRAIN_TOL[dtype], "dv")
 
 
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("causal,T,S,H,KV", [
+    (True, 129, 129, 4, 2), (False, 70, 200, 4, 4), (True, 300, 300, 2, 2)])
+def test_flash_wgmma_block_sizes(gen, monkeypatch, rows, dtype, D, causal, T,
+                                 S, H, KV):
+    """The wgmma design's forward and dk/dv kernels with 64- and 128-row
+    blocks alike (the grid rule ``block_rows`` picks one by shape; forced
+    here), against the plain versions."""
+    import deepspeed_tpu_torch.ops.attention.flash_attention as fa
+
+    monkeypatch.setattr(fa, "block_rows", lambda *_: rows)
+    B = 2
+    q, do = (torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, KV, D, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal=causal)
+    want, want_lse = mha_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    args = (q, k, v, do, lse, attention_delta(out, do), causal,
+            1 / math.sqrt(D))
+    for got, ref, name in zip(flash_attention_dkv(*args),
+                              flash_dkv_reference(*args), ("dk", "dv")):
+        _close_to_max(got, ref, TRAIN_TOL[dtype], name)
+
+
 def test_flash_autograd_launches_both_backward_kernels(gen):
     q, k, v = (torch.randn(2, 96, 4, 64, generator=gen, device="cuda")
                .requires_grad_() for _ in range(3))
@@ -326,7 +364,8 @@ def test_flash_autograd_launches_both_backward_kernels(gen):
         _close_to_max(got.grad.cpu(), want.grad, 1e-4, "grad")
 
 
-# fp32 keeps the FMA kernels' shapes (C a multiple of 32, at most 1536);
+# fp32 keeps the FMA kernels' shapes (C a multiple of 32, no cap: 2048 and
+# the JAX gate's top 4096 included);
 # bf16 and fp16 take the wgmma kernels' gate (C a multiple of 64, N of 8):
 # ragged M against the 128-row tile, C from one K slice to the top of the
 # JAX gate and GPT-2 XL's 1600 (ragged against the 128-column backward
@@ -334,7 +373,8 @@ def test_flash_autograd_launches_both_backward_kernels(gen):
 LN_LINEAR_SHAPES = [
     (torch.float32, M, C, N) for M, C, N in
     [(128, 128, 128), (70, 96, 50), (33, 1536, 130), (1, 32, 1),
-     (300, 1024, 640)]] + [
+     (300, 1024, 640), (200, 2048, 136), (33, 2048, 8), (130, 4096, 300),
+     (1, 4096, 64)]] + [
     (dtype, M, C, N) for dtype in (torch.bfloat16, torch.float16)
     for M in (1, 33, 1000) for C in (64, 1024, 1600, 4096)
     for N in (8, 136, 3072)]
@@ -445,6 +485,88 @@ def test_fused_ln_linear_model_at_wide_c(gen, n_embd):
     model = GPT2LMHeadModel(refused, device="cuda").to(torch.bfloat16)
     with pytest.raises(ValueError, match="does not tile"):
         model(batch)
+
+
+def test_fused_ln_linear_fp32_model_at_wide_c(gen):
+    """``fused_ln_linear=True`` on an fp32 GPT-2 layer at C = 2048, which
+    the fp32 gate used to refuse, runs the kernels (qkv and fc, once each
+    way), and its loss and gradients match the unfused model's (summation
+    order only: fp32 throughout)."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config(vocab_size=256, n_positions=64, n_embd=2048, n_layer=1,
+                     n_head=32, dtype=torch.float32,
+                     use_flash_attention=False, fused_ln_linear=True)
+    model = GPT2LMHeadModel(cfg, device="cuda")
+    model.init_weights(gen)
+    batch = {"input_ids": torch.randint(0, 256, (2, 64), generator=gen,
+                                        device="cuda")}
+    out = []
+    for fused in (True, False):
+        model.replace_config(fused_ln_linear=fused)
+        model.zero_grad(set_to_none=True)
+        before = (ln_linear_fwd.launches, ln_linear_bwd_dx.launches)
+        loss = model(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        got = (ln_linear_fwd.launches - before[0],
+               ln_linear_bwd_dx.launches - before[1])
+        assert got == ((2, 2) if fused else (0, 0))
+        out.append((loss.item(), {k: p.grad.float().clone()
+                                  for k, p in model.named_parameters()}))
+    (loss_f, grads_f), (loss_u, grads_u) = out
+    assert abs(loss_f - loss_u) <= 1e-5 * abs(loss_u)
+    for k, g in grads_u.items():
+        _close_to_max(grads_f[k], g, TRAIN_TOL[torch.float32], k)
+
+
+def test_flash_kernels_at_the_dense_arm_shape(gen):
+    """The forward and dk/dv kernels (wgmma design: bf16, D = 64) at B=1,
+    H=12, T=8192, causal, the flash-dense training arm's shape: 64 key
+    tiles of the forward's walk and 128 query tiles of the dk/dv walk."""
+    B, T, H, D = 1, 8192, 12, 64
+    dtype = torch.bfloat16
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    before = (flash_attention.launches, flash_attention_dkv.launches)
+    out, lse = flash_attention(q, k, v, causal=True)
+    want, want_lse = mha_reference(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    del want, want_lse
+    delta = attention_delta(out, do)
+    scale = 1 / math.sqrt(D)
+    dk, dv = flash_attention_dkv(q, k, v, do, lse, delta, True, scale)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_dkv.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want_dk, want_dv = flash_dkv_reference(q, k, v, do, lse, delta, True,
+                                           scale)
+    _close_to_max(dk, want_dk, TRAIN_TOL[dtype], "dk")
+    _close_to_max(dv, want_dv, TRAIN_TOL[dtype], "dv")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_wgmma_accumulator_packs_into_a_fragments(gen, dtype):
+    """The packing the wgmma attention kernels use, alone: S = a bᵀ by an
+    SS wgmma, its fp32 accumulator packed into A fragments in registers, o
+    = S c by an RS wgmma reading c through the transpose-B bit. Small
+    integers keep every value exact in 16 bits and fp32, so o equals the
+    plain product exactly; a misplaced register pair moves whole entries."""
+    from deepspeed_tpu_torch.ops.op_builder import DTYPE_CODES, launch
+
+    a, b = (torch.randint(-1, 2, (64, 64), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    c = torch.randint(-2, 3, (64, 64), generator=gen, device="cuda").to(dtype)
+    o = torch.empty(64, 64, device="cuda")
+    launch("flash_attention_fwd", a.device, DTYPE_CODES[dtype], a.data_ptr(),
+           b.data_ptr(), c.data_ptr(), o.data_ptr(),
+           symbol="dstorch_wgmma_pack_probe")
+    torch.cuda.synchronize()
+    want = (a.float() @ b.float().t()) @ c.float()
+    assert want.abs().max() > 0
+    torch.testing.assert_close(o, want, atol=0, rtol=0)
 
 
 def _sparse_layout(kind, H, n, block):

@@ -15,7 +15,7 @@ import torch
 from deepspeed_tpu.ops.attention.flash_attention import \
     flash_attention as jax_flash
 from deepspeed_tpu_torch.ops.attention.flash_attention import (
-    flash_attention, mha_reference)
+    block_rows, flash_attention, flash_design, mha_reference)
 
 ATOL = 2e-5
 
@@ -72,3 +72,29 @@ def test_reference_keeps_input_dtype_and_rejects_misaligned_causal():
     assert torch.isfinite(lse).all()
     with pytest.raises(ValueError, match="seq_q == seq_k"):
         flash_attention(q, k[:, :8], v[:, :8], causal=True)
+
+
+def test_flash_design_by_dtype_and_head_dim():
+    """The forward and dk/dv kernels run on the tensor cores (wgmma) for
+    bf16 and fp16 at D = 64 and 128, and on the FMA units for fp32 and for
+    D = 32; every supported pair names one of the two."""
+    for dtype in (torch.bfloat16, torch.float16):
+        for D in (64, 128):
+            assert flash_design(dtype, D) == "wgmma"
+        assert flash_design(dtype, 32) == "fma"
+    for D in (32, 64, 128):
+        assert flash_design(torch.float32, D) == "fma"
+
+
+def test_block_rows_by_grid_and_head_dim():
+    """The wgmma design's block size on a 132-SM card: 64-row blocks where
+    128-row ones would leave SMs idle (the serving prefill, B=1 H=12 T=1024:
+    96 tiles) and at D = 128; 128-row blocks once the grid covers the card
+    (the training shape, 10 x 16 x 8 tiles; the dense arm at T=8192)."""
+    assert block_rows(64, 1 * 12 * 8, 132) == 64
+    assert block_rows(64, 131, 132) == 64
+    assert block_rows(64, 132, 132) == 128
+    assert block_rows(64, 10 * 16 * 8, 132) == 128
+    assert block_rows(64, 1 * 12 * 64, 132) == 128
+    for tiles in (1, 96, 1280):
+        assert block_rows(128, tiles, 132) == 64

@@ -8,9 +8,10 @@ first shape, and its own fallback at the ragged one. The JAX function takes
 W as (C, N) and the port as (N, C) (``nn.Linear``'s layout). Inputs come
 from numpy with a seed; everything is fp32, so y and the gradients of x,
 gamma, beta, W and b agree within 2e-5 of their largest element (summation
-order only). One shape the JAX gate takes and the port's old C ≤ 1536 gate
-refused, (128, 2048, 128), goes through the port's custom operator (the
-kernels' plain versions on the CPU) against the JAX Pallas kernels.
+order only). One shape the JAX gate takes and the port's old fp32 gate (C
+≤ 1536) refused, (128, 2048, 128), goes through the port's custom operator
+and through ``ln_linear`` in fp32 (the kernels' plain versions on the CPU)
+against the JAX Pallas kernels, whose result both tests share.
 """
 
 import jax
@@ -73,12 +74,14 @@ def test_leading_dims_and_refusals():
     assert y3.shape == (2, 40, 48)
     torch.testing.assert_close(y3.reshape(80, 48), flat, atol=0, rtol=0)
     # the gate is the CUDA kernels' own. fp32 (FMA kernels): C a multiple
-    # of 32, at most 1536, any N
+    # of 32, any M and N, no cap on C
     f32 = torch.float32
     assert supports_fused(7, 32, 3, f32) and supports_fused(10240, 1536, 4096,
                                                             f32)
-    assert not supports_fused(64, 1568, 64, f32)
+    assert supports_fused(64, 1568, 64, f32)
+    assert supports_fused(10240, 4096, 4096, f32)
     assert not supports_fused(64, 48, 64, f32)
+    assert not supports_fused(64, 0, 64, f32)
     # bf16 / fp16 (wgmma kernels, bf16 by default): C a multiple of 64, N of
     # 8, any M; no cap on C
     for dt in (torch.bfloat16, torch.float16):
@@ -145,38 +148,85 @@ def test_bf16_gate_takes_every_shape_the_jax_gate_takes():
     assert supports_fused(2048, 1600, 4800)
 
 
-def test_wide_c_through_the_operator_matches_jax(monkeypatch):
-    """(128, 2048, 128): the JAX gate takes it, the old port gate (C ≤ 1536)
-    refused it. fp32 through ``dstorch::ln_linear`` (the kernels' plain
-    versions on the CPU) against the JAX Pallas kernels in interpret mode;
-    then bf16 through ``ln_linear``, which now takes the operator."""
-    m, c, n = 128, 2048, 128
-    assert jax_supports(m, c, n) and supports_fused(m, c, n)
-    assert not supports_fused(m, c, n, torch.float32)   # the FMA kernels' cap
-    x, gamma, beta, w, bias, dy = _inputs(m, c, n, seed=3)
+WIDE = (128, 2048, 128)
+
+
+@pytest.fixture(scope="module")
+def wide_jax():
+    """The inputs at WIDE and the JAX Pallas kernels' (y, [dx, dgamma,
+    dbeta, dW (N, C), db]) on them, in interpret mode."""
+    x, gamma, beta, w, bias, dy = _inputs(*WIDE, seed=3)
     y, vjp = jax.jit(lambda *a: jax.vjp(jax_ln, *a))(
         *map(jnp.asarray, (x, gamma, beta, w, bias)))
     want = [np.asarray(g) for g in jax.jit(vjp)(jnp.asarray(dy))]
     want[3] = want[3].T
-    args = [torch.from_numpy(a).requires_grad_()
-            for a in (x, gamma, beta, np.ascontiguousarray(w.T), bias)]
-    got_y, _, _ = LN_LINEAR_OP(*args, 1e-5)
-    got_y.backward(torch.from_numpy(dy))
-    _close(got_y.detach().numpy(), np.asarray(y), "y")
-    for name, a, ref in zip(("x", "gamma", "beta", "W", "b"), args, want):
-        _close(a.grad.numpy(), ref, f"d{name}")
+    return (x, gamma, beta, w, bias, dy), np.asarray(y), want
 
+
+def _counting_plain_versions(monkeypatch):
     calls = []
     for name in ("ln_linear_fwd_reference", "ln_linear_bwd_dx_reference"):
         real = getattr(port_ln, name)
         monkeypatch.setattr(port_ln, name, lambda *a, _r=real, _n=name:
                             calls.append(_n) or _r(*a))
+    return calls
+
+
+def test_wide_c_through_the_operator_matches_jax(monkeypatch, wide_jax):
+    """(128, 2048, 128): the JAX gate takes it, the old port gates (16-bit
+    and fp32 alike, C ≤ 1536) refused it. fp32 through
+    ``dstorch::ln_linear`` (the kernels' plain versions on the CPU) against
+    the JAX Pallas kernels in interpret mode; then bf16 through
+    ``ln_linear``, which takes the operator."""
+    m, c, n = WIDE
+    assert jax_supports(m, c, n) and supports_fused(m, c, n)
+    assert supports_fused(m, c, n, torch.float32)   # no fp32 cap on C
+    (x, gamma, beta, w, bias, dy), y, want = wide_jax
+    args = [torch.from_numpy(a).requires_grad_()
+            for a in (x, gamma, beta, np.ascontiguousarray(w.T), bias)]
+    got_y, _, _ = LN_LINEAR_OP(*args, 1e-5)
+    got_y.backward(torch.from_numpy(dy))
+    _close(got_y.detach().numpy(), y, "y")
+    for name, a, ref in zip(("x", "gamma", "beta", "W", "b"), args, want):
+        _close(a.grad.numpy(), ref, f"d{name}")
+
+    calls = _counting_plain_versions(monkeypatch)
     xb = torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
     p = [torch.from_numpy(a).to(torch.bfloat16) for a in
          (gamma, beta, np.ascontiguousarray(w.T), bias)]
     ln_linear(xb, *p).float().sum().backward()
     assert calls == ["ln_linear_fwd_reference", "ln_linear_bwd_dx_reference"]
     assert xb.grad is not None and torch.isfinite(xb.grad).all()
+
+
+def test_fp32_wide_c_through_ln_linear_matches_jax(monkeypatch, wide_jax):
+    """fp32 at C = 2048 through the public ``ln_linear``, which now takes
+    the custom operator (its kernels' plain versions on the CPU) as the JAX
+    function takes its Pallas kernels: forward and every gradient against
+    the JAX package within RTOL."""
+    (x, gamma, beta, w, bias, dy), y, want = wide_jax
+    calls = _counting_plain_versions(monkeypatch)
+    args = [torch.from_numpy(a).requires_grad_()
+            for a in (x, gamma, beta, np.ascontiguousarray(w.T), bias)]
+    got_y = ln_linear(*args)
+    got_y.backward(torch.from_numpy(dy))
+    assert calls == ["ln_linear_fwd_reference", "ln_linear_bwd_dx_reference"]
+    _close(got_y.detach().numpy(), y, "y")
+    for name, a, ref in zip(("x", "gamma", "beta", "W", "b"), args, want):
+        _close(a.grad.numpy(), ref, f"d{name}")
+
+
+@pytest.mark.parametrize("c", [1024, 2048, 3072, 4096])
+def test_fp32_gate_takes_every_shape_the_jax_gate_takes(c):
+    """The fp32 gate (C a multiple of 32, no cap) takes every (m, c, n) that
+    the JAX gate takes at the widths of GPT-2 medium, the 1.3B, GPT-2 XL's
+    neighbour 3072 and the JAX gate's top."""
+    ms = (1, 8, 100, 128, 256, 512, 1000, 1024, 2048, 10240)
+    ns = (1, 8, 50, 128, 136, 384, 512, 640, 3000, 3072, 4096, 4800, 8192)
+    taken = [(m, n) for m in ms for n in ns if jax_supports(m, c, n)]
+    assert len(taken) > 20
+    for m, n in taken:
+        assert supports_fused(m, c, n, torch.float32), (m, c, n)
 
 
 def test_partials_have_block_m_rows_with_a_ragged_last_tile():

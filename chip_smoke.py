@@ -32,9 +32,11 @@ Phases, in order; any failure exits non-zero:
 4b. reference_paged  for 2 served requests (one a prefix hit), the paged
             path's chunked prefill and decode logits against the fp32 model.
 5.  int8 kernels  the int8_matmul kernel at TinyLlama-1.1B's decode shapes
-            (8 rows) and a 64-row prefill chunk, and the int8-cache variants
-            of the decode and paged kernels, each held against its plain
-            version and timed beside its bound and a library yardstick.
+            (8 rows), a 64-row prefill chunk and a 512-row prompt through
+            gate, and the int8-cache variants of the decode and paged
+            kernels, each held against its plain version and timed beside
+            its bound and a library yardstick; int8_matmul is also held
+            exactly on small integers (the fragment probe).
 6.  serve_int8  TinyLlama-1.1B at its published widths (random weights from
             the seed, 22 layers, GQA 32/4) with int8 weights and the int8 KV
             cache on the default path: ``init_serving(..., config={"dtype":
@@ -52,10 +54,12 @@ Phases, in order; any failure exits non-zero:
             time, the same comparison over a bf16 cache, and the error
             against the unquantized bf16 model.
 
-8.  train_kernels  the flash-attention backward kernels (dq, dkv) at GPT-2
-            medium's training shape (B=10, H=16, D=64, T=1024, bf16, causal),
-            a non-causal case and a ragged T (with the flash forward's out
-            and lse at the same shapes), and the ln_linear forward and
+8.  train_kernels  the flash-attention backward kernels (dq, dkv; their
+            design, wgmma or fma, in the kernels line) at GPT-2 medium's
+            training shape (B=10, H=16, D=64, T=1024, bf16, causal), a
+            non-causal case and a ragged T (with the flash forward's out and
+            lse at the same shapes), the accumulator-packing probe that the
+            wgmma kernels' P and dS go through, and the ln_linear forward and
             backward-dx kernels (bf16: wgmma) at its qkv and fc shapes
             (M=10240, C=1024, N=3072 / 4096), a ragged M and, at M=2048,
             the wide C the JAX gate takes (1600: N=4800 / 6400; 2048: N=6144
@@ -63,7 +67,9 @@ Phases, in order; any failure exits non-zero:
             timed beside its bound and a library yardstick. The flash forward
             and dk/dv kernels' other design (fma: fp32, and D=32) is held
             against the plain versions at small shapes, and the fp32
-            ln_linear kernels at C=2048 are held and timed once.
+            ln_linear kernels at C=2048 are held and timed once. The flash
+            forward, dq and dkv are timed at the training shape, at D=128
+            and (phase 12) at T=8192, each beside its bound and SDPA.
 9.  train   GPT-2 medium at its published widths (random weights from the
             seed) at the JAX bench's flagship configuration through
             ``initialize`` and ``train_batch``: bf16 with fp32 master
@@ -322,6 +328,8 @@ def _counters() -> dict:
             "flash_attention_fwd": (flash_attention, "launches"),
             "paged_decode_attention": (paged_decode_attention, "launches"),
             "int8_matmul": (int8_matmul, "launches"),
+            # the M > 16 (prefill tile) share of int8_matmul's launches
+            "int8_matmul_prefill": (int8_matmul, "prefill_launches"),
             "decode_attention_int8": (decode_attention, "int8_launches"),
             "paged_decode_attention_int8": (paged_decode_attention,
                                             "int8_launches"),
@@ -394,12 +402,12 @@ def phase_build() -> str:
 
 def flash_times(q, k, v, do, label: str, reps: int,
                 other: bool = True) -> dict:
-    """The flash forward and dk/dv kernels at one causal bf16 shape, each
-    timed beside its bound and SDPA's time for the same function: its
+    """The flash forward, dq and dk/dv kernels at one causal bf16 shape,
+    each timed beside its bound and SDPA's time for the same function: its
     forward, and its backward (dq, dk and dv in one call, captured with its
     forward and the forward's time taken off); and with ``other``, for the
-    record of the grid rule (``block_rows``), both again with the other
-    block size. Logs one line."""
+    record of the grid rule (``block_rows``), all three again with the
+    other block size. Logs one line."""
     import importlib
 
     fa = importlib.import_module(
@@ -409,6 +417,7 @@ def flash_times(q, k, v, do, label: str, reps: int,
     args = (q, k, v, do, lse, fa.attention_delta(out, do), True,
             1.0 / math.sqrt(D))
     fwd = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=reps)
+    dq = cuda_ms(lambda: fa.flash_attention_dq(*args), reps=reps)
     dkv = cuda_ms(lambda: fa.flash_attention_dkv(*args), reps=reps)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     rows = fa.block_rows(D, B * H * -(-T // 128), sms)
@@ -418,12 +427,13 @@ def flash_times(q, k, v, do, label: str, reps: int,
         fa.block_rows = lambda *_: 192 - rows          # 64 <-> 128
         try:
             fwd_alt = cuda_ms(lambda: fa.flash_attention(q, k, v), reps=reps)
+            dq_alt = cuda_ms(lambda: fa.flash_attention_dq(*args), reps=reps)
             dkv_alt = cuda_ms(lambda: fa.flash_attention_dkv(*args),
                               reps=reps)
         finally:
             fa.block_rows = rule
-        alt = (f"; {192 - rows}-row blocks: forward {fwd_alt:.4f}, dkv "
-               f"{dkv_alt:.4f}")
+        alt = (f"; {192 - rows}-row blocks: forward {fwd_alt:.4f}, dq "
+               f"{dq_alt:.4f}, dkv {dkv_alt:.4f}")
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
@@ -438,15 +448,18 @@ def flash_times(q, k, v, do, label: str, reps: int,
     stat = B * H * T * 4                    # lse or delta
     pairs = B * H * T * (T + 1) // 2        # causal (query, key) pairs
     r = dict(fwd=fwd, fwd_bound=bound(4 * tok + stat, 2 * 2 * D * pairs),
-             sdpa_fwd=sdpa_fwd, dkv=dkv,
+             sdpa_fwd=sdpa_fwd, dq=dq,
+             dq_bound=bound(5 * tok + 2 * stat, 3 * 2 * D * pairs), dkv=dkv,
              dkv_bound=bound(6 * tok + 2 * stat, 4 * 2 * D * pairs),
              sdpa_bwd=sdpa_bwd, design=fa.flash_design(q.dtype, D))
     log(f"[flash_times] {label} B={B} H={H} D={D} T={T} causal "
         f"({r['design']}, {rows}-row blocks): forward {fwd:.4f} ms (bound "
         f"{r['fwd_bound']['bound_ms']:.4f}, {r['fwd_bound']['bound_by']}; "
-        f"SDPA {sdpa_fwd:.4f}); dkv {dkv:.4f} ms (bound "
-        f"{r['dkv_bound']['bound_ms']:.4f}, {r['dkv_bound']['bound_by']}; "
-        f"SDPA backward {sdpa_bwd:.4f}){alt}")
+        f"SDPA {sdpa_fwd:.4f}); dq {dq:.4f} ms (bound "
+        f"{r['dq_bound']['bound_ms']:.4f}, {r['dq_bound']['bound_by']}); dkv "
+        f"{dkv:.4f} ms (bound {r['dkv_bound']['bound_ms']:.4f}, "
+        f"{r['dkv_bound']['bound_by']}; SDPA backward, dq + dk + dv, "
+        f"{sdpa_bwd:.4f}){alt}")
     return r
 
 
@@ -455,7 +468,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
         alibi_slopes, decode_attention, decode_attention_reference)
     from deepspeed_tpu_torch.ops.attention.flash_attention import (
         attention_delta, flash_attention, flash_attention_dkv,
-        flash_dkv_reference, mha_reference)
+        flash_attention_dq, flash_dkv_reference, flash_dq_reference,
+        mha_reference)
 
     dev, bf16 = "cuda", torch.bfloat16
     results = {}
@@ -503,8 +517,8 @@ def phase_kernels(gen: torch.Generator) -> dict:
         f"{results['decode_attention']['bound_ms']:.4f} ms")
 
     # -- flash forward: admission prefill at every bucket width -------------
-    # (the dk/dv kernel at the same widths: a prompt's backward, held and
-    # timed here beside the forward)
+    # (the dq and dk/dv kernels at the same widths: a prompt's backward,
+    # held and timed here beside the forward)
     B = 1
     err = rel = lse_err = dkv_err = 0.0
     per_t = {}
@@ -519,10 +533,12 @@ def phase_kernels(gen: torch.Generator) -> dict:
             f"flash lse vs plain at T={T}: max |err| {le} > {LSE_ATOL}"
         err, rel, lse_err = max(err, e), max(rel, r), max(lse_err, le)
         dargs = (qf, kf, vf, dof, lse, attention_delta(out, dof), True, scale)
-        for g, w in zip(flash_attention_dkv(*dargs),
-                        flash_dkv_reference(*dargs)):
+        for g, w in zip((*flash_attention_dkv(*dargs),
+                         flash_attention_dq(*dargs)),
+                        (*flash_dkv_reference(*dargs),
+                         flash_dq_reference(*dargs))):
             dkv_err = max(dkv_err, compare_rows(
-                g, w, f"flash dkv kernel vs plain at T={T}")[0])
+                g, w, f"flash dq/dkv kernels vs plain at T={T}")[0])
         per_t[T] = flash_times(qf, kf, vf, dof, "serving", reps=20,
                                other=T == 1024)
     T = 1024
@@ -535,9 +551,10 @@ def phase_kernels(gen: torch.Generator) -> dict:
     log(f"[kernels] flash_attention_fwd B=1 H={H} D={D} causal, T 16..1024 "
         f"({per_t[T]['design']}): max|err| out {err:.3g} (tol {OUT_ATOL}), "
         f"row rel {rel:.3g} (tol {ROW_REL_TOL}), lse {lse_err:.3g} (tol "
-        f"{LSE_ATOL}); dkv max|err| {dkv_err:.3g} (row rule); per-T kernel "
-        "ms forward " + ", ".join(f"{t}:{v['fwd']:.4f}"
-                                  for t, v in per_t.items())
+        f"{LSE_ATOL}); dq and dkv max|err| {dkv_err:.3g} (row rule); per-T "
+        "kernel ms forward " + ", ".join(f"{t}:{v['fwd']:.4f}"
+                                         for t, v in per_t.items())
+        + "; dq " + ", ".join(f"{t}:{v['dq']:.4f}" for t, v in per_t.items())
         + "; dkv " + ", ".join(f"{t}:{v['dkv']:.4f}"
                                for t, v in per_t.items()))
     log(f"[kernels] flash_attention_fwd T={T}: kernel {ms:.4f} ms, plain "
@@ -883,25 +900,61 @@ def phase_serve_paged(model, seed: int, device: str = "cuda"):
     return srv, reqs, launches
 
 
+def int8_fragment_probe(gen: torch.Generator) -> None:
+    """int8_matmul on small integers (x in -2..2, int8 weights, scale 1,
+    fp32 out), where every sum is exact in fp32, at each tile shape the
+    serving path runs (decode, split K at N=256, the 64- and 128-token
+    prefill tiles): the kernel must equal the plain version exactly, so a
+    misplaced fragment register or a wrong int8 conversion fails here."""
+    from deepspeed_tpu_torch.ops.quantization.int8_matmul import (
+        int8_matmul, int8_matmul_reference, int8_plan)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = []
+    for M, K, N in ((8, 2048, 256), (8, 5632, 2048), (64, 2048, 5632),
+                    (512, 2048, 5632)):
+        x = torch.randint(-2, 3, (M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = torch.randint(-128, 128, (N, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        s = torch.ones(N, device="cuda")
+        got = int8_matmul(x, w, s, out_dtype=torch.float32)
+        want = int8_matmul_reference(x, w, s, torch.float32)
+        assert torch.equal(got, want), \
+            f"int8 fragment probe M={M} K={K} N={N}: not exact"
+        plans.append(f"M={M} K={K} N={N} (tile, splits) "
+                     f"{int8_plan(M, K, N, sms)}")
+    log("[int8_kernels] int8_matmul fragment probe exact at " +
+        "; ".join(plans))
+
+
 def int8_matmul_kernel(gen: torch.Generator) -> dict:
     """int8_matmul at TinyLlama's projection shapes: the decode step's 8
     rows through the 7 projections of one layer (q, k, v, o: K 2048 to N
-    2048, 256, 256, 2048; gate, up: 2048 to 5632; down: 5632 to 2048) and a
-    64-row prefill chunk through gate. The JSON row is one decode layer: the
-    sum of its 7 calls. Weights are N(0, 0.02) quantized per channel;
-    each shape is timed over enough weight copies to pass the 50 MB L2, as
-    22 layers' weights do."""
+    2048, 256, 256, 2048; gate, up: 2048 to 5632; down: 5632 to 2048), a
+    64-row prefill chunk through gate (serve_int8's chunked admission) and
+    a 512-row one (serve_int8_contiguous's longest whole prompt). The JSON
+    row is one decode layer, the sum of its 7 calls, with the prefill rows
+    beside it under ``prefill``. Weights are N(0, 0.02) quantized per
+    channel; each shape is timed over enough weight copies to pass the 50
+    MB L2, as 22 layers' weights do."""
+    import importlib
+
     from deepspeed_tpu_torch.ops.quantization.int8_matmul import (
         int8_matmul, int8_matmul_reference, quantize_columns)
 
+    mod = importlib.import_module(
+        "deepspeed_tpu_torch.ops.quantization.int8_matmul")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev, bf16 = "cuda", torch.bfloat16
     layer = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048),
              (2048, 5632), (2048, 5632), (5632, 2048)]
     total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                  nbytes=0, flops=0)
     err = rel = 0.0
-    rows = []
-    for M, (K, N) in [(8, kn) for kn in layer] + [(64, (2048, 5632))]:
+    rows, prefill = [], []
+    for M, (K, N) in [(8, kn) for kn in layer] + [(64, (2048, 5632)),
+                                                  (512, (2048, 5632))]:
         wf = torch.randn(N, K, generator=gen, device=dev) * 0.02
         q, s = quantize_columns(wf.t())
         w, s = q.t().contiguous(), s.reshape(-1).contiguous()
@@ -912,8 +965,22 @@ def int8_matmul_kernel(gen: torch.Generator) -> dict:
         err, rel = max(err, e), max(rel, r)
         copies = max(1, -(-200 * 2 ** 20 // (N * K)))
         wc = w.expand(copies, N, K).contiguous()
-        ms = cuda_ms(lambda: [int8_matmul(x, wc[i], s)
-                              for i in range(copies)], reps=2) / copies
+
+        def kernel_ms():
+            return cuda_ms(lambda: [int8_matmul(x, wc[i], s)
+                                    for i in range(copies)], reps=2) / copies
+
+        ms = kernel_ms()
+        # for the record of the split rule: the same call unsplit
+        tile, splits = mod.int8_plan(M, K, N, sms)
+        other = ""
+        if splits > 1:
+            rule = mod.int8_plan
+            mod.int8_plan = lambda *_, **__: (tile, 1)
+            try:
+                other = f" (unsplit {kernel_ms():.4f})"
+            finally:
+                mod.int8_plan = rule
         plain_ms = cuda_ms(lambda: int8_matmul_reference(x, w, s), reps=2)
         # the yardstick: cuBLAS on weights dequantized to bf16 ahead of
         # time, reading twice the bytes
@@ -924,19 +991,23 @@ def int8_matmul_kernel(gen: torch.Generator) -> dict:
         nbytes = M * K * 2 + N * K + N * 4 + M * N * 2
         flops = 2 * M * N * K
         b = bound(nbytes, flops)
-        rows.append(f"M={M} K={K} N={N}: kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f}, bf16 F.linear {lib_ms:.4f}, bound "
-                    f"{b['bound_ms']:.4f} ({b['bound_by']}), row rel {r:.3g}")
+        rows.append(f"M={M} K={K} N={N}: tile {tile}, {splits} splits: "
+                    f"kernel {ms:.4f} ms{other}, plain {plain_ms:.4f}, bf16 "
+                    f"F.linear {lib_ms:.4f}, bound {b['bound_ms']:.4f} "
+                    f"({b['bound_by']}), row rel {r:.3g}")
         if M == 8:
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("library_ms", lib_ms), ("nbytes", nbytes),
                              ("flops", flops)):
                 total[key] += val
+        else:
+            prefill.append(dict(M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
+                                library_ms=lib_ms, **b))
     for row in rows:
         log(f"[int8_kernels] int8_matmul {row}")
     out = dict(max_abs_err=err, ms=total["ms"], plain_ms=total["plain_ms"],
                library_ms=total["library_ms"],
-               **bound(total["nbytes"], total["flops"]))
+               **bound(total["nbytes"], total["flops"]), prefill=prefill)
     log(f"[int8_kernels] int8_matmul one decode layer (7 calls, M=8): "
         f"max|err| {err:.3g} (tol {OUT_ATOL}), row rel {rel:.3g} (tol "
         f"{ROW_REL_TOL}); kernel {out['ms']:.4f} ms, plain "
@@ -1082,6 +1153,7 @@ def phase_int8_kernels(gen: torch.Generator) -> dict:
     slots of 2048 positions), which make its JSON row."""
     int8_decode_kernel(gen, 12, 12, 12, 1024,
                        [1, 517, 1024, 1, 300, 1024, 64, 999], "gpt2 shapes")
+    int8_fragment_probe(gen)
     return {"int8_matmul": int8_matmul_kernel(gen),
             "decode_attention_int8": int8_decode_kernel(
                 gen, TINYLLAMA["n_layer"], TINYLLAMA["n_head"],
@@ -1426,16 +1498,16 @@ def flash_backward_kernels(gen: torch.Generator) -> tuple:
     check(*inputs(4, 512, 512), False, "non-causal T=S=512")
     check(*inputs(2, 1000, 1000), True, "causal ragged T=1000")
     fma_design_check(gen)
+    pack_probe(gen)
     B, T = MICRO_BS, SEQ
     q, k, v, do = inputs(B, T, T)
     args = check(q, k, v, do, True, f"causal B={B} T={T}")
-    ms_dq = cuda_ms(lambda: flash_attention_dq(*args), reps=3)
     plain_dq = cuda_ms(lambda: flash_dq_reference(*args), reps=1)
     plain_dkv = cuda_ms(lambda: flash_dkv_reference(*args), reps=1)
-    # the forward and dkv beside their bounds and the library yardstick:
-    # SDPA forward, and its backward (dq, dk and dv together)
+    # the forward, dq and dkv beside their bounds and the library
+    # yardstick: SDPA forward, and its backward (dq, dk and dv together)
     times = flash_times(q, k, v, do, "training", reps=3)
-    lib_bwd = times["sdpa_bwd"]
+    ms_dq, lib_bwd = times["dq"], times["sdpa_bwd"]
     # D=128 at the same tokens (8 heads): the one-warpgroup blocks that
     # block_rows picks there, beside the two-warpgroup ones
     q8, k8, v8, do8 = (torch.randn(B, T, 8, 128, generator=gen, device=dev)
@@ -1444,14 +1516,10 @@ def flash_backward_kernels(gen: torch.Generator) -> tuple:
                  "flash forward kernel vs plain (D=128)")
     flash_times(q8, k8, v8, do8, "training D=128", reps=3)
     del q8, k8, v8, do8
-    tok = B * T * H * D * 2                 # one bf16 (B, T, H, D) tensor
-    stat_bytes = B * H * T * 4
-    pairs = B * H * T * (T + 1) // 2        # causal (query, key) pairs
     out = {
         "flash_attention_dq": dict(
             max_abs_err=stats["dq"][0], ms=ms_dq, plain_ms=plain_dq,
-            library_ms=lib_bwd, design="fma",
-            **bound(5 * tok + 2 * stat_bytes, 3 * 2 * D * pairs)),
+            library_ms=lib_bwd, design=times["design"], **times["dq_bound"]),
         "flash_attention_dkv": dict(
             max_abs_err=stats["dkv"][0], ms=times["dkv"], plain_ms=plain_dkv,
             library_ms=lib_bwd, design=times["design"],
@@ -1476,15 +1544,38 @@ def flash_backward_kernels(gen: torch.Generator) -> tuple:
     return out, stats["fwd"][0]
 
 
+def pack_probe(gen: torch.Generator) -> None:
+    """The packing of an fp32 wgmma accumulator into 16-bit A fragments
+    alone (the flash forward's P, dk/dv's P and dS, dq's dS), as the card
+    test pins it: S = a bᵀ (SS), packed, o = S c (RS, c read through the
+    transpose-B bit) on small integers, so o equals the plain product
+    exactly."""
+    from deepspeed_tpu_torch.ops.op_builder import DTYPE_CODES, launch
+
+    for dtype in (torch.bfloat16, torch.float16):
+        a, b = (torch.randint(-1, 2, (64, 64), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        c = torch.randint(-2, 3, (64, 64), generator=gen,
+                          device="cuda").to(dtype)
+        o = torch.empty(64, 64, device="cuda")
+        launch("flash_attention_fwd", a.device, DTYPE_CODES[dtype],
+               a.data_ptr(), b.data_ptr(), c.data_ptr(), o.data_ptr(),
+               symbol="dstorch_wgmma_pack_probe")
+        want = (a.float() @ b.float().t()) @ c.float()
+        assert torch.equal(o, want), f"wgmma packing probe ({dtype}): not exact"
+    log("[train_kernels] wgmma accumulator packing probe exact (bf16, fp16)")
+
+
 def fma_design_check(gen: torch.Generator) -> None:
-    """The flash forward and dk/dv kernels' FMA design, which the main
+    """The flash forward, dq and dk/dv kernels' FMA design, which the main
     paths (bf16, D=64) no longer run: fp32 at D=64 and bf16 at D=32, GQA
     and a ragged T, each against its plain version (fp32 within 1e-4 of
     each output's largest element, summation order only; bf16 by the row
     rule)."""
     from deepspeed_tpu_torch.ops.attention.flash_attention import (
-        attention_delta, flash_attention, flash_attention_dkv, flash_design,
-        flash_dkv_reference, mha_reference)
+        attention_delta, flash_attention, flash_attention_dkv,
+        flash_attention_dq, flash_design, flash_dkv_reference,
+        flash_dq_reference, mha_reference)
 
     errs = []
     for dtype, D in ((torch.float32, 64), (torch.bfloat16, 32)):
@@ -1498,7 +1589,8 @@ def fma_design_check(gen: torch.Generator) -> None:
         args = (q, k, v, do, lse, attention_delta(out, do), True,
                 1 / math.sqrt(D))
         pairs = [(out, ref), *zip(flash_attention_dkv(*args),
-                                  flash_dkv_reference(*args))]
+                                  flash_dkv_reference(*args)),
+                 (flash_attention_dq(*args), flash_dq_reference(*args))]
         for got, want in pairs:
             if dtype == torch.float32:
                 e = ((got - want).abs().max()
@@ -1507,8 +1599,8 @@ def fma_design_check(gen: torch.Generator) -> None:
             else:
                 e = compare_rows(got, want, "fma design bf16 D=32")[1]
             errs.append(e)
-    log(f"[train_kernels] flash forward and dkv, fma design (fp32 D=64, bf16 "
-        f"D=32, GQA 8/2, T=129): within their limits, worst "
+    log(f"[train_kernels] flash forward, dq and dkv, fma design (fp32 D=64, "
+        f"bf16 D=32, GQA 8/2, T=129): within their limits, worst "
         f"{max(errs):.3g}")
 
 
@@ -2067,8 +2159,7 @@ def phase_sparse_kernels(gen: torch.Generator) -> dict:
                 compare_rows(dv, want_dv, "flash dv at T=8192")[0])
     del want_dk, want_dv
     ft = flash_times(q, k, v, do, "dense arm", reps=3)
-    flash = [ft["fwd"], cuda_ms(lambda: flash_attention_dq(*fargs), reps=3),
-             ft["dkv"]]
+    flash = [ft["fwd"], ft["dq"], ft["dkv"]]
     log(f"[sparse_kernels] flash forward, dq, dkv at B=1 H={H} T={T} "
         f"causal: max|err| {e_fwd:.3g} / {e_dq:.3g} / {e_dkv:.3g} (row "
         f"rule), lse {le:.3g}; {flash[0]:.4f} + {flash[1]:.4f} + "
@@ -2203,6 +2294,14 @@ def main(argv=None) -> int:
     runs.append(int8_launches)
     creqs, contig_launches = phase_serve_int8_contiguous(qsrv, args.seed)
     runs.append(contig_launches)
+    served = (int8_launches, contig_launches)
+    prefill = sum(r["int8_matmul_prefill"] for r in served)
+    results["int8_matmul"]["launches_by_regime"] = dict(
+        decode=sum(r["int8_matmul"] for r in served) - prefill,
+        prefill=prefill)
+    log(f"[serve_int8] int8_matmul launches over both int8 serving phases "
+        f"by regime: {results['int8_matmul']['launches_by_regime']} (decode "
+        f"M <= 16, prefill M > 16)")
     qhit = next(r for r in qreqs if r.prefix_hit_tokens > 0)
     qcold = max((r for r in qreqs if r.prefix_hit_tokens == 0),
                 key=lambda r: r.prompt_len)

@@ -298,7 +298,173 @@ template <int D, int kWG> struct DkvCfg {
   static constexpr int kSmem = 1024 + 2 * kKBytes + kStages * kStageBytes + 8 * (1 + 2 * kStages);
 };
 
+// kWG consumer warpgroups of 64 query rows each (1 or 2), then the producer warp
+template <int D, int kWG> struct DqCfg {
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kBM = 64 * kWG;     // query rows a block
+  static constexpr int kBN = 64;           // keys a K or V tile
+  static constexpr int kBoxes = D / 64;    // 128-byte swizzled boxes across D
+  static constexpr int kQBox = kBM * 128;  // bytes of one box of the Q or dO tile
+  static constexpr int kKBox = kBN * 128;  // of one box of a K or V tile
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKBytes = kBoxes * kKBox;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  // Q, dO, kStages (K tile, V tile) pairs, then the barriers: q, full[kS], empty[kS]
+  static constexpr int kSmem = 1024 + 2 * kQBytes + kStages * 2 * kKBytes + 8 * (1 + 2 * kStages);
+};
+
 }  // namespace wg
+
+// One block per (batch * head, query tile), the longest (bottom) tiles first;
+// the producer warp loads the block's Q and dO tiles once and runs a ring of
+// (K, V) tiles from key 0 to the diagonal. Each consumer warpgroup, per key
+// tile: S = Q K^T and dP = dO V^T (SS, two commit groups), P and dS = P (dP -
+// delta) on the accumulators, dS packed to k's dtype, dQ += dS K (RS, K read
+// MN-major through the transpose-B bit), S and dP of the next tile issued
+// behind it. dS never touches shared memory; dq is scaled and rounded once.
+template <typename T, int D, int kWG>
+__global__ void __launch_bounds__(wg::DqCfg<D, kWG>::kThreads, 1)
+flash_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap do_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, const float* __restrict__ lse,
+               const float* __restrict__ delta, T* __restrict__ dq, int Tq, int Tk, int H,
+               int KV, float scale, int causal) {
+  using namespace sm90;
+  using C = wg::DqCfg<D, kWG>;
+  constexpr int kS = C::kStages, kBM = C::kBM, kBN = C::kBN;
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t qs = (smem_u32(smem_tiles) + 1023) & ~1023u, dos = qs + C::kQBytes;
+  const uint32_t ring = dos + C::kQBytes;  // stage s: the K tile, then the V tile
+  const uint32_t bars = ring + kS * 2 * C::kKBytes;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kS + s); };
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H, kvh = h / (H / KV);
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // the longest tiles launch first
+  const int n_tiles = ((causal ? min(Tk, m0 + kBM) : Tk) + kBN - 1) / kBN;
+  const int wgi = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * kWG);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == kWG) {  // producer: one thread issues every load
+    if (threadIdx.x == 128 * kWG) {
+      mbar_arrive_expect_tx(q_full, 2 * C::kQBytes);
+      for (int x = 0; x < C::kBoxes; ++x) {
+        tma_load_3d(qs + x * C::kQBox, &q_map, q_full, h * D + 64 * x, m0, b);
+        tma_load_3d(dos + x * C::kQBox, &do_map, q_full, h * D + 64 * x, m0, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kS;
+        const uint32_t ks = ring + s * 2 * C::kKBytes, vs = ks + C::kKBytes;
+        mbar_wait(empty(s), ((it / kS) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(s), 2 * C::kKBytes);
+        for (int x = 0; x < C::kBoxes; ++x) {
+          tma_load_3d(ks + x * C::kKBox, &k_map, full(s), kvh * D + 64 * x, it * kBN, b);
+          tma_load_3d(vs + x * C::kKBox, &v_map, full(s), kvh * D + 64 * x, it * kBN, b);
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wgi owns query rows m0 + 64 wgi .. + 63
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, t = lane & 3;
+    const int row_lo = m0 + wgi * 64;
+    const int row0 = row_lo + warp * 16 + (lane >> 2);  // this thread's rows row0, row0 + 8
+    const float scale_log2 = scale * attn::kLog2e;
+    const uint32_t qa = qs + wgi * 64 * 128, oa = dos + wgi * 64 * 128;  // this warpgroup's rows
+    // each thread's two rows' lse (times log2 e) and delta, once
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      lse2[r] = row < Tq ? lse[(size_t)bh * Tq + row] * attn::kLog2e : 0.f;
+      dl[r] = row < Tq ? delta[(size_t)bh * Tq + row] : 0.f;
+    }
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    float st[kBN / 2], dpt[kBN / 2];  // S, then P; dP, then dS (rows queries, columns keys)
+    uint32_t da[kBN / 16][4];         // dS rounded to k's dtype: the A operand of dQ += dS K
+
+    // S = Q K^T and dP = dO V^T of key tile it: two commit groups
+    auto issue_sdp = [&](int it) {
+      const uint32_t ks = ring + (it % kS) * 2 * C::kKBytes, vs = ks + C::kKBytes;
+      mbar_wait(full(it % kS), (it / kS) & 1);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, kBN, 0>(st, sw128_desc(qa + (kk >> 2) * C::kQBox + (kk & 3) * 32, 16, 1024),
+                            sw128_desc(ks + (kk >> 2) * C::kKBox + (kk & 3) * 32, 16, 1024),
+                            kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, kBN, 0>(dpt, sw128_desc(oa + (kk >> 2) * C::kQBox + (kk & 3) * 32, 16, 1024),
+                            sw128_desc(vs + (kk >> 2) * C::kKBox + (kk & 3) * 32, 16, 1024),
+                            kk > 0);
+      wgmma_commit();
+    };
+
+    mbar_wait(q_full, 0);
+    issue_sdp(0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int n0 = it * kBN;
+      wgmma_wait<1>();  // S (and dQ += dS K of the tile before) done; dP may still run
+      fence_regs(st);
+      fence_regs(dq_acc);
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) fence_regs(da[kk]);  // read until here
+      if (it > 0 && lane == 0) mbar_arrive(empty((it - 1) % kS));
+      const bool edge = n0 + kBN > Tk || row_lo + 64 > Tq || (causal && n0 + kBN - 1 > row_lo);
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) {
+        const int r = attn::acc_half(e);
+        const bool msk =
+            edge && attn::masked(row0 + 8 * r, n0 + attn::acc_col(e, t), Tq, Tk, causal);
+        st[e] = attn::recompute_p(st[e], scale_log2, lse2[r], msk);
+      }
+      wgmma_wait<0>();  // dP done
+      fence_regs(dpt);
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e)
+        dpt[e] = attn::score_grad(st[e], dpt[e], dl[attn::acc_half(e)]);
+      pack_afrags<T, kBN>(dpt, da);
+      // dQ += dS K, K read MN-major (its rows are keys, D contiguous)
+      const uint32_t ks = ring + (it % kS) * 2 * C::kKBytes;
+      fence_regs(dq_acc);
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) fence_regs(da[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_rs<T, D, 1>(dq_acc, da[kk], sw128_desc(ks + kk * 16 * 128, C::kKBox, 1024), 1);
+      wgmma_commit();
+      if (it + 1 < n_tiles) issue_sdp(it + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) fence_regs(da[kk]);
+    if (lane == 0) mbar_arrive(empty((n_tiles - 1) % kS));
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < Tq)
+        attn::store_acc_row<T, D>(dq + (((size_t)b * Tq + row) * H + h) * D, dq_acc, r, t, scale);
+    }
+  }
+}
 
 template <typename T, int D, int kWG>
 __global__ void __launch_bounds__(wg::DkvCfg<D, kWG>::kThreads, 1)
@@ -539,6 +705,37 @@ cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv, cudaStream_t str
   return cudaGetLastError();
 }
 
+template <typename T, int D, int kWG>
+cudaError_t launch_dq_wgmma(const Args& a, void* dq, cudaStream_t stream) {
+  using C = wg::DqCfg<D, kWG>;
+  constexpr bool kBf16 = sm90::WgmmaType<T>::kBf16;
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_dq_wgmma<T, D, kWG>, C::kSmem, &configured);
+  if (err != cudaSuccess) return err;
+  CUtensorMap q_map, do_map, k_map, v_map;
+  const uint64_t qw = (uint64_t)a.H * D, kw = (uint64_t)a.KV * D;
+  err = encode_tma_3d(&q_map, kBf16, a.q, a.B, a.Tq, qw, C::kBM);
+  if (err == cudaSuccess) err = encode_tma_3d(&do_map, kBf16, a.dout, a.B, a.Tq, qw, C::kBM);
+  if (err == cudaSuccess) err = encode_tma_3d(&k_map, kBf16, a.k, a.B, a.Tk, kw, C::kBN);
+  if (err == cudaSuccess) err = encode_tma_3d(&v_map, kBf16, a.v, a.B, a.Tk, kw, C::kBN);
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.B * a.H, (a.Tq + C::kBM - 1) / C::kBM);
+  flash_dq_wgmma<T, D, kWG><<<grid, C::kThreads, C::kSmem, stream>>>(
+      q_map, do_map, k_map, v_map, a.lse, a.delta, static_cast<T*>(dq), a.Tq, a.Tk, a.H, a.KV,
+      a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+// kWG: 2 (128-row blocks) or 1 (64-row blocks; flash_attention.py chooses)
+template <typename T>
+cudaError_t dq_wgmma_dim(int D, int kWG, const Args& a, void* dq, cudaStream_t st) {
+  if (D == 64 && kWG == 2) return launch_dq_wgmma<T, 64, 2>(a, dq, st);
+  if (D == 64 && kWG == 1) return launch_dq_wgmma<T, 64, 1>(a, dq, st);
+  if (D == 128 && kWG == 2) return launch_dq_wgmma<T, 128, 2>(a, dq, st);
+  if (D == 128 && kWG == 1) return launch_dq_wgmma<T, 128, 1>(a, dq, st);
+  return cudaErrorInvalidValue;
+}
+
 // kWG: 2 (128-key blocks) or 1 (64-key blocks; flash_attention.py chooses)
 template <typename T>
 cudaError_t dkv_wgmma_dim(int D, int kWG, const Args& a, void* dk, void* dv, cudaStream_t st) {
@@ -577,19 +774,30 @@ cudaError_t dispatch(int dtype, int D, bool dkv, const Args& a, void* o1, void* 
 }  // namespace dstorch
 
 // C entry points bound with ctypes. Each returns its launch's cudaGetLastError().
-// The dkv entry's design: 0 the FMA kernel (every dtype, D 32, 64, 128); 1
-// the wgmma kernel with 128-key blocks, 2 with 64-key blocks (bf16 and fp16,
-// D 64 and 128); flash_attention.py's flash_design and block_rows choose.
-// The dq kernel is the FMA kernel in every case.
-extern "C" int dstorch_flash_attention_dq(int dtype, const void* q, const void* k,
+// design: 0 the FMA kernel (every dtype, D 32, 64, 128); 1 the wgmma kernel
+// with 128-row blocks (query rows for dq, keys for dk/dv), 2 with 64-row
+// blocks (bf16 and fp16, D 64 and 128); flash_attention.py's flash_design and
+// block_rows choose. Any other design, or a wgmma design for another dtype or
+// D, is refused.
+extern "C" int dstorch_flash_attention_dq(int dtype, int design, const void* q, const void* k,
                                           const void* v, const void* dout, const void* lse,
                                           const void* delta, void* dq, int B, int Tq, int Tk,
                                           int H, int KV, int D, float scale, int causal,
                                           void* stream) {
-  const dstorch::Args a{q, k, v, dout, static_cast<const float*>(lse),
-                        static_cast<const float*>(delta), B, Tq, Tk, H, KV, scale, causal};
-  return (int)dstorch::dispatch(dtype, D, false, a, dq, nullptr,
-                                static_cast<cudaStream_t>(stream));
+  using namespace dstorch;
+  const Args a{q, k, v, dout, static_cast<const float*>(lse),
+               static_cast<const float*>(delta), B, Tq, Tk, H, KV, scale, causal};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (design == 0) return (int)dispatch(dtype, D, false, a, dq, nullptr, st);
+  if ((design != 1 && design != 2) || B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || KV <= 0 ||
+      H % KV != 0)
+    return (int)cudaErrorInvalidValue;
+  const int wgs = design == 1 ? 2 : 1;
+  switch (dtype) {
+    case kBFloat16: return (int)dq_wgmma_dim<__nv_bfloat16>(D, wgs, a, dq, st);
+    case kFloat16: return (int)dq_wgmma_dim<__half>(D, wgs, a, dq, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int dstorch_flash_attention_dkv(int dtype, int design, const void* q, const void* k,

@@ -13,34 +13,60 @@
 // Layout: x (M, K) fp32, bf16 or fp16 (code in xdtype); w (N, K) int8, row-major
 // like nn.Linear.weight, so one output channel's K weights are contiguous; scale
 // (N,) fp32; y (M, N) in the dtype of ydtype. The TPU kernel stored w as (K, N)
-// with N on the lanes; here a row of w is what a warp streams.
+// with N on the lanes; here a row of w is what the tensor cores take as A.
 //
-// What bounds it on the H100:
-//   * decode (M <= 16, a GEMV in practice): bytes. Every weight is read once and
-//     used for M products, so the weights' N * K bytes are the traffic. The kernel
-//     streams each weight row once with 16-byte loads (16 int8 a lane), issues all
-//     of a sweep's loads before unpacking any (a load whose conversion sits in its
-//     own branch waits for the one before it, see paged_decode_attention.cu), and
-//     converts int8 -> fp32 with a byte permute and one add instead of I2F. The x
-//     rows sit in shared memory as bf16-rounded floats, laid out so that a warp's
-//     reads hit 32 distinct banks (xs_offset), read once per 16 weights and
-//     shared by the 4 output channels a warp computes; 8 warps share each tile.
-//     What holds it above its bound: at M = 8 the CUDA cores issue ~12
-//     operations per weight byte (8 FMAs, the unpacking, the x reads), and each
-//     1024-deep tile waits for its x and then its weight loads with one block on
-//     an SM. Tensor cores (mma.sync with int8 -> bf16 B fragments) and a deeper
-//     load pipeline are the levers, later work.
-//   * prefill chunks and admissions (M > 16): against the tensor cores' peak
-//     still bytes at M = 64, operations from a few hundred rows. A plain 32 x 64
-//     tiled shared-memory product on the CUDA cores in fp32 with
-//     register-prefetched 16-byte loads, so its own limit is that arithmetic;
-//     mma.sync / wgmma is later work.
-// Any M, K and N: ragged tiles are masked; a K that is not a multiple of 16 (or an
-// unaligned x or w) takes a scalar-load tiled kernel.
+// What bounds it on the H100: bytes at decode (M <= 16: every weight is read
+// once and used for M products, so the weights' N * K bytes are the traffic)
+// and still at a 64-row prefill chunk; operations from a few hundred rows
+// (M = 512 through TinyLlama's gate: 11.8 GFLOP against 11.5 MB). So the
+// products run on the tensor cores and the weights stream through a deep ring.
+//
+// Design: the products on the tensor cores in bf16 with the operands
+// swapped, y^T = W x^T. The (N, K) weight tile is A, converted int8 -> bf16
+// in registers: its output channels fill the 16- or 64-row side, and the
+// tokens fill the narrow N side, so a decode step's 8 rows waste nothing.
+// One weight stream, two routes by the token tile:
+//  - decode (tiles 1 and 2: 64 channels x 8 or 16 tokens, 4 warps of 16
+//    channels, 128-deep k slices in a 4-stage cp.async ring):
+//    mma.sync.m16n8k16. The k order inside each 64-deep half slice is
+//    permuted (the sum over k does not care; A and B use the same
+//    permutation), so that every fragment is one 16-byte shared-memory load
+//    (int8_mma_kernel). The same tiles fed by TMA ran 15% slower.
+//  - prefill (tiles 3 and 4: 128 channels x 64 or 128 tokens, two
+//    warpgroups of 64 channels, 64-deep k slices in a 4-stage TMA ring): RS
+//    wgmma m64nNk16, N = the token tile; x (B) is read by the tensor cores
+//    from shared memory as TMA lays it, the weights are A from registers in
+//    wgmma's k order (int8_wgmma_kernel). Both tiles' versions with mma.sync
+//    spent their time re-reading x fragments through shared memory, one copy
+//    for each warp along the channels (PERF.md).
+//  - int8 -> bf16 without the fp32 detour: for a byte b, (b & 0x7f) + 128 and
+//    128 + 128 * sign(b) are bf16 numbers built by bit operations on the byte
+//    pair (0x4300 | ...), and one bf16x2 fused multiply-add takes their
+//    difference, which is b exactly (i8x4_to_bf16x2).
+//  - split K: where the output tiles would leave most of the card idle (the
+//    k and v projections at N = 256, q, o and down at decode, a 64-row
+//    prefill chunk), the K range is split across the blocks of a
+//    thread-block cluster (up to 8). Each block leaves its fp32 partial tile
+//    in shared memory; after a cluster barrier each block sums a slice of the
+//    tile over the cluster's blocks in rank order 0, 1, ... through
+//    distributed shared memory, so the result is the same from run to run (no
+//    atomics) and needs no workspace.
+//  - the epilogue goes through shared memory either way, so y is written in
+//    rows, consecutive threads on consecutive groups of 4 output channels.
+// int8_matmul.py's int8_plan picks the tile by M and the split by the grid.
+// The tensor-core kernels take bf16 x (the wrapper rounds fp32 and fp16 x to
+// bf16 first, as the contract does; serving's x is bf16 already), K % 16 ==
+// 0 and 16-byte aligned x and w; tile 0, the scalar kernel, takes any x
+// dtype, K and alignment.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace dstorch {
 namespace {
+
+namespace cg = cooperative_groups;
 
 // ---------------------------------------------------------------- helpers
 __device__ __forceinline__ void store_as(void* y, int code, size_t i, float v) {
@@ -51,269 +77,432 @@ __device__ __forceinline__ void store_as(void* y, int code, size_t i, float v) {
   }
 }
 
-// The Vec<T>::kN elements of x in a 16-byte word, rounded to bf16 (the JAX
-// contract casts x to bf16 before the product), as floats; zero when !ok.
-template <typename T>
-__device__ __forceinline__ void unpack_x(uint4 raw, bool ok, float* dst) {
-  unpack_vec<T>(raw, dst);
-#pragma unroll
-  for (int i = 0; i < Vec<T>::kN; ++i) dst[i] = ok ? round_through<__nv_bfloat16>(dst[i]) : 0.f;
+// The 4 int8 values of w (byte 0 first) as two bf16x2 words: lo = (b0, b1),
+// hi = (b2, b3). Each byte pair is spread to the low bytes of two 16-bit
+// halves; a = 0x4300 | (b & 0x7f) is the bf16 number 128 + (b & 0x7f), c =
+// 0x4300 | (b & 0x80) is 128 (b >= 0) or 256 (b < 0), and a - c = b, exact
+// (one bf16x2 FMA: c * -1 + a). Exact over all 256 values (card test).
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t pair) {
+  const uint32_t a = (pair & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (pair & 0x00800080u) | 0x43004300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(c), "r"(0xBF80BF80u), "r"(a));
+  return d;
+}
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  lo = i8x2_to_bf16x2(__byte_perm(w, 0, 0x4140));
+  hi = i8x2_to_bf16x2(__byte_perm(w, 0, 0x4342));
 }
 
-// ------------------------------------------------------------ decode GEMV
-constexpr int kGemvThreads = 256;                 // 8 warps share one x tile
-constexpr int kGemvWarps = kGemvThreads / 32;
-constexpr int kColsPerWarp = 4;                   // output channels a warp owns
-constexpr int kColsPerBlock = kGemvWarps * kColsPerWarp;
-constexpr int kSweep = 32 * 16;                   // k a warp covers per sweep
-constexpr int kSweepsPerTile = 2;
-constexpr int kTileK = kSweep * kSweepsPerTile;   // k per shared-memory tile
-
-// Where x element k of a tile row sits in shared memory. Lane l of a warp
-// multiplies k in [sweep * 512 + 16 l, + 16) and reads them as 4 float4; stored
-// plainly, the 32 lanes' float4 reads would be 64 bytes apart and collide 4 ways
-// in the banks. Each (sweep, float4 j) group of the 32 lanes is therefore stored
-// contiguously: lane l's j-th float4 of a sweep is float4 number (sweep * 4 + j)
-// * 32 + l of the row, and a warp's read is 512 consecutive bytes.
-__device__ __forceinline__ int xs_offset(int k) {
-  return (((k / kSweep) * 4 + (k % 16) / 4) * 32 + (k % kSweep) / 16) * 4 + k % 4;
+// d += a b: m16n8k16, bf16 inputs, fp32 accumulators (row.col)
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// TX: x's dtype. MT: x rows the kernel is compiled for (M <= MT); rows past M
-// are zero in shared memory and never stored. Needs K % 16 == 0 and 16-byte
-// aligned x and w.
-template <typename TX, int MT>
-__global__ void __launch_bounds__(kGemvThreads)
-int8_gemv_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ scale, void* __restrict__ y, int ycode, int M,
-                 int K, int N) {
-  constexpr int kXVec = Vec<TX>::kN;                       // x per 16-byte load
-  constexpr int kXChunks = MT * kTileK / kXVec;            // 16-byte loads per tile
-  constexpr int kXPerThread = (kXChunks + kGemvThreads - 1) / kGemvThreads;
-  // [MT][kTileK] in the xs_offset order: bf16-rounded x, zero past M and K
-  extern __shared__ float4 xs4[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kColsPerBlock + warp * kColsPerWarp;
-  // rows past N re-read the last row (a valid address) and are never stored
-  const int8_t* wrow[kColsPerWarp];
+// y[m, n .. n + 3] = v * scale[n .. n + 3] (columns past N dropped), one
+// vector store where the row and the pointers allow it
+__device__ __forceinline__ void store4(void* y, int code, int N, int m, int n, float4 v,
+                                       const float* __restrict__ scale) {
+  float o[4] = {v.x, v.y, v.z, v.w};
+  const size_t at = (size_t)m * N + n;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(scale)) & 15) == 0;
+  if (aligned && N % 4 == 0 && n + 3 < N) {
+    const float4 s = *reinterpret_cast<const float4*>(scale + n);
+    o[0] *= s.x; o[1] *= s.y; o[2] *= s.z; o[3] *= s.w;
+    if (code == kFloat32) {
+      *reinterpret_cast<float4*>(static_cast<float*>(y) + at) = make_float4(o[0], o[1], o[2], o[3]);
+    } else if (code == kBFloat16) {
+      *reinterpret_cast<uint2*>(static_cast<__nv_bfloat16*>(y) + at) =
+          make_uint2(pack2<__nv_bfloat16>(o[0], o[1]), pack2<__nv_bfloat16>(o[2], o[3]));
+    } else {
 #pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c) {
-    const int n = n0 + c < N ? n0 + c : N - 1;
-    wrow[c] = w + (size_t)n * K;
+      for (int c = 0; c < 4; ++c) store_as(y, code, at + c, o[c]);
+    }
+    return;
   }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (n + c < N) store_as(y, code, at + c, o[c] * scale[n + c]);
+}
 
-  float acc[kColsPerWarp][MT];
-#pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c)
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[c][m] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    // the x tile: every 16-byte load goes out before any is stored; a chunk
-    // past M or K reads x[0] (valid) and stores zeros
-    uint4 xr[kXPerThread];
-    bool xok[kXPerThread];
-#pragma unroll
-    for (int j = 0; j < kXPerThread; ++j) {
-      const int c = threadIdx.x + j * kGemvThreads;
-      const int m = c * kXVec / kTileK, k = k0 + c * kXVec % kTileK;
-      xok[j] = c < kXChunks && m < M && k < K;
-      xr[j] = __ldg(reinterpret_cast<const uint4*>(x + (xok[j] ? (size_t)m * K + k : 0)));
-    }
-    __syncthreads();  // the previous tile's readers are done
-#pragma unroll
-    for (int j = 0; j < kXPerThread; ++j) {
-      const int c = threadIdx.x + j * kGemvThreads;
-      if (c >= kXChunks) continue;
-      float v[kXVec];
-      unpack_x<TX>(xr[j], xok[j], v);
-      const int m = c * kXVec / kTileK, k = c * kXVec % kTileK;
-#pragma unroll
-      for (int g = 0; g < kXVec; g += 4)
-        xs4[(m * kTileK + xs_offset(k + g)) / 4] =
-            make_float4(v[g], v[g + 1], v[g + 2], v[g + 3]);
-    }
+// The block's fp32 partial tile ys (kBT tokens x kBW channels, rows kLdY
+// apart) to y: the tile's valid rows in groups of 4 channels, token-major;
+// with a split each block of the cluster sums its share of the groups over
+// every block's partial, in rank order, all ranks' loads issued before the
+// sum. Ends with every block of the cluster past its partial's last reader.
+template <int kBW, int kBT, int kLdY, int kThreads>
+__device__ __forceinline__ void reduce_store(const float* ys, void* y, int ycode, int M, int N,
+                                             int m0, int n0, int split, int splits,
+                                             const float* __restrict__ scale) {
+  constexpr int kG = kBW / 4;
+  const int total = min(kBT, M - m0) * kG;
+  int q0 = 0, q1 = total;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (splits > 1) {
+    cluster.sync();  // every block's partial is in its shared memory
+    q0 = split * total / splits;
+    q1 = (split + 1) * total / splits;
+  } else {
     __syncthreads();
+  }
+  for (int q = q0 + (int)threadIdx.x; q < q1; q += kThreads) {
+    const int r = q / kG, col = 4 * (q % kG), at = r * kLdY + col;
+    float4 part[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b)
+      if (b < splits)
+        part[b] = *reinterpret_cast<const float4*>(
+            (splits > 1 ? cluster.map_shared_rank(const_cast<float*>(ys), b) : ys) + at);
+    float4 v = part[0];
+#pragma unroll
+    for (int b = 1; b < 8; ++b)
+      if (b < splits) {
+        v.x += part[b].x; v.y += part[b].y; v.z += part[b].z; v.w += part[b].w;
+      }
+    store4(y, ycode, N, m0 + r, n0 + col, v, scale);
+  }
+  if (splits > 1) cluster.sync();  // no block leaves while its partial is read
+}
 
-    // all weight loads of the tile go out before any is unpacked; a chunk
-    // past K reads chunk 0 of the row (valid) and meets zeros in xs. (Issued
-    // before the x staging instead, they stay live across it and the gate/up
-    // shape ran 1.4x slower.)
-    uint4 raw[kSweepsPerTile][kColsPerWarp];
+// ---------------------------------------------- decode tiles: mma.sync
+// 64 channels x 8 WN tokens a block: 4 warps, one 16-channel tile each;
+// 128-deep k slices, 4 of them in a cp.async ring. The k order inside each
+// 64-deep half of a slice is permuted (the sum over k does not care, and A and
+// B use the same permutation): thread t of a quad owns physical k 16t .. 16t
+// + 15 of the half, and in k-step s (0..3) its logical columns 2t, 2t+1,
+// 2t+8, 2t+9 are physical 16t + 4s + 0..3. So each fragment is one 16-byte
+// shared-memory load: 16 weight bytes of each of its two rows, 16 x values
+// of its token.
+template <int WN>
+struct DecodeTile {
+  static constexpr int kThreads = 128, kStages = 4, kBK = 128;
+  static constexpr int kBW = 64, kBT = 8 * WN;
+  static constexpr int kWBytes = kBW * kBK;        // int8 weight slice, rows 128 bytes
+  static constexpr int kXBytes = kBT * kBK * 2;    // bf16 x slice, rows 256 bytes
+  static constexpr int kStage = kWBytes + kXBytes;
+  static constexpr int kLdY = kBW + 4;             // fp32 partial tile, token-major
+  static constexpr int kSmem =
+      kStages * kStage > kBT * kLdY * 4 ? kStages * kStage : kBT * kLdY * 4;
+};
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (src not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+// 16-byte chunk j of weight row r: a quad reads chunks 4c .. 4c + 3 of rows
+// g and g + 1 in one phase; the odd rows' halves swap, so the two rows hit
+// different banks. Chunk j (8 values) of x row r: a thread reads chunks 2t,
+// 2t + 1 of its token; odd tokens swap the pair.
+__device__ __forceinline__ int w_chunk(int r, int j) { return j ^ ((r & 1) << 2); }
+__device__ __forceinline__ int x_chunk(int r, int j) { return j ^ (r & 1); }
+
+template <int WN>
+__global__ void __launch_bounds__(128, 2)
+int8_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+                const float* __restrict__ scale, void* __restrict__ y, int ycode, int M, int K,
+                int N) {
+  using C = DecodeTile<WN>;
+  constexpr int BK = C::kBK, kS = C::kStages;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * C::kBW, m0 = blockIdx.y * C::kBT;
+  const int units = (K + BK - 1) / BK, split = blockIdx.z, splits = gridDim.z;
+  const int u0 = split * units / splits, nu = (split + 1) * units / splits - u0;
+
+  auto load_stage = [&](int slot, int u) {
+    unsigned char* ws = smem + slot * C::kStage;
+    unsigned char* xs = ws + C::kWBytes;
+    const int k0 = u * BK;
 #pragma unroll
-    for (int s = 0; s < kSweepsPerTile; ++s) {
-      const int kc = k0 + s * kSweep + lane * 16;
-      const int kk = kc < K ? kc : 0;
-#pragma unroll
-      for (int c = 0; c < kColsPerWarp; ++c)
-        raw[s][c] = __ldg(reinterpret_cast<const uint4*>(wrow[c] + kk));
+    for (int i = 0; i < C::kWBytes / 16 / C::kThreads; ++i) {
+      const int c = tid + i * C::kThreads, r = c / (BK / 16), j = c % (BK / 16);
+      const int n = n0 + r, k = k0 + 16 * j;
+      const bool ok = n < N && k < K;
+      cp_async16(sm90::smem_u32(ws + r * BK + w_chunk(r, j) * 16),
+                 w + (ok ? (size_t)n * K + k : 0), ok);
     }
 #pragma unroll
-    for (int s = 0; s < kSweepsPerTile; ++s) {
-      float wf[kColsPerWarp][16];
+    for (int i = 0; i < C::kXBytes / 16 / C::kThreads; ++i) {
+      const int c = tid + i * C::kThreads, r = c / (BK / 8), j = c % (BK / 8);
+      const int m = m0 + r, k = k0 + 8 * j;
+      const bool ok = m < M && k < K;
+      cp_async16(sm90::smem_u32(xs + r * 2 * BK + x_chunk(r, j) * 16),
+                 x + (ok ? (size_t)m * K + k : 0), ok);
+    }
+  };
+
+  float acc[WN][4];
 #pragma unroll
-      for (int c = 0; c < kColsPerWarp; ++c) unpack_i8x16(raw[s][c], wf[c]);
-      // lane's float4 j of this sweep: xs_offset(s * kSweep + 16 lane + 4 j)
-      const float4* xrow = xs4 + s * 4 * 32 + lane;
+  for (int j = 0; j < WN; ++j)
 #pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        float xf[16];
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float4 v = xrow[m * kTileK / 4 + j * 32];
-          xf[4 * j] = v.x; xf[4 * j + 1] = v.y; xf[4 * j + 2] = v.z; xf[4 * j + 3] = v.w;
+  for (int s = 0; s < kS - 1; ++s) {
+    if (s < nu) load_stage(s, u0 + s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < nu; ++it) {
+    cp_async_wait<kS - 2>();
+    __syncthreads();  // slice it has landed; every warp is done with slice it - 1
+    if (it + kS - 1 < nu) load_stage((it + kS - 1) % kS, u0 + it + kS - 1);
+    cp_async_commit();
+    const unsigned char* ws = smem + (it % kS) * C::kStage;
+    const unsigned char* xs = ws + C::kWBytes;
+#pragma unroll
+    for (int c = 0; c < BK / 64; ++c) {
+      uint4 wv[2];  // rows g and g + 8: byte 4s + j feeds k-step s
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h;
+        wv[h] = *reinterpret_cast<const uint4*>(ws + r * BK + w_chunk(r, 4 * c + t) * 16);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // x values 8h .. 8h + 7 of the thread's 16: k-steps 2h, 2h + 1
+        uint4 xv[WN];
+#pragma unroll
+        for (int j = 0; j < WN; ++j) {
+          const int r = 8 * j + g;
+          xv[j] = *reinterpret_cast<const uint4*>(xs + r * 2 * BK +
+                                                  x_chunk(r, 8 * c + 2 * t + h) * 16);
         }
 #pragma unroll
-        for (int c = 0; c < kColsPerWarp; ++c)
+        for (int s = 2 * h; s < 2 * h + 2; ++s) {
+          uint32_t a[4];
+          i8x4_to_bf16x2((&wv[0].x)[s], a[0], a[2]);  // row g
+          i8x4_to_bf16x2((&wv[1].x)[s], a[1], a[3]);  // row g + 8
 #pragma unroll
-          for (int i = 0; i < 16; ++i) acc[c][m] = fmaf(xf[i], wf[c][i], acc[c][m]);
+          for (int j = 0; j < WN; ++j) {
+            const uint32_t* xw = &xv[j].x + 2 * (s & 1);
+            mma_16816(acc[j], a, xw[0], xw[1]);
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the partial tile takes its place
 
-  // reduce each (column, row) sum over the warp's 32 lanes; lane (c * MT + m)
-  // % 32 keeps the total and writes it
+  // acc[j][e]: channel 16 warp + g + 8 (e >> 1), token 8 j + 2 t + (e & 1)
+  float* ys = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int c = 0; c < kColsPerWarp; ++c) {
+  for (int j = 0; j < WN; ++j)
 #pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      float v = acc[c][m];
+    for (int e = 0; e < 4; ++e)
+      ys[(8 * j + 2 * t + (e & 1)) * C::kLdY + warp * 16 + g + 8 * (e >> 1)] = acc[j][e];
+  reduce_store<C::kBW, C::kBT, C::kLdY, C::kThreads>(ys, y, ycode, M, N, m0, n0, split, splits,
+                                                      scale);
+}
+
+// ------------------------------------------------ prefill tiles: wgmma
+// Two consumer warpgroups of 64 channels x BT tokens (64 or 128); 64-deep k
+// slices in a ring of 4 stages filled by TMA: the x slice as one box of BT
+// rows x 64 bf16 (128-byte swizzle, K-major: wgmma's B as it lies), the
+// weight slice as 128 rows of 64 bytes (64-byte swizzle). Thread 0 issues the
+// loads; a slot is refilled once every warp is past it.
+template <int BT>
+struct PrefillTile {
+  static constexpr int kThreads = 256, kStages = 4, kBK = 64;
+  static constexpr int kBW = 128, kBT = BT;
+  static constexpr int kXBytes = BT * 128;
+  static constexpr int kWBytes = kBW * 64;
+  static constexpr int kStage = kXBytes + kWBytes;
+  static constexpr int kLdY = kBW + 4;
+  static constexpr int kData = kStages * kStage > BT * kLdY * 4 ? kStages * kStage : BT * kLdY * 4;
+  static constexpr int kSmem = 1024 + kData + 8 * kStages;  // + the full barriers
+  static_assert(kXBytes % 1024 == 0 && kWBytes % 1024 == 0, "stages on swizzle atoms");
+};
+
+// The A fragment of k16 step kk for weight rows r and r + 8 of a slice whose
+// rows are 64 bytes, TMA's 64-byte swizzle (chunk c of row r at c ^ ((r >> 1)
+// & 3)), in wgmma's layout: a[0] / a[1] = rows r / r + 8, columns 2t, 2t+1;
+// a[2] / a[3] = the same rows, columns 2t+8, 2t+9. The quad's four threads
+// read the same 16 bytes of a row (a broadcast; the swizzle puts a warp's 8
+// rows on distinct banks) and each keeps its two byte pairs: two selects and
+// a byte permute, then the conversion.
+__device__ __forceinline__ void load_afrag(const unsigned char* ws, int r, int kk, int t,
+                                           uint32_t (&a)[4]) {
+  const uint32_t sel = (t & 1) ? 0x7632 : 0x5410;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-      const int n = n0 + c;
-      if (lane == (c * MT + m) % 32 && m < M && n < N)
-        store_as(y, ycode, (size_t)m * N + n, v * scale[n]);
-    }
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(ws + row * 64 + ((kk ^ ((row >> 1) & 3)) << 4));
+    const uint32_t lo = (t & 2) ? v.y : v.x, hi = (t & 2) ? v.w : v.z;
+    i8x4_to_bf16x2(__byte_perm(lo, hi, sel), a[h], a[2 + h]);
   }
 }
 
-template <typename TX, int MT>
-cudaError_t launch_gemv(const void* x, const int8_t* w, const float* scale, void* y,
-                        int ycode, int M, int K, int N, cudaStream_t stream) {
-  const size_t smem = (size_t)MT * kTileK * sizeof(float);
-  static bool configured = false;  // above 48 KB needs the opt-in, once
-  if (smem > 48 * 1024 && !configured) {
-    cudaError_t e = cudaFuncSetAttribute(int8_gemv_kernel<TX, MT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-    configured = true;
+template <typename C>
+__global__ void __launch_bounds__(C::kThreads, 2)
+int8_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
+                  const __grid_constant__ CUtensorMap w_map, const float* __restrict__ scale,
+                  void* __restrict__ y, int ycode, int M, int K, int N) {
+  using namespace sm90;
+  constexpr int kS = C::kStages, BT = C::kBT;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw), base = (raw + 1023) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + C::kData;
+  auto full = [&](int s) { return bars + 8 * s; };
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * C::kBW, m0 = blockIdx.y * BT;
+  const int units = (K + 63) / 64, split = blockIdx.z, splits = gridDim.z;
+  const int u0 = split * units / splits, nu = (split + 1) * units / splits - u0;
+  const int wrow = (warp >> 2) * 64 + (warp & 3) * 16 + g;  // channels wrow, wrow + 8
+
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) mbar_init(full(s), 1);
+    fence_barrier_init();
   }
-  const int blocks = (N + kColsPerBlock - 1) / kColsPerBlock;
-  int8_gemv_kernel<TX, MT><<<blocks, kGemvThreads, smem, stream>>>(
-      static_cast<const TX*>(x), w, scale, y, ycode, M, K, N);
-  return cudaGetLastError();
-}
-
-template <typename TX>
-cudaError_t launch_gemv_rows(const void* x, const int8_t* w, const float* scale, void* y,
-                             int ycode, int M, int K, int N, cudaStream_t st) {
-  if (M == 1) return launch_gemv<TX, 1>(x, w, scale, y, ycode, M, K, N, st);
-  if (M <= 4) return launch_gemv<TX, 4>(x, w, scale, y, ycode, M, K, N, st);
-  if (M <= 8) return launch_gemv<TX, 8>(x, w, scale, y, ycode, M, K, N, st);
-  return launch_gemv<TX, 16>(x, w, scale, y, ycode, M, K, N, st);
-}
-
-// ------------------------------------------------------------- tiled GEMM
-// 32 x 64 output tiles (small, so a 64-row chunk still spreads over the SMs),
-// 32-deep k steps, 128 threads with 4 x 4 outputs each. The next k step's
-// 16-byte loads are issued into registers before the current step's
-// products, so the loads overlap the arithmetic. Needs K % 16 == 0 and
-// 16-byte aligned x and w.
-constexpr int kBM = 32, kBN = 64, kBK = 32;
-constexpr int kGemmThreads = 128;
-
-template <typename TX>
-__global__ void __launch_bounds__(kGemmThreads)
-int8_gemm_kernel(const TX* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ scale, void* __restrict__ y, int ycode, int M,
-                 int K, int N) {
-  constexpr int kXVec = Vec<TX>::kN;
-  constexpr int kXLoads = kBM * kBK / kXVec / kGemmThreads;  // 1 (bf16/fp16), 2 (fp32)
-  static_assert(kBM * kBK % (kXVec * kGemmThreads) == 0, "whole x loads per thread");
-  constexpr int kXPerRow = kBK / kXVec;
-  static_assert(kBN * kBK / 16 == kGemmThreads, "one weight load per thread");
-  __shared__ __align__(16) float as[kBK][kBM + 4];  // x tile, k-major
-  __shared__ __align__(16) float bs[kBK][kBN + 4];  // w tile, k-major
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  uint4 xr[kXLoads], wr;
-  bool xok[kXLoads], wok;
-  auto issue = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < kXLoads; ++j) {
-      const int c = tid + j * kGemmThreads;
-      const int m = m0 + c / kXPerRow, k = k0 + c % kXPerRow * kXVec;
-      xok[j] = m < M && k < K;
-      xr[j] = __ldg(reinterpret_cast<const uint4*>(x + (xok[j] ? (size_t)m * K + k : 0)));
-    }
-    const int n = n0 + tid / 2, k = k0 + tid % 2 * 16;
-    wok = n < N && k < K;
-    wr = __ldg(reinterpret_cast<const uint4*>(w + (wok ? (size_t)n * K + k : 0)));
+  __syncthreads();
+  auto issue = [&](int it) {  // slice it into its slot (one thread)
+    const int s = it % kS, k0 = (u0 + it) * 64;
+    const uint32_t st = base + s * C::kStage;
+    mbar_arrive_expect_tx(full(s), C::kStage);
+    tma_load_2d(st, &x_map, full(s), k0, m0);
+    tma_load_2d(st + C::kXBytes, &w_map, full(s), k0, n0);
   };
-  auto stash = [&]() {
-#pragma unroll
-    for (int j = 0; j < kXLoads; ++j) {
-      const int c = tid + j * kGemmThreads;
-      float v[kXVec];
-      unpack_x<TX>(xr[j], xok[j], v);
-#pragma unroll
-      for (int i = 0; i < kXVec; ++i) as[c % kXPerRow * kXVec + i][c / kXPerRow] = v[i];
-    }
-    float v[16];
-    unpack_i8x16(wr, v);
-#pragma unroll
-    for (int i = 0; i < 16; ++i) bs[tid % 2 * 16 + i][tid / 2] = wok ? v[i] : 0.f;
-  };
+  if (tid == 0)
+    for (int it = 0; it < kS - 1 && it < nu; ++it) issue(it);
 
-  float acc[4][4];
+  float acc[BT / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int e = 0; e < BT / 2; ++e) acc[e] = 0.f;
+  for (int it = 0; it < nu; ++it) {
+    fence_proxy_async();  // this thread's reads of slice it - 1 precede its refill
+    __syncthreads();      // every warp is past slice it - 1: its slot is free
+    if (tid == 0 && it + kS - 1 < nu) issue(it + kS - 1);
+    const int s = it % kS;
+    mbar_wait(full(s), (it / kS) & 1);
+    const uint32_t xs = base + s * C::kStage;
+    const unsigned char* ws = smem + s * C::kStage + C::kXBytes;
+    uint32_t a[4][4];  // k16 steps 0..3
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  issue(0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    __syncthreads();  // the previous step's readers are done
-    stash();
-    __syncthreads();
-    if (k0 + kBK < K) issue(k0 + kBK);
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int kk = 0; kk < 4; ++kk) load_afrag(ws, wrow, kk, t, a[kk]);
+    fence_regs(acc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
+    wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<__nv_bfloat16, BT, 0>(acc, a[kk], sw128_desc(xs + kk * 32, 16, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
   }
+  __syncthreads();  // every slice consumed: the ring takes the partial tile
+
+  // acc[e]: channel wrow + 8 ((e >> 1) & 1), token 8 (e >> 2) + 2 t + (e & 1)
+  float* ys = reinterpret_cast<float*>(smem);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (m < M && n < N) store_as(y, ycode, (size_t)m * N + n, acc[i][j] * scale[n]);
-    }
+  for (int e = 0; e < BT / 2; ++e)
+    ys[(8 * (e >> 2) + 2 * t + (e & 1)) * C::kLdY + wrow + 8 * ((e >> 1) & 1)] = acc[e];
+  reduce_store<C::kBW, BT, C::kLdY, C::kThreads>(ys, y, ycode, M, N, m0, n0, split, splits, scale);
+}
+
+// A 2-D tensor map over the (N, K) int8 weights for boxes of (box_rows, 64
+// bytes), 64-byte swizzle, zero fill out of bounds.
+inline cudaError_t encode_weights(CUtensorMap* map, const void* w, int N, int K, int box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(w), dims, strides, box,
+                  elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// a kernel over (N / channels, M / tokens, splits) blocks, each split's
+// blocks one cluster along z
+template <typename Kernel, typename... Args>
+cudaError_t launch_cluster(Kernel kernel, int smem, int threads, int bw, int bt, int M, int N,
+                           int splits, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + bw - 1) / bw, (M + bt - 1) / bt, splits);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool* configured) {
+  if (*configured) return cudaSuccess;  // the attribute is per kernel, set once (eagerly)
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) *configured = true;
+  return e;
+}
+
+template <int WN>
+cudaError_t launch_decode(const void* x, const int8_t* w, const float* scale, void* y, int ycode,
+                          int M, int K, int N, int splits, cudaStream_t st) {
+  using C = DecodeTile<WN>;
+  static bool configured = false;
+  cudaError_t e = allow_smem(int8_mma_kernel<WN>, C::kSmem, &configured);
+  if (e != cudaSuccess) return e;
+  return launch_cluster(int8_mma_kernel<WN>, C::kSmem, C::kThreads, C::kBW, C::kBT, M, N, splits,
+                        st, static_cast<const __nv_bfloat16*>(x), w, scale, y, ycode, M, K, N);
+}
+
+template <typename C>
+cudaError_t launch_prefill(const void* x, const int8_t* w, const float* scale, void* y,
+                           int ycode, int M, int K, int N, int splits, cudaStream_t st) {
+  static bool configured = false;
+  cudaError_t e = allow_smem(int8_wgmma_kernel<C>, C::kSmem, &configured);
+  if (e != cudaSuccess) return e;
+  CUtensorMap x_map, w_map;
+  e = encode_tma_2d(&x_map, true, x, M, K, K, C::kBT, 64);
+  if (e == cudaSuccess) e = encode_weights(&w_map, w, N, K, C::kBW);
+  if (e != cudaSuccess) return e;
+  return launch_cluster(int8_wgmma_kernel<C>, C::kSmem, C::kThreads, C::kBW, C::kBT, M, N, splits,
+                        st, x_map, w_map, scale, y, ycode, M, K, N);
+}
+
+// the tile shapes of the header, by code
+cudaError_t launch_tile(int tile, const void* x, const int8_t* w, const float* scale, void* y,
+                        int ycode, int M, int K, int N, int splits, cudaStream_t st) {
+  switch (tile) {
+    case 1: return launch_decode<1>(x, w, scale, y, ycode, M, K, N, splits, st);
+    case 2: return launch_decode<2>(x, w, scale, y, ycode, M, K, N, splits, st);
+    case 3: return launch_prefill<PrefillTile<64>>(x, w, scale, y, ycode, M, K, N, splits, st);
+    case 4: return launch_prefill<PrefillTile<128>>(x, w, scale, y, ycode, M, K, N, splits, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename TX>
-cudaError_t launch_gemm(const void* x, const int8_t* w, const float* scale, void* y,
-                        int ycode, int M, int K, int N, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  int8_gemm_kernel<TX><<<grid, kGemmThreads, 0, stream>>>(static_cast<const TX*>(x), w,
-                                                          scale, y, ycode, M, K, N);
-  return cudaGetLastError();
-}
-
-// Any K or alignment: scalar loads, 64 x 64 tiles (not on the serving path,
-// whose K is a multiple of 16).
+// Any K or alignment: scalar loads, 64 x 64 tiles on the FMA units (not on
+// the serving path, whose K is a multiple of 16).
 __device__ __forceinline__ float load_as_bf16_float(const void* x, int code, size_t i) {
   switch (code) {
     case kBFloat16: return __bfloat162float(static_cast<const __nv_bfloat16*>(x)[i]);
@@ -365,20 +554,17 @@ int8_gemm_scalar_kernel(const void* __restrict__ x, int xcode, const int8_t* __r
   }
 }
 
-template <typename TX>
-cudaError_t launch_vec(const void* x, const int8_t* w, const float* scale, void* y,
-                       int ycode, int M, int K, int N, cudaStream_t st) {
-  return M <= 16 ? launch_gemv_rows<TX>(x, w, scale, y, ycode, M, K, N, st)
-                 : launch_gemm<TX>(x, w, scale, y, ycode, M, K, N, st);
-}
-
 }  // namespace
 }  // namespace dstorch
 
 // C entry point bound with ctypes. Returns the launch's cudaGetLastError().
+// tile: 0 the scalar kernel (any x dtype, K and alignment), 1..4 the
+// tensor-core kernel's tile shapes (bf16 x, K % 16 == 0, x and w 16-byte
+// aligned; refused otherwise); splits: 1..8 blocks of a cluster sharing each
+// output tile's K range (tile 0: 1). int8_matmul.py's int8_plan chooses both.
 extern "C" int dstorch_int8_matmul(int xdtype, const void* x, const void* w,
                                    const void* scale, int ydtype, void* y, int M, int K,
-                                   int N, void* stream) {
+                                   int N, int tile, int splits, void* stream) {
   using namespace dstorch;
   if (M <= 0 || K <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const auto known = [](int code) {
@@ -388,16 +574,17 @@ extern "C" int dstorch_int8_matmul(int xdtype, const void* x, const void* w,
   const int8_t* wq = static_cast<const int8_t*>(w);
   const float* sc = static_cast<const float*>(scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec_ok = K % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  if (vec_ok) {
-    switch (xdtype) {
-      case kBFloat16: return (int)launch_vec<__nv_bfloat16>(x, wq, sc, y, ydtype, M, K, N, st);
-      case kFloat16: return (int)launch_vec<__half>(x, wq, sc, y, ydtype, M, K, N, st);
-      default: return (int)launch_vec<float>(x, wq, sc, y, ydtype, M, K, N, st);
-    }
+  if (tile == 0) {
+    if (splits != 1) return (int)cudaErrorInvalidValue;
+    const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM);
+    int8_gemm_scalar_kernel<<<grid, 256, 0, st>>>(x, xdtype, wq, sc, y, ydtype, M, K, N);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid((N + kSN - 1) / kSN, (M + kSM - 1) / kSM);
-  int8_gemm_scalar_kernel<<<grid, 256, 0, st>>>(x, xdtype, wq, sc, y, ydtype, M, K, N);
-  return (int)cudaGetLastError();
+  const bool vec_ok = xdtype == kBFloat16 && K % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int slices = (K + 63) / 64;  // 64-deep slices; the decode tiles' 128-deep: half
+  if (!vec_ok || splits < 1 || splits > 8 || (tile <= 2 ? (slices + 1) / 2 : slices) < splits)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_tile(tile, x, wq, sc, y, ydtype, M, K, N, splits, st);
 }

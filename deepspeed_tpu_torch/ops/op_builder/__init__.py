@@ -54,10 +54,11 @@ SIGNATURES = {
                                                 _P, _P, _P, _I, _I, _I, _I,
                                                 _I, _I, _I, _I, _F, _P]},
     "int8_matmul": {
-        "dstorch_int8_matmul": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _P]},
+        "dstorch_int8_matmul": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
+                                _P]},
     "flash_attention_bwd": {
-        "dstorch_flash_attention_dq": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I,
-                                                                    _P],
+        "dstorch_flash_attention_dq": [_I, _I] + [_P] * 7 + [_I] * 6 + [
+            _F, _I, _P],
         "dstorch_flash_attention_dkv": [_I, _I] + [_P] * 8 + [_I] * 6 + [
             _F, _I, _P]},
     "ln_linear": {

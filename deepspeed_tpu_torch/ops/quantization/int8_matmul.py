@@ -12,14 +12,17 @@ weights widened exactly, an fp32 accumulator, the per-output-channel scale
 applied once to the sum, then a cast to ``out_dtype``.
 
 Weight layout: ``w`` is (N, K) int8, row-major like ``nn.Linear.weight``, so
-one output channel's K weights are contiguous and the decode kernel streams
-each row with 16-byte loads; ``scales`` is (N,) fp32. The JAX package stores
-(K, N) with N on the TPU's lanes; the weight bridge transposes.
+one output channel's K weights are contiguous: the kernel's tensor-core
+operand A, whose rows are output channels; ``scales`` is (N,) fp32.
+The JAX package stores (K, N) with N on the TPU's lanes; the weight bridge
+transposes.
 
 The JAX module's ``kernel_plan``, ``_pick_block`` and ``VMEM_BUDGET_BYTES``
 are the TPU's tiling rules (128-lane blocks, a VMEM budget per grid step).
-They have no counterpart here: the CUDA kernel masks ragged tiles itself and
-takes any M, K and N, so no shape falls back to the plain version.
+Their counterpart here is :func:`int8_plan`, which picks the CUDA kernel's
+tile shape by M and how many blocks split each output tile's K range; the
+kernel masks ragged tiles itself and takes any M, K and N, so no shape falls
+back to the plain version.
 
 :func:`int8_matmul` takes :func:`int8_matmul_reference` only for tensors on
 the CPU. For a CUDA tensor it launches the kernel or raises.
@@ -29,7 +32,51 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["quantize_columns", "int8_matmul_reference", "int8_matmul"]
+__all__ = ["quantize_columns", "int8_matmul_reference", "int8_matmul",
+           "int8_plan"]
+
+# The tensor-core kernel's tile shapes (ops/csrc/int8_matmul.cu), by code:
+# (output channels, tokens, k per pipeline stage) of one block; 1 and 2 are
+# the decode tiles (mma.sync), 3 and 4 the prefill tiles (wgmma). Code 0 is
+# the scalar kernel (any x dtype, K and alignment).
+INT8_TILES = {1: (64, 8, 128), 2: (64, 16, 128), 3: (128, 64, 64),
+              4: (128, 128, 64)}
+# blocks of every tile shape that share an SM (the kernels' launch bounds)
+BLOCKS_PER_SM = 2
+# the most blocks one output tile's K range is split over: a portable
+# thread-block cluster, whose blocks reduce their partial tiles in order
+MAX_SPLITS = 8
+# rows at most that take the decode tiles (8 or 16 tokens a block)
+DECODE_ROWS = INT8_TILES[2][1]
+
+
+def int8_plan(M: int, K: int, N: int, sm_count: int, aligned: bool = True):
+    """``(tile, splits)`` for the CUDA kernel on (M, K) x (N, K)ᵀ.
+
+    ``tile`` 0 (the scalar kernel) when ``K % 16`` or an unaligned x or w
+    rules out the tensor-core kernel; else the smallest token tile that holds
+    M (8 or 16 tokens for decode, 64 or 128 for prefill). ``splits``: the
+    blocks sharing each output tile's K range. 1 when the output tiles fill
+    a quarter of the card's block slots (``sm_count`` SMs,
+    :data:`BLOCKS_PER_SM` each) or more: there a split's partial sums and
+    reduction cost more than its blocks gain (PERF.md). Fewer tiles
+    take 1 to :data:`MAX_SPLITS` splits, at most the tile's number of k
+    slices, so that the blocks fill the slots in as few rounds as possible
+    for the work each block does (a split's block does 1/splits of a tile):
+    the smallest s that minimises ``ceil(tiles * s / slots) / s``."""
+    if K % 16 or not aligned:
+        return 0, 1
+    tile = next(c for c, (_, bt, _) in INT8_TILES.items()
+                if M <= bt or c == max(INT8_TILES))
+    bw, bt, bk = INT8_TILES[tile]
+    tiles = -(-N // bw) * -(-M // bt)
+    slots = BLOCKS_PER_SM * sm_count
+    if 4 * tiles >= slots:
+        return tile, 1
+    cap = min(MAX_SPLITS, -(-K // bk))
+    splits = min(range(1, cap + 1),
+                 key=lambda s: (-(-tiles * s // slots) / s, s))
+    return tile, splits
 
 
 def quantize_columns(w: torch.Tensor, num_bits: int = 8):
@@ -65,7 +112,9 @@ def int8_matmul(x, w, scales, out_dtype=torch.bfloat16) -> torch.Tensor:
       scales: (N,) fp32 per output channel.
       out_dtype: fp32, bf16 or fp16.
     Returns (..., N) in ``out_dtype``. On CUDA each launch adds one to
-    ``int8_matmul.launches``.
+    ``int8_matmul.launches``, and one more to
+    ``int8_matmul.prefill_launches`` when x has more than
+    :data:`DECODE_ROWS` rows (the prefill tiles).
     """
     if w.dim() != 2 or x.shape[-1] != w.shape[1]:
         raise ValueError(f"int8_matmul wants x (..., K) and w (N, K); got "
@@ -96,11 +145,18 @@ def int8_matmul(x, w, scales, out_dtype=torch.bfloat16) -> torch.Tensor:
     out = torch.empty(*lead, N, dtype=out_dtype, device=x.device)
     if M == 0:
         return out
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tile, splits = int8_plan(M, K, N, sms, aligned=x.data_ptr() % 16 == 0
+                             and w.data_ptr() % 16 == 0)
+    if tile and x.dtype != torch.bfloat16:
+        x = x.to(torch.bfloat16)    # the contract's bf16(x): tensor-core tiles
     launch("int8_matmul", x.device, DTYPE_CODES[x.dtype], x.data_ptr(),
            w.data_ptr(), scales.data_ptr(), DTYPE_CODES[out_dtype],
-           out.data_ptr(), M, K, N)
+           out.data_ptr(), M, K, N, tile, splits)
     int8_matmul.launches += 1
+    int8_matmul.prefill_launches += M > DECODE_ROWS
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.prefill_launches = 0

@@ -21,9 +21,9 @@ in ln_linear), so they are held relative to each output's largest element
 a rounded intermediate that lands on the other side of a rounding boundary
 when the fp32 sums before it differ in their last bits).
 
-The flash forward and dk/dv kernels run the wgmma design for bf16/fp16 at
-D = 64 and 128 and the FMA design otherwise (``flash_design``), so the grids
-below reach both; the tensor cores sum in another order than the plain
+The flash forward, dq and dk/dv kernels run the wgmma design for bf16/fp16
+at D = 64 and 128 and the FMA design otherwise (``flash_design``), so the
+grids below reach both; the tensor cores sum in another order than the plain
 version, which the same limits cover. The wgmma designs pack the fp32
 accumulator into 16-bit A fragments in registers: one test pins that
 packing alone on a 64 x 64 tile, with small integers, so that the result is
@@ -36,7 +36,11 @@ int8_matmul: the kernel and the plain version both round x to bf16 and sum
 exact bf16 x int8 products in fp32, so an fp32 output differs in summation
 order only (1e-5, relative to each output and, for outputs that cancel,
 to the largest one); a bf16/fp16 output adds one rounding of the output
-(2^-9 / 2^-11 relative, allowed twice).
+(2^-9 / 2^-11 relative, allowed twice). Its tensor-core kernel builds the
+mma fragments from permuted k and converts int8 to bf16 by bit operations,
+both of which fail silently: small integers (every sum exact in fp32) and
+one-hot rows (each output one weight) pin them exactly, at every tile shape
+and split that ``int8_plan`` picks.
 """
 
 import math
@@ -68,6 +72,7 @@ from deepspeed_tpu_torch.ops.transformer.ln_linear import (
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # C codes
 
 
 @pytest.fixture
@@ -248,15 +253,16 @@ def test_int8_paged_kernel_matches_plain(gen, dtype, D, T, H, KV, alibi):
                                rtol=0)
 
 
-@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 64, 300])
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 64, 300, 512, 1000])
 @pytest.mark.parametrize("K,N", [(2048, 256), (64, 1), (40, 200),
-                                 (5632, 2048), (1000, 77)])
+                                 (5632, 2048), (1000, 77), (5632, 256)])
 @pytest.mark.parametrize("xdtype,odtype", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.float16, torch.float32), (torch.bfloat16, torch.float16)])
 def test_int8_matmul_matches_plain(gen, M, K, N, xdtype, odtype):
-    """Decode (M <= 16, K % 16 == 0: the GEMV) and prefill (the tiled
-    kernel, also every K % 16 != 0) at odd and TinyLlama shapes."""
+    """Decode (M <= 16) and prefill tiles of the tensor-core kernel, split K
+    (N = 256), and the scalar kernel (K % 16 != 0), at odd and TinyLlama
+    shapes."""
     x = torch.randn(M, K, generator=gen, device="cuda").to(xdtype)
     w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
                       dtype=torch.int8)
@@ -272,6 +278,91 @@ def test_int8_matmul_matches_plain(gen, M, K, N, xdtype, odtype):
             torch.float16: 2 ** -10}[odtype]
     torch.testing.assert_close(got.float(), want, rtol=rtol,
                                atol=1e-5 * float(want.abs().max()))
+
+
+# (M, K, N): every tile shape of int8_plan, split and unsplit, ragged M, N
+# and K (a K that is not a multiple of the k slice), and the scalar kernel
+INT8_EXACT_SHAPES = [(1, 2048, 256), (8, 2048, 256), (8, 2048, 5632),
+                     (16, 5632, 2048), (5, 48, 200), (64, 2048, 5632),
+                     (72, 2048, 256), (300, 160, 77), (512, 2048, 5632),
+                     (33, 40, 200)]
+
+
+@pytest.mark.parametrize("M,K,N", INT8_EXACT_SHAPES)
+def test_int8_matmul_small_integers_are_exact(gen, M, K, N):
+    """The A- and B-fragment paths: x in -2..2 and int8 weights, scale 1,
+    fp32 out; every product and partial sum is an integer below 2^24, so
+    the kernel must equal the plain version exactly whatever its order."""
+    x = torch.randint(-2, 3, (M, K), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.randint(-128, 128, (N, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.ones(N, device="cuda")
+    got = int8_matmul(x, w, s, out_dtype=torch.float32)
+    torch.testing.assert_close(got, int8_matmul_reference(x, w, s,
+                                                          torch.float32),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("M", [8, 64])
+def test_int8_matmul_converts_every_int8_value_exactly(gen, M):
+    """All 256 int8 values through the kernel's int8 -> bf16 conversion:
+    weight row n holds n - 128 shifted along k, x is one-hot (row m picks k
+    = m), so every output is one weight, exactly."""
+    K, N = 64, 256
+    n = torch.arange(N, device="cuda")[:, None]
+    k = torch.arange(K, device="cuda")[None]
+    w = ((n + k) % 256 - 128).to(torch.int8)
+    x = torch.eye(M, K, device="cuda", dtype=torch.bfloat16)
+    got = int8_matmul(x, w, torch.ones(N, device="cuda"),
+                      out_dtype=torch.float32)
+    torch.testing.assert_close(got, w[:, :M].t().float(), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 256), (64, 2048, 5632),
+                                   (72, 5632, 2048)])
+def test_int8_matmul_split_k_is_deterministic(gen, M, K, N):
+    """Split-K tiles reduce their partials in a fixed order: two calls give
+    the same bits."""
+    from deepspeed_tpu_torch.ops.quantization.int8_matmul import int8_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert int8_plan(M, K, N, sms)[1] > 1
+    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randint(-127, 128, (N, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand(N, generator=gen, device="cuda") * 1e-3 + 1e-4
+    a = int8_matmul(x, w, s, out_dtype=torch.float32)
+    b = int8_matmul(x, w, s, out_dtype=torch.float32)
+    assert torch.equal(a, b)
+
+
+def test_int8_matmul_entry_refuses_what_its_kernels_do_not_take(gen):
+    """The C entry point refuses a tensor-core tile for an unaligned x or
+    a K that is not a multiple of 16, and a split outside 1..8 or beyond
+    the k slices; int8_plan never asks for these."""
+    from deepspeed_tpu_torch.ops.op_builder import (KernelLaunchError,
+                                                    launch)
+
+    xs = torch.randn(8 * 64 + 8, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = torch.ones(64, 64, dtype=torch.int8, device="cuda")
+    s = torch.ones(64, device="cuda")
+    y = torch.empty(8, 64, device="cuda")
+
+    def call(x_ptr, K, tile, splits):
+        launch("int8_matmul", y.device, 1, x_ptr, w.data_ptr(), s.data_ptr(),
+               0, y.data_ptr(), 8, K, 64, tile, splits)
+
+    call(xs.data_ptr(), 64, 1, 1)                        # taken
+    for x_ptr, K, tile, splits in ((xs.data_ptr() + 2, 64, 1, 1),
+                                   (xs.data_ptr(), 40, 1, 1),
+                                   (xs.data_ptr(), 64, 1, 9),
+                                   (xs.data_ptr(), 64, 3, 2),
+                                   (xs.data_ptr(), 64, 5, 1),
+                                   (xs.data_ptr(), 64, 0, 2)):
+        with pytest.raises(KernelLaunchError):
+            call(x_ptr, K, tile, splits)
 
 
 TRAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
@@ -323,9 +414,9 @@ def test_flash_backward_kernels_match_plain(gen, dtype, D, causal, T, S, H,
     (True, 129, 129, 4, 2), (False, 70, 200, 4, 4), (True, 300, 300, 2, 2)])
 def test_flash_wgmma_block_sizes(gen, monkeypatch, rows, dtype, D, causal, T,
                                  S, H, KV):
-    """The wgmma design's forward and dk/dv kernels with 64- and 128-row
-    blocks alike (the grid rule ``block_rows`` picks one by shape; forced
-    here), against the plain versions."""
+    """The wgmma design's forward, dq and dk/dv kernels with 64- and
+    128-row blocks alike (the grid rule ``block_rows`` picks one by shape;
+    forced here), against the plain versions."""
     import deepspeed_tpu_torch.ops.attention.flash_attention as fa
 
     monkeypatch.setattr(fa, "block_rows", lambda *_: rows)
@@ -344,6 +435,39 @@ def test_flash_wgmma_block_sizes(gen, monkeypatch, rows, dtype, D, causal, T,
     for got, ref, name in zip(flash_attention_dkv(*args),
                               flash_dkv_reference(*args), ("dk", "dv")):
         _close_to_max(got, ref, TRAIN_TOL[dtype], name)
+    _close_to_max(flash_attention_dq(*args), flash_dq_reference(*args),
+                  TRAIN_TOL[dtype], "dq")
+
+
+def test_flash_backward_entries_refuse_unknown_designs(gen):
+    """The dq and dkv entry points take design 0 (FMA), 1 and 2 (wgmma,
+    bf16/fp16 at D 64 and 128) and refuse anything else."""
+    from deepspeed_tpu_torch.ops.op_builder import (KernelLaunchError,
+                                                    launch)
+
+    def run(dtype, D, design, dkv):
+        q, k, v, do = (torch.randn(1, 64, 2, D, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        stats = torch.zeros(1, 2, 64, device="cuda")
+        outs = [torch.empty_like(q)] + ([torch.empty_like(q)] if dkv else [])
+        launch("flash_attention_bwd", q.device, DTYPE[dtype], design,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               stats.data_ptr(), stats.data_ptr(),
+               *(o.data_ptr() for o in outs), 1, 64, 64, 2, 2, D, 0.125, 1,
+               symbol="dstorch_flash_attention_" + ("dkv" if dkv else "dq"))
+
+    for dkv in (False, True):
+        for dtype, D, design in ((torch.bfloat16, 64, 0),
+                                 (torch.bfloat16, 64, 1),
+                                 (torch.float16, 128, 2),
+                                 (torch.float32, 64, 0)):
+            run(dtype, D, design, dkv)                  # taken
+        for dtype, D, design in ((torch.bfloat16, 64, 3),
+                                 (torch.bfloat16, 64, -1),
+                                 (torch.float32, 64, 1),
+                                 (torch.bfloat16, 32, 2)):
+            with pytest.raises(KernelLaunchError):
+                run(dtype, D, design, dkv)
 
 
 def test_flash_autograd_launches_both_backward_kernels(gen):
@@ -521,9 +645,10 @@ def test_fused_ln_linear_fp32_model_at_wide_c(gen):
 
 
 def test_flash_kernels_at_the_dense_arm_shape(gen):
-    """The forward and dk/dv kernels (wgmma design: bf16, D = 64) at B=1,
-    H=12, T=8192, causal, the flash-dense training arm's shape: 64 key
-    tiles of the forward's walk and 128 query tiles of the dk/dv walk."""
+    """The forward, dq and dk/dv kernels (wgmma design: bf16, D = 64) at
+    B=1, H=12, T=8192, causal, the flash-dense training arm's shape: 64 key
+    tiles of the forward's walk, 128 of dq's and 128 query tiles of the
+    dk/dv walk."""
     B, T, H, D = 1, 8192, 12, 64
     dtype = torch.bfloat16
     q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
@@ -545,6 +670,10 @@ def test_flash_kernels_at_the_dense_arm_shape(gen):
                                            scale)
     _close_to_max(dk, want_dk, TRAIN_TOL[dtype], "dk")
     _close_to_max(dv, want_dv, TRAIN_TOL[dtype], "dv")
+    del want_dk, want_dv
+    _close_to_max(flash_attention_dq(q, k, v, do, lse, delta, True, scale),
+                  flash_dq_reference(q, k, v, do, lse, delta, True, scale),
+                  TRAIN_TOL[dtype], "dq")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])

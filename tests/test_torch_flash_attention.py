@@ -15,7 +15,7 @@ import torch
 from deepspeed_tpu.ops.attention.flash_attention import \
     flash_attention as jax_flash
 from deepspeed_tpu_torch.ops.attention.flash_attention import (
-    block_rows, flash_attention, flash_design, mha_reference)
+    block_rows, design_code, flash_attention, flash_design, mha_reference)
 
 ATOL = 2e-5
 
@@ -75,7 +75,7 @@ def test_reference_keeps_input_dtype_and_rejects_misaligned_causal():
 
 
 def test_flash_design_by_dtype_and_head_dim():
-    """The forward and dk/dv kernels run on the tensor cores (wgmma) for
+    """The forward, dq and dk/dv kernels run on the tensor cores (wgmma) for
     bf16 and fp16 at D = 64 and 128, and on the FMA units for fp32 and for
     D = 32; every supported pair names one of the two."""
     for dtype in (torch.bfloat16, torch.float16):
@@ -98,3 +98,20 @@ def test_block_rows_by_grid_and_head_dim():
     assert block_rows(64, 1 * 12 * 64, 132) == 128
     for tiles in (1, 96, 1280):
         assert block_rows(128, tiles, 132) == 64
+
+
+@pytest.mark.parametrize("dtype,D,heads,rows,code", [
+    # dq and the forward over B x H query rows: the training shape (10 x 16
+    # heads, T=1024) takes 128-row blocks, the serving prefill (12 heads)
+    # 64-row ones, D=128 64-row ones, fp32 and D=32 the FMA design
+    (torch.bfloat16, 64, 160, 1024, 1), (torch.float16, 64, 12, 1024, 2),
+    (torch.bfloat16, 128, 160, 1024, 2), (torch.float32, 64, 160, 1024, 0),
+    (torch.bfloat16, 32, 160, 1024, 0),
+    # dk/dv over B x KV key rows, the dense arm at T=8192 (12 heads)
+    (torch.bfloat16, 64, 12, 8192, 1)])
+def test_design_code_names_each_kernels_design(dtype, D, heads, rows, code):
+    """The C entry points' design argument, which the forward, dq and dkv
+    wrappers pass: 0 FMA, 1 wgmma with 128-row blocks, 2 with 64-row
+    blocks, on a 132-SM card."""
+    assert design_code(dtype, D, heads, rows, 132) == code
+    assert (code == 0) == (flash_design(dtype, D) == "fma")

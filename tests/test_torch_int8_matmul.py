@@ -31,6 +31,9 @@ from deepspeed_tpu_torch.ops.quantization import (DENSE_KEYS, QuantDense,
                                                   int8_matmul_reference,
                                                   quantize_columns,
                                                   quantize_lm_params)
+from deepspeed_tpu_torch.ops.quantization.int8_matmul import (INT8_TILES,
+                                                              MAX_SPLITS,
+                                                              int8_plan)
 
 # the JAX package re-exports the function under the module's name
 jq = importlib.import_module("deepspeed_tpu.ops.quantization.int8_matmul")
@@ -148,3 +151,51 @@ def test_quantize_lm_params_matches_jax(float_pair, head):
             np.testing.assert_allclose(got[key].numpy(), val.numpy(),
                                        rtol=1e-7, atol=0, err_msg=key)
     assert isinstance(model.lm_head, QuantDense) is head
+
+
+# TinyLlama's projections (K, N) at decode (M = 8) and prefill (M = 64, 72,
+# 512) on a 132-SM card: (tile, splits)
+@pytest.mark.parametrize("M,K,N,plan", [
+    (8, 2048, 2048, (1, 8)), (8, 2048, 256, (1, 8)), (8, 2048, 5632, (1, 1)),
+    (8, 5632, 2048, (1, 8)), (1, 2048, 2048, (1, 8)), (16, 2048, 2048, (2, 8)),
+    (64, 2048, 5632, (3, 6)), (72, 2048, 5632, (4, 6)),
+    (512, 2048, 5632, (4, 1)), (8, 256, 64, (1, 2))])
+def test_int8_plan_by_rows_and_grid(M, K, N, plan):
+    """The tensor-core kernel's tile by M (8 or 16 tokens a block for
+    decode, 64 or 128 for prefill) and the split of each tile's K range: up
+    to 8 blocks while the tiles fill under a quarter of the card's slots
+    (two blocks an SM), never more than the tile's k slices, and none once
+    the tiles fill a quarter (the decode gate, the 512-row prompt)."""
+    assert int8_plan(M, K, N, 132) == plan
+    tile, splits = plan
+    assert M <= INT8_TILES[tile][1] or tile == max(INT8_TILES)
+    assert 1 <= splits <= min(MAX_SPLITS, -(-K // INT8_TILES[tile][2]))
+
+
+def test_int8_plan_takes_the_scalar_kernel_off_the_fast_path():
+    """K % 16 != 0 or an unaligned x or w: the scalar kernel (tile 0), one
+    split, whatever M."""
+    for M in (1, 8, 64, 1000):
+        assert int8_plan(M, 40, 200, 132) == (0, 1)
+        assert int8_plan(M, 2048, 256, 132, aligned=False) == (0, 1)
+
+
+def test_cpu_tensors_never_reach_the_kernel_builder(monkeypatch):
+    """On the CPU int8_matmul is its plain version: the builder is never
+    asked for a kernel and no launch is counted."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the kernel builder")
+
+    monkeypatch.setattr(op_builder, "load", refuse)
+    monkeypatch.setattr(op_builder, "launch", refuse)
+    rng = np.random.default_rng(5)
+    x, w, s = _case(rng, 72)
+    wt = torch.from_numpy(w.T.copy())
+    before = (int8_matmul.launches, int8_matmul.prefill_launches)
+    got = int8_matmul(torch.from_numpy(x), wt, torch.from_numpy(s[0]),
+                      torch.float32)
+    torch.testing.assert_close(got, int8_matmul_reference(
+        torch.from_numpy(x), wt, torch.from_numpy(s[0]), torch.float32))
+    assert (int8_matmul.launches, int8_matmul.prefill_launches) == before

@@ -15,6 +15,8 @@ cache exactly, the step's logits and the written pages within 1e-4
 (summation order over two layers, as ``test_torch_transformer_lm.py``).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -70,18 +72,60 @@ def test_plain_version_matches_jax_kernel(T, H, KV, alibi):
     assert paged_decode_attention.launches == 0  # CPU tensors launch nothing
 
 
-def test_int8_pages_are_a_later_slice():
-    """Ported since: int8 pages with scale pages equal plain pages holding
-    the dequantized rows; scale pages of the wrong shape are refused."""
-    q = torch.randn(1, 1, 2, 8)
-    p8 = torch.randint(-127, 128, (2, 2, 4, 8), dtype=torch.int8)
-    sc = torch.rand(2, 2, 4) + 0.5
+# Both int8-page paths hold a float64 evaluation to this fraction of its
+# largest output. The scores reach several hundred (int8 values times scales
+# up to 1.5 times unit queries), so fp32 rounds the exponent's argument by
+# ~3e-5 and both paths land up to 6.6e-6 of max|out| from the exact value
+# (seeds 0-299, _int8_pages_failure_rates); a wrong scale moves the output
+# by O(1) of max|out|.
+INT8_PAGES_RTOL = 5e-5
+
+
+def _int8_pages_case(seed):
+    """int8 pages (2 pages of 4 rows, 2 heads, D=8) with per-row scales in
+    [0.5, 1.5), a unit-normal query at position 5 over pages [1, 0]."""
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn(1, 1, 2, 8, generator=g)
+    p8 = torch.randint(-127, 128, (2, 2, 4, 8), dtype=torch.int8, generator=g)
+    sc = torch.rand(2, 2, 4, generator=g) + 0.5
     table = torch.tensor([[1, 0]], dtype=torch.int32)
-    got = paged_decode_attention(q, p8, p8, table, 5, k_scale_pages=sc,
-                                 v_scale_pages=sc)
+    return q, p8, sc, table
+
+
+def _int8_pages_float64(q, p8, sc, table, start):
+    """Attention of the query at position ``start`` over the dequantized
+    rows of its pages, in plain float64 einsum and softmax."""
+    deq = p8.double() * sc.double()[..., None]
+    ps = p8.shape[2]
+    pos = torch.arange(start + 1)
+    rows = deq[table[0].long()[pos // ps], :, pos % ps]    # (S, KV, D)
+    s = torch.einsum("hd,shd->hs", q[0, 0].double(), rows) / math.sqrt(8)
+    return torch.einsum("hs,shd->hd", torch.softmax(s, -1), rows)[None, None]
+
+
+def _int8_pages_errors(seed):
+    """Each path's max |error| against float64, over max|ref|: int8 pages
+    with scale pages, and fp32 pages holding the dequantized rows."""
+    q, p8, sc, table = _int8_pages_case(seed)
+    ref = _int8_pages_float64(q, p8, sc, table, 5)
     deq = p8.float() * sc[..., None]
-    want = paged_decode_attention(q, deq, deq, table, 5)
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    paths = (paged_decode_attention(q, p8, p8, table, 5, k_scale_pages=sc,
+                                    v_scale_pages=sc),
+             paged_decode_attention(q, deq, deq, table, 5))
+    top = ref.abs().max().item()
+    return [(p.double() - ref).abs().max().item() / top for p in paths]
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_int8_pages_are_a_later_slice(seed):
+    """Ported since: int8 pages with scale pages, and plain pages holding
+    the dequantized rows, each match a float64 evaluation of the same
+    attention within fp32 rounding; scale pages of the wrong shape are
+    refused."""
+    int8_err, deq_err = _int8_pages_errors(seed)
+    assert int8_err <= INT8_PAGES_RTOL, int8_err
+    assert deq_err <= INT8_PAGES_RTOL, deq_err
+    q, p8, sc, table = _int8_pages_case(seed)
     with pytest.raises(ValueError, match="scale pages"):
         paged_decode_attention(q, p8, p8, table, 0, k_scale_pages=sc[:1],
                                v_scale_pages=sc[:1])
@@ -167,3 +211,30 @@ def test_decode_paged_matches_jax(model_pair, T):
                                    want.transpose(0, 1, 2, 4, 3),
                                    atol=MODEL_ATOL, rtol=0)
         assert not np.array_equal(pages[side].numpy(), orig)
+
+
+def _int8_pages_failure_rates(seeds=range(300)):
+    """Failures over ``seeds`` of the check this test made before (the two
+    fp32 paths against each other, atol = rtol = 1e-5) and of the check it
+    makes now; and the largest error against float64 that either path gave.
+    ``PYTHONPATH=. python tests/test_torch_paged_attention.py`` prints
+    them."""
+    before = after = 0
+    worst = 0.0
+    for seed in seeds:
+        q, p8, sc, table = _int8_pages_case(seed)
+        got = paged_decode_attention(q, p8, p8, table, 5, k_scale_pages=sc,
+                                     v_scale_pages=sc)
+        deq = p8.float() * sc[..., None]
+        want = paged_decode_attention(q, deq, deq, table, 5)
+        before += not torch.allclose(got, want, atol=1e-5, rtol=1e-5)
+        errs = _int8_pages_errors(seed)
+        after += max(errs) > INT8_PAGES_RTOL
+        worst = max(worst, *errs)
+    return before, after, worst
+
+
+if __name__ == "__main__":
+    n_before, n_after, worst_err = _int8_pages_failure_rates()
+    print(f"over 300 seeds: {n_before} failed the earlier check, {n_after} "
+          f"fail this one; worst error {worst_err:.3g} of max|ref|")

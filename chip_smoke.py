@@ -91,7 +91,12 @@ Phases, in order; any failure exits non-zero:
             Fixed layout with horizontal globals, per-head layouts, a layout
             with empty query rows and in fp32; each held against its plain
             version and timed beside its bound and a library yardstick (SDPA
-            with the layout expanded to a token mask). The flash forward, dq
+            with the layout expanded to a token mask). The dq and dkv
+            kernels (bf16: wgmma, fp32: FMA) are also held and timed in
+            every design at the training shape and at D=128, and dkv with
+            its blocks started longest walk first against the grid order,
+            on the BigBird layout and on a Fixed one whose long columns lie
+            at blocks 3, 7, 11 and 15. The flash forward, dq
             and dkv kernels are held and timed once at B=1, H=12, T=8192 as
             well, the forward and dkv beside their bounds and SDPA's.
 13. train_sparse  GPT-2 small widths (768/12/12, vocab 50257) at 8192
@@ -1967,7 +1972,7 @@ def live_pairs(layout: np.ndarray, block: int, causal: bool) -> int:
 
 
 def sparse_kernel_check(gen, layout, block: int, T: int, causal: bool,
-                        dtype=torch.bfloat16) -> dict:
+                        dtype=torch.bfloat16, D: int = 64) -> dict:
     """The three block-sparse kernels against their plain versions on one
     layout (row rule, lse within LSE_ATOL); returns the inputs, schedule
     and (max |err|) per kernel for timing."""
@@ -1978,12 +1983,12 @@ def sparse_kernel_check(gen, layout, block: int, T: int, causal: bool,
         block_sparse_dq_reference, block_sparse_fwd,
         block_sparse_fwd_reference, schedule)
 
-    B, H, D = 1, layout.shape[0], 64
+    B, H = 1, layout.shape[0]
     q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
                    .to(dtype) for _ in range(4))
     idx, cnt, idx_t, cnt_t = schedule(layout, "cuda")
     scale = 1.0 / math.sqrt(D)
-    label = f"block {block} T={T} causal={causal} {dtype}"
+    label = f"block {block} T={T} D={D} causal={causal} {dtype}"
     out, lse = block_sparse_fwd(q, k, v, idx, cnt, block, causal, scale)
     ref, ref_lse = block_sparse_fwd_reference(q, k, v, idx, cnt, block,
                                               causal, scale)
@@ -2004,7 +2009,91 @@ def sparse_kernel_check(gen, layout, block: int, T: int, causal: bool,
     err["dkv"] = max(compare_rows(dk, want_dk, f"block_sparse dk ({label})")[0],
                      compare_rows(dv, want_dv, f"block_sparse dv ({label})")[0])
     return dict(args=args, sched=(idx, cnt, idx_t, cnt_t), scale=scale,
-                err=err, lse_err=le)
+                err=err, lse_err=le, layout=layout)
+
+
+def sparse_backward_designs(dq_args, dkv_args, err: dict) -> dict:
+    """The block-sparse dq and dk/dv kernels at one shape in every design
+    (0: the FMA kernels, 1: wgmma with 128-row blocks, 2: with 64-row
+    blocks), whatever the rule picks: each held against the plain versions
+    (row rule; its max |err| folded into ``err``) and timed. Returns
+    {design: (dq ms, dkv ms)} and logs one line."""
+    import importlib
+
+    bsk = importlib.import_module(
+        "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel")
+    q, block = dq_args[0], dq_args[8]
+    rule = (bsk._design_code(q, block, "dq"), bsk._design_code(q, block,
+                                                                 "dkv"))
+    want_dq = bsk.block_sparse_dq_reference(*dq_args)
+    want_dk, want_dv = bsk.block_sparse_dkv_reference(*dkv_args)
+    out, chosen = {}, bsk.sparse_design_code
+    for code in (0, 1, 2):
+        bsk.sparse_design_code = lambda *_, c=code: c
+        try:
+            what = f"block_sparse design {code}"
+            dk, dv = bsk.block_sparse_dkv(*dkv_args)
+            err["dq"] = max(err["dq"], compare_rows(
+                bsk.block_sparse_dq(*dq_args), want_dq, f"{what} dq")[0])
+            err["dkv"] = max(err["dkv"],
+                             compare_rows(dk, want_dk, f"{what} dk")[0],
+                             compare_rows(dv, want_dv, f"{what} dv")[0])
+            del dk, dv
+            out[code] = (cuda_ms(lambda: bsk.block_sparse_dq(*dq_args),
+                                 reps=5),
+                         cuda_ms(lambda: bsk.block_sparse_dkv(*dkv_args),
+                                 reps=5))
+        finally:
+            bsk.sparse_design_code = chosen
+    B, T, H, D = q.shape
+    log(f"[sparse_kernels] dq / dkv by design at B={B} H={H} D={D} T={T} "
+        f"block {block} (the rule picks {rule[0]} / {rule[1]}; each within "
+        f"the row rule): " + "; ".join(
+            f"{code} ({name}) {dq:.4f} / {dkv:.4f} ms" for (code, (dq, dkv)),
+            name in zip(out.items(), ("FMA", "wgmma 128-row",
+                                      "wgmma 64-row"))))
+    return out
+
+
+def grid_order(cnt_t: torch.Tensor) -> torch.Tensor:
+    """The transposed schedule's (head, layout column) pairs in the order a
+    grid with heads fastest and columns ascending takes them: the order the
+    wgmma dk/dv kernel's blocks started in before ``launch_order``, kept
+    for comparison."""
+    H, nq = cnt_t.shape
+    p = torch.arange(H * nq, device=cnt_t.device)
+    return ((p % H) * nq + p // H).to(torch.int32)
+
+
+def sparse_launch_orders(cases) -> None:
+    """dk/dv with its blocks started longest walk first (``launch_order``,
+    the rule) against the grid order, on each (label, checked case from
+    ``sparse_kernel_check``, block, causal): the same work in another
+    order. Logs one line a case."""
+    import importlib
+
+    bsk = importlib.import_module(
+        "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel")
+    chosen = bsk.launch_order
+    for label, res, block, causal in cases:
+        args, (_, _, idx_t, cnt_t) = res["args"], res["sched"]
+        dkv_args = (*args, idx_t, cnt_t, block, causal, res["scale"])
+        grid = grid_order(cnt_t)
+        ms = {}
+        for name, order in (("longest first", chosen),
+                            ("grid", lambda _: grid)):
+            bsk.launch_order = order
+            try:
+                ms[name] = cuda_ms(lambda: bsk.block_sparse_dkv(*dkv_args),
+                                   reps=5)
+            finally:
+                bsk.launch_order = chosen
+        log(f"[sparse_kernels] dkv launch order, {label} (T="
+            f"{args[0].shape[1]}, {live_pairs(res['layout'], block, causal)} "
+            f"live pairs; a key column lists at most {cnt_t.amax().item()}, "
+            f"on average {cnt_t.float().mean().item():.2f} query blocks): "
+            f"longest first {ms['longest first']:.4f} ms, grid order "
+            f"{ms['grid']:.4f} ms")
 
 
 def phase_sparse_kernels(gen: torch.Generator) -> dict:
@@ -2074,6 +2163,25 @@ def phase_sparse_kernels(gen: torch.Generator) -> dict:
         fwd=cuda_ms(lambda: block_sparse_fwd(*fwd), reps=5),
         dq=cuda_ms(lambda: block_sparse_dq(*dq_args), reps=5),
         dkv=cuda_ms(lambda: block_sparse_dkv(*dkv_args), reps=5))
+    designs = sparse_backward_designs(dq_args, dkv_args, errs)
+    # long walks wherever the layout puts them: Fixed's horizontal globals
+    # (blocks 3, 7, 11, 15) against BigBird's global block 0
+    fixed = sparse_kernel_check(gen, FixedSparsityConfig(
+        num_heads=H, block=block, num_local_blocks=4, num_global_blocks=1,
+        horizontal_global_attention=True).make_layout(T), block, T, False)
+    track(fixed)
+    sparse_launch_orders([(f"BigBird block {block} causal", res, block, True),
+                          (f"Fixed bidirectional block {block}, horizontal "
+                           f"globals", fixed, block, False)])
+    del fixed
+    # D = 128, for the record of the block-size rule
+    wide = sparse_kernel_check(gen, layout, block, T, True, D=128)
+    track(wide)
+    sparse_backward_designs(
+        (*wide["args"], *wide["sched"][:2], block, True, wide["scale"]),
+        (*wide["args"], *wide["sched"][2:], block, True, wide["scale"]), errs)
+    del wide
+    torch.cuda.empty_cache()
     plain = dict(
         fwd=cuda_ms(lambda: block_sparse_fwd_reference(*fwd), reps=1,
                     replays=3),
@@ -2132,12 +2240,18 @@ def phase_sparse_kernels(gen: torch.Generator) -> dict:
             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, masked SDPA "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']})")
+    pair = times["dq"] + times["dkv"]
     log(f"[sparse_kernels] lse max|err| {lse_err:.3g} (tol {LSE_ATOL}); "
         f"port forward + dq + dkv {sum(times.values()):.4f} ms against "
         f"masked SDPA forward + backward {lib_fwd + lib_bwd:.4f} ms "
-        f"(factor {sum(times.values()) / (lib_fwd + lib_bwd):.2f}); causal "
-        f"dense SDPA forward {dense_fwd:.4f} ms, forward + backward "
+        f"(factor {sum(times.values()) / (lib_fwd + lib_bwd):.2f}); port dq "
+        f"+ dkv {pair:.4f} ms against the masked SDPA backward "
+        f"{lib_bwd:.4f} ms (factor {pair / lib_bwd:.2f}; the FMA design's "
+        f"{sum(designs[0]):.4f} ms, factor {sum(designs[0]) / lib_bwd:.2f}); "
+        f"causal dense SDPA forward {dense_fwd:.4f} ms, forward + backward "
         f"{dense_fwd_bwd:.4f} ms")
+    rows["block_sparse_dq"]["fma_ms"], rows["block_sparse_dkv"]["fma_ms"] = \
+        designs[0]
     del qt, kt, vt, res, args, q, k, v, do, fwd, dq_args, dkv_args
     torch.cuda.empty_cache()
 

@@ -277,43 +277,7 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ------------------------------------------------------- bf16 / fp16: wgmma
-namespace wg {
-
-constexpr int kBM = 64;  // query rows a Q or dO tile
-
-// kWG consumer warpgroups of 64 keys each (1 or 2), then the producer warp
-template <int D, int kWG> struct DkvCfg {
-  static constexpr int kThreads = 128 * (kWG + 1);
-  static constexpr int kBN = 64 * kWG;     // keys a block
-  static constexpr int kBoxes = D / 64;    // 128-byte swizzled boxes across D
-  static constexpr int kKBox = kBN * 128;  // bytes of one box of the K or V tile
-  static constexpr int kQBox = kBM * 128;  // of one box of a Q or dO tile
-  static constexpr int kKBytes = kBoxes * kKBox;
-  static constexpr int kQBytes = kBoxes * kQBox;
-  // a stage: the Q tile, the dO tile, then lse * log2(e) and delta (kBM
-  // floats each), padded to the swizzle atom
-  static constexpr int kStageBytes = 2 * kQBytes + 1024;
-  static constexpr int kStages = 3;
-  // K, V, the ring, then the barriers: kv, full[kStages], empty[kStages]
-  static constexpr int kSmem = 1024 + 2 * kKBytes + kStages * kStageBytes + 8 * (1 + 2 * kStages);
-};
-
-// kWG consumer warpgroups of 64 query rows each (1 or 2), then the producer warp
-template <int D, int kWG> struct DqCfg {
-  static constexpr int kThreads = 128 * (kWG + 1);
-  static constexpr int kBM = 64 * kWG;     // query rows a block
-  static constexpr int kBN = 64;           // keys a K or V tile
-  static constexpr int kBoxes = D / 64;    // 128-byte swizzled boxes across D
-  static constexpr int kQBox = kBM * 128;  // bytes of one box of the Q or dO tile
-  static constexpr int kKBox = kBN * 128;  // of one box of a K or V tile
-  static constexpr int kQBytes = kBoxes * kQBox;
-  static constexpr int kKBytes = kBoxes * kKBox;
-  static constexpr int kStages = D == 64 ? 4 : 3;
-  // Q, dO, kStages (K tile, V tile) pairs, then the barriers: q, full[kS], empty[kS]
-  static constexpr int kSmem = 1024 + 2 * kQBytes + kStages * 2 * kKBytes + 8 * (1 + 2 * kStages);
-};
-
-}  // namespace wg
+// (bwd::DqCfg and bwd::DkvCfg, the blocks' shapes and shared memory: flash_sm90.cuh)
 
 // One block per (batch * head, query tile), the longest (bottom) tiles first;
 // the producer warp loads the block's Q and dO tiles once and runs a ring of
@@ -323,7 +287,7 @@ template <int D, int kWG> struct DqCfg {
 // MN-major through the transpose-B bit), S and dP of the next tile issued
 // behind it. dS never touches shared memory; dq is scaled and rounded once.
 template <typename T, int D, int kWG>
-__global__ void __launch_bounds__(wg::DqCfg<D, kWG>::kThreads, 1)
+__global__ void __launch_bounds__(bwd::DqCfg<D, kWG>::kThreads, 1)
 flash_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
                const __grid_constant__ CUtensorMap do_map,
                const __grid_constant__ CUtensorMap k_map,
@@ -331,7 +295,7 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
                const float* __restrict__ delta, T* __restrict__ dq, int Tq, int Tk, int H,
                int KV, float scale, int causal) {
   using namespace sm90;
-  using C = wg::DqCfg<D, kWG>;
+  using C = bwd::DqCfg<D, kWG>;
   constexpr int kS = C::kStages, kBM = C::kBM, kBN = C::kBN;
   extern __shared__ __align__(1024) unsigned char smem_tiles[];
   const uint32_t qs = (smem_u32(smem_tiles) + 1023) & ~1023u, dos = qs + C::kQBytes;
@@ -467,7 +431,7 @@ flash_dq_wgmma(const __grid_constant__ CUtensorMap q_map,
 }
 
 template <typename T, int D, int kWG>
-__global__ void __launch_bounds__(wg::DkvCfg<D, kWG>::kThreads, 1)
+__global__ void __launch_bounds__(bwd::DkvCfg<D, kWG>::kThreads, 1)
 flash_dkv_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap do_map,
                 const __grid_constant__ CUtensorMap k_map,
@@ -475,8 +439,8 @@ flash_dkv_wgmma(const __grid_constant__ CUtensorMap q_map,
                 const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int Tq,
                 int Tk, int H, int KV, float scale, int causal) {
   using namespace sm90;
-  using C = wg::DkvCfg<D, kWG>;
-  constexpr int kS = C::kStages, kBM = wg::kBM, kBN = C::kBN;
+  using C = bwd::DkvCfg<D, kWG>;
+  constexpr int kS = C::kStages, kBM = bwd::kBM, kBN = C::kBN;
   extern __shared__ __align__(1024) unsigned char smem_tiles[];
   const uint32_t raw = smem_u32(smem_tiles);
   const uint32_t ks = (raw + 1023) & ~1023u, vs = ks + C::kKBytes;
@@ -686,15 +650,15 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
 
 template <typename T, int D, int kWG>
 cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv, cudaStream_t stream) {
-  using C = wg::DkvCfg<D, kWG>;
+  using C = bwd::DkvCfg<D, kWG>;
   constexpr bool kBf16 = sm90::WgmmaType<T>::kBf16;
   static bool configured = false;
   cudaError_t err = allow_smem(flash_dkv_wgmma<T, D, kWG>, C::kSmem, &configured);
   if (err != cudaSuccess) return err;
   CUtensorMap q_map, do_map, k_map, v_map;
   const uint64_t qw = (uint64_t)a.H * D, kw = (uint64_t)a.KV * D;
-  err = encode_tma_3d(&q_map, kBf16, a.q, a.B, a.Tq, qw, wg::kBM);
-  if (err == cudaSuccess) err = encode_tma_3d(&do_map, kBf16, a.dout, a.B, a.Tq, qw, wg::kBM);
+  err = encode_tma_3d(&q_map, kBf16, a.q, a.B, a.Tq, qw, bwd::kBM);
+  if (err == cudaSuccess) err = encode_tma_3d(&do_map, kBf16, a.dout, a.B, a.Tq, qw, bwd::kBM);
   if (err == cudaSuccess) err = encode_tma_3d(&k_map, kBf16, a.k, a.B, a.Tk, kw, C::kBN);
   if (err == cudaSuccess) err = encode_tma_3d(&v_map, kBf16, a.v, a.B, a.Tk, kw, C::kBN);
   if (err != cudaSuccess) return err;
@@ -707,7 +671,7 @@ cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv, cudaStream_t str
 
 template <typename T, int D, int kWG>
 cudaError_t launch_dq_wgmma(const Args& a, void* dq, cudaStream_t stream) {
-  using C = wg::DqCfg<D, kWG>;
+  using C = bwd::DqCfg<D, kWG>;
   constexpr bool kBf16 = sm90::WgmmaType<T>::kBf16;
   static bool configured = false;
   cudaError_t err = allow_smem(flash_dq_wgmma<T, D, kWG>, C::kSmem, &configured);

@@ -1,9 +1,10 @@
 // Shared pieces of the attention kernels on wgmma (sm_90a): the mask, the
 // backward's recomputation of the probabilities from the saved log-sum-exp
 // and its score gradient, each on one fp32 accumulator element in registers,
-// and the store of an m64nD accumulator's rows. The flash forward
-// (flash_attention_fwd.cu) and dk/dv kernel (flash_attention_bwd.cu) use
-// them; a dq kernel on wgmma would take the same.
+// the store of an m64nD accumulator's rows, and the shapes and shared memory
+// of the backward's dq and dk/dv blocks (bwd::DqCfg, bwd::DkvCfg). The flash
+// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu) and the
+// block-sparse backward (block_sparse_attention.cu) use them.
 //
 // Accumulator element e of a thread (wgmma.cuh's layout, g = lane / 4,
 // t = lane % 4) lies in row 16 warp + g + 8 ((e >> 1) & 1) of the
@@ -61,4 +62,42 @@ __device__ __forceinline__ void store_acc_row(T* dst, const float (&acc)[D / 2],
 }
 
 }  // namespace attn
+
+namespace bwd {
+
+constexpr int kBM = 64;  // query rows a Q or dO tile of the dk/dv ring
+
+// kWG consumer warpgroups of 64 keys each (1 or 2), then the producer warp
+template <int D, int kWG> struct DkvCfg {
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kBN = 64 * kWG;     // keys a block
+  static constexpr int kBoxes = D / 64;    // 128-byte swizzled boxes across D
+  static constexpr int kKBox = kBN * 128;  // bytes of one box of the K or V tile
+  static constexpr int kQBox = kBM * 128;  // of one box of a Q or dO tile
+  static constexpr int kKBytes = kBoxes * kKBox;
+  static constexpr int kQBytes = kBoxes * kQBox;
+  // a stage: the Q tile, the dO tile, then lse * log2(e) and delta (kBM
+  // floats each), padded to the swizzle atom
+  static constexpr int kStageBytes = 2 * kQBytes + 1024;
+  static constexpr int kStages = 3;
+  // K, V, the ring, then the barriers: kv, full[kStages], empty[kStages]
+  static constexpr int kSmem = 1024 + 2 * kKBytes + kStages * kStageBytes + 8 * (1 + 2 * kStages);
+};
+
+// kWG consumer warpgroups of 64 query rows each (1 or 2), then the producer warp
+template <int D, int kWG> struct DqCfg {
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kBM = 64 * kWG;     // query rows a block
+  static constexpr int kBN = 64;           // keys a K or V tile
+  static constexpr int kBoxes = D / 64;    // 128-byte swizzled boxes across D
+  static constexpr int kQBox = kBM * 128;  // bytes of one box of the Q or dO tile
+  static constexpr int kKBox = kBN * 128;  // of one box of a K or V tile
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKBytes = kBoxes * kKBox;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  // Q, dO, kStages (K tile, V tile) pairs, then the barriers: q, full[kS], empty[kS]
+  static constexpr int kSmem = 1024 + 2 * kQBytes + kStages * 2 * kKBytes + 8 * (1 + 2 * kStages);
+};
+
+}  // namespace bwd
 }  // namespace dstorch

@@ -67,9 +67,10 @@ SIGNATURES = {
     "block_sparse_attention": {
         "dstorch_block_sparse_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I,
                                                                   _P],
-        "dstorch_block_sparse_dq": [_I] + [_P] * 9 + [_I] * 6 + [_F, _I, _P],
-        "dstorch_block_sparse_dkv": [_I] + [_P] * 10 + [_I] * 6 + [_F, _I,
-                                                                   _P]},
+        "dstorch_block_sparse_dq": [_I, _I] + [_P] * 9 + [_I] * 6 + [_F, _I,
+                                                                     _P],
+        "dstorch_block_sparse_dkv": [_I, _I] + [_P] * 11 + [_I] * 6 + [
+            _F, _I, _P]},
 }
 
 _LOCK = threading.Lock()

@@ -8,6 +8,17 @@ are ``ops/csrc/block_sparse_attention.cu``: ``block_sparse_fwd`` replaces
 and ``block_sparse_dkv`` replaces ``_sparse_dkv_kernel`` (:206, launched at
 :328). The source's header says what bounds them on the H100.
 
+The dq and dk/dv kernels have two designs, and :func:`sparse_design` names
+the one a call runs: ``"wgmma"`` (the tensor cores, fed by TMA: the dense
+flash kernels' structure with the tile walk driven by the schedule) for
+bf16 and fp16 at D = 64 and 128, ``"fma"`` (the fp32 FMA units) for fp32
+and D = 32, as for the flash kernels. :func:`sparse_block_rows` picks the
+wgmma blocks' rows (128, or 64 where the granule is not a multiple of 128,
+where 128-row blocks would leave SMs idle, and for dk/dv at D = 128), and
+:func:`sparse_design_code` turns both into the entry points' design
+argument. The forward runs its FMA kernel in every case. The wgmma dk/dv
+kernel starts its blocks in :func:`launch_order`, longest walk first.
+
 A layout is (H, T // block, T // block) 0/1 (``sparsity_config``). The
 kernels walk its lists (:func:`layout_to_schedule`): the forward and dq
 kernels ``idx[h, i, :cnt[h, i]]``, the key blocks of query block i; the dkv
@@ -50,13 +61,47 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
-from ..attention.flash_attention import attention_delta
+from ..attention.flash_attention import attention_delta, flash_design
 
 NEG_INF = -1e30
 LANES = 128
 MIN_KERNEL_BLOCK = 128
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
+
+
+def sparse_design(dtype: torch.dtype, D: int) -> str:
+    """The design the dq and dk/dv kernels run for ``dtype`` and head dim
+    ``D``: ``"wgmma"`` or ``"fma"``, the flash kernels' rule
+    (:func:`..attention.flash_attention.flash_design`)."""
+    return flash_design(dtype, D)
+
+
+def sparse_block_rows(kernel: str, D: int, block: int, tiles_of_128: int,
+                      sm_count: int) -> int:
+    """Rows a block of the wgmma design takes (query rows for ``"dq"``,
+    keys for ``"dkv"``): 128, two consumer warpgroups, unless the granule
+    ``block`` is not a multiple of 128 (a block lies in one layout row or
+    column), the grid (``tiles_of_128`` blocks) would leave some of the
+    card's ``sm_count`` SMs idle, or the kernel is dk/dv at D = 128, whose
+    128-key blocks spill registers; then 64, one warpgroup."""
+    if block % 128 or tiles_of_128 < sm_count or (kernel == "dkv"
+                                                   and D == 128):
+        return 64
+    return 128
+
+
+def sparse_design_code(dtype: torch.dtype, D: int, block: int, heads: int,
+                       T: int, sm_count: int, kernel: str) -> int:
+    """The dq (``kernel="dq"``) or dk/dv (``"dkv"``) entry point's design
+    argument for ``heads`` (batch x heads) sequences of ``T`` positions on
+    a card of ``sm_count`` SMs: 0 the FMA design, 1 the wgmma design with
+    128-row blocks, 2 with 64-row blocks."""
+    if sparse_design(dtype, D) == "fma":
+        return 0
+    rows = sparse_block_rows(kernel, D, block, heads * -(-T // 128), sm_count)
+    return 1 if rows == 128 else 2
 
 
 def layout_to_schedule(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -107,6 +152,25 @@ def schedule(layout, device) -> Tuple[torch.Tensor, ...]:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return _cached_schedule(layout.tobytes(), layout.shape, device)
+
+
+_ORDERS = WeakIdKeyDictionary()
+
+
+def launch_order(cnt_t: torch.Tensor) -> torch.Tensor:
+    """(H · nq,) int32 on ``cnt_t``'s device: the (head, layout column)
+    pairs ``h * nq + j`` of the transposed schedule's counts ``cnt_t`` (H,
+    nq), most live query blocks first, ties in order. The wgmma dk/dv
+    kernel starts its blocks in this order, so the longest walks (BigBird's
+    global column, a Fixed layout's global columns wherever they lie) do
+    not trail. Built on the device once per ``cnt_t`` tensor and kept while
+    it lives, so a call with a cached schedule copies nothing."""
+    order = _ORDERS.get(cnt_t)
+    if order is None:
+        order = torch.sort(cnt_t.reshape(-1), descending=True,
+                           stable=True).indices.to(torch.int32)
+        _ORDERS[cnt_t] = order
+    return order
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +304,13 @@ def _check_cuda(q, idx, cnt, block: int, **tensors) -> int:
     return DTYPE_CODES[q.dtype]
 
 
+def _design_code(q, block: int, kernel: str) -> int:
+    """:func:`sparse_design_code` for ``q`` (B, T, H, D) on its card."""
+    B, T, H, D = q.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return sparse_design_code(q.dtype, D, block, B * H, T, sms, kernel)
+
+
 def block_sparse_fwd(q, k, v, idx, cnt, block: int, causal: bool,
                      scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` over the live blocks that ``idx``/``cnt`` list. CPU
@@ -266,7 +337,8 @@ def block_sparse_dq(q, k, v, do, lse, delta, idx, cnt, block: int,
                     causal: bool, scale: float) -> torch.Tensor:
     """dq from the forward's lse and ``delta`` (see
     :func:`block_sparse_dq_reference`). CPU tensors take the plain version;
-    CUDA tensors launch the dq kernel (``block_sparse_dq.launches``)."""
+    CUDA tensors launch the dq kernel of :func:`sparse_design_code`'s design
+    (``block_sparse_dq.launches``)."""
     if _on_cpu(q):
         return block_sparse_dq_reference(q, k, v, do, lse, delta, idx, cnt,
                                          block, causal, scale)
@@ -276,7 +348,8 @@ def block_sparse_dq(q, k, v, do, lse, delta, idx, cnt, block: int,
                        delta=delta)
     B, T, H, D = q.shape
     dq = torch.empty_like(q)
-    launch("block_sparse_attention", q.device, code, q.data_ptr(),
+    launch("block_sparse_attention", q.device, code,
+           _design_code(q, block, "dq"), q.data_ptr(),
            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            delta.data_ptr(), idx.data_ptr(), cnt.data_ptr(), dq.data_ptr(),
            B, T, H, D, idx.shape[2], block, float(scale), int(bool(causal)),
@@ -290,8 +363,8 @@ def block_sparse_dkv(q, k, v, do, lse, delta, idx_t, cnt_t, block: int,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) from the forward's lse and ``delta``, walking the
     transposed schedule (see :func:`block_sparse_dkv_reference`). CPU
-    tensors take the plain version; CUDA tensors launch the dkv kernel
-    (``block_sparse_dkv.launches``)."""
+    tensors take the plain version; CUDA tensors launch the dkv kernel of
+    :func:`sparse_design_code`'s design (``block_sparse_dkv.launches``)."""
     if _on_cpu(q):
         return block_sparse_dkv_reference(q, k, v, do, lse, delta, idx_t,
                                           cnt_t, block, causal, scale)
@@ -301,11 +374,13 @@ def block_sparse_dkv(q, k, v, do, lse, delta, idx_t, cnt_t, block: int,
                        delta=delta)
     B, T, H, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    launch("block_sparse_attention", q.device, code, q.data_ptr(),
+    launch("block_sparse_attention", q.device, code,
+           _design_code(q, block, "dkv"), q.data_ptr(),
            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
            delta.data_ptr(), idx_t.data_ptr(), cnt_t.data_ptr(),
-           dk.data_ptr(), dv.data_ptr(), B, T, H, D, idx_t.shape[2], block,
-           float(scale), int(bool(causal)), symbol="dstorch_block_sparse_dkv")
+           launch_order(cnt_t).data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+           T, H, D, idx_t.shape[2], block, float(scale), int(bool(causal)),
+           symbol="dstorch_block_sparse_dkv")
     block_sparse_dkv.launches += 1
     return dk, dv
 

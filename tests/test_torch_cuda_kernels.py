@@ -30,7 +30,12 @@ packing alone on a 64 x 64 tile, with small integers, so that the result is
 exact.
 
 The block-sparse kernels take the flash kernels' tolerances: the forward
-those of the flash forward, dq and dkv those of the flash backward.
+those of the flash forward, dq and dkv those of the flash backward. Their dq
+and dk/dv kernels have the flash kernels' two designs (``sparse_design``):
+the grids below reach the FMA design (fp32, D = 32) and both wgmma block
+sizes (forced through ``sparse_block_rows``, or by a granule that is not a
+multiple of 128), and hold every gradient of a row or key that the layout
+leaves without a partner at exactly 0.
 
 int8_matmul: the kernel and the plain version both round x to bf16 and sum
 exact bf16 x int8 products in fp32, so an fp32 output differs in summation
@@ -701,7 +706,7 @@ def test_wgmma_accumulator_packs_into_a_fragments(gen, dtype):
 def _sparse_layout(kind, H, n, block):
     """(H, n, n) layouts: BigBird unidirectional with one layout per head;
     Fixed bidirectional with horizontal globals; a hand-made one with empty
-    rows and a block above the diagonal."""
+    rows, a block above the diagonal and a key block that no row lists."""
     if kind == "bigbird":
         return BigBirdSparsityConfig(
             num_heads=H, block=block, different_layout_per_head=True,
@@ -716,31 +721,133 @@ def _sparse_layout(kind, H, n, block):
     layout[0, 1] = 0                 # head 0: query block 1 attends nothing
     layout[1, 0, 2] = 1              # head 1: row 0 lists a future block
     layout[-1, 2:, 1] = 0
+    layout[0, :, -1] = 0             # head 0: no row lists the last block
     return layout
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# (dtype, wgmma block rows): fp32 takes the FMA design, bf16 each wgmma size
+SPARSE_DESIGNS = [(torch.float32, None), (torch.bfloat16, 64),
+                  (torch.bfloat16, 128)]
+
+
+@pytest.mark.parametrize("dtype,rows", SPARSE_DESIGNS)
 @pytest.mark.parametrize("block", [128, 256, 512])
 @pytest.mark.parametrize("kind,causal", [("bigbird", True), ("fixed", False),
                                          ("empty", True), ("empty", False)])
-def test_block_sparse_kernels_match_plain(gen, dtype, block, kind, causal):
+def test_block_sparse_kernels_match_plain(gen, monkeypatch, dtype, rows,
+                                          block, kind, causal):
     B, H, D, n = 2, 3, 64, 4
+    _force_sparse_rows(monkeypatch, rows)
     _check_block_sparse(gen, dtype, B, H, D, n, block,
-                        _sparse_layout(kind, H, n, block), causal)
+                        _sparse_layout(kind, H, n, block), causal,
+                        _design(dtype, D, rows))
 
 
-@pytest.mark.parametrize("D", [32, 128])
-def test_block_sparse_kernels_head_dims(gen, D):
+@pytest.mark.parametrize("D,rows", [(32, None), (128, 64), (128, 128)])
+def test_block_sparse_kernels_head_dims(gen, monkeypatch, D, rows):
+    _force_sparse_rows(monkeypatch, rows)
     _check_block_sparse(gen, torch.bfloat16, 1, 2, D, 6, 128,
-                        _sparse_layout("bigbird", 2, 6, 128), True)
+                        _sparse_layout("bigbird", 2, 6, 128), True,
+                        _design(torch.bfloat16, D, rows))
 
 
-def _check_block_sparse(gen, dtype, B, H, D, n, block, layout, causal):
+@pytest.mark.parametrize("block", [64, 192])
+@pytest.mark.parametrize("kind,causal", [("bigbird", True), ("empty", True),
+                                         ("fixed", False)])
+def test_block_sparse_granules_off_128_take_64_row_blocks(gen, block, kind,
+                                                          causal):
+    """A granule that is not a multiple of 128 cannot hold a 128-row block
+    inside one layout row: the rule gives 64-row blocks (design 2), as it
+    would on any grid."""
+    _check_block_sparse(gen, torch.bfloat16, 2, 3, 64, 6, block,
+                        _sparse_layout(kind, 3, 6, block), causal, 2)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_block_sparse_dkv_long_columns_off_tile_0(gen, monkeypatch, rows):
+    """Fixed with horizontal globals: the columns that every query block
+    lists are the last block of each window, not key tile 0; the wgmma
+    dk/dv kernel's launch order starts them first, wherever they lie."""
+    import deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel as bsk
+
+    layout = FixedSparsityConfig(
+        num_heads=2, block=128, num_local_blocks=4, num_global_blocks=1,
+        horizontal_global_attention=True).make_layout(8 * 128)
+    per_column = layout.sum(1)
+    assert per_column[:, 0].max() < per_column.max()
+    cnt_t = schedule(layout, "cuda")[3]
+    assert bsk.launch_order(cnt_t)[:4].tolist() == [3, 7, 11, 15]
+    _force_sparse_rows(monkeypatch, rows)
+    _check_block_sparse(gen, torch.bfloat16, 1, 2, 64, 8, 128, layout, False,
+                        1 if rows == 128 else 2)
+
+
+def test_block_sparse_entries_refuse_unknown_designs(gen):
+    """The dq and dkv entry points take design 0 (FMA), 1 (wgmma, 128-row
+    blocks: bf16/fp16 at D 64 and 128, a granule that is a multiple of 128)
+    and 2 (wgmma, 64-row blocks) and refuse anything else."""
+    import deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.op_builder import (KernelLaunchError,
+                                                    launch)
+
+    def run(dtype, D, design, dkv, block=128):
+        H, T = 2, 2 * block
+        layout = np.tril(np.ones((H, 2, 2), np.int32))
+        idx, cnt, idx_t, cnt_t = schedule(layout, "cuda")
+        sched = (idx_t, cnt_t, bsk.launch_order(cnt_t)) if dkv else (idx, cnt)
+        q, k, v, do = (torch.randn(1, T, H, D, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        stats = torch.zeros(1, H, T, device="cuda")
+        outs = [torch.empty_like(q)] + ([torch.empty_like(q)] if dkv else [])
+        launch("block_sparse_attention", q.device, DTYPE[dtype], design,
+               q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+               stats.data_ptr(), stats.data_ptr(),
+               *(t.data_ptr() for t in sched), *(o.data_ptr() for o in outs),
+               1, T, H, D, sched[0].shape[2], block, 0.125, 1,
+               symbol="dstorch_block_sparse_" + ("dkv" if dkv else "dq"))
+
+    for dkv in (False, True):
+        for dtype, D, design, block in ((torch.bfloat16, 64, 0, 128),
+                                        (torch.bfloat16, 64, 1, 128),
+                                        (torch.float16, 128, 2, 128),
+                                        (torch.bfloat16, 64, 2, 192),
+                                        (torch.float32, 64, 0, 128)):
+            run(dtype, D, design, dkv, block)             # taken
+        for dtype, D, design, block in ((torch.bfloat16, 64, 3, 128),
+                                        (torch.bfloat16, 64, -1, 128),
+                                        (torch.float32, 64, 1, 128),
+                                        (torch.bfloat16, 32, 2, 128),
+                                        (torch.bfloat16, 64, 1, 192)):
+            with pytest.raises(KernelLaunchError):
+                run(dtype, D, design, dkv, block)
+
+
+def _force_sparse_rows(monkeypatch, rows):
+    """Make the wgmma design take ``rows``-row blocks (None: the rule)."""
+    import deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel as bsk
+
+    if rows is not None:
+        monkeypatch.setattr(bsk, "sparse_block_rows", lambda *_: rows)
+
+
+def _design(dtype, D, rows):
+    """The design code a forced ``rows`` gives (0: the FMA design)."""
+    if dtype == torch.float32 or D == 32:
+        return 0
+    return 1 if rows == 128 else 2
+
+
+def _check_block_sparse(gen, dtype, B, H, D, n, block, layout, causal,
+                        design):
+    import deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel as bsk
+
     T = n * block
     q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
                    .to(dtype) for _ in range(4))
     idx, cnt, idx_t, cnt_t = schedule(layout, "cuda")
     scale = 1 / math.sqrt(D)
+    assert (bsk._design_code(q, block, "dq"),
+            bsk._design_code(q, block, "dkv")) == (design, design)
     before = (block_sparse_fwd.launches, block_sparse_dq.launches,
               block_sparse_dkv.launches)
     out, lse = block_sparse_fwd(q, k, v, idx, cnt, block, causal, scale)
@@ -763,6 +870,14 @@ def _check_block_sparse(gen, dtype, B, H, D, n, block, layout, causal):
                                                   causal, scale)
     _close_to_max(dk, want_dk, TRAIN_TOL[dtype], "dk")
     _close_to_max(dv, want_dv, TRAIN_TOL[dtype], "dv")
+    # a query with no live key, a key that no query attends: exactly 0
+    mask = bsk._token_mask(idx, cnt, block, T, causal)     # (H, T, T)
+    for name, grad, dead in (("dq", dq, ~mask.any(2)),
+                             ("dk", dk, ~mask.any(1)),
+                             ("dv", dv, ~mask.any(1))):
+        if dead.any():
+            got = grad.permute(0, 2, 1, 3)[:, dead].abs().max().item()
+            assert got == 0, f"{name} of an unattended row: {got}"
 
 
 def test_block_sparse_autograd_and_refusals(gen):

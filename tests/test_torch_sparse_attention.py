@@ -304,3 +304,45 @@ def test_cpu_tensors_never_reach_the_kernel_builder(monkeypatch):
     assert q.grad is not None
     assert (K.block_sparse_fwd.launches, K.block_sparse_dq.launches,
             K.block_sparse_dkv.launches) == before
+
+
+@pytest.mark.parametrize("dtype,D,block,heads,T,sms,kernel,want", [
+    # the training shape (B=1, H=12, T=8192, BigBird block 512): 768 tiles
+    (torch.bfloat16, 64, 512, 12, 8192, 132, "dq", 1),
+    (torch.float16, 64, 512, 12, 8192, 132, "dkv", 1),
+    # fp32 and D = 32 keep the FMA kernels
+    (torch.float32, 64, 512, 12, 8192, 132, "dq", 0),
+    (torch.bfloat16, 32, 512, 12, 8192, 132, "dkv", 0),
+    # a granule that is not a multiple of 128 cannot hold a 128-row block
+    (torch.bfloat16, 64, 192, 12, 192 * 42, 132, "dq", 2),
+    (torch.bfloat16, 64, 64, 12, 8192, 132, "dkv", 2),
+    # 16 tiles of 128 rows leave a 132-SM card idle, not a 16-SM one
+    (torch.bfloat16, 64, 128, 1, 2048, 132, "dq", 2),
+    (torch.bfloat16, 64, 128, 1, 2048, 16, "dq", 1),
+    # D = 128: dk/dv's 128-key blocks spill registers, dq's do not
+    (torch.bfloat16, 128, 512, 12, 8192, 132, "dkv", 2),
+    (torch.bfloat16, 128, 512, 12, 8192, 132, "dq", 1),
+])
+def test_sparse_design_code(dtype, D, block, heads, T, sms, kernel, want):
+    """The dq and dk/dv entry points' design: 0 the FMA kernels, 1 wgmma
+    with 128-row blocks, 2 with 64-row blocks."""
+    assert K.sparse_design(dtype, D) == ("fma" if want == 0 else "wgmma")
+    assert K.sparse_design_code(dtype, D, block, heads, T, sms,
+                                kernel) == want
+
+
+def test_launch_order_longest_first_and_cached():
+    """The wgmma dk/dv kernel starts its (head, layout column) pairs most
+    live query blocks first, ties in order; the order is built once per
+    schedule tensor."""
+    cnt_t = torch.tensor([[1, 3, 3], [2, 0, 3]], dtype=torch.int32)
+    order = K.launch_order(cnt_t)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [1, 2, 5, 3, 0, 4]
+    assert K.launch_order(cnt_t) is order
+    # Fixed with horizontal globals: the global columns 3 and 7 come first
+    layout = C.FixedSparsityConfig(
+        num_heads=2, block=128, num_local_blocks=4, num_global_blocks=1,
+        horizontal_global_attention=True).make_layout(8 * 128)
+    _, _, _, cnt_t = K.schedule(layout, "cpu")
+    assert K.launch_order(cnt_t)[:4].tolist() == [3, 7, 11, 15]

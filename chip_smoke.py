@@ -1,8 +1,13 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--decode-only]
 
-Phases, in order; any failure exits non-zero:
+``--decode-only`` runs the build and the decode kernel's rows alone (phase
+2's decode row and phase 5's two int8 decode rows) and prints them as one
+JSON line; it drives only the decode wrapper's public call, so it also
+times an older tree's package put first on the path, for comparisons of two
+commits in one call. Without it, phases in order; any failure exits
+non-zero:
 
 1. build    compile every CUDA kernel from ``deepspeed_tpu_torch/ops/csrc``
             with nvcc (sm_90a) and print the card's name and power limit.
@@ -10,7 +15,10 @@ Phases, in order; any failure exits non-zero:
             the serving path's shapes, and time the kernel, the plain version,
             one PyTorch library call computing the same function (none
             reads a page table, so none for the paged kernel), and the
-            card's bound for the same work. The flash forward and dk/dv
+            card's bound for the same work. The decode kernel (design mma:
+            mma.sync) is also held and timed in its FMA design, the same
+            split-S grouped kernel on the FMA units, and timed at 1, 2, 4
+            and 8 chunks beside decode_plan's choice. The flash forward and dk/dv
             kernels (their design, wgmma or fma, in the kernels line) are
             also timed at every admission width (B=1, H=12, T 16..1024)
             beside their bounds and SDPA's forward and backward.
@@ -91,8 +99,8 @@ Phases, in order; any failure exits non-zero:
             Fixed layout with horizontal globals, per-head layouts, a layout
             with empty query rows and in fp32; each held against its plain
             version and timed beside its bound and a library yardstick (SDPA
-            with the layout expanded to a token mask). The dq and dkv
-            kernels (bf16: wgmma, fp32: FMA) are also held and timed in
+            with the layout expanded to a token mask). The forward, dq and
+            dkv kernels (bf16: wgmma, fp32: FMA) are also held and timed in
             every design at the training shape and at D=128, and dkv with
             its blocks started longest walk first against the grid order,
             on the BigBird layout and on a Fixed one whose long columns lie
@@ -183,7 +191,7 @@ TRAIN_GRAD_TOL = 2e-2
 
 # bf16 decode and paged kernel times recorded in PERF.md (H100, 700 W), for
 # the side-by-side check that the int8 variants left the bf16 ones alone
-RECORDED_BF16_MS = {"decode_attention": 0.0124, "paged_decode_attention": 0.0130}
+RECORDED_BF16_MS = {"decode_attention": 0.0108, "paged_decode_attention": 0.0130}
 
 KERNELS = {
     "decode_attention": dict(
@@ -283,6 +291,55 @@ def eager_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+class patched:
+    """``with patched(module, name, value):`` sets ``module.name`` and
+    restores it after (a wrapper's design rule, forced for a timing)."""
+
+    def __init__(self, module, name: str, value):
+        self.module, self.name, self.value = module, name, value
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def decode_designs(call, check, S: int, layers: int) -> dict:
+    """The decode kernel in its FMA design beside the rule's, and the rule's
+    design at 1, 2, 4 and 8 chunks of S (``decode_plan``'s choice is timed
+    as the row itself): ``check()`` holds the FMA design against the plain
+    version, ``call()`` (``layers`` calls) is timed, a call's ms returned.
+    Empty for a package without designs (an older tree's)."""
+    import importlib
+
+    da = importlib.import_module(
+        "deepspeed_tpu_torch.ops.attention.decode_attention")
+    if not hasattr(da, "decode_design"):
+        return {}
+    with patched(da, "decode_design", lambda *_: "fma"):
+        err = check()
+        fma_ms = cuda_ms(call, reps=4) / layers
+    splits_ms = {}
+    for splits in (1, 2, 4, 8):
+        rnd = da.PLAN_ROUND
+        chunk = -(-S // (splits * rnd)) * rnd
+        with patched(da, "decode_plan", lambda *_, p=(-(-S // chunk), chunk): p):
+            splits_ms[-(-S // chunk)] = cuda_ms(call, reps=4) / layers
+    return dict(fma_ms=fma_ms, fma_err=err, splits_ms=splits_ms)
+
+
+def decode_variants_log(fma: dict) -> str:
+    """:func:`decode_designs`' times, for a log line."""
+    if not fma:
+        return ""
+    return (f" (FMA design {fma['fma_ms']:.4f} ms, max|err| "
+            f"{fma['fma_err']:.3g}; mma by chunks "
+            + ", ".join(f"{k}: {v:.4f}" for k, v in fma["splits_ms"].items())
+            + " ms)")
 
 
 def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> tuple:
@@ -468,18 +525,15 @@ def flash_times(q, k, v, do, label: str, reps: int,
     return r
 
 
-def phase_kernels(gen: torch.Generator) -> dict:
+def decode_kernel_row(gen: torch.Generator) -> dict:
+    """The decode kernel at the serving decode step's shapes (8 slots, GPT-2
+    heads, 12 layers' bf16 caches): held against its plain version with and
+    without ALiBi on the first and last layer, timed over the layers in
+    turn beside its FMA design, its plain version, SDPA and its bound."""
     from deepspeed_tpu_torch.ops.attention.decode_attention import (
         alibi_slopes, decode_attention, decode_attention_reference)
-    from deepspeed_tpu_torch.ops.attention.flash_attention import (
-        attention_delta, flash_attention, flash_attention_dkv,
-        flash_attention_dq, flash_dkv_reference, flash_dq_reference,
-        mha_reference)
 
     dev, bf16 = "cuda", torch.bfloat16
-    results = {}
-
-    # -- decode: the serving decode step's shapes (8 slots, GPT-2 heads) ----
     L, B, H, D, S = 12, 8, 12, 64, 1024
     kc = torch.randn(L, B, H, S, D, generator=gen, device=dev).to(bf16)
     vc = torch.randn(L, B, H, S, D, generator=gen, device=dev).to(bf16)
@@ -500,8 +554,16 @@ def phase_kernels(gen: torch.Generator) -> dict:
             err, rel = max(err, e), max(rel, r)
     # time over the 12 layers in turn, as a decode step reads them: the
     # 300 MB of cache never sits in the 50 MB L2 between calls
-    ms = cuda_ms(lambda: [decode_attention(q, kc[i], vc[i], lengths)
-                          for i in range(L)], reps=4) / L
+    def layers():
+        return [decode_attention(q, kc[i], vc[i], lengths) for i in range(L)]
+
+    ms = cuda_ms(layers, reps=4) / L
+    fma = decode_designs(layers, lambda: max(compare(
+        decode_attention(q, kc[i], vc[i], lengths, alibi_slopes=sl),
+        decode_attention_reference(q, kc[i], vc[i], lengths, scale, sl),
+        "decode kernel, FMA design, vs plain")[0]
+        for sl in (None, slopes) for i in (0, L - 1)), S, L)
+    variants = decode_variants_log(fma)
     plain_ms = cuda_ms(lambda: [decode_attention_reference(
         q, kc[i], vc[i], lengths, scale) for i in range(L)], reps=1) / L
     pos = torch.arange(S, device=dev)
@@ -511,15 +573,28 @@ def phase_kernels(gen: torch.Generator) -> dict:
         q4, kc[i], vc[i], attn_mask=mask) for i in range(L)], reps=4) / L
     live = int(lengths.sum())
     esize = 2
-    results["decode_attention"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+    row = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **fma,
         **bound(2 * H * live * D * esize + 2 * B * H * D * esize + 4 * B,
                 4 * H * live * D))
     log(f"[kernels] decode_attention B={B} H=KV={H} D={D} S={S} lengths="
         f"{lengths.tolist()}: max|err| {err:.3g} (tol {OUT_ATOL}), row rel "
-        f"{rel:.3g} (tol {ROW_REL_TOL}); kernel {ms:.4f} ms, plain "
+        f"{rel:.3g} (tol {ROW_REL_TOL}); kernel {ms:.4f} ms{variants}, plain "
         f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-        f"{results['decode_attention']['bound_ms']:.4f} ms")
+        f"{row['bound_ms']:.4f} ms")
+    return row
+
+
+def phase_kernels(gen: torch.Generator) -> dict:
+    from deepspeed_tpu_torch.ops.attention.flash_attention import (
+        attention_delta, flash_attention, flash_attention_dkv,
+        flash_attention_dq, flash_dkv_reference, flash_dq_reference,
+        mha_reference)
+
+    dev, bf16 = "cuda", torch.bfloat16
+    H, D = 12, 64
+    scale = 1.0 / math.sqrt(D)
+    results = {"decode_attention": decode_kernel_row(gen)}
 
     # -- flash forward: admission prefill at every bucket width -------------
     # (the dq and dk/dv kernels at the same widths: a prompt's backward,
@@ -1052,9 +1127,19 @@ def int8_decode_kernel(gen: torch.Generator, L: int, H: int, KV: int,
             e, r = compare(got, want, f"int8 decode kernel vs plain at "
                            f"{label} (alibi={sl is not None})")
             err, rel = max(err, e), max(rel, r)
-    ms = cuda_ms(lambda: [decode_attention(q, k8[i], v8[i], lengths,
-                                           k_scale=ks[i], v_scale=vs[i])
-                          for i in range(L)], reps=4) / L
+    def layers():
+        return [decode_attention(q, k8[i], v8[i], lengths, k_scale=ks[i],
+                                 v_scale=vs[i]) for i in range(L)]
+
+    ms = cuda_ms(layers, reps=4) / L
+    fma = decode_designs(layers, lambda: max(compare(
+        decode_attention(q, k8[i], v8[i], lengths, alibi_slopes=sl,
+                         k_scale=ks[i], v_scale=vs[i]),
+        decode_attention_reference(q, k8[i], v8[i], lengths, scale, sl,
+                                   ks[i], vs[i]),
+        f"int8 decode kernel, FMA design, vs plain at {label}")[0]
+        for sl in (None, alibi_slopes(H).to(dev)) for i in (0, L - 1)), S, L)
+    variants = decode_variants_log(fma)
     plain_ms = cuda_ms(lambda: [decode_attention_reference(
         q, k8[i], v8[i], lengths, scale, None, ks[i], vs[i])
         for i in range(L)], reps=1) / L
@@ -1068,12 +1153,13 @@ def int8_decode_kernel(gen: torch.Generator, L: int, H: int, KV: int,
         enable_gqa=KV != H) for i in range(L)], reps=4) / L
     live = int(lengths.sum())
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               **fma,
                **bound(2 * KV * live * (D + 4) + 2 * B * H * D * 2 + 4 * B,
                        4 * H * live * D))
     log(f"[int8_kernels] decode_attention_int8 at {label}: B={B} H={H} "
         f"KV={KV} D={D} S={S} lengths {lengths.tolist()}, {L} layers: "
         f"max|err| {err:.3g}, row rel {rel:.3g} (tol {ROW_REL_TOL}); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa on a bf16 copy "
+        f"{ms:.4f} ms{variants}, plain {plain_ms:.4f} ms, sdpa on a bf16 copy "
         f"{lib_ms:.4f} ms, bound {out['bound_ms']:.4f} ms")
     return out
 
@@ -1151,19 +1237,28 @@ def int8_paged_kernel(gen: torch.Generator) -> dict:
     return out
 
 
-def phase_int8_kernels(gen: torch.Generator) -> dict:
+def phase_int8_kernels(gen: torch.Generator, decode_only: bool = False,
+                       rows: dict = None) -> dict:
     """The int8 rows. The int8 decode kernel is checked at the bf16 row's
     shapes (GPT-2 heads, printed beside it) and at the shapes
     ``serve_int8_contiguous`` gives it (TinyLlama's 22 layers, GQA 32/4, 4
-    slots of 2048 positions), which make its JSON row."""
-    int8_decode_kernel(gen, 12, 12, 12, 1024,
-                       [1, 517, 1024, 1, 300, 1024, 64, 999], "gpt2 shapes")
+    slots of 2048 positions), which make its JSON row. ``decode_only``:
+    those two into ``rows`` (under ``..._gpt2`` for the first), nothing
+    else."""
+    gpt2 = int8_decode_kernel(gen, 12, 12, 12, 1024,
+                              [1, 517, 1024, 1, 300, 1024, 64, 999],
+                              "gpt2 shapes")
+    contiguous = int8_decode_kernel(
+        gen, TINYLLAMA["n_layer"], TINYLLAMA["n_head"], TINYLLAMA["n_kv_head"],
+        TINYLLAMA["max_seq_len"], [1, 2048, 1100, 517],
+        "serve_int8_contiguous shapes")
+    if decode_only:
+        rows.update(decode_attention_int8=contiguous,
+                    decode_attention_int8_gpt2=gpt2)
+        return rows
     int8_fragment_probe(gen)
     return {"int8_matmul": int8_matmul_kernel(gen),
-            "decode_attention_int8": int8_decode_kernel(
-                gen, TINYLLAMA["n_layer"], TINYLLAMA["n_head"],
-                TINYLLAMA["n_kv_head"], TINYLLAMA["max_seq_len"],
-                [1, 2048, 1100, 517], "serve_int8_contiguous shapes"),
+            "decode_attention_int8": contiguous,
             "paged_decode_attention_int8": int8_paged_kernel(gen)}
 
 
@@ -2012,46 +2107,51 @@ def sparse_kernel_check(gen, layout, block: int, T: int, causal: bool,
                 err=err, lse_err=le, layout=layout)
 
 
-def sparse_backward_designs(dq_args, dkv_args, err: dict) -> dict:
-    """The block-sparse dq and dk/dv kernels at one shape in every design
-    (0: the FMA kernels, 1: wgmma with 128-row blocks, 2: with 64-row
-    blocks), whatever the rule picks: each held against the plain versions
-    (row rule; its max |err| folded into ``err``) and timed. Returns
-    {design: (dq ms, dkv ms)} and logs one line."""
+def sparse_designs(fwd_args, dq_args, dkv_args, err: dict) -> dict:
+    """The block-sparse forward, dq and dk/dv kernels at one shape in every
+    design (0: the FMA kernels, 1: wgmma with 128-row blocks, 2: with
+    64-row blocks), whatever the rule picks: each held against the plain
+    versions (row rule, lse within LSE_ATOL; its max |err| folded into
+    ``err``) and timed. Returns {design: (fwd ms, dq ms, dkv ms)} and logs
+    one line."""
     import importlib
 
     bsk = importlib.import_module(
         "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel")
     q, block = dq_args[0], dq_args[8]
-    rule = (bsk._design_code(q, block, "dq"), bsk._design_code(q, block,
-                                                                 "dkv"))
+    rule = tuple(bsk._design_code(q, block, kernel)
+                 for kernel in ("fwd", "dq", "dkv"))
+    want_out, want_lse = bsk.block_sparse_fwd_reference(*fwd_args)
     want_dq = bsk.block_sparse_dq_reference(*dq_args)
     want_dk, want_dv = bsk.block_sparse_dkv_reference(*dkv_args)
-    out, chosen = {}, bsk.sparse_design_code
+    out = {}
     for code in (0, 1, 2):
-        bsk.sparse_design_code = lambda *_, c=code: c
-        try:
+        with patched(bsk, "sparse_design_code", lambda *_, c=code: c):
             what = f"block_sparse design {code}"
+            got, lse = bsk.block_sparse_fwd(*fwd_args)
+            err["fwd"] = max(err["fwd"], compare_rows(
+                got, want_out, f"{what} forward")[0])
+            le = (lse - want_lse).abs().max().item()
+            assert math.isfinite(le) and le <= LSE_ATOL, \
+                f"{what} lse: max |err| {le} > {LSE_ATOL}"
             dk, dv = bsk.block_sparse_dkv(*dkv_args)
             err["dq"] = max(err["dq"], compare_rows(
                 bsk.block_sparse_dq(*dq_args), want_dq, f"{what} dq")[0])
             err["dkv"] = max(err["dkv"],
                              compare_rows(dk, want_dk, f"{what} dk")[0],
                              compare_rows(dv, want_dv, f"{what} dv")[0])
-            del dk, dv
-            out[code] = (cuda_ms(lambda: bsk.block_sparse_dq(*dq_args),
-                                 reps=5),
-                         cuda_ms(lambda: bsk.block_sparse_dkv(*dkv_args),
-                                 reps=5))
-        finally:
-            bsk.sparse_design_code = chosen
+            del got, lse, dk, dv
+            out[code] = tuple(cuda_ms(fn, reps=5) for fn in (
+                lambda: bsk.block_sparse_fwd(*fwd_args),
+                lambda: bsk.block_sparse_dq(*dq_args),
+                lambda: bsk.block_sparse_dkv(*dkv_args)))
     B, T, H, D = q.shape
-    log(f"[sparse_kernels] dq / dkv by design at B={B} H={H} D={D} T={T} "
-        f"block {block} (the rule picks {rule[0]} / {rule[1]}; each within "
-        f"the row rule): " + "; ".join(
-            f"{code} ({name}) {dq:.4f} / {dkv:.4f} ms" for (code, (dq, dkv)),
-            name in zip(out.items(), ("FMA", "wgmma 128-row",
-                                      "wgmma 64-row"))))
+    log(f"[sparse_kernels] forward / dq / dkv by design at B={B} H={H} D={D} "
+        f"T={T} block {block} (the rule picks {' / '.join(map(str, rule))}; "
+        f"each within the row rule): " + "; ".join(
+            f"{code} ({name}) " + " / ".join(f"{ms:.4f}" for ms in times)
+            + " ms" for (code, times), name in zip(
+                out.items(), ("FMA", "wgmma 128-row", "wgmma 64-row"))))
     return out
 
 
@@ -2163,7 +2263,7 @@ def phase_sparse_kernels(gen: torch.Generator) -> dict:
         fwd=cuda_ms(lambda: block_sparse_fwd(*fwd), reps=5),
         dq=cuda_ms(lambda: block_sparse_dq(*dq_args), reps=5),
         dkv=cuda_ms(lambda: block_sparse_dkv(*dkv_args), reps=5))
-    designs = sparse_backward_designs(dq_args, dkv_args, errs)
+    designs = sparse_designs(fwd, dq_args, dkv_args, errs)
     # long walks wherever the layout puts them: Fixed's horizontal globals
     # (blocks 3, 7, 11, 15) against BigBird's global block 0
     fixed = sparse_kernel_check(gen, FixedSparsityConfig(
@@ -2177,7 +2277,8 @@ def phase_sparse_kernels(gen: torch.Generator) -> dict:
     # D = 128, for the record of the block-size rule
     wide = sparse_kernel_check(gen, layout, block, T, True, D=128)
     track(wide)
-    sparse_backward_designs(
+    sparse_designs(
+        (*wide["args"][:3], *wide["sched"][:2], block, True, wide["scale"]),
         (*wide["args"], *wide["sched"][:2], block, True, wide["scale"]),
         (*wide["args"], *wide["sched"][2:], block, True, wide["scale"]), errs)
     del wide
@@ -2247,11 +2348,15 @@ def phase_sparse_kernels(gen: torch.Generator) -> dict:
         f"(factor {sum(times.values()) / (lib_fwd + lib_bwd):.2f}); port dq "
         f"+ dkv {pair:.4f} ms against the masked SDPA backward "
         f"{lib_bwd:.4f} ms (factor {pair / lib_bwd:.2f}; the FMA design's "
-        f"{sum(designs[0]):.4f} ms, factor {sum(designs[0]) / lib_bwd:.2f}); "
+        f"{sum(designs[0][1:]):.4f} ms, factor "
+        f"{sum(designs[0][1:]) / lib_bwd:.2f}); forward {times['fwd']:.4f} "
+        f"ms against the masked SDPA forward {lib_fwd:.4f} ms (the FMA "
+        f"design's {designs[0][0]:.4f} ms); "
         f"causal dense SDPA forward {dense_fwd:.4f} ms, forward + backward "
         f"{dense_fwd_bwd:.4f} ms")
-    rows["block_sparse_dq"]["fma_ms"], rows["block_sparse_dkv"]["fma_ms"] = \
-        designs[0]
+    for name, ms in zip(("block_sparse_fwd", "block_sparse_dq",
+                         "block_sparse_dkv"), designs[0]):
+        rows[name]["fma_ms"] = ms
     del qt, kt, vt, res, args, q, k, v, do, fwd, dq_args, dkv_args
     torch.cuda.empty_cache()
 
@@ -2367,6 +2472,8 @@ def phase_reference_sparse(seed: int, device: str = "cuda", **overrides):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode-only", action="store_true",
+                    help="build, then time the decode kernel's rows alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2377,6 +2484,12 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
 
     card = phase_build()
+    if args.decode_only:
+        rows = {"decode_attention": decode_kernel_row(gen)}
+        phase_int8_kernels(gen, decode_only=True, rows=rows)
+        log(card)
+        print(json.dumps({"decode_rows": rows}), flush=True)
+        return 0
     results = phase_kernels(gen)
     log("[kernels] bf16 times beside PERF.md's (H100 80GB HBM3, 700 W): "
         + ", ".join(f"{name} {results[name]['ms']:.4f} ms (recorded {ms})"

@@ -4,8 +4,14 @@ version.
 Port of ``deepspeed_tpu/ops/attention/decode_attention.py``. The kernel is
 ``ops/csrc/decode_attention.cu``, which replaces the TPU kernel
 ``decode_attention`` (decode_attention.py:203 in the JAX package;
-``pallas_call`` at :318, body ``_decode_kernel`` at :128). Its header says
-what bounds it on the H100 (bytes) and how it keeps reads coalesced.
+``pallas_call`` at :318, body ``_decode_kernel`` at :128), for both cache
+types. Its header says what bounds it on the H100 (bytes) and how it spreads
+a decode step over the card: one block per (sequence, KV head, S-chunk)
+computing every query head of the group, the chunks of a group merged in a
+fixed order by a second, small kernel over fp32 partials that the wrapper
+allocates. :func:`decode_design` names the design a call runs
+(``"mma"``: both products on the tensor cores, ``"fma"``: the FMA units) and
+:func:`decode_plan` the S-chunks, from the shapes alone.
 
 Cache layout: one layer's K/V slice is (B, KV, S, D), positions-major, in
 the compute dtype, or int8 with fp32 per-row scales (B, KV, S) for the int8
@@ -27,6 +33,43 @@ import torch
 
 NEG_INF = -1e30
 SUPPORTED_HEAD_DIMS = (32, 64, 128)
+MMA_HEAD_DIMS = (64, 128)
+# positions a block walks per round: 4 warps x 16-position groups
+PLAN_ROUND = 64
+MAX_SPLITS = 16
+
+
+def decode_design(dtype: torch.dtype, D: int) -> str:
+    """The kernel's design for queries of ``dtype`` and head dim ``D``:
+    ``"mma"`` (``mma.sync`` on the tensor cores) for bf16 and fp16 at D = 64
+    and 128, ``"fma"`` otherwise (fp32, whose tolerance 16-bit operands
+    miss, and D = 32)."""
+    if dtype in (torch.bfloat16, torch.float16) and D in MMA_HEAD_DIMS:
+        return "mma"
+    return "fma"
+
+
+def decode_plan(B: int, H: int, KV: int, S: int, D: int,
+                sm_count: int) -> tuple:
+    """``(splits, chunk)``: the kernel's split of the S cache positions into
+    ``splits`` chunks of ``chunk`` positions, one block each. From the
+    shapes only, never from the lengths (they live on the device: reading
+    them would sync the host and could not be captured in a CUDA graph).
+    As many chunks as keep the blocks, ``B * KV * ceil(g / 16)`` groups of
+    up to 16 query heads times ``splits``, within one an SM of the card's
+    ``sm_count``: a block streams its rows at a rate of
+    its own, so a long slot needs several SMs, but every block and the
+    merge of more than one chunk cost fixed time (PERF.md: on the H100 one
+    chunk is fastest at GPT-2's 96 groups, 8 at TinyLlama's 16). At most
+    :data:`MAX_SPLITS` chunks of whole :data:`PLAN_ROUND`-position rounds,
+    none of them past S. ``D`` does not change the split: a row's bytes
+    scale every chunk alike."""
+    del D
+    g = H // KV
+    groups = B * KV * -(-g // 16)
+    splits = max(1, min(MAX_SPLITS, -(-S // PLAN_ROUND), sm_count // groups))
+    chunk = -(-S // (splits * PLAN_ROUND)) * PLAN_ROUND
+    return -(-S // chunk), chunk
 
 
 def alibi_slopes(n_head: int) -> torch.Tensor:
@@ -148,7 +191,9 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
       alibi_slopes: optional (H,) fp32 ALiBi slopes.
       k_scale, v_scale: (B, KV, S) fp32 per-row scales of an int8 cache
         (row value = int8 * scale); both or neither.
-    Returns (B, H, D) in q's dtype. On CUDA each launch adds one to
+    Returns (B, H, D) in q's dtype. On CUDA each call (the kernel in
+    :func:`decode_design`'s design over :func:`decode_plan`'s chunks, then
+    the combine kernel if there are several) adds one to
     ``decode_attention.launches``, or to ``decode_attention.int8_launches``
     for an int8 cache.
     """
@@ -213,17 +258,25 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     lengths = lengths.contiguous()
     slopes = alibi_slopes.data_ptr() if alibi_slopes is not None else None
     out = torch.empty_like(q)
+    design = 1 if decode_design(q.dtype, D) == "mma" else 0
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = decode_plan(B, H, KV, S, D, sms)
+    # the chunks' (m, l, acc) states, merged by the second kernel
+    scratch = (torch.empty(B * H * plan[0] * (2 + D), dtype=torch.float32,
+                           device=q.device) if plan[0] > 1 else None)
+    partials = scratch.data_ptr() if scratch is not None else None
     if quantized:
-        launch("decode_attention", q.device, DTYPE_CODES[q.dtype],
+        launch("decode_attention", q.device, DTYPE_CODES[q.dtype], design,
                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                k_scale.data_ptr(), v_scale.data_ptr(), lengths.data_ptr(),
-               slopes, out.data_ptr(), B, H, KV, S, D, float(scale),
-               symbol="dstorch_decode_attention_int8")
+               slopes, out.data_ptr(), partials, B, H, KV, S, D, *plan,
+               float(scale), symbol="dstorch_decode_attention_int8")
         decode_attention.int8_launches += 1
         return out
-    launch("decode_attention", q.device, DTYPE_CODES[q.dtype], q.data_ptr(),
-           k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-           slopes, out.data_ptr(), B, H, KV, S, D, float(scale))
+    launch("decode_attention", q.device, DTYPE_CODES[q.dtype], design,
+           q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+           lengths.data_ptr(), slopes, out.data_ptr(), partials, B, H, KV, S,
+           D, *plan, float(scale))
     decode_attention.launches += 1
     return out
 

@@ -43,18 +43,24 @@
 // ridge of the bf16 tensor cores (989 TFLOP/s over 3.35 TB/s), so the card's
 // bound is operations, and the products belong on the tensor cores.
 //
-// The dq and dk/dv kernels have two designs; the entry points take the one
+// Each kernel has two designs; the entry points take the one
 // block_sparse_kernel.py's sparse_design_code names:
 //  - wgmma, bf16 and fp16 at D = 64 and 128 (design 1: 128-row blocks,
 //    design 2: 64-row blocks; 64 where the granule is not a multiple of
 //    128, where 128-row blocks would leave SMs idle, and for dk/dv at
 //    D = 128, whose 128-key blocks spill registers). The dense flash
-//    kernels' structure (flash_attention_bwd.cu, on flash_sm90.cuh and
-//    wgmma.cuh) with the tile walk driven by the schedule: one producer warp
-//    loads the block's own tiles once by TMA (3-D maps over (H * D, T, B))
-//    and runs a ring of the other operand's 64-row tiles over the walk,
-//    writing each tile's first row beside it in shared memory, so the
-//    consumer warpgroups (64 rows each) need only the walk's length. dq:
+//    kernels' structure (flash_attention_fwd.cu, flash_attention_bwd.cu, on
+//    flash_sm90.cuh and wgmma.cuh) with the tile walk driven by the
+//    schedule: one producer warp loads the block's own tiles once by TMA
+//    (3-D maps over (H * D, T, B)) and runs a ring of the other operands'
+//    64-row tiles over the walk, writing each tile's first row beside it in
+//    shared memory, so the consumer warpgroups (64 rows each) need only the
+//    walk's length. forward: one block per (batch * head, query tile), the
+//    later query tiles first; S = Q K^T as SS, the base-2 online softmax on
+//    the accumulator, P packed to q's dtype for O += P V as RS wgmma (V read
+//    MN-major), the next tile's S issued behind; lse written in natural log.
+//    A block whose walk is empty writes out 0 and lse -1e30 and waits on no
+//    barrier. dq:
 //    one block per (batch * head, query tile), the later tiles first; S =
 //    Q K^T and dP = dO V^T as two SS commit groups, P and dS on the fp32
 //    accumulators, dS packed to k's dtype for dQ += dS K as RS wgmma (K read
@@ -71,12 +77,10 @@
 //    order, most live blocks first, wherever the layout puts them. dq keeps
 //    a 2-D grid (batch * head in x, the later query tiles first in y): the
 //    same order made it slower on both layouts (PERF.md).
-//  - FMA, fp32 and D = 32 (design 0), and the forward in every case: 256
-//    threads a block, tiles fp32 in shared memory, each thread owning a
-//    4 x 4 block of the 64 x 64 score tile and a 4 x D/16 block of the
-//    accumulators, the products on the fp32 FMA units (15x below the tensor
-//    cores, which bound them). The forward is later work; PERF.md records
-//    its gap to the bound.
+//  - FMA, fp32 and D = 32 (design 0): 256 threads a block, tiles fp32 in
+//    shared memory, each thread owning a 4 x 4 block of the 64 x 64 score
+//    tile and a 4 x D/16 block of the accumulators, the products on the
+//    fp32 FMA units (15x below the tensor cores).
 #include "common.cuh"
 #include "flash_sm90.cuh"
 #include "wgmma.cuh"
@@ -490,6 +494,219 @@ __device__ void zero_rows(T* base, size_t stride, int r0, int rows) {
   for (int e = threadIdx.x; e < rows * kPerRow; e += blockDim.x)
     reinterpret_cast<uint4*>(base + (size_t)(r0 + e / kPerRow) * stride)[e % kPerRow] =
         make_uint4(0, 0, 0, 0);
+}
+
+// The forward's wgmma blocks: kWG consumer warpgroups of 64 query rows each
+// (1 or 2), then the producer warp; the ring carries 64-key (K, V) tiles.
+template <int D, int kWG> struct FwdCfg {
+  static constexpr int kThreads = 128 * (kWG + 1);
+  static constexpr int kBM = 64 * kWG;     // query rows a block
+  static constexpr int kBN = kTile;        // keys a K or V tile: the walk's tiles
+  static constexpr int kBoxes = D / 64;    // 128-byte swizzled boxes across D
+  static constexpr int kQBox = kBM * 128;  // bytes of one box of the Q tile
+  static constexpr int kKBox = kBN * 128;  // of one box of a K or V tile
+  static constexpr int kQBytes = kBoxes * kQBox;
+  static constexpr int kKBytes = kBoxes * kKBox;
+  static constexpr int kStages = D == 64 ? 4 : 3;
+  // Q, kStages (K tile, V tile) pairs, the barriers q, full[kS], empty[kS],
+  // then each stage's first key row
+  static constexpr int kSmem =
+      1024 + kQBytes + kStages * 2 * kKBytes + 8 * (1 + 2 * kStages) + 4 * kStages;
+};
+
+// forward: one block per (batch * head, query tile of 64 kWG rows), inside
+// one layout row, the later tiles first. The producer thread loads Q once,
+// then runs the (K, V) ring over the walk, writing each key tile's first row
+// to rows[stage]. Each consumer warpgroup runs the dense flash forward's
+// pipeline on the walk (flash_attention_fwd.cu): S = Q K^T as an SS wgmma, a
+// base-2 online softmax on the accumulator (masked only on a causal
+// diagonal), P packed to A fragments, O += P V as an RS wgmma with V read
+// MN-major, the next tile's S issued behind the current P V.
+template <typename T, int D, int kWG>
+__global__ void __launch_bounds__(FwdCfg<D, kWG>::kThreads, 1)
+sparse_fwd_wgmma(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, Args a, T* __restrict__ out,
+                 float* __restrict__ lse) {
+  using namespace sm90;
+  using C = FwdCfg<D, kWG>;
+  constexpr int kS = C::kStages, kBM = C::kBM, kBN = C::kBN;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int m0 = (gridDim.y - 1 - blockIdx.y) * kBM;  // the longer causal walks first
+  const int nq = a.T / a.block, row_blk = m0 / a.block, pivot = m0 + kBM - kTile;
+  const int* live = a.idx + ((size_t)h * nq + row_blk) * a.M;
+  const int n_live = a.cnt[h * nq + row_blk];
+  const int n_tiles = walk_length<true>(a, live, n_live, pivot);
+  const size_t row_stride = (size_t)a.H * D;
+  T* out_head = out + ((size_t)b * a.T * a.H + h) * D;
+  if (n_tiles == 0) {  // no live key in these rows: out 0, lse -1e30, no barrier
+    zero_rows<T, D>(out_head, row_stride, m0, kBM);
+    for (int r = threadIdx.x; r < kBM; r += blockDim.x) lse[(size_t)bh * a.T + m0 + r] = kNegInf;
+    return;
+  }
+
+  extern __shared__ __align__(1024) unsigned char smem_tiles[];
+  const uint32_t raw = smem_u32(smem_tiles);
+  const uint32_t qs = (raw + 1023) & ~1023u;
+  const uint32_t ring = qs + C::kQBytes;  // stage s: the K tile, then the V tile
+  const uint32_t bars = ring + kS * 2 * C::kKBytes;
+  const uint32_t q_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kS + s); };
+  int* rows = reinterpret_cast<int*>(smem_tiles + (bars + 8 * (1 + 2 * kS) - raw));
+  const int wgi = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * kWG);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == kWG) {  // producer: one thread issues every load
+    if (threadIdx.x == 128 * kWG) {
+      mbar_arrive_expect_tx(q_full, C::kQBytes);
+      for (int x = 0; x < C::kBoxes; ++x)
+        tma_load_3d(qs + x * C::kQBox, &q_map, q_full, h * D + 64 * x, m0, b);
+      int it = 0;
+      for (int i = 0; i < n_live; ++i) {
+        const int blk = live[i];
+        int first, end;
+        tile_range<true>(a, pivot, blk, first, end);
+        for (int tile = first; tile < end; ++tile, ++it) {
+          const int s = it % kS, n0 = blk * a.block + tile * kTile;
+          const uint32_t ks = ring + s * 2 * C::kKBytes, vs = ks + C::kKBytes;
+          mbar_wait(empty(s), ((it / kS) & 1) ^ 1);
+          rows[s] = n0;  // published by the arrival below (release)
+          mbar_arrive_expect_tx(full(s), 2 * C::kKBytes);
+          for (int x = 0; x < C::kBoxes; ++x) {
+            tma_load_3d(ks + x * C::kKBox, &k_map, full(s), h * D + 64 * x, n0, b);
+            tma_load_3d(vs + x * C::kKBox, &v_map, full(s), h * D + 64 * x, n0, b);
+          }
+        }
+      }
+    }
+  } else {  // consumers: warpgroup wgi owns query rows m0 + 64 wgi .. + 63
+    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3, t = lane & 3;
+    const int row_lo = m0 + wgi * 64;
+    const int row0 = row_lo + warp * 16 + (lane >> 2);  // this thread's rows row0, row0 + 8
+    const float scale_log2 = a.scale * attn::kLog2e;
+    const uint32_t qa = qs + wgi * 64 * 128;  // this warpgroup's rows of each Q box
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // running max of the raw scores, this thread's part of the row sums
+    float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+    float sc[kBN / 2];          // S_j, then P_j in fp32
+    uint32_t pa[kBN / 16][4];  // P_j rounded to T: the A operand of O += P_j V_j
+
+    // S_j = Q K_j^T into sc: one commit group
+    auto issue_s = [&](int it) {
+      const uint32_t ks = ring + (it % kS) * 2 * C::kKBytes;
+      mbar_wait(full(it % kS), (it / kS) & 1);
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<T, kBN, 0>(sc, sw128_desc(qa + (kk >> 2) * C::kQBox + (kk & 3) * 32, 16, 1024),
+                            sw128_desc(ks + (kk >> 2) * C::kKBox + (kk & 3) * 32, 16, 1024),
+                            kk > 0);
+      wgmma_commit();
+    };
+    // O += P_j V_j (V read MN-major through the transpose-B bit): one commit
+    // group; tile j's stage is full since issue_s(j)
+    auto issue_pv = [&](int it) {
+      const uint32_t vs = ring + (it % kS) * 2 * C::kKBytes + C::kKBytes;
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) fence_regs(pa[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        wgmma_rs<T, D, 1>(o, pa[kk], sw128_desc(vs + kk * 16 * 128, C::kKBox, 1024), 1);
+      wgmma_commit();
+    };
+    // walk tile j's online softmax on sc (masked above the diagonal of a
+    // causal tile that reaches it): p = exp2(s * scale log2(e) - m * scale
+    // log2(e)) in one FMA, the row sums, and the factor alpha that rescales
+    // what O and the sums hold so far
+    auto softmax = [&](int it, float (&alpha)[2]) {
+      const int n0 = rows[it % kS];  // the stage is released only at it + 1
+      const bool edge = a.causal && n0 + kBN - 1 > row_lo;
+      float mx[2] = {m_run[0], m_run[1]}, rowsum[2] = {0.f, 0.f}, ms[2];
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) {
+        const int r = attn::acc_half(e);
+        if (edge && n0 + attn::acc_col(e, t) > row0 + 8 * r) sc[e] = kNegInf;
+        mx[r] = fmaxf(mx[r], sc[e]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // the 4 lanes t of a row
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // a row with no key yet subtracts 0, so its masked scores give p = 0
+        ms[r] = mx[r] == kNegInf ? 0.f : mx[r] * scale_log2;
+        alpha[r] = attn::exp2_approx(fmaf(m_run[r], scale_log2, -ms[r]));
+        m_run[r] = mx[r];
+      }
+#pragma unroll
+      for (int e = 0; e < kBN / 2; ++e) {
+        const int r = attn::acc_half(e);
+        sc[e] = attn::exp2_approx(fmaf(sc[e], scale_log2, -ms[r]));
+        rowsum[r] += sc[e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rowsum[r];
+    };
+
+    float alpha[2];
+    mbar_wait(q_full, 0);
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(0, alpha);  // O is still 0: nothing to rescale
+    pack_afrags<T, kBN>(sc, pa);
+    for (int it = 1; it < n_tiles; ++it) {
+      issue_s(it);
+      issue_pv(it - 1);
+      wgmma_wait<1>();  // S_j is done; O += P_{j-1} V_{j-1} may still run
+      fence_regs(sc);
+      softmax(it, alpha);
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) fence_regs(pa[kk]);  // read until here
+      if (lane == 0) mbar_arrive(empty((it - 1) % kS));
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] *= alpha[attn::acc_half(e)];
+      pack_afrags<T, kBN>(sc, pa);
+    }
+    issue_pv(n_tiles - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) fence_regs(pa[kk]);
+    if (lane == 0) mbar_arrive(empty((n_tiles - 1) % kS));
+
+    // a row that saw no live key (a causal row before every key of the
+    // walk) keeps m = -1e30 and l = 0: out 0, lse -1e30
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int row = row0 + 8 * r;
+      l = fmaxf(l, 1e-30f);
+      attn::store_acc_row<T, D>(out_head + (size_t)row * row_stride, o, r, t, 1.f / l);
+      if (t == 0)
+        lse[(size_t)bh * a.T + row] =
+            (m_run[r] == kNegInf ? kNegInf : m_run[r] * a.scale) + logf(l);
+    }
+  }
 }
 
 // dq: one block per (batch * head, query tile of 64 kWG rows), inside one
@@ -913,7 +1130,18 @@ template <typename T, int D, int kWG>
 cudaError_t launch_wgmma(Which which, const Args& a, void* o1, void* o2, cudaStream_t st) {
   constexpr bool kBf16 = sm90::WgmmaType<T>::kBf16;
   CUtensorMap m[4];
-  if (which == kDq) {
+  if (which == kFwd) {
+    using C = FwdCfg<D, kWG>;
+    const uint64_t width = (uint64_t)a.H * D;
+    static bool configured = false;
+    cudaError_t err = allow_smem(sparse_fwd_wgmma<T, D, kWG>, C::kSmem, &configured);
+    if (err == cudaSuccess) err = encode_tma_3d(&m[0], kBf16, a.q, a.B, a.T, width, C::kBM);
+    if (err == cudaSuccess) err = encode_tma_3d(&m[1], kBf16, a.k, a.B, a.T, width, C::kBN);
+    if (err == cudaSuccess) err = encode_tma_3d(&m[2], kBf16, a.v, a.B, a.T, width, C::kBN);
+    if (err != cudaSuccess) return err;
+    sparse_fwd_wgmma<T, D, kWG><<<dim3(a.B * a.H, a.T / C::kBM), C::kThreads, C::kSmem, st>>>(
+        m[0], m[1], m[2], a, static_cast<T*>(o1), static_cast<float*>(o2));
+  } else if (which == kDq) {
     using C = bwd::DqCfg<D, kWG>;
     constexpr size_t kSmem = C::kSmem + sizeof(int) * C::kStages;  // + the stages' key rows
     static bool configured = false;
@@ -956,11 +1184,10 @@ cudaError_t wgmma_dim(int D, int kWG, Which which, const Args& a, void* o1, void
   return cudaErrorInvalidValue;
 }
 
-// design 0: the FMA kernels (every dtype, D 32, 64, 128; the only design of
-// the forward); 1: wgmma with 128-row blocks (bf16 and fp16, D 64 and 128, a
-// granule that is a multiple of 128, so a block lies in one layout row or
-// column); 2: wgmma with 64-row blocks (any granule). Anything else is
-// refused.
+// design 0: the FMA kernels (every dtype, D 32, 64, 128); 1: wgmma with
+// 128-row blocks (bf16 and fp16, D 64 and 128, a granule that is a multiple
+// of 128, so a block lies in one layout row or column); 2: wgmma with 64-row
+// blocks (any granule). Anything else is refused.
 cudaError_t dispatch(int dtype, int design, int D, Which which, const Args& a, void* o1,
                      void* o2, cudaStream_t st) {
   if (a.B <= 0 || a.H <= 0 || a.M <= 0 || a.block <= 0 || a.block % kTile != 0 ||
@@ -974,7 +1201,7 @@ cudaError_t dispatch(int dtype, int design, int D, Which which, const Args& a, v
       default: return cudaErrorInvalidValue;
     }
   }
-  if (which == kFwd || (design != 1 && design != 2) || (design == 1 && a.block % 128 != 0) ||
+  if ((design != 1 && design != 2) || (design == 1 && a.block % 128 != 0) ||
       (which == kDkv && a.order == nullptr))
     return cudaErrorInvalidValue;
   const int wgs = design == 1 ? 2 : 1;
@@ -989,18 +1216,18 @@ cudaError_t dispatch(int dtype, int design, int D, Which which, const Args& a, v
 }  // namespace dstorch
 
 // C entry points bound with ctypes. Each returns its launch's cudaGetLastError().
-// The dq and dk/dv entries take the design (see dispatch above) that
-// block_sparse_kernel.py's sparse_design_code names; dk/dv also the wgmma
-// kernel's launch order over (head, layout column), H * nq int32
-// (launch_order; the FMA kernel launches in grid order and does not read it).
-extern "C" int dstorch_block_sparse_fwd(int dtype, const void* q, const void* k, const void* v,
-                                        void* out, void* lse, const void* idx, const void* cnt,
-                                        int B, int T, int H, int D, int M, int block,
-                                        float scale, int causal, void* stream) {
+// Each takes the design (see dispatch above) that block_sparse_kernel.py's
+// sparse_design_code names; dk/dv also the wgmma kernel's launch order over
+// (head, layout column), H * nq int32 (launch_order; the FMA kernel launches
+// in grid order and does not read it).
+extern "C" int dstorch_block_sparse_fwd(int dtype, int design, const void* q, const void* k,
+                                        const void* v, void* out, void* lse, const void* idx,
+                                        const void* cnt, int B, int T, int H, int D, int M,
+                                        int block, float scale, int causal, void* stream) {
   const dstorch::Args a{q, k, v, nullptr, nullptr, nullptr,
                         static_cast<const int*>(idx), static_cast<const int*>(cnt), nullptr,
                         B, T, H, M, block, scale, causal};
-  return (int)dstorch::dispatch(dtype, 0, D, dstorch::kFwd, a, out, lse,
+  return (int)dstorch::dispatch(dtype, design, D, dstorch::kFwd, a, out, lse,
                                 static_cast<cudaStream_t>(stream));
 }
 

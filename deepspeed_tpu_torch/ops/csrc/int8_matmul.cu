@@ -78,30 +78,11 @@ __device__ __forceinline__ void store_as(void* y, int code, size_t i, float v) {
 }
 
 // The 4 int8 values of w (byte 0 first) as two bf16x2 words: lo = (b0, b1),
-// hi = (b2, b3). Each byte pair is spread to the low bytes of two 16-bit
-// halves; a = 0x4300 | (b & 0x7f) is the bf16 number 128 + (b & 0x7f), c =
-// 0x4300 | (b & 0x80) is 128 (b >= 0) or 256 (b < 0), and a - c = b, exact
-// (one bf16x2 FMA: c * -1 + a). Exact over all 256 values (card test).
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t pair) {
-  const uint32_t a = (pair & 0x007F007Fu) | 0x43004300u;
-  const uint32_t c = (pair & 0x00800080u) | 0x43004300u;
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(c), "r"(0xBF80BF80u), "r"(a));
-  return d;
-}
+// hi = (b2, b3), each byte pair spread to the low bytes of two 16-bit halves
+// and converted exactly (wgmma.cuh's i8x2_to).
 __device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  lo = i8x2_to_bf16x2(__byte_perm(w, 0, 0x4140));
-  hi = i8x2_to_bf16x2(__byte_perm(w, 0, 0x4342));
-}
-
-// d += a b: m16n8k16, bf16 inputs, fp32 accumulators (row.col)
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  lo = i8x2_to<__nv_bfloat16>(__byte_perm(w, 0, 0x4140));
+  hi = i8x2_to<__nv_bfloat16>(__byte_perm(w, 0, 0x4342));
 }
 
 // y[m, n .. n + 3] = v * scale[n .. n + 3] (columns past N dropped), one
@@ -191,19 +172,6 @@ struct DecodeTile {
       kStages * kStage > kBT * kLdY * 4 ? kStages * kStage : kBT * kLdY * 4;
 };
 
-// 16 bytes global -> shared, asynchronously; zeros when !ok (src not read)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 // 16-byte chunk j of weight row r: a quad reads chunks 4c .. 4c + 3 of rows
 // g and g + 1 in one phase; the odd rows' halves swap, so the two rows hit
 // different banks. Chunk j (8 values) of x row r: a thread reads chunks 2t,
@@ -290,7 +258,7 @@ int8_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ 
 #pragma unroll
           for (int j = 0; j < WN; ++j) {
             const uint32_t* xw = &xv[j].x + 2 * (s & 1);
-            mma_16816(acc[j], a, xw[0], xw[1]);
+            mma_16816<__nv_bfloat16>(acc[j], a, xw[0], xw[1]);
           }
         }
       }

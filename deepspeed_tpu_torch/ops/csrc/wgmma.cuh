@@ -6,7 +6,10 @@
 // registers (RS) or shared memory (SS) and B from shared memory, B K-major
 // or MN-major (transpose-B); and the packing of an fp32 accumulator into
 // 16-bit A fragments (pack_afrags), by which the attention kernels feed P
-// to the next product without leaving registers.
+// to the next product without leaving registers. Also the warp-level path
+// that the small-tile kernels (int8_matmul's decode tiles, decode
+// attention) take: cp.async copies, mma.sync m16n8k16 and the exact
+// conversion of int8 pairs to 16-bit pairs.
 //
 // Tiles are 16-bit, 64 elements (128 bytes) along their contiguous dimension
 // and loaded by TMA with the 128-byte swizzle, which is what the descriptors
@@ -387,6 +390,68 @@ __device__ __forceinline__ void pack_afrags(const float (&d)[N / 2], uint32_t (&
 #undef DSTORCH_WGMMA_RS_N256
 
 }  // namespace sm90
+
+// ------------------------------------------------------ warp-level (mma.sync)
+// 16 (or 4) bytes global -> shared, asynchronously; zeros when !ok (src not
+// read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// d += a b: mma.sync m16n8k16, row.col, 16-bit T inputs (bf16 or fp16), fp32
+// accumulators
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  if constexpr (sm90::WgmmaType<T>::kBf16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// The int8 values in bytes 0 and 2 of `pair` (bytes 1 and 3 ignored) as a
+// 16-bit pair of type T, exactly (every int8 value is a bf16 and an fp16
+// number). bf16: a = 0x4300 | (b & 0x7f) is 128 + (b & 0x7f), c = 0x4300 | (b
+// & 0x80) is 128 (b >= 0) or 256 (b < 0), and one FMA takes a - c = b. fp16:
+// 0x6400 | (b + 128) is 1024 + b + 128, and one FMA takes 1152 off it. Exact
+// over all 256 values (card tests).
+template <typename T> __device__ __forceinline__ uint32_t i8x2_to(uint32_t pair);
+template <> __device__ __forceinline__ uint32_t i8x2_to<__nv_bfloat16>(uint32_t pair) {
+  const uint32_t a = (pair & 0x007F007Fu) | 0x43004300u;
+  const uint32_t c = (pair & 0x00800080u) | 0x43004300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(c), "r"(0xBF80BF80u), "r"(a));
+  return d;
+}
+template <> __device__ __forceinline__ uint32_t i8x2_to<__half>(uint32_t pair) {
+  const uint32_t a = ((pair ^ 0x00800080u) & 0x00FF00FFu) | 0x64006400u;
+  uint32_t d;
+  asm("fma.rn.f16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(0x64806480u), "r"(0xBC00BC00u), "r"(a));
+  return d;
+}
 
 // ---------------------------------------------------------------- host
 // cuTensorMapEncodeTiled's signature (cuda.h), reached through the runtime.

@@ -38,10 +38,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "decode_attention": {
-        "dstorch_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                     _I, _I, _F, _P],
-        "dstorch_decode_attention_int8": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                          _I, _I, _I, _I, _I, _F, _P]},
+        "dstorch_decode_attention": [_I, _I] + [_P] * 7 + [_I] * 7 + [_F,
+                                                                       _P],
+        "dstorch_decode_attention_int8": [_I, _I] + [_P] * 9 + [_I] * 7 + [
+            _F, _P]},
     "flash_attention_fwd": {
         "dstorch_flash_attention_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I,
                                         _I, _I, _I, _I, _F, _I, _P],
@@ -65,8 +65,8 @@ SIGNATURES = {
         "dstorch_ln_linear_fwd": [_I] + [_P] * 9 + [_I, _I, _I, _F, _P],
         "dstorch_ln_linear_bwd_dx": [_I] + [_P] * 10 + [_I, _I, _I, _P]},
     "block_sparse_attention": {
-        "dstorch_block_sparse_fwd": [_I] + [_P] * 7 + [_I] * 6 + [_F, _I,
-                                                                  _P],
+        "dstorch_block_sparse_fwd": [_I, _I] + [_P] * 7 + [_I] * 6 + [
+            _F, _I, _P],
         "dstorch_block_sparse_dq": [_I, _I] + [_P] * 9 + [_I] * 6 + [_F, _I,
                                                                      _P],
         "dstorch_block_sparse_dkv": [_I, _I] + [_P] * 11 + [_I] * 6 + [

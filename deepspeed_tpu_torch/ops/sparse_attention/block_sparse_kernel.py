@@ -8,7 +8,7 @@ are ``ops/csrc/block_sparse_attention.cu``: ``block_sparse_fwd`` replaces
 and ``block_sparse_dkv`` replaces ``_sparse_dkv_kernel`` (:206, launched at
 :328). The source's header says what bounds them on the H100.
 
-The dq and dk/dv kernels have two designs, and :func:`sparse_design` names
+The three kernels have two designs each, and :func:`sparse_design` names
 the one a call runs: ``"wgmma"`` (the tensor cores, fed by TMA: the dense
 flash kernels' structure with the tile walk driven by the schedule) for
 bf16 and fp16 at D = 64 and 128, ``"fma"`` (the fp32 FMA units) for fp32
@@ -16,8 +16,8 @@ and D = 32, as for the flash kernels. :func:`sparse_block_rows` picks the
 wgmma blocks' rows (128, or 64 where the granule is not a multiple of 128,
 where 128-row blocks would leave SMs idle, and for dk/dv at D = 128), and
 :func:`sparse_design_code` turns both into the entry points' design
-argument. The forward runs its FMA kernel in every case. The wgmma dk/dv
-kernel starts its blocks in :func:`launch_order`, longest walk first.
+argument. The wgmma dk/dv kernel starts its blocks in
+:func:`launch_order`, longest walk first.
 
 A layout is (H, T // block, T // block) 0/1 (``sparsity_config``). The
 kernels walk its lists (:func:`layout_to_schedule`): the forward and dq
@@ -72,20 +72,20 @@ SUPPORTED_HEAD_DIMS = (32, 64, 128)
 
 
 def sparse_design(dtype: torch.dtype, D: int) -> str:
-    """The design the dq and dk/dv kernels run for ``dtype`` and head dim
-    ``D``: ``"wgmma"`` or ``"fma"``, the flash kernels' rule
+    """The design the forward, dq and dk/dv kernels run for ``dtype`` and
+    head dim ``D``: ``"wgmma"`` or ``"fma"``, the flash kernels' rule
     (:func:`..attention.flash_attention.flash_design`)."""
     return flash_design(dtype, D)
 
 
 def sparse_block_rows(kernel: str, D: int, block: int, tiles_of_128: int,
                       sm_count: int) -> int:
-    """Rows a block of the wgmma design takes (query rows for ``"dq"``,
-    keys for ``"dkv"``): 128, two consumer warpgroups, unless the granule
-    ``block`` is not a multiple of 128 (a block lies in one layout row or
-    column), the grid (``tiles_of_128`` blocks) would leave some of the
-    card's ``sm_count`` SMs idle, or the kernel is dk/dv at D = 128, whose
-    128-key blocks spill registers; then 64, one warpgroup."""
+    """Rows a block of the wgmma design takes (query rows for ``"fwd"``
+    and ``"dq"``, keys for ``"dkv"``): 128, two consumer warpgroups, unless
+    the granule ``block`` is not a multiple of 128 (a block lies in one
+    layout row or column), the grid (``tiles_of_128`` blocks) would leave
+    some of the card's ``sm_count`` SMs idle, or the kernel is dk/dv at D =
+    128, whose 128-key blocks spill registers; then 64, one warpgroup."""
     if block % 128 or tiles_of_128 < sm_count or (kernel == "dkv"
                                                    and D == 128):
         return 64
@@ -94,10 +94,10 @@ def sparse_block_rows(kernel: str, D: int, block: int, tiles_of_128: int,
 
 def sparse_design_code(dtype: torch.dtype, D: int, block: int, heads: int,
                        T: int, sm_count: int, kernel: str) -> int:
-    """The dq (``kernel="dq"``) or dk/dv (``"dkv"``) entry point's design
-    argument for ``heads`` (batch x heads) sequences of ``T`` positions on
-    a card of ``sm_count`` SMs: 0 the FMA design, 1 the wgmma design with
-    128-row blocks, 2 with 64-row blocks."""
+    """The forward (``kernel="fwd"``), dq (``"dq"``) or dk/dv (``"dkv"``)
+    entry point's design argument for ``heads`` (batch x heads) sequences
+    of ``T`` positions on a card of ``sm_count`` SMs: 0 the FMA design, 1
+    the wgmma design with 128-row blocks, 2 with 64-row blocks."""
     if sparse_design(dtype, D) == "fma":
         return 0
     rows = sparse_block_rows(kernel, D, block, heads * -(-T // 128), sm_count)
@@ -315,7 +315,8 @@ def block_sparse_fwd(q, k, v, idx, cnt, block: int, causal: bool,
                      scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` over the live blocks that ``idx``/``cnt`` list. CPU
     tensors take :func:`block_sparse_fwd_reference`; CUDA tensors launch
-    the forward kernel (``block_sparse_fwd.launches``)."""
+    the forward kernel of :func:`sparse_design_code`'s design
+    (``block_sparse_fwd.launches``)."""
     if _on_cpu(q):
         return block_sparse_fwd_reference(q, k, v, idx, cnt, block, causal,
                                           scale)
@@ -325,7 +326,8 @@ def block_sparse_fwd(q, k, v, idx, cnt, block: int, causal: bool,
     B, T, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    launch("block_sparse_attention", q.device, code, q.data_ptr(),
+    launch("block_sparse_attention", q.device, code,
+           _design_code(q, block, "fwd"), q.data_ptr(),
            k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
            idx.data_ptr(), cnt.data_ptr(), B, T, H, D, idx.shape[2], block,
            float(scale), int(bool(causal)), symbol="dstorch_block_sparse_fwd")

@@ -12,6 +12,12 @@ kernel takes the same tolerances as the decode kernel it generalizes, and
 the int8-cache variants the same again (their scaled probabilities are
 rounded to bf16 for bf16 queries only).
 
+The decode kernel has two designs (``decode_design``): mma.sync for
+bf16/fp16 at D = 64 and 128, FMA otherwise, so the grids reach both; its
+lengths put ``decode_plan``'s chunks empty, partial and full. Its permuted
+operand layouts fail silently, so one-hot queries over small-integer V
+rows hold it exactly, in both designs and cache types.
+
 The training kernels (flash dq and dkv, ln_linear forward and
 backward-dx) compute in fp32 with their plain versions' roundings (ds and p
 rounded to the input dtype in the attention backward, the normalized rows
@@ -77,6 +83,7 @@ from deepspeed_tpu_torch.ops.transformer.ln_linear import (
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+NEG_INF32 = torch.tensor(-1e30).item()   # the kernels' masked value in fp32
 DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}  # C codes
 
 
@@ -87,17 +94,35 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+# (H, KV): MHA, GQA, GPT-2's 12 heads, TinyLlama's 32 over 4, MQA
+DECODE_HEADS = [(4, 4), (8, 2), (12, 12), (32, 4), (8, 1)]
+
+
+def _decode_lengths(B, H, KV, S, D):
+    """0, 1, the first chunk's edge and one past it (``decode_plan``'s
+    chunk on this card), S - 1 and S, then 77 for the slots left."""
+    from deepspeed_tpu_torch.ops.attention.decode_attention import \
+        decode_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    chunk = decode_plan(B, H, KV, S, D, sms)[1]
+    lengths = [0, 1, min(chunk, S), min(chunk + 1, S), S - 1, S]
+    return torch.tensor((lengths + [77] * B)[:B], dtype=torch.int32,
+                        device="cuda")
+
+
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("H,KV", DECODE_HEADS)
 @pytest.mark.parametrize("alibi", [False, True])
 def test_decode_kernel_matches_plain(gen, dtype, D, H, KV, alibi):
-    B, S = 5, 300
+    """Every (dtype, D) reaches its design (mma for bf16/fp16 at D 64 and
+    128, FMA otherwise); lengths put chunks empty, partial and full."""
+    B, S = 6, 300
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
     k = torch.randn(B, KV, S, D, generator=gen, device="cuda").to(dtype)
     v = torch.randn(B, KV, S, D, generator=gen, device="cuda").to(dtype)
-    lengths = torch.tensor([0, 1, 77, 299, 300], dtype=torch.int32,
-                           device="cuda")
+    lengths = _decode_lengths(B, H, KV, S, D)
     slopes = alibi_slopes(H).cuda() if alibi else None
     before = decode_attention.launches
     got = decode_attention(q, k, v, lengths, alibi_slopes=slopes)
@@ -202,15 +227,14 @@ def _int8_rows(gen, *shape):
 
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("D", [32, 64, 128])
-@pytest.mark.parametrize("H,KV", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("H,KV", DECODE_HEADS)
 @pytest.mark.parametrize("alibi", [False, True])
 def test_int8_decode_kernel_matches_plain(gen, dtype, D, H, KV, alibi):
-    B, S = 5, 300
+    B, S = 6, 300
     q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
     k8, ks = _int8_rows(gen, B, KV, S, D)
     v8, vs = _int8_rows(gen, B, KV, S, D)
-    lengths = torch.tensor([0, 1, 77, 299, 300], dtype=torch.int32,
-                           device="cuda")
+    lengths = _decode_lengths(B, H, KV, S, D)
     slopes = alibi_slopes(H).cuda() if alibi else None
     before = decode_attention.int8_launches
     got = decode_attention(q, k8, v8, lengths, alibi_slopes=slopes,
@@ -222,6 +246,112 @@ def test_int8_decode_kernel_matches_plain(gen, dtype, D, H, KV, alibi):
     assert torch.isfinite(got.float()).all() and (got[0] == 0).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype,design", [
+    (torch.bfloat16, "mma"), (torch.float16, "mma"), (torch.bfloat16, "fma"),
+    (torch.float32, "fma")])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KV", [(12, 12), (32, 4), (8, 1), (40, 2)])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernel_one_hot_is_exact(gen, monkeypatch, dtype, design, D,
+                                        H, KV, int8):
+    """Fragment layouts fail silently, so each head's query is one-hot on
+    its own dim and its group's K holds a single 1 there, at a random
+    position below the slot's length: every other score is 0, so p is 1
+    there and exp(-100) elsewhere, which the kernels' exp2 flushes to 0,
+    and out is that position's V row of small integers, exactly. A wrong head, dim, position or output column
+    in the permuted operands, or a wrong chunk merge, moves whole
+    entries. 40 heads over 2 KV heads give each KV head a block of 16 rows
+    and one of 4."""
+    import deepspeed_tpu_torch.ops.attention.decode_attention as da
+
+    monkeypatch.setattr(da, "decode_design", lambda *_: design)
+    B, S = 3, 1000
+    g = H // KV
+    lengths = torch.tensor([S, 417, 1], dtype=torch.int32, device="cuda")
+    target = (torch.rand(B, H, generator=gen, device="cuda")
+              * lengths[:, None]).long()                    # (B, H)
+    dim = torch.arange(H, device="cuda") % D
+    q = torch.zeros(B, H, D, device="cuda")
+    q[:, torch.arange(H), dim] = 100.0
+    k = torch.zeros(B, KV, S, D, device="cuda")
+    kvh = torch.arange(H, device="cuda") // g
+    for b in range(B):
+        k[b, kvh, target[b], dim] = 1.0
+    v = torch.randint(-8, 9, (B, KV, S, D), generator=gen,
+                      device="cuda").float()
+    want = v[torch.arange(B)[:, None], kvh[None], target]      # (B, H, D)
+    q = q.to(dtype)
+    if int8:
+        ones = torch.ones(B, KV, S, device="cuda")
+        got = decode_attention(q, k.to(torch.int8), v.to(torch.int8),
+                               lengths, scale=1.0, k_scale=ones,
+                               v_scale=ones)
+    else:
+        got = decode_attention(q, k.to(dtype), v.to(dtype), lengths,
+                               scale=1.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernel_is_deterministic(gen, int8):
+    """The chunks merge in rank order: the same inputs give the same bits
+    (TinyLlama's heads, 8 chunks a group)."""
+    B, H, KV, S, D = 4, 32, 4, 2048, 64
+    q = torch.randn(B, H, D, generator=gen, device="cuda").bfloat16()
+    lengths = torch.tensor([1, 2048, 1100, 517], dtype=torch.int32,
+                           device="cuda")
+    if int8:
+        k8, ks = _int8_rows(gen, B, KV, S, D)
+        v8, vs = _int8_rows(gen, B, KV, S, D)
+        runs = [decode_attention(q, k8, v8, lengths, k_scale=ks, v_scale=vs)
+                for _ in range(3)]
+    else:
+        k, v = (torch.randn(B, KV, S, D, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        runs = [decode_attention(q, k, v, lengths) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+def test_decode_entries_refuse_what_the_plan_does_not_give(gen):
+    """The entry points take design 0 (FMA: every dtype, D 32, 64, 128) and
+    1 (mma.sync: bf16 and fp16 at D 64 and 128), and a plan of 1..16 chunks
+    of whole 64-position rounds that covers S with none past it, with fp32
+    partials for more than one chunk; they refuse anything else."""
+    from deepspeed_tpu_torch.ops.op_builder import (KernelLaunchError,
+                                                    launch)
+
+    B, H, KV, S = 2, 8, 2, 1024
+    lengths = torch.full((B,), S, dtype=torch.int32, device="cuda")
+
+    def run(dtype, D, design, splits, chunk, scratch=True):
+        q = torch.randn(B, H, D, generator=gen, device="cuda").to(dtype)
+        kv = torch.randn(B, KV, S, D, generator=gen, device="cuda").to(dtype)
+        out = torch.empty_like(q)
+        part = torch.empty(B * H * splits * (2 + D), device="cuda")
+        launch("decode_attention", q.device, DTYPE[dtype], design,
+               q.data_ptr(), kv.data_ptr(), kv.data_ptr(), lengths.data_ptr(),
+               None, out.data_ptr(), part.data_ptr() if scratch else None, B,
+               H, KV, S, D, splits, chunk, 0.125)
+        torch.cuda.synchronize()
+
+    for args in ((torch.bfloat16, 64, 1, 4, 256), (torch.float16, 128, 1, 1, 1024),
+                 (torch.bfloat16, 32, 0, 2, 512), (torch.float32, 64, 0, 16, 64),
+                 (torch.bfloat16, 64, 1, 1, 1024, False)):
+        run(*args)                                           # taken
+    for args in ((torch.float32, 64, 1, 4, 256),             # fp32 on mma
+                 (torch.bfloat16, 32, 1, 4, 256),            # D 32 on mma
+                 (torch.bfloat16, 64, 2, 4, 256),            # no design 2
+                 (torch.bfloat16, 64, 1, 3, 256),            # S not covered
+                 (torch.bfloat16, 64, 1, 5, 256),            # a chunk past S
+                 (torch.bfloat16, 64, 1, 8, 128 + 32),       # not whole rounds
+                 (torch.bfloat16, 64, 1, 32, 32),            # over 16 chunks
+                 (torch.bfloat16, 64, 1, 4, 256, False)):    # no partials
+        with pytest.raises(KernelLaunchError):
+            run(*args)
 
 
 @pytest.mark.parametrize("dtype", list(TOL))
@@ -783,43 +913,51 @@ def test_block_sparse_dkv_long_columns_off_tile_0(gen, monkeypatch, rows):
 
 
 def test_block_sparse_entries_refuse_unknown_designs(gen):
-    """The dq and dkv entry points take design 0 (FMA), 1 (wgmma, 128-row
-    blocks: bf16/fp16 at D 64 and 128, a granule that is a multiple of 128)
-    and 2 (wgmma, 64-row blocks) and refuse anything else."""
+    """The forward, dq and dkv entry points take design 0 (FMA), 1 (wgmma,
+    128-row blocks: bf16/fp16 at D 64 and 128, a granule that is a multiple
+    of 128) and 2 (wgmma, 64-row blocks) and refuse anything else."""
     import deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel as bsk
     from deepspeed_tpu_torch.ops.op_builder import (KernelLaunchError,
                                                     launch)
 
-    def run(dtype, D, design, dkv, block=128):
+    def run(dtype, D, design, kernel, block=128):
         H, T = 2, 2 * block
         layout = np.tril(np.ones((H, 2, 2), np.int32))
         idx, cnt, idx_t, cnt_t = schedule(layout, "cuda")
-        sched = (idx_t, cnt_t, bsk.launch_order(cnt_t)) if dkv else (idx, cnt)
         q, k, v, do = (torch.randn(1, T, H, D, generator=gen, device="cuda")
                        .to(dtype) for _ in range(4))
         stats = torch.zeros(1, H, T, device="cuda")
+        if kernel == "fwd":
+            launch("block_sparse_attention", q.device, DTYPE[dtype], design,
+                   q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   torch.empty_like(q).data_ptr(), stats.data_ptr(),
+                   idx.data_ptr(), cnt.data_ptr(), 1, T, H, D, idx.shape[2],
+                   block, 0.125, 1, symbol="dstorch_block_sparse_fwd")
+            return
+        dkv = kernel == "dkv"
+        sched = (idx_t, cnt_t, bsk.launch_order(cnt_t)) if dkv else (idx, cnt)
         outs = [torch.empty_like(q)] + ([torch.empty_like(q)] if dkv else [])
         launch("block_sparse_attention", q.device, DTYPE[dtype], design,
                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                stats.data_ptr(), stats.data_ptr(),
                *(t.data_ptr() for t in sched), *(o.data_ptr() for o in outs),
                1, T, H, D, sched[0].shape[2], block, 0.125, 1,
-               symbol="dstorch_block_sparse_" + ("dkv" if dkv else "dq"))
+               symbol="dstorch_block_sparse_" + kernel)
 
-    for dkv in (False, True):
+    for kernel in ("fwd", "dq", "dkv"):
         for dtype, D, design, block in ((torch.bfloat16, 64, 0, 128),
                                         (torch.bfloat16, 64, 1, 128),
                                         (torch.float16, 128, 2, 128),
                                         (torch.bfloat16, 64, 2, 192),
                                         (torch.float32, 64, 0, 128)):
-            run(dtype, D, design, dkv, block)             # taken
+            run(dtype, D, design, kernel, block)          # taken
         for dtype, D, design, block in ((torch.bfloat16, 64, 3, 128),
                                         (torch.bfloat16, 64, -1, 128),
                                         (torch.float32, 64, 1, 128),
                                         (torch.bfloat16, 32, 2, 128),
                                         (torch.bfloat16, 64, 1, 192)):
             with pytest.raises(KernelLaunchError):
-                run(dtype, D, design, dkv, block)
+                run(dtype, D, design, kernel, block)
 
 
 def _force_sparse_rows(monkeypatch, rows):
@@ -846,8 +984,8 @@ def _check_block_sparse(gen, dtype, B, H, D, n, block, layout, causal,
                    .to(dtype) for _ in range(4))
     idx, cnt, idx_t, cnt_t = schedule(layout, "cuda")
     scale = 1 / math.sqrt(D)
-    assert (bsk._design_code(q, block, "dq"),
-            bsk._design_code(q, block, "dkv")) == (design, design)
+    assert (bsk._design_code(q, block, "fwd"), bsk._design_code(q, block, "dq"),
+            bsk._design_code(q, block, "dkv")) == (design, design, design)
     before = (block_sparse_fwd.launches, block_sparse_dq.launches,
               block_sparse_dkv.launches)
     out, lse = block_sparse_fwd(q, k, v, idx, cnt, block, causal, scale)
@@ -856,6 +994,12 @@ def _check_block_sparse(gen, dtype, B, H, D, n, block, layout, causal,
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    # a query with no live key (an empty row, a causal row whose blocks all
+    # lie in its future): out exactly 0, lse -1e30
+    alone = ~bsk._token_mask(idx, cnt, block, T, causal).any(2)   # (H, T)
+    if alone.any():
+        assert out.permute(0, 2, 1, 3)[:, alone].abs().max().item() == 0
+        assert (lse[:, alone] == NEG_INF32).all()
     delta = attention_delta(out, do)
     args = (q, k, v, do, lse, delta)
     dq = block_sparse_dq(*args, idx, cnt, block, causal, scale)

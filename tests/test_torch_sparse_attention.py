@@ -322,10 +322,19 @@ def test_cpu_tensors_never_reach_the_kernel_builder(monkeypatch):
     # D = 128: dk/dv's 128-key blocks spill registers, dq's do not
     (torch.bfloat16, 128, 512, 12, 8192, 132, "dkv", 2),
     (torch.bfloat16, 128, 512, 12, 8192, 132, "dq", 1),
+    # the forward takes dq's rule: 128-row blocks at the training shape
+    (torch.bfloat16, 64, 512, 12, 8192, 132, "fwd", 1),
+    (torch.float16, 128, 512, 12, 8192, 132, "fwd", 1),
+    # fp32 and D = 32 keep the FMA forward
+    (torch.float32, 64, 512, 12, 8192, 132, "fwd", 0),
+    (torch.bfloat16, 32, 512, 12, 8192, 132, "fwd", 0),
+    # a granule off 128, or a grid that leaves SMs idle: 64-row blocks
+    (torch.bfloat16, 64, 192, 12, 192 * 42, 132, "fwd", 2),
+    (torch.bfloat16, 64, 128, 1, 2048, 132, "fwd", 2),
 ])
 def test_sparse_design_code(dtype, D, block, heads, T, sms, kernel, want):
-    """The dq and dk/dv entry points' design: 0 the FMA kernels, 1 wgmma
-    with 128-row blocks, 2 with 64-row blocks."""
+    """The forward, dq and dk/dv entry points' design: 0 the FMA kernels,
+    1 wgmma with 128-row blocks, 2 with 64-row blocks."""
     assert K.sparse_design(dtype, D) == ("fma" if want == 0 else "wgmma")
     assert K.sparse_design_code(dtype, D, block, heads, T, sms,
                                 kernel) == want

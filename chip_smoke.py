@@ -2,11 +2,11 @@
 
     python3 chip_smoke.py [--seed N] [--decode-only]
 
-``--decode-only`` runs the build and the decode kernel's rows alone (phase
-2's decode row and phase 5's two int8 decode rows) and prints them as one
-JSON line; it drives only the decode wrapper's public call, so it also
-times an older tree's package put first on the path, for comparisons of two
-commits in one call. Without it, phases in order; any failure exits
+``--decode-only`` runs the build and the decode and paged kernels' rows
+alone (phase 2's decode and paged rows, phase 5's two int8 decode rows and
+its int8 paged row) and prints them as one JSON line; it drives only the
+two wrappers' public calls, so it also times an older tree's package put
+first on the path, for comparisons of two commits in one call. Without it, phases in order; any failure exits
 non-zero:
 
 1. build    compile every CUDA kernel from ``deepspeed_tpu_torch/ops/csrc``
@@ -15,10 +15,12 @@ non-zero:
             the serving path's shapes, and time the kernel, the plain version,
             one PyTorch library call computing the same function (none
             reads a page table, so none for the paged kernel), and the
-            card's bound for the same work. The decode kernel (design mma:
-            mma.sync) is also held and timed in its FMA design, the same
-            split-S grouped kernel on the FMA units, and timed at 1, 2, 4
-            and 8 chunks beside decode_plan's choice. The flash forward and dk/dv
+            card's bound for the same work. The decode and paged kernels
+            (one template; design mma: mma.sync) are also held and timed in
+            their FMA design, the same split-S grouped kernel on the FMA
+            units, and timed at 1, 2, 4 and 8 chunks beside decode_plan's
+            and paged_plan's choice; the paged kernel beside the decode
+            kernel on the gathered dense view of its pages as well. The flash forward and dk/dv
             kernels (their design, wgmma or fma, in the kernels line) are
             also timed at every admission width (B=1, H=12, T 16..1024)
             beside their bounds and SDPA's forward and backward.
@@ -151,6 +153,12 @@ BF16_FLOPS_PER_S = 989e12
 # the TPU kernel does) and both round the output to bf16. Outputs are
 # weighted means of N(0, 1) values (|out| < 4, bf16 spacing <= 2^-6 there),
 # so two roundings stay under 3e-2; a masking or indexing bug gives O(1).
+# A query row that sees one position of an int8 cache is no mean: it
+# outputs that position's dequantized V row, above 4 in a few percent of
+# draws, where one bf16 step (2^-5 in [4, 8)) exceeds 3e-2 and the kernel's
+# rounding of p * v_scale to bf16 (2^-9 relative) can carry the output
+# rounding to the neighbouring step (on the H100: -4.125 against -4.09375,
+# row rel 0.0048). There the limit is that one bf16 step of the plain value.
 OUT_ATOL = 3e-2
 # The same comparison per output row (one query row of one head), as
 # ||kernel - plain|| / ||plain|| over D: a long slot's outputs are small
@@ -191,7 +199,7 @@ TRAIN_GRAD_TOL = 2e-2
 
 # bf16 decode and paged kernel times recorded in PERF.md (H100, 700 W), for
 # the side-by-side check that the int8 variants left the bf16 ones alone
-RECORDED_BF16_MS = {"decode_attention": 0.0108, "paged_decode_attention": 0.0130}
+RECORDED_BF16_MS = {"decode_attention": 0.0108, "paged_decode_attention": 0.0127}
 
 KERNELS = {
     "decode_attention": dict(
@@ -308,26 +316,29 @@ class patched:
         setattr(self.module, self.name, self.saved)
 
 
-def decode_designs(call, check, S: int, layers: int) -> dict:
-    """The decode kernel in its FMA design beside the rule's, and the rule's
-    design at 1, 2, 4 and 8 chunks of S (``decode_plan``'s choice is timed
-    as the row itself): ``check()`` holds the FMA design against the plain
+def decode_designs(call, check, S: int, layers: int,
+                   module: str = "decode_attention",
+                   plan: str = "decode_plan") -> dict:
+    """A decode kernel (the contiguous one, or with ``module`` and ``plan``
+    the paged one) in its FMA design beside the rule's, and the rule's
+    design at 1, 2, 4 and 8 chunks of S (the plan's choice is timed as the
+    row itself): ``check()`` holds the FMA design against the plain
     version, ``call()`` (``layers`` calls) is timed, a call's ms returned.
-    Empty for a package without designs (an older tree's)."""
+    Empty for a package without the plan (an older tree's)."""
     import importlib
 
-    da = importlib.import_module(
-        "deepspeed_tpu_torch.ops.attention.decode_attention")
-    if not hasattr(da, "decode_design"):
+    mod = importlib.import_module(f"deepspeed_tpu_torch.ops.attention.{module}")
+    if not hasattr(mod, plan):
         return {}
-    with patched(da, "decode_design", lambda *_: "fma"):
+    with patched(mod, "decode_design", lambda *_: "fma"):
         err = check()
         fma_ms = cuda_ms(call, reps=4) / layers
+    rnd = importlib.import_module(
+        "deepspeed_tpu_torch.ops.attention.decode_attention").PLAN_ROUND
     splits_ms = {}
     for splits in (1, 2, 4, 8):
-        rnd = da.PLAN_ROUND
         chunk = -(-S // (splits * rnd)) * rnd
-        with patched(da, "decode_plan", lambda *_, p=(-(-S // chunk), chunk): p):
+        with patched(mod, plan, lambda *_, p=(-(-S // chunk), chunk): p):
             splits_ms[-(-S // chunk)] = cuda_ms(call, reps=4) / layers
     return dict(fma_ms=fma_ms, fma_err=err, splits_ms=splits_ms)
 
@@ -342,16 +353,39 @@ def decode_variants_log(fma: dict) -> str:
             + " ms)")
 
 
+def paged_rule(B: int, T: int, H: int, KV: int, S: int, D: int) -> dict:
+    """The paged kernel's design and ``paged_plan``'s split at these shapes
+    (bf16 queries), for its row; empty for an older tree's package."""
+    import importlib
+
+    pa = importlib.import_module(
+        "deepspeed_tpu_torch.ops.attention.paged_attention")
+    if not hasattr(pa, "paged_plan"):
+        return {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, chunk = pa.paged_plan(B, T, H, KV, S, D, sms)
+    return dict(design=pa.decode_design(torch.bfloat16, D), splits=splits,
+                chunk=chunk)
+
+
 def compare(got: torch.Tensor, want: torch.Tensor, what: str) -> tuple:
-    """Hold a kernel's output against its plain version: max |err| within
-    OUT_ATOL and every row (last axis) within ROW_REL_TOL of the plain
-    row's norm. Returns (max |err|, max row relative error)."""
+    """Hold a kernel's output against its plain version: every |err|
+    within OUT_ATOL (one bf16 step of the plain value where |plain| >= 4)
+    and every row (last axis) within ROW_REL_TOL of the plain row's norm.
+    Returns (max |err|, max row relative error)."""
     got, want = got.float(), want.float()
-    err = (got - want).abs().max().item()
+    diff = (got - want).abs()
+    err = diff.max().item()
     rel = ((got - want).norm(dim=-1)
            / want.norm(dim=-1).clamp_min(1e-6)).max().item()
-    assert math.isfinite(err) and err <= OUT_ATOL, \
-        f"{what}: max |err| {err} > {OUT_ATOL}"
+    mag = want.abs()
+    step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(4.0))) - 7)
+    over = diff / torch.where(mag >= 4.0, step, torch.full_like(step, OUT_ATOL))
+    at = np.unravel_index(int(over.argmax()), tuple(diff.shape))
+    assert math.isfinite(err) and over.max().item() <= 1.0, \
+        f"{what}: |err| {diff[at].item()} over its limit at " \
+        f"{tuple(map(int, at))} (kernel {got[at].item()}, plain " \
+        f"{want[at].item()}; max |err| {err}, max row rel err {rel})"
     assert math.isfinite(rel) and rel <= ROW_REL_TOL, \
         f"{what}: max row rel err {rel} > {ROW_REL_TOL}"
     return err, rel
@@ -663,7 +697,10 @@ def slot_tables(gen: torch.Generator, T: int, P: int, ps: int,
 def paged_kernel(gen: torch.Generator) -> dict:
     """The paged kernel at the serving path's shapes: 8 slots, GPT-2 heads,
     64-position pages, 16 pages per slot, shuffled page ids, sentinels past
-    each slot's live pages, ragged starts on and beside page boundaries."""
+    each slot's live pages, ragged starts on and beside page boundaries;
+    also checked at TinyLlama's heads at T=8 (4 row tiles a KV head) and
+    over 24-position pages (16-position groups cross pages). T=1 is timed
+    beside the FMA design and 1, 2, 4, 8 chunks."""
     from deepspeed_tpu_torch.ops.attention.decode_attention import (
         alibi_slopes, decode_attention)
     from deepspeed_tpu_torch.ops.attention.paged_attention import (
@@ -675,39 +712,58 @@ def paged_kernel(gen: torch.Generator) -> dict:
     P = B * per_slot + 4
     scale = 1.0 / math.sqrt(D)
 
-    def inputs(T, H, KV):
-        k = torch.randn(L, P, KV, ps, D, generator=gen, device=dev).to(bf16)
-        v = torch.randn(L, P, KV, ps, D, generator=gen, device=dev).to(bf16)
+    def inputs(T, H, KV, layers=L, page=ps, pages=per_slot):
+        n = B * pages + 4
+        k = torch.randn(layers, n, KV, page, D, generator=gen,
+                        device=dev).to(bf16)
+        v = torch.randn(layers, n, KV, page, D, generator=gen,
+                        device=dev).to(bf16)
         q = torch.randn(B, T, H, D, generator=gen, device=dev).to(bf16)
-        return (q, k, v) + slot_tables(gen, T, P, ps, per_slot)
+        return (q, k, v) + slot_tables(gen, T, n, page, pages)
+
+    def check(q, k, v, table, starts, sl, what):
+        return compare(
+            paged_decode_attention(q, k, v, table, starts, alibi_slopes=sl),
+            paged_decode_attention_reference(q, k, v, table, starts, scale,
+                                             sl), what)
 
     err = rel = 0.0
-    cases = [(T, 12, 12, False) for T in (1, 4, 8)] + [(1, 12, 4, False),
-                                                       (4, 12, 4, False),
-                                                       (1, 12, 12, True),
-                                                       (8, 12, 12, True)]
-    for T, H, KV, alibi in cases:
-        q, k, v, table, starts = inputs(T, H, KV)
+    cases = [(T, 12, 12, False, ps) for T in (1, 4, 8)] + [
+        (1, 12, 4, False, ps), (4, 12, 4, False, ps), (1, 12, 12, True, ps),
+        (8, 12, 12, True, ps), (8, 32, 4, False, ps), (1, 12, 12, True, 24),
+        (8, 32, 4, False, 24)]
+    for T, H, KV, alibi, page in cases:
+        # 24-position pages: 43 a slot hold the 1024 positions; two layers
+        layers, pages = (L, per_slot) if page == ps else (2, -(-S // page))
+        q, k, v, table, starts = inputs(T, H, KV, layers, page, pages)
         sl = alibi_slopes(H).to(dev) if alibi else None
-        for layer in (0, L - 1):
-            got = paged_decode_attention(q, k[layer], v[layer], table, starts,
-                                         alibi_slopes=sl)
-            want = paged_decode_attention_reference(
-                q, k[layer], v[layer], table, starts, scale, sl)
-            e, r = compare(got, want, f"paged kernel vs plain (T={T}, "
-                           f"H={H}, KV={KV}, alibi={alibi})")
+        for layer in (0, layers - 1):
+            e, r = check(q, k[layer], v[layer], table, starts, sl,
+                         f"paged kernel vs plain (T={T}, H={H}, KV={KV}, "
+                         f"alibi={alibi}, page {page})")
             err, rel = max(err, e), max(rel, r)
+        del k, v
 
     # time the decode step's shape (T=1, H=KV=12) over the 12 layers in
     # turn, as a decode step reads them: 300 MB of pages, past the L2
     H = KV = 12
     q, k, v, table, starts = inputs(1, H, KV)
-    ms = cuda_ms(lambda: [paged_decode_attention(q, k[i], v[i], table, starts)
-                          for i in range(L)], reps=4) / L
+
+    def layers_call():
+        return [paged_decode_attention(q, k[i], v[i], table, starts)
+                for i in range(L)]
+
+    ms = cuda_ms(layers_call, reps=4) / L
+    slopes = alibi_slopes(H).to(dev)
+    fma = decode_designs(layers_call, lambda: max(
+        check(q, k[i], v[i], table, starts, sl,
+              "paged kernel, FMA design, vs plain")[0]
+        for sl in (None, slopes) for i in (0, L - 1)), S, L,
+        "paged_attention", "paged_plan")
     # the plain version reads the live length on the host: eager timing
     plain_ms = eager_ms(lambda: [paged_decode_attention_reference(
         q, k[i], v[i], table, starts, scale) for i in range(L)], reps=2) / L
-    # slice 1's decode kernel on the gathered dense view at the same lengths
+    # the decode kernel on the gathered dense view at the same lengths
     ids = table.long().clamp(max=P - 1).reshape(-1)
     dk, dv = (x[:, ids].reshape(L, B, per_slot, KV, ps, D)
               .permute(0, 1, 3, 2, 4, 5).reshape(L, B, KV, S, D).contiguous()
@@ -718,15 +774,19 @@ def paged_kernel(gen: torch.Generator) -> dict:
     live = int((starts.long() + 1).sum())
     pages_read = int(((starts.long() + ps) // ps).sum())
     esize = 2
+    rule = paged_rule(B, 1, H, KV, S, D)
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               dense_ms=dense_ms, **rule, **fma,
                **bound(2 * KV * live * D * esize + 2 * B * H * D * esize
                        + 4 * (pages_read + B), 4 * H * live * D))
     log(f"[kernels] paged_decode_attention B={B} H=KV={H} D={D} page {ps} x "
         f"{per_slot} pages/slot, P={P} shuffled, starts {starts.tolist()}; "
-        f"checked T 1/4/8, GQA 12/4, ALiBi: max|err| {err:.3g} (tol "
-        f"{OUT_ATOL}), row rel {rel:.3g} (tol {ROW_REL_TOL}); T=1 kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library none, bound "
-        f"{out['bound_ms']:.4f} ms")
+        f"checked T 1/4/8, GQA 12/4 and 32/4 (T=8: 4 row tiles), ALiBi, "
+        f"24-position pages: max|err| {err:.3g} (tol {OUT_ATOL}), row rel "
+        f"{rel:.3g} (tol {ROW_REL_TOL}); T=1 kernel {ms:.4f} ms "
+        f"({rule.get('design', 'older tree')}, plan {rule.get('splits')} x "
+        f"{rule.get('chunk')}){decode_variants_log(fma)}, plain "
+        f"{plain_ms:.4f} ms, library none, bound {out['bound_ms']:.4f} ms")
     log(f"[kernels] decode_attention on the gathered dense view, same "
         f"lengths: {dense_ms:.4f} ms (paged/dense {ms / dense_ms:.3f})")
     return out
@@ -1167,8 +1227,10 @@ def int8_decode_kernel(gen: torch.Generator, L: int, H: int, KV: int,
 def int8_paged_kernel(gen: torch.Generator) -> dict:
     """The int8 paged kernel with TinyLlama's heads (32 over 4 KV heads,
     D=64): 8 slots, 64-position pages, 16 pages per slot, shuffled ids,
-    sentinels past each slot's live pages; T 1/4/8 and ALiBi checked, T=1
-    timed over 22 layers' pools (95 MB, past the L2)."""
+    sentinels past each slot's live pages; T 1/4/8 (T=8: 4 row tiles a KV
+    head), ALiBi and 24-position pages checked, T=1 timed over 22 layers'
+    pools (95 MB, past the L2) beside the FMA design and 1, 2, 4, 8
+    chunks."""
     from deepspeed_tpu_torch.ops.attention.decode_attention import (
         alibi_slopes, decode_attention, quantize_kv_rows)
     from deepspeed_tpu_torch.ops.attention.paged_attention import (
@@ -1179,34 +1241,57 @@ def int8_paged_kernel(gen: torch.Generator) -> dict:
     S = ps * per_slot
     P = B * per_slot + 4
     scale = 1.0 / math.sqrt(D)
-    k8, ks = quantize_kv_rows(torch.randn(L, P, KV, ps, D, generator=gen,
-                                          device=dev))
-    v8, vs = quantize_kv_rows(torch.randn(L, P, KV, ps, D, generator=gen,
-                                          device=dev))
 
-    def inputs(T):
-        q = torch.randn(B, T, H, D, generator=gen, device=dev).to(bf16)
-        return (q,) + slot_tables(gen, T, P, ps, per_slot)
+    def pools(layers, page, pages):
+        shape = (layers, B * pages + 4, KV, page, D)
+        return (quantize_kv_rows(torch.randn(shape, generator=gen,
+                                             device=dev))
+                + quantize_kv_rows(torch.randn(shape, generator=gen,
+                                               device=dev)))
+
+    k8, ks, v8, vs = pools(L, ps, per_slot)
+
+    def check(args, layer, sl, what):
+        q, k8, ks, v8, vs, table, starts = args
+        a = (q, k8[layer], v8[layer], table, starts)
+        return compare(paged_decode_attention(
+            *a, alibi_slopes=sl, k_scale_pages=ks[layer],
+            v_scale_pages=vs[layer]), paged_decode_attention_reference(
+            *a, scale, sl, ks[layer], vs[layer]), what)
 
     err = rel = 0.0
-    for T, alibi in ((1, False), (4, False), (8, False), (1, True),
-                     (8, True)):
-        q, table, starts = inputs(T)
+    # 24-position pages: 43 a slot hold the 1024 positions; two layers
+    pages24 = -(-S // 24)
+    small = pools(2, 24, pages24)
+    for T, alibi, page in ((1, False, ps), (4, False, ps), (8, False, ps),
+                           (1, True, ps), (8, True, ps), (1, True, 24),
+                           (8, False, 24)):
+        q = torch.randn(B, T, H, D, generator=gen, device=dev).to(bf16)
+        pool, layers = ((k8, ks, v8, vs), L) if page == ps else (small, 2)
+        args = (q, *pool) + slot_tables(
+            gen, T, B * (per_slot if page == ps else pages24) + 4, page,
+            per_slot if page == ps else pages24)
         sl = alibi_slopes(H).to(dev) if alibi else None
-        for layer in (0, L - 1):
-            args = (q, k8[layer], v8[layer], table, starts)
-            got = paged_decode_attention(*args, alibi_slopes=sl,
-                                         k_scale_pages=ks[layer],
-                                         v_scale_pages=vs[layer])
-            want = paged_decode_attention_reference(*args, scale, sl,
-                                                    ks[layer], vs[layer])
-            e, r = compare(got, want, f"int8 paged kernel vs plain (T={T}, "
-                           f"alibi={alibi})")
+        for layer in (0, layers - 1):
+            e, r = check(args, layer, sl, f"int8 paged kernel vs plain "
+                         f"(T={T}, alibi={alibi}, page {page})")
             err, rel = max(err, e), max(rel, r)
-    q, table, starts = inputs(1)
-    ms = cuda_ms(lambda: [paged_decode_attention(
-        q, k8[i], v8[i], table, starts, k_scale_pages=ks[i],
-        v_scale_pages=vs[i]) for i in range(L)], reps=4) / L
+    del small
+    q = torch.randn(B, 1, H, D, generator=gen, device=dev).to(bf16)
+    table, starts = slot_tables(gen, 1, P, ps, per_slot)
+
+    def layers_call():
+        return [paged_decode_attention(
+            q, k8[i], v8[i], table, starts, k_scale_pages=ks[i],
+            v_scale_pages=vs[i]) for i in range(L)]
+
+    ms = cuda_ms(layers_call, reps=4) / L
+    slopes = alibi_slopes(H).to(dev)
+    fma = decode_designs(layers_call, lambda: max(
+        check((q, k8, ks, v8, vs, table, starts), i, sl,
+              "int8 paged kernel, FMA design, vs plain")[0]
+        for sl in (None, slopes) for i in (0, L - 1)), S, L,
+        "paged_attention", "paged_plan")
     plain_ms = eager_ms(lambda: [paged_decode_attention_reference(
         q, k8[i], v8[i], table, starts, scale, None, ks[i], vs[i])
         for i in range(L)], reps=2) / L
@@ -1224,14 +1309,19 @@ def int8_paged_kernel(gen: torch.Generator) -> dict:
         for i in range(L)], reps=4) / L
     live = int((starts.long() + 1).sum())
     pages_read = int(((starts.long() + ps) // ps).sum())
+    rule = paged_rule(B, 1, H, KV, S, D)
     out = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+               dense_ms=dense_ms, **rule, **fma,
                **bound(2 * KV * live * (D + 4) + 2 * B * H * D * 2
                        + 4 * (pages_read + B), 4 * H * live * D))
     log(f"[int8_kernels] paged_decode_attention_int8 B={B} H={H} KV={KV} "
         f"D={D} page {ps} x {per_slot} pages/slot, P={P} shuffled; checked T "
-        f"1/4/8 and ALiBi: max|err| {err:.3g}, row rel {rel:.3g} (tol "
-        f"{ROW_REL_TOL}); T=1 kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library none, bound {out['bound_ms']:.4f} ms")
+        f"1/4/8 (T=8: 4 row tiles), ALiBi, 24-position pages: max|err| "
+        f"{err:.3g}, row rel {rel:.3g} (tol {ROW_REL_TOL}); T=1 kernel "
+        f"{ms:.4f} ms ({rule.get('design', 'older tree')}, plan "
+        f"{rule.get('splits')} x {rule.get('chunk')})"
+        f"{decode_variants_log(fma)}, plain {plain_ms:.4f} ms, library none, "
+        f"bound {out['bound_ms']:.4f} ms")
     log(f"[int8_kernels] decode_attention_int8 on the gathered dense view, "
         f"same lengths: {dense_ms:.4f} ms (paged/dense {ms / dense_ms:.3f})")
     return out
@@ -1243,8 +1333,8 @@ def phase_int8_kernels(gen: torch.Generator, decode_only: bool = False,
     shapes (GPT-2 heads, printed beside it) and at the shapes
     ``serve_int8_contiguous`` gives it (TinyLlama's 22 layers, GQA 32/4, 4
     slots of 2048 positions), which make its JSON row. ``decode_only``:
-    those two into ``rows`` (under ``..._gpt2`` for the first), nothing
-    else."""
+    those two and the int8 paged row into ``rows`` (the first under
+    ``..._gpt2``), nothing else."""
     gpt2 = int8_decode_kernel(gen, 12, 12, 12, 1024,
                               [1, 517, 1024, 1, 300, 1024, 64, 999],
                               "gpt2 shapes")
@@ -1254,7 +1344,8 @@ def phase_int8_kernels(gen: torch.Generator, decode_only: bool = False,
         "serve_int8_contiguous shapes")
     if decode_only:
         rows.update(decode_attention_int8=contiguous,
-                    decode_attention_int8_gpt2=gpt2)
+                    decode_attention_int8_gpt2=gpt2,
+                    paged_decode_attention_int8=int8_paged_kernel(gen))
         return rows
     int8_fragment_probe(gen)
     return {"int8_matmul": int8_matmul_kernel(gen),
@@ -2473,7 +2564,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--decode-only", action="store_true",
-                    help="build, then time the decode kernel's rows alone")
+                    help="build, then time the decode and paged kernels' "
+                    "rows alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2485,7 +2577,8 @@ def main(argv=None) -> int:
 
     card = phase_build()
     if args.decode_only:
-        rows = {"decode_attention": decode_kernel_row(gen)}
+        rows = {"decode_attention": decode_kernel_row(gen),
+                "paged_decode_attention": paged_kernel(gen)}
         phase_int8_kernels(gen, decode_only=True, rows=rows)
         log(card)
         print(json.dumps({"decode_rows": rows}), flush=True)

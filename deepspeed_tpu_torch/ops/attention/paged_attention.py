@@ -6,8 +6,14 @@ Port of ``deepspeed_tpu/ops/attention/paged_attention.py``. The kernel is
 ``paged_decode_attention`` (paged_attention.py:125 in the JAX package;
 ``pallas_call`` at :247, body ``_paged_kernel`` at :58). It reads the
 serving pool's pages in place through the per-slot page table, so no dense
-per-slot view of the cache is built. Its header says what bounds it on the
-H100 (bytes) and how it reads only live pages.
+per-slot view of the cache is built. It is the contiguous decode kernel
+(``ops/csrc/decode_sm90.cuh``, shared with ``decode_attention.cu``) with
+the page table as its row source and a limit of its own for each query row,
+as the JAX kernel mirrors its dense decode kernel: one block per (slot, KV
+head, tile of 16 (query row, query head) pairs, S-chunk), in
+:func:`~.decode_attention.decode_design`'s design (``"mma"``:
+``mma.sync`` on the tensor cores, ``"fma"``: the FMA units) over
+:func:`paged_plan`'s chunks, chosen from the shapes alone.
 
 Page layout: one layer's pool is (P, KV, page_size, D), positions-major, in
 the compute dtype, matching the contiguous cache's (B, KV, S, D); for the
@@ -29,18 +35,33 @@ from typing import Optional
 
 import torch
 
-from .decode_attention import SUPPORTED_HEAD_DIMS, window_attention_reference
+from .decode_attention import (SUPPORTED_HEAD_DIMS, decode_design,
+                               decode_plan, window_attention_reference)
 
 __all__ = ["MAX_QUERY_ROWS", "page_writes", "paged_decode_attention",
-           "paged_decode_attention_reference"]
+           "paged_decode_attention_reference", "paged_plan"]
 
 # query rows per slot one call serves: plain decode (1) and speculative
-# verify (K + 1). The kernel keeps one online-softmax state per row in
-# registers; 8 is where that state (8 rows x 16 bytes of accumulator per
-# lane) still fits the register budget of a 256-thread block
+# verify (K + 1), the JAX kernel's sublane count. The kernel's A rows are
+# the T x (H / KV) (query row, query head) pairs of a KV head, 16 to a tile
 MAX_QUERY_ROWS = 8
-# page-table entries a block stages in shared memory (32 KB)
-MAX_TABLE_PAGES = 8192
+# page-table entries one block stages in shared memory (64 KB): a chunk of
+# the plan touches at most ceil(chunk / page_size) + 1 pages
+MAX_TABLE_PAGES = 16384
+
+
+def paged_plan(B: int, T: int, H: int, KV: int, S: int, D: int,
+               sm_count: int) -> tuple:
+    """``(splits, chunk)``: the kernel's split of a slot's ``S`` positions
+    (``max_pages * page_size``) into ``splits`` chunks of ``chunk``
+    positions, one block each. The contiguous kernel's rule
+    (:func:`~.decode_attention.decode_plan`) with a block's A rows the
+    ``T * H / KV`` (query row, query head) pairs of a KV head: as many
+    chunks as keep the ``B * KV * ceil(T * (H / KV) / 16)`` tiles times
+    ``splits`` within one block an SM of the card's ``sm_count``. From the
+    shapes only, never from the starts (they live on the device: reading
+    them would sync the host and could not be captured in a CUDA graph)."""
+    return decode_plan(B, T * H, KV, S, D, sm_count)
 
 
 def page_writes(positions, table, num_pages: int, page_size: int):
@@ -107,7 +128,9 @@ def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
       alibi_slopes: optional (H,) fp32 ALiBi slopes.
       k_scale_pages, v_scale_pages: (P, KV, page_size) fp32 per-row scales
         of int8 pages (row value = int8 * scale); both or neither.
-    Returns (B, T, H, D) in q's dtype. On CUDA each launch adds one to
+    Returns (B, T, H, D) in q's dtype. On CUDA each call (the kernel in
+    ``decode_design``'s design over :func:`paged_plan`'s chunks, then the
+    combine kernel if there are several) adds one to
     ``paged_decode_attention.launches``, or to
     ``paged_decode_attention.int8_launches`` for int8 pages.
     """
@@ -161,9 +184,12 @@ def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
             raise ValueError(f"{name} must be contiguous {shape} int32 on "
                              f"{q.device}; got {tuple(t.shape)} {t.dtype} "
                              f"{t.device}")
-    if table.shape[1] > MAX_TABLE_PAGES:
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = paged_plan(B, T, H, KV, table.shape[1] * ps, D, sms)
+    if -(-plan[1] // ps) + 1 > MAX_TABLE_PAGES:
         raise ValueError(f"paged kernel stages at most {MAX_TABLE_PAGES} "
-                         f"table entries per slot, got {table.shape[1]}")
+                         f"table entries a block; a chunk of {plan[1]} "
+                         f"positions over pages of {ps} touches more")
     tensors = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages)]
     if quantized:
         if k_scale_pages.dtype != torch.float32 \
@@ -182,19 +208,25 @@ def paged_decode_attention(q, k_pages, v_pages, table, starts, *,
                              f"aligned, on {q.device}")
     slopes = alibi_slopes.data_ptr() if alibi_slopes is not None else None
     out = torch.empty_like(q)
+    design = 1 if decode_design(q.dtype, D) == "mma" else 0
+    # the chunks' (m, l, acc) states, merged by the second kernel
+    scratch = (torch.empty(B * T * H * plan[0] * (2 + D), dtype=torch.float32,
+                           device=q.device) if plan[0] > 1 else None)
+    partials = scratch.data_ptr() if scratch is not None else None
+    shapes = (B, T, H, KV, P, ps, table.shape[1], D, *plan, float(scale))
     if quantized:
         launch("paged_decode_attention", q.device, DTYPE_CODES[q.dtype],
-               q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+               design, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
                table.data_ptr(), starts.data_ptr(), slopes, out.data_ptr(),
-               B, T, H, KV, P, ps, table.shape[1], D, float(scale),
+               partials, *shapes,
                symbol="dstorch_paged_decode_attention_int8")
         paged_decode_attention.int8_launches += 1
         return out
-    launch("paged_decode_attention", q.device, DTYPE_CODES[q.dtype],
+    launch("paged_decode_attention", q.device, DTYPE_CODES[q.dtype], design,
            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-           table.data_ptr(), starts.data_ptr(), slopes, out.data_ptr(), B, T,
-           H, KV, P, ps, table.shape[1], D, float(scale))
+           table.data_ptr(), starts.data_ptr(), slopes, out.data_ptr(),
+           partials, *shapes)
     paged_decode_attention.launches += 1
     return out
 

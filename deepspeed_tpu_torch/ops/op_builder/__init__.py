@@ -47,12 +47,10 @@ SIGNATURES = {
                                         _I, _I, _I, _I, _F, _I, _P],
         "dstorch_wgmma_pack_probe": [_I, _P, _P, _P, _P, _P]},
     "paged_decode_attention": {
-        "dstorch_paged_decode_attention": [_I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                           _I, _I, _I, _I, _I, _I, _I, _F,
-                                           _P],
-        "dstorch_paged_decode_attention_int8": [_I, _P, _P, _P, _P, _P, _P,
-                                                _P, _P, _P, _I, _I, _I, _I,
-                                                _I, _I, _I, _I, _F, _P]},
+        "dstorch_paged_decode_attention": [_I, _I] + [_P] * 8 + [_I] * 10 + [
+            _F, _P],
+        "dstorch_paged_decode_attention_int8": [_I, _I] + [_P] * 10 + [
+            _I] * 10 + [_F, _P]},
     "int8_matmul": {
         "dstorch_int8_matmul": [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I,
                                 _P]},

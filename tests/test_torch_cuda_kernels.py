@@ -8,15 +8,18 @@ Tolerances: fp32 inputs differ from the plain version only in summation
 order (1e-4 absolute on unit-scale outputs); bf16/fp16 add the rounding of
 p to the input dtype before the PV product and of the output (3e-2 on
 outputs below 4 in magnitude). lse is fp32 in every case (1e-3). The paged
-kernel takes the same tolerances as the decode kernel it generalizes, and
-the int8-cache variants the same again (their scaled probabilities are
-rounded to bf16 for bf16 queries only).
+kernel is the decode kernel over a page table (one template,
+``decode_sm90.cuh``) and takes its tolerances, and the int8-cache variants
+the same again (their scaled probabilities are rounded to bf16 for bf16
+queries only).
 
 The decode kernel has two designs (``decode_design``): mma.sync for
 bf16/fp16 at D = 64 and 128, FMA otherwise, so the grids reach both; its
 lengths put ``decode_plan``'s chunks empty, partial and full. Its permuted
 operand layouts fail silently, so one-hot queries over small-integer V
-rows hold it exactly, in both designs and cache types.
+rows hold it exactly, in both designs and cache types. The paged grids add
+page sizes off 16, forced chunk counts and up to 4 row tiles a KV head
+(8 rows of 8 heads), and one-hot cases of their own.
 
 The training kernels (flash dq and dkv, ln_linear forward and
 backward-dx) compute in fp32 with their plain versions' roundings (ds and p
@@ -154,27 +157,52 @@ def test_flash_kernel_matches_plain(gen, dtype, D, causal, T, S):
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
 
 
-@pytest.mark.parametrize("dtype", list(TOL))
-@pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("T", [1, 2, 5, 8])
-@pytest.mark.parametrize("H,KV,alibi", [(4, 4, False), (8, 2, False),
-                                        (4, 4, True)])
-def test_paged_kernel_matches_plain(gen, dtype, D, T, H, KV, alibi):
+# (H, KV, ALiBi) of the paged grids: MHA, GQA, ALiBi, MQA (8 query heads a
+# KV head: 8 rows make 4 row tiles) and TinyLlama's 32 over 4
+PAGED_HEADS = [(4, 4, False), (8, 2, False), (4, 4, True), (8, 1, False),
+               (32, 4, False)]
+# (page size, chunks): the plan's own, a page size off 16 (a 16-position
+# group crosses a page boundary), and 1, 2, 4 chunks forced
+PAGED_SPLITS = [(16, None), (24, None), (8, 1), (24, 2), (16, 4)]
+
+
+def _paged_case(gen, T, ps, splits, monkeypatch):
     """Shuffled page ids, sentinels past each slot's live pages, starts on
     and beside page boundaries, a slot at length 0 (one live position)
-    and one whose rows run to the last position of its table."""
-    B, ps, max_pages = 6, 16, 8
+    and one whose rows run to the last position of its table; ``splits``
+    forces that many chunks of whole rounds. Returns (table, starts, P)."""
+    import deepspeed_tpu_torch.ops.attention.paged_attention as pa
+
+    B, max_pages = 6, 16
+    S = max_pages * ps
+    if splits is not None:
+        chunk = -(-S // (splits * 64)) * 64
+        assert -(-S // chunk) == splits
+        monkeypatch.setattr(pa, "paged_plan", lambda *_: (splits, chunk))
     P = B * max_pages + 3
-    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
-    k = torch.randn(P, KV, ps, D, generator=gen, device="cuda").to(dtype)
-    v = torch.randn(P, KV, ps, D, generator=gen, device="cuda").to(dtype)
-    starts = torch.tensor([0, 15, 16, 17, 77, max_pages * ps - T],
-                          dtype=torch.int32, device="cuda")
+    starts = torch.tensor([0, 15, 16, 17, 77, S - T], dtype=torch.int32,
+                          device="cuda")
     perm = torch.randperm(P, generator=gen, device="cuda")[:B * max_pages]
     table = perm.reshape(B, max_pages).to(torch.int32)
     live = (starts.long() + T + ps - 1) // ps
     dead = torch.arange(max_pages, device="cuda")[None] >= live[:, None]
-    table = table.masked_fill(dead, P).contiguous()
+    return table.masked_fill(dead, P).contiguous(), starts, P
+
+
+@pytest.mark.parametrize("dtype", list(TOL))
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("T", [1, 2, 5, 8])
+@pytest.mark.parametrize("H,KV,alibi", PAGED_HEADS)
+@pytest.mark.parametrize("ps,splits", PAGED_SPLITS)
+def test_paged_kernel_matches_plain(gen, monkeypatch, dtype, D, T, H, KV,
+                                    alibi, ps, splits):
+    """Every (dtype, D) reaches its design (mma for bf16/fp16, FMA for
+    fp32) over the layout of ``_paged_case``."""
+    table, starts, P = _paged_case(gen, T, ps, splits, monkeypatch)
+    B = starts.shape[0]
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+    k = torch.randn(P, KV, ps, D, generator=gen, device="cuda").to(dtype)
+    v = torch.randn(P, KV, ps, D, generator=gen, device="cuda").to(dtype)
     slopes = alibi_slopes(H).cuda() if alibi else None
     before = paged_decode_attention.launches
     got = paged_decode_attention(q, k, v, table, starts, alibi_slopes=slopes)
@@ -357,23 +385,16 @@ def test_decode_entries_refuse_what_the_plan_does_not_give(gen):
 @pytest.mark.parametrize("dtype", list(TOL))
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("T", [1, 2, 5, 8])
-@pytest.mark.parametrize("H,KV,alibi", [(4, 4, False), (8, 2, False),
-                                        (4, 4, True)])
-def test_int8_paged_kernel_matches_plain(gen, dtype, D, T, H, KV, alibi):
-    """The paged test's layout (shuffled ids, sentinels, a slot at length
-    0, one running to its table's end) over int8 pages with scale pages."""
-    B, ps, max_pages = 6, 16, 8
-    P = B * max_pages + 3
+@pytest.mark.parametrize("H,KV,alibi", PAGED_HEADS)
+@pytest.mark.parametrize("ps,splits", PAGED_SPLITS)
+def test_int8_paged_kernel_matches_plain(gen, monkeypatch, dtype, D, T, H,
+                                         KV, alibi, ps, splits):
+    """The paged test's layout over int8 pages with scale pages."""
+    table, starts, P = _paged_case(gen, T, ps, splits, monkeypatch)
+    B = starts.shape[0]
     q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
     k8, ks = _int8_rows(gen, P, KV, ps, D)
     v8, vs = _int8_rows(gen, P, KV, ps, D)
-    starts = torch.tensor([0, 15, 16, 17, 77, max_pages * ps - T],
-                          dtype=torch.int32, device="cuda")
-    perm = torch.randperm(P, generator=gen, device="cuda")[:B * max_pages]
-    table = perm.reshape(B, max_pages).to(torch.int32)
-    live = (starts.long() + T + ps - 1) // ps
-    dead = torch.arange(max_pages, device="cuda")[None] >= live[:, None]
-    table = table.masked_fill(dead, P).contiguous()
     slopes = alibi_slopes(H).cuda() if alibi else None
     before = paged_decode_attention.int8_launches
     got = paged_decode_attention(q, k8, v8, table, starts,
@@ -386,6 +407,144 @@ def test_int8_paged_kernel_matches_plain(gen, dtype, D, T, H, KV, alibi):
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype,design", [
+    (torch.bfloat16, "mma"), (torch.float16, "mma"), (torch.bfloat16, "fma"),
+    (torch.float32, "fma")])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KV", [(12, 12), (32, 4), (8, 1)])
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernel_one_hot_is_exact(gen, monkeypatch, dtype, design, D,
+                                       H, KV, T, int8):
+    """The paged kernel's fragments, as the decode kernel's one-hot test
+    holds them: each (query row t, head) pair of a KV head queries its own
+    dim t * g + (h % g) with 100, and its KV head's K holds a single 1 there
+    at a random position that every row of the slot sees, read through
+    shuffled 24-position pages (a group crosses pages); every other score is
+    0, so p is 1 there and exp(-100) elsewhere, which the kernels' exp2
+    flushes to 0, and out is that position's V row of small integers,
+    exactly. A wrong row, head, dim, position, page or output column, or a
+    wrong chunk merge (the rule gives 3, 8 and 16 chunks here), moves whole
+    entries."""
+    import deepspeed_tpu_torch.ops.attention.paged_attention as pa
+
+    monkeypatch.setattr(pa, "decode_design", lambda *_: design)
+    B, ps, max_pages = 3, 24, 42
+    S, g = ps * max_pages, H // KV
+    P = B * max_pages + 2
+    starts = torch.tensor([S - T, 417, 0], dtype=torch.int32, device="cuda")
+    table = torch.randperm(P, generator=gen, device="cuda")[:B * max_pages] \
+        .reshape(B, max_pages).to(torch.int32)
+    live = (starts.long() + T + ps - 1) // ps
+    table = table.masked_fill(torch.arange(max_pages, device="cuda")[None]
+                              >= live[:, None], P).contiguous()
+    h = torch.arange(H, device="cuda")
+    kvh = h // g
+    dim = torch.arange(T, device="cuda")[:, None] * g + h[None] % g  # (T, H)
+    target = (torch.rand(B, T, H, generator=gen, device="cuda")
+              * (starts.float()[:, None, None] + 1)).long()          # <= start
+    q = torch.zeros(B, T, H, D, device="cuda")
+    q[:, torch.arange(T)[:, None], h[None], dim] = 100.0
+    k = torch.zeros(P, KV, ps, D, device="cuda")
+    page = table.long().gather(1, target.reshape(B, -1) // ps).reshape(B, T, H)
+    k[page, kvh, target % ps, dim.expand(B, T, H)] = 1.0
+    v = torch.randint(-8, 9, (P, KV, ps, D), generator=gen,
+                      device="cuda").float()
+    want = v[page, kvh, target % ps]                          # (B, T, H, D)
+    q = q.to(dtype)
+    if int8:
+        ones = torch.ones(P, KV, ps, device="cuda")
+        got = paged_decode_attention(q, k.to(torch.int8), v.to(torch.int8),
+                                     table, starts, scale=1.0,
+                                     k_scale_pages=ones, v_scale_pages=ones)
+    else:
+        got = paged_decode_attention(q, k.to(dtype), v.to(dtype), table,
+                                     starts, scale=1.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernel_is_deterministic(gen, int8):
+    """The chunks merge in rank order: the same inputs give the same bits
+    (TinyLlama's heads over 64-position pages, 4 chunks a tile; and T = 8,
+    4 row tiles a KV head)."""
+    B, H, KV, D, ps, max_pages = 8, 32, 4, 64, 64, 16
+    P = B * max_pages
+    table = torch.randperm(P, generator=gen, device="cuda").reshape(
+        B, max_pages).to(torch.int32)
+    starts = torch.tensor([0, 1017, 500, 64, 63, 700, 1, 900],
+                          dtype=torch.int32, device="cuda")
+    if int8:
+        k8, ks = _int8_rows(gen, P, KV, ps, D)
+        v8, vs = _int8_rows(gen, P, KV, ps, D)
+        pages = dict(k_pages=k8, v_pages=v8, k_scale_pages=ks,
+                     v_scale_pages=vs)
+    else:
+        pages = dict(k_pages=torch.randn(P, KV, ps, D, generator=gen,
+                                         device="cuda").bfloat16(),
+                     v_pages=torch.randn(P, KV, ps, D, generator=gen,
+                                         device="cuda").bfloat16())
+    for T in (1, 8):
+        q = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+        runs = [paged_decode_attention(q, table=table, starts=starts, **pages)
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+def test_paged_entries_refuse_what_the_plan_does_not_give(gen):
+    """The entry points take design 0 (FMA: every dtype, D 32, 64, 128) and
+    1 (mma.sync: bf16 and fp16 at D 64 and 128), 1..8 query rows, and a plan
+    of 1..16 chunks of whole 64-position rounds that covers a slot's
+    max_pages * page_size positions with none past it, with fp32 partials
+    for more than one chunk and page ids a block can stage; they refuse
+    anything else."""
+    from deepspeed_tpu_torch.ops.op_builder import (KernelLaunchError,
+                                                    launch)
+
+    B, H, KV = 2, 8, 2
+
+    def run(dtype, D, design, splits, chunk, scratch=True, T=1, ps=16,
+            max_pages=64):
+        P = B * max_pages
+        q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dtype)
+        kv = torch.randn(P, KV, ps, D, generator=gen, device="cuda").to(dtype)
+        table = torch.arange(P, dtype=torch.int32, device="cuda").reshape(
+            B, max_pages)
+        starts = torch.full((B,), max_pages * ps - T, dtype=torch.int32,
+                            device="cuda")
+        out = torch.empty_like(q)
+        part = torch.empty(B * T * H * splits * (2 + D), device="cuda")
+        launch("paged_decode_attention", q.device, DTYPE[dtype], design,
+               q.data_ptr(), kv.data_ptr(), kv.data_ptr(), table.data_ptr(),
+               starts.data_ptr(), None, out.data_ptr(),
+               part.data_ptr() if scratch else None, B, T, H, KV, P, ps,
+               max_pages, D, splits, chunk, 0.125)
+        torch.cuda.synchronize()
+
+    for args in ((torch.bfloat16, 64, 1, 4, 256), (torch.float16, 128, 1, 1, 1024),
+                 (torch.bfloat16, 32, 0, 2, 512), (torch.float32, 64, 0, 16, 64),
+                 (torch.bfloat16, 64, 1, 1, 1024, False),
+                 (torch.bfloat16, 64, 1, 2, 512, True, 8)):
+        run(*args)                                           # taken
+    for args in ((torch.float32, 64, 1, 4, 256),             # fp32 on mma
+                 (torch.bfloat16, 32, 1, 4, 256),            # D 32 on mma
+                 (torch.bfloat16, 64, 2, 4, 256),            # no design 2
+                 (torch.bfloat16, 64, 1, 3, 256),            # S not covered
+                 (torch.bfloat16, 64, 1, 5, 256),            # a chunk past S
+                 (torch.bfloat16, 64, 1, 8, 128 + 32),       # not whole rounds
+                 (torch.bfloat16, 64, 1, 32, 32),            # over 16 chunks
+                 (torch.bfloat16, 64, 1, 4, 256, False),     # no partials
+                 (torch.bfloat16, 64, 1, 4, 256, True, 9),   # 9 query rows
+                 (torch.bfloat16, 64, 1, 4, 256, True, 0),   # no query row
+                 # one chunk of 20032 positions over 1-position pages
+                 # stages more ids than a block holds
+                 (torch.bfloat16, 64, 1, 1, 20032, True, 1, 1, 20000)):
+        with pytest.raises(KernelLaunchError):
+            run(*args)
 
 
 @pytest.mark.parametrize("M", [1, 3, 8, 16, 17, 64, 300, 512, 1000])

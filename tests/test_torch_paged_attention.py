@@ -9,12 +9,24 @@ slot's live pages hold the sentinel ``P``, and starts sit on and beside
 page boundaries. Tolerance 1e-5 absolute (fp32, unit-scale outputs): the
 kernel's per-page online softmax against one full softmax.
 
+The CUDA kernel splits a slot's positions into ``paged_plan``'s chunks
+(from the shapes only) and merges them in chunk order, each query row
+masked at its own limit ``starts[b] + t``; that split and merge are
+emulated in plain torch, step for step as in
+``test_torch_decode_attention.py``, and held against the JAX kernel with
+that file's tolerances: 2e-5 on fp32 pages, where nothing is rounded and
+the merge's algebra is pinned (a position dropped or counted twice moves an
+output by about 1/64), and 3e-2 on bf16 and int8 pages (bf16 queries),
+where both sides round p (times the V scale) to bf16 relative to the
+running maxima of different blocks and round outputs below 4 to bf16.
+
 ``dense_from_pages`` and ``decode_paged`` against their JAX counterparts
 on the same weights (through ``checkpoint.flax_import``): the gathered
 cache exactly, the step's logits and the written pages within 1e-4
 (summation order over two layers, as ``test_torch_transformer_lm.py``).
 """
 
+import inspect
 import math
 
 import jax
@@ -29,8 +41,10 @@ from deepspeed_tpu.ops.attention.paged_attention import \
     paged_decode_attention as jax_paged
 from deepspeed_tpu_torch.checkpoint.flax_import import state_dict_from_flax
 from deepspeed_tpu_torch.models import transformer_lm as P
+from deepspeed_tpu_torch.ops.attention.decode_attention import (
+    MAX_SPLITS, PLAN_ROUND, alibi_slopes, quantize_kv_rows)
 from deepspeed_tpu_torch.ops.attention.paged_attention import (
-    MAX_QUERY_ROWS, paged_decode_attention)
+    MAX_QUERY_ROWS, paged_decode_attention, paged_plan)
 
 ATOL = 1e-5
 MODEL_ATOL = 1e-4
@@ -70,6 +84,158 @@ def test_plain_version_matches_jax_kernel(T, H, KV, alibi):
         alibi_slopes=None if slopes is None else torch.from_numpy(slopes))
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
     assert paged_decode_attention.launches == 0  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("B,T,H,KV,S,D,sms,want", [
+    # serve_paged: GPT-2's 12 heads, 8 slots of 16 x 64 positions (96 tiles)
+    (8, 1, 12, 12, 1024, 64, 132, (1, 1024)),
+    # its verify width: 8 rows x 1 head still fit one tile a KV head
+    (8, 8, 12, 12, 1024, 64, 132, (1, 1024)),
+    # serve_int8: TinyLlama's 32 heads over 4 (32 tiles: 4 chunks)
+    (8, 1, 32, 4, 1024, 64, 132, (4, 256)),
+    # its verify width: 8 rows x 8 heads are 4 row tiles a KV head
+    (8, 8, 32, 4, 1024, 64, 132, (1, 1024)),
+    # one slot over one KV head: 16 chunks
+    (1, 1, 8, 1, 4096, 64, 132, (16, 256)),
+    # a slot's capacity below one round: one chunk of one round
+    (2, 4, 8, 8, 40, 64, 132, (1, 64)),
+])
+def test_paged_plan(B, T, H, KV, S, D, sms, want):
+    """The paged kernel's split of a slot's capacity: the decode kernel's
+    rule over ``B * KV * ceil(T * (H / KV) / 16)`` tiles, from the shapes
+    alone (no starts or table argument), 1 to 16 chunks of whole 64-position
+    rounds covering S with none past it."""
+    params = inspect.signature(paged_plan).parameters
+    assert "starts" not in params and "table" not in params
+    splits, chunk = paged_plan(B, T, H, KV, S, D, sms)
+    assert (splits, chunk) == want
+    assert 1 <= splits <= MAX_SPLITS and chunk % PLAN_ROUND == 0
+    assert (splits - 1) * chunk < S <= splits * chunk
+    assert paged_plan(B, T, H, KV, S, D, sms) == (splits, chunk)
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def paged_split_merge_emulation(q, k_pages, v_pages, table, starts, scale,
+                                slopes, ks_pages, vs_pages, plan, rounded):
+    """The CUDA kernel's arithmetic in plain fp32 torch: q (B, T, H, D),
+    pages (P, KV, ps, D) (int8 values with fp32 scale pages, or scale pages
+    None) read through ``table`` with ids clipped to [0, P - 1]. Row t of
+    slot b sees positions ``<= starts[b] + t`` (at most the table's last).
+    Each of ``plan``'s chunks is walked as 16-position groups dealt to 4
+    warps in turn; each warp keeps (m, l, acc) per row by online softmax
+    over its groups, p (times the V scale) passed through ``rounded`` before
+    the PV product; the warps merge, then the chunks, in order. Returns
+    (B, T, H, D) passed through ``rounded``."""
+    splits, chunk = plan
+    B, T, H, D = q.shape
+    P, KV, ps = k_pages.shape[:3]
+    n = table.shape[1]
+    S, rep = n * ps, H // KV
+    ids = table.long().clamp(0, P - 1).reshape(-1)
+
+    def dense(pages):                       # (B, H, S[, D]) in fp32
+        g = pages[ids].reshape(B, n, KV, ps, *pages.shape[3:])
+        g = g.transpose(1, 2).reshape(B, KV, S, *pages.shape[3:])
+        return g.float().repeat_interleave(rep, 1)
+
+    kf, vf = dense(k_pages), dense(v_pages)
+    s_all = torch.einsum("bthd,bhsd->bths", q.float(), kf) * scale
+    if ks_pages is not None:
+        s_all = s_all * dense(ks_pages)[:, None]
+    pos = torch.arange(S)
+    lim = (starts.long().clamp_min(0)[:, None] + torch.arange(T)
+           ).clamp_max(S - 1)[:, :, None, None]                # (B, T, 1, 1)
+    if slopes is not None:
+        s_all = s_all + slopes[None, None, :, None] * (pos - lim)
+    live = pos <= lim                                          # (B, T, 1, S)
+    vsc = (dense(vs_pages)[:, None] if vs_pages is not None
+           else torch.ones(1, 1, 1, S))
+
+    def merge(states):
+        m = torch.stack([st[0] for st in states]).amax(0)
+        l = sum(st[1] * torch.exp(st[0] - m) for st in states)
+        acc = sum(st[2] * torch.exp(st[0] - m)[..., None] for st in states)
+        return m, l, acc
+
+    empty = (torch.full((B, T, H), -1e30), torch.zeros(B, T, H),
+             torch.zeros(B, T, H, D))
+    chunks = []
+    for c in range(splits):
+        warps = []
+        for w in range(4):
+            m, l, acc = empty
+            for g0 in range(c * chunk + 16 * w, min((c + 1) * chunk, S), 64):
+                sl = slice(g0, g0 + 16)
+                x = s_all[..., sl].masked_fill(~live[..., sl], -1e30)
+                m_new = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(x - m_new[..., None]) * live[..., sl]
+                l = l * alpha + p.sum(-1)
+                pv = rounded(p * vsc[..., sl])
+                acc = acc * alpha[..., None] + torch.einsum(
+                    "bths,bhsd->bthd", pv, vf[:, :, sl])
+                m = m_new
+            warps.append((m, l, acc))
+        chunks.append(merge(warps))
+    m, l, acc = merge(chunks)
+    return rounded(acc / l.clamp_min(1e-30)[..., None])
+
+
+@pytest.mark.parametrize("pages,alibi,T,ps", [
+    ("fp32", False, 1, 16), ("bf16", False, 4, 8), ("bf16", True, 1, 16),
+    ("int8", True, 4, 8), ("int8", False, 1, 16)])
+def test_paged_split_merge_matches_jax_kernel(pages, alibi, T, ps):
+    """The kernel's chunked split (4 chunks of 64 here), per-row limits and
+    chunk-order merge against the JAX Pallas kernel in interpret mode, at GQA
+    4/2 over shuffled pages with sentinels, starts 0, one before a chunk
+    edge, on it, one past it and at the table's end."""
+    B, H, KV, D, S = 5, 4, 2, 32, 256
+    max_pages = S // ps
+    plan = paged_plan(B, T, H, KV, S, D, 132)
+    assert plan == (4, 64)
+    chunk = plan[1]
+    starts = np.array([0, chunk - 1, chunk, chunk + 1, S - T], np.int32)
+    rng = np.random.default_rng(11 + T + ps + alibi)
+    k, v, table = _pages(rng, B, KV, D, ps, max_pages, starts, T)
+    q = torch.from_numpy(rng.standard_normal((B, T, H, D), dtype=np.float32))
+    k, v = torch.from_numpy(k), torch.from_numpy(v)
+    slopes = alibi_slopes(H) if alibi else None
+    scale = 1.0 / np.sqrt(D)
+    ks = vs = None
+    rounded, atol, jdt, tdt = _bf16, 3e-2, jnp.bfloat16, torch.bfloat16
+    if pages == "fp32":
+        rounded, atol, jdt, tdt = (lambda x: x), 2e-5, jnp.float32, \
+            torch.float32
+    elif pages == "int8":
+        (k, ks), (v, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    else:
+        k, v = _bf16(k), _bf16(v)
+    q = rounded(q)
+    kj, vj = (jnp.asarray(x.numpy().transpose(0, 1, 3, 2)) for x in (k, v))
+    if pages != "int8":
+        kj, vj = kj.astype(jdt), vj.astype(jdt)
+    scales = {} if ks is None else dict(
+        k_scale_pages=jnp.asarray(ks.numpy()),
+        v_scale_pages=jnp.asarray(vs.numpy()))
+    want = np.asarray(jax.jit(lambda *a: jax_paged(
+        *a, alibi_slopes=None if slopes is None else jnp.asarray(
+            slopes.numpy()), **scales))(
+        jnp.asarray(q.numpy()).astype(jdt), kj, vj, jnp.asarray(table),
+        jnp.asarray(starts)).astype(jnp.float32))
+    tstarts, ttable = torch.from_numpy(starts), torch.from_numpy(table)
+    got = paged_split_merge_emulation(q, k, v, ttable, tstarts, scale,
+                                      slopes, ks, vs, plan, rounded)
+    np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=0)
+    # the port's plain version (it rounds nothing but its output) as well
+    cast = (lambda x: x) if pages == "int8" else (lambda x: x.to(tdt))
+    plain = paged_decode_attention(
+        q.to(tdt), cast(k), cast(v), ttable, tstarts, alibi_slopes=slopes,
+        k_scale_pages=ks, v_scale_pages=vs)
+    np.testing.assert_allclose(plain.float().numpy(), got.numpy(),
+                               atol=atol, rtol=0)
 
 
 # Both int8-page paths hold a float64 evaluation to this fraction of its

@@ -29,6 +29,23 @@ non-zero:
             prefill_chunk=0)``: 16 requests, run until drained; every request
             must finish, the invariants must hold, and both kernels' launch
             counters must rise during the run.
+3c. serve captured  the same traffic on a server whose engine has
+            ``enable_cuda_graph=True`` (``strict_recompile=True``): warm-up
+            requests on that server (its one decode graph is captured
+            there), then the measured pass: every request's greedy tokens
+            equal the eager arm's, no decode step runs eagerly, and the
+            launch counts are exact with replays counted; then
+            ``end_warmup()`` and the traffic again, during which one
+            captured step's logits on the live pool are held against the
+            eager step's on a copy of it (bit-equal expected, 1e-3
+            relative allowed): no recompile after warmup, one capture per
+            server. Printed beside the eager arm: step gap p50/p99, TTFT and
+            tokens/s, and one replay's device time by events beside the sum
+            of its hand-written kernels' rows. The same follows each serve
+            phase below (3b, 6, 6b).
+3d. generate_captured  ``generate()`` at GPT-2 small, B=8, 128 new tokens,
+            on the eager engine and on the captured one: identical tokens,
+            tokens/s of each.
 4. reference  for 2 served requests, the served path's prefill and decode
             logits against an fp32 copy of the model with plain attention.
 3b. serve_paged  the same model through the default serving path,
@@ -41,6 +58,9 @@ non-zero:
             kernel must run 12 times per decode step.
 4b. reference_paged  for 2 served requests (one a prefix hit), the paged
             path's chunked prefill and decode logits against the fp32 model.
+4c. overlap  ``serve_paged``'s traffic on an ``overlap=True`` server over a
+            captured engine: every request's tokens equal the serial
+            step's.
 5.  int8 kernels  the int8_matmul kernel at TinyLlama-1.1B's decode shapes
             (8 rows), a 64-row prefill chunk and a 512-row prompt through
             gate, and the int8-cache variants of the decode and paged
@@ -186,6 +206,9 @@ LSE_ATOL = 1e-3
 # limit leaves 1.5x over that floor; the int8 weights themselves move the
 # logits by 10% from the bf16 model's, and a wrong kernel by order 1.
 LOGITS_REL_TOL = 5e-2
+# A captured decode step replays the eager step's kernels on the same
+# inputs: its logits are expected bit-equal; held to 1e-3 relative per row
+CAPTURED_REL_TOL = 1e-3
 # reference_train: one GPT-2 medium micro-batch in bf16, the kernel arms'
 # loss and each parameter's gradient (relative L2 norm) against the plain
 # arm's on the same weights. Both round to bf16 (2^-9 relative), at other
@@ -450,16 +473,21 @@ def read_launches() -> dict:
 
 class ForwardCounter:
     """Counts the model forwards (one ``_transform`` each: every layer's
-    projections run once per forward) inside a ``with`` block."""
+    projections run once per forward) inside a ``with`` block, and among
+    them the one-token decode steps run eagerly (a replayed CUDA graph
+    runs no ``_transform``)."""
 
     def __init__(self, model):
-        self.model, self.n = model, 0
+        self.model, self.n, self.eager_decodes = model, 0, 0
 
     def __enter__(self):
         inner = self.model._transform
 
         def counted(*args, **kwargs):
             self.n += 1
+            mode = args[2] if len(args) > 2 else kwargs.get("mode")
+            if mode in ("decode", "paged") and args[0].shape[1] == 1:
+                self.eager_decodes += 1
             return inner(*args, **kwargs)
 
         self.model._transform = counted
@@ -850,7 +878,7 @@ def phase_serve(model, seed: int, device: str = "cuda"):
         f"TTFT p50 {st['ttft_p50_ms']:.2f} ms p99 {st['ttft_p99_ms']:.2f} ms; "
         f"step gap p50 {st['step_gap_p50_ms']:.2f} ms p99 "
         f"{st['step_gap_p99_ms']:.2f} ms; launches {launches}")
-    return srv, reqs, launches
+    return srv, reqs, launches, (prompts, budgets)
 
 
 def served_path_logits(eng, prompt, continuation) -> torch.Tensor:
@@ -1037,7 +1065,7 @@ def phase_serve_paged(model, seed: int, device: str = "cuda"):
         f"preempted {st['preempted']}")
     log(f"[serve_paged] page stats {st['paging']}")
     log(f"[serve_paged] launches {launches}")
-    return srv, reqs, launches
+    return srv, reqs, launches, (prompts, budgets)
 
 
 def int8_fragment_probe(gen: torch.Generator) -> None:
@@ -1461,7 +1489,7 @@ def phase_serve_int8(model, seed: int, device: str = "cuda"):
         f"preempted {st['preempted']}")
     log(f"[serve_int8] page stats {st['paging']}")
     log(f"[serve_int8] launches {launches}")
-    return srv, reqs, launches
+    return srv, reqs, launches, (prompts, budgets, paged_kv)
 
 
 def phase_serve_int8_contiguous(srv_int8, seed: int,
@@ -1510,7 +1538,283 @@ def phase_serve_int8_contiguous(srv_int8, seed: int,
         f"TTFT p50 {st['ttft_p50_ms']:.2f} ms p99 {st['ttft_p99_ms']:.2f} ms; "
         f"step gap p50 {st['step_gap_p50_ms']:.2f} ms p99 "
         f"{st['step_gap_p99_ms']:.2f} ms; launches {launches}")
-    return reqs, launches
+    return reqs, launches, srv, (prompts, budgets)
+
+
+# ---------------------------------------------------------------------------
+# the captured decode step (enable_cuda_graph): each serve phase again on a
+# server whose engine replays its decode step from a CUDA graph
+def graph_engine(model, device: str = "cuda"):
+    """An engine with ``enable_cuda_graph`` over a built (and, for the int8
+    tier, already quantized) model."""
+    import deepspeed_tpu_torch as dst
+
+    return dst.init_inference(model, config={"dtype": "bfloat16",
+                                             "enable_cuda_graph": True},
+                              device=device)
+
+
+def paged_warmup(rng, vocab: int) -> list:
+    """Warm-up waves for a paged server: a 1000-token prompt (every chunk
+    width), a 40-token one (the bucketed admission) and a 128-token one,
+    then the 128-token one again, a full prefix hit whose last page forks
+    copy-on-write: every program the paged traffic can reach runs once."""
+    again = rng.integers(0, vocab, 128)
+    return [[rng.integers(0, vocab, 1000), rng.integers(0, vocab, 40),
+             again], [again]]
+
+
+def warm_up(srv, warm) -> None:
+    """Serve the warm-up waves, then drop their pages from the prefix
+    cache, so the measured pass starts from the pool an eager arm's fresh
+    server has."""
+    for wave in warm:
+        for p in wave:
+            srv.submit(p, max_new_tokens=4)
+        srv.run_until_drained()
+    pool = srv.pool
+    if getattr(pool, "prefix", None) is not None:
+        pool.prefix.evict(pool, pool.evictable_page_count())
+        assert pool.free_page_count == pool.num_pages
+
+
+def drive(srv, prompts, budgets, first_alone: bool):
+    """Submit the traffic (the first request alone until it runs, as the
+    paged phases do, or all at once) and serve it until drained."""
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    reqs = []
+    if first_alone:
+        reqs.append(srv.submit(prompts[0], max_new_tokens=int(budgets[0])))
+        while reqs[0].state is RequestState.QUEUED or \
+                reqs[0].state is RequestState.PREFILLING:
+            srv.step()
+    reqs += [srv.submit(p, max_new_tokens=int(n))
+             for p, n in zip(prompts[len(reqs):], budgets[len(reqs):])]
+    srv.run_until_drained()
+    return reqs
+
+
+def captures_of(srv) -> int:
+    """Decode graphs this server's watchdog saw captured."""
+    return sum(e["program"] == "DecodeGraphs.capture"
+               for e in srv.watchdog.events)
+
+
+def hold_captured_logits(srv, eager_engine) -> tuple:
+    """The server's captured decode step on its live pool against the
+    eager step (``eager_engine``, the same model) on a copy of that pool:
+    the same tokens, positions and table, held on the running slots' rows
+    (a prefilling or free row is padding whose writes go to the scratch
+    page, where two rows may race). The step's pages are mapped first, as
+    the next step would, and the replay writes the rows the next step
+    writes again with the same values. Returns (max |diff|, max row
+    relative diff); expected 0."""
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    pool = srv.pool
+    if srv._paged:
+        srv._ensure_decode_pages(1)
+    rows = [slot for slot, req in srv._slot_req.items()
+            if req.state is RequestState.RUNNING]
+    tokens = srv._cur[:, None].clone()
+    pos = pool.positions_dev()
+    copy_ = {k: v.clone() for k, v in pool.cache.items()}
+    # the server's own calls, so the watchdog sees no new signature
+    if srv._paged:
+        want = eager_engine.decode_paged(copy_, tokens, pos.long(),
+                                         pool.table_dev.clone(),
+                                         scratch_page=True)
+        got = pool.run_decode(srv.engine, tokens, pos)
+    else:
+        want = eager_engine.decode(copy_, tokens, pos)
+        got = srv.engine.decode(pool.cache, tokens, pos)
+    got, want = got[rows], want[rows]
+    diff = (got - want).abs().max().item()
+    rel = ((got - want).norm(dim=-1)
+           / want.norm(dim=-1).clamp_min(1e-6)).max().item()
+    return diff, rel
+
+
+def replay_ms(srv, reps: int = 50) -> float:
+    """Device time of one replay of the server's decode graph, by CUDA
+    events (the graph rewrites the rows of its last step, in pages or rows
+    the drained server no longer uses)."""
+    graphs = srv.engine.decode_graphs
+    (graph,) = [g for g in graphs._graphs.values()
+                if g.bound_to(srv.pool.cache)]
+    graph.graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def serve_line(st: dict) -> str:
+    return (f"tokens/s {st['tokens_per_s']:.1f}; TTFT p50 "
+            f"{st['ttft_p50_ms']:.2f} ms; step gap p50 "
+            f"{st['step_gap_p50_ms']:.2f} ms p99 {st['step_gap_p99_ms']:.2f} "
+            f"ms")
+
+
+def phase_captured(label: str, eager_srv, eager_reqs, make_server, warm,
+                   prompts, budgets, first_alone: bool, check_launches,
+                   kernel_ms: float, device: str = "cuda") -> dict:
+    """``label``'s traffic again on ``make_server()`` (an engine with
+    ``enable_cuda_graph``, ``strict_recompile=True``). The warm-up requests
+    run on that server, in waves each drained before the next (its one
+    decode graph is captured there, bound to its pool), then the measured
+    pass: every request's greedy tokens must
+    be the eager arm's, no decode step may run eagerly, and
+    ``check_launches(launches, decode_steps, forwards)`` holds the launch
+    counts, replays included. Then ``end_warmup()`` and the same traffic
+    again as churn: one captured step's logits on the live pool against
+    the eager step's on a copy of it (1e-3 relative; bit-equal expected),
+    no recompile, one capture in all. Returns the arm's numbers."""
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    t_arm = time.perf_counter()
+    srv = make_server()
+    warm_up(srv, warm)
+    srv.metrics = ServingMetrics(step_fn=lambda: srv.step_id)
+    sync(device)
+    with ForwardCounter(srv.engine.module) as forwards:
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs = drive(srv, prompts, budgets, first_alone)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    bad = [(r.request_id, r.state.value, len(r.output_tokens), int(n))
+           for r, n in zip(reqs, budgets)
+           if r.state is not RequestState.FINISHED
+           or len(r.output_tokens) != n]
+    assert not bad, f"{label}: captured requests not FINISHED: {bad}"
+    srv.check_invariants()
+    differ = [r.request_id for r, e in zip(reqs, eager_reqs)
+              if not np.array_equal(r.tokens(), e.tokens())]
+    assert not differ, f"{label}: captured tokens differ from the eager " \
+        f"arm's for requests {differ}"
+    st = srv.stats()
+    steps = st["decode_steps"]
+    # on a CPU engine (a rehearsal) the static-buffer step runs eagerly
+    assert forwards.eager_decodes == (0 if device == "cuda" else steps), \
+        f"{label}: {forwards.eager_decodes} decode steps ran eagerly"
+    check_launches(launches, steps, forwards.n - forwards.eager_decodes)
+
+    srv.end_warmup()
+    churn = [srv.submit(p, max_new_tokens=int(n))
+             for p, n in zip(prompts, budgets)]
+    held = None
+    while srv.pending or srv.live_count:
+        srv.step()
+        if held is None and srv._running_count() >= 2:
+            held = hold_captured_logits(srv, eager_srv.engine)
+    assert held is not None, f"{label}: no step with two running requests"
+    assert math.isfinite(held[1]) and held[1] <= CAPTURED_REL_TOL, \
+        f"{label}: captured decode logits vs eager rel err {held[1]} > " \
+        f"{CAPTURED_REL_TOL} (max |diff| {held[0]})"
+    assert all(r.state is RequestState.FINISHED for r in churn)
+    srv.check_invariants()
+    assert srv.watchdog.recompiles == 0, \
+        f"{label}: recompiles after warmup: {srv.watchdog.events[-3:]}"
+    assert captures_of(srv) == 1, \
+        f"{label}: {captures_of(srv)} decode graphs captured, want 1"
+    rep = replay_ms(srv) if device == "cuda" else float("nan")
+    eager_st = eager_srv.stats()
+    log(f"[{label}] captured: {st['new_tokens']} tokens in {wall:.2f} s "
+        f"wall, {steps} decode steps, every one a replay; tokens identical "
+        f"to the eager arm's; {serve_line(st)} (eager: "
+        f"{serve_line(eager_st)}); TTFT p99 {st['ttft_p99_ms']:.2f} ms "
+        f"(eager {eager_st['ttft_p99_ms']:.2f})")
+    log(f"[{label}] captured: one replay {rep:.4f} ms on the device (its "
+        f"hand-written kernels' rows sum to {kernel_ms:.4f} ms); decode "
+        f"logits vs eager on a copy of the pool: max |diff| {held[0]:.3g}, "
+        f"row rel {held[1]:.3g} (tol {CAPTURED_REL_TOL}); 1 capture, 0 "
+        f"recompiles after warmup under strict_recompile; the arm (warm-up, "
+        f"measured pass, churn) took {time.perf_counter() - t_arm:.1f} s; "
+        f"launches {launches}")
+    return dict(srv=srv, reqs=reqs, launches=launches, stats=st,
+                replay_ms=rep, logits_max_abs=held[0], logits_rel=held[1])
+
+
+def exact_launches(label: str, kernel: str, layers: int,
+                   projections: int = 0):
+    """A ``check_launches`` for :func:`phase_captured`: ``kernel`` ran
+    ``layers`` times a decode step, and with int8 weights ``int8_matmul``
+    ``projections`` x ``layers`` times a forward, replays counted as
+    forwards."""
+    def check(launches, steps, forwards):
+        assert launches[kernel] == layers * steps, \
+            f"{label}: {kernel} ran {launches[kernel]} times in {steps} " \
+            f"decode steps (want {layers} per step)"
+        want = projections * layers * (forwards + steps)
+        assert launches["int8_matmul"] == want, \
+            f"{label}: int8_matmul ran {launches['int8_matmul']} times " \
+            f"(want {want}: {forwards} prefill forwards + {steps} replays)"
+    return check
+
+
+def phase_generate_captured(eager, captured, seed: int, B: int = 8,
+                            T: int = 128, new: int = 128,
+                            device: str = "cuda") -> dict:
+    """``generate()`` at batch ``B`` on the eager engine and on the one
+    with ``enable_cuda_graph``: identical tokens; tokens/s of each."""
+    rng = np.random.default_rng(seed + 4)
+    vocab = eager.module.config.vocab_size
+    prompts = rng.integers(0, vocab, (B, T))
+    out, rate = {}, {}
+    for name, eng in (("eager", eager), ("captured", captured)):
+        eng.generate(prompts[:, :16], max_new_tokens=4)   # first calls
+        eng.generate(prompts, max_new_tokens=2)
+        sync(device)
+        t0 = time.perf_counter()
+        out[name] = eng.generate(prompts, max_new_tokens=new)
+        sync(device)
+        rate[name] = B * new / (time.perf_counter() - t0)
+    assert np.array_equal(out["eager"], out["captured"]), \
+        "captured generate() tokens differ from the eager engine's"
+    log(f"[generate_captured] gpt2-small bf16, B={B}, prompt {T}, "
+        f"{new} new tokens: tokens identical; tokens/s eager "
+        f"{rate['eager']:.1f}, captured {rate['captured']:.1f} "
+        f"({rate['captured'] / rate['eager']:.2f}x)")
+    return rate
+
+
+def phase_overlap_captured(label: str, engine, eager_reqs, warm, prompts,
+                           budgets, seed: int, device: str = "cuda") -> dict:
+    """``serve_paged``'s traffic on an ``overlap=True`` server over the
+    captured engine: every request's tokens are the serial step's."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    srv = dst.ServingEngine(engine, num_slots=8, prefill_chunk=64,
+                            paged_kv=dict(PAGED_KV), seed=seed, overlap=True)
+    warm_up(srv, warm)
+    srv.metrics = ServingMetrics(step_fn=lambda: srv.step_id)
+    sync(device)
+    t0 = time.perf_counter()
+    reqs = drive(srv, prompts, budgets, first_alone=True)
+    sync(device)
+    wall = time.perf_counter() - t0
+    srv.check_invariants()
+    assert all(r.state is RequestState.FINISHED for r in reqs)
+    differ = [r.request_id for r, e in zip(reqs, eager_reqs)
+              if not np.array_equal(r.tokens(), e.tokens())]
+    assert not differ, f"{label}: overlap tokens differ from the serial " \
+        f"step's for requests {differ}"
+    st = srv.stats()
+    log(f"[{label}] overlap=True, captured: {st['new_tokens']} tokens in "
+        f"{wall:.2f} s wall, tokens identical to the serial step's; "
+        f"{serve_line(st)}; TTFT p99 {st['ttft_p99_ms']:.2f} ms")
+    return st
 
 
 def int8_variant(srv_int8, seed: int, matmul: str = "off",
@@ -2590,43 +2894,98 @@ def main(argv=None) -> int:
     results.update(phase_int8_kernels(gen))
     phase_train_kernels(gen, results)
     results.update(phase_sparse_kernels(gen))
-    model = gpt2_small(args.seed)
-    srv, reqs, launches = phase_serve(model, args.seed)
+    import deepspeed_tpu_torch as dst
+
+    seed = args.seed
+    warm_rng = np.random.default_rng(seed + 10)
+    model = gpt2_small(seed)
+    vocab = model.config.vocab_size
+    srv, reqs, launches, traffic = phase_serve(model, seed)
     ref = fp32_reference(model, srv.engine)
     phase_reference(ref, (reqs[0], reqs[-1]),
                     lambda p, c: served_path_logits(srv.engine, p, c),
                     "reference")
-    psrv, preqs, paged_launches = phase_serve_paged(model, args.seed)
+    geng = graph_engine(model)
+    cap = phase_captured(
+        "serve", srv, reqs, lambda: dst.ServingEngine(
+            geng, num_slots=8, prefill_chunk=0, seed=seed,
+            strict_recompile=True),
+        [[warm_rng.integers(0, vocab, 40)]], *traffic, first_alone=False,
+        check_launches=exact_launches("serve", "decode_attention", 12),
+        kernel_ms=12 * results["decode_attention"]["ms"])
+    runs = [launches, cap["launches"]]
+    phase_generate_captured(srv.engine, geng, seed)
+    psrv, preqs, paged_launches, ptraffic = phase_serve_paged(model, seed)
     hit = next(r for r in preqs if r.prefix_hit_tokens > 0)
     cold = max((r for r in preqs if r.prefix_hit_tokens == 0),
                key=lambda r: r.prompt_len)
     phase_reference(ref, (hit, cold),
                     lambda p, c: served_paged_logits(psrv, p, c),
                     "reference_paged")
-    del model, srv, ref, psrv
-    runs = [launches, paged_launches]
+    pwarm = paged_warmup(warm_rng, vocab)
+    pgeng = graph_engine(model)
+    pcap = phase_captured(
+        "serve_paged", psrv, preqs, lambda: dst.ServingEngine(
+            pgeng, num_slots=8, prefill_chunk=64, paged_kv=dict(PAGED_KV),
+            seed=seed, strict_recompile=True),
+        pwarm, *ptraffic, first_alone=True,
+        check_launches=exact_launches("serve_paged",
+                                      "paged_decode_attention", 12),
+        kernel_ms=12 * results["paged_decode_attention"]["ms"])
+    runs += [paged_launches, pcap["launches"]]
+    phase_overlap_captured("serve_paged", graph_engine(model), preqs, pwarm,
+                           *ptraffic, seed)
+    del model, srv, ref, psrv, geng, pgeng, cap, pcap
+    torch.cuda.empty_cache()
 
-    llama = tinyllama(args.seed)
+    llama = tinyllama(seed)
+    L = llama.config.n_layer
     bf16_ref = copy.deepcopy(llama)
     bf16_ref.replace_config(kv_cache_quant=False, decode_kernel="off",
                             use_flash_attention=False)
-    qsrv, qreqs, int8_launches = phase_serve_int8(llama, args.seed)
-    runs.append(int8_launches)
-    creqs, contig_launches = phase_serve_int8_contiguous(qsrv, args.seed)
-    runs.append(contig_launches)
-    served = (int8_launches, contig_launches)
+    qsrv, qreqs, int8_launches, qtraffic = phase_serve_int8(llama, seed)
+    qwarm = paged_warmup(warm_rng, llama.config.vocab_size)
+    qgeng = graph_engine(llama)
+    qcap = phase_captured(
+        "serve_int8", qsrv, qreqs, lambda: dst.ServingEngine(
+            qgeng, num_slots=8, prefill_chunk=64, paged_kv=qtraffic[2],
+            seed=seed, strict_recompile=True),
+        qwarm, *qtraffic[:2], first_alone=True,
+        check_launches=exact_launches("serve_int8",
+                                      "paged_decode_attention_int8", L,
+                                      PROJECTIONS),
+        kernel_ms=L * (results["paged_decode_attention_int8"]["ms"]
+                       + results["int8_matmul"]["ms"]))
+    runs += [int8_launches, qcap["launches"]]
+    creqs, contig_launches, csrv, ctraffic = phase_serve_int8_contiguous(
+        qsrv, seed)
+    ccap = phase_captured(
+        "serve_int8_contiguous", csrv, creqs, lambda: dst.ServingEngine(
+            qgeng, num_slots=4, prefill_chunk=0, paged_kv=False, seed=seed,
+            strict_recompile=True),
+        [[qwarm[0][1]]], *ctraffic, first_alone=False,
+        check_launches=exact_launches("serve_int8_contiguous",
+                                      "decode_attention_int8", L,
+                                      PROJECTIONS),
+        kernel_ms=L * (results["decode_attention_int8"]["ms"]
+                       + results["int8_matmul"]["ms"]))
+    runs += [contig_launches, ccap["launches"]]
+    served = (int8_launches, qcap["launches"], contig_launches,
+              ccap["launches"])
+    del qgeng, qcap, ccap, csrv
     prefill = sum(r["int8_matmul_prefill"] for r in served)
     results["int8_matmul"]["launches_by_regime"] = dict(
         decode=sum(r["int8_matmul"] for r in served) - prefill,
         prefill=prefill)
     log(f"[serve_int8] int8_matmul launches over both int8 serving phases "
-        f"by regime: {results['int8_matmul']['launches_by_regime']} (decode "
-        f"M <= 16, prefill M > 16)")
+        f"and their captured arms by regime: "
+        f"{results['int8_matmul']['launches_by_regime']} (decode M <= 16, "
+        f"prefill M > 16)")
     qhit = next(r for r in qreqs if r.prefix_hit_tokens > 0)
     qcold = max((r for r in qreqs if r.prefix_hit_tokens == 0),
                 key=lambda r: r.prompt_len)
     phase_reference_int8(qsrv, bf16_ref, (qhit, qcold), (creqs[0], creqs[-1]),
-                         args.seed)
+                         seed)
     del llama, bf16_ref, qsrv
     torch.cuda.empty_cache()
 

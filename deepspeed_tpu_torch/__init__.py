@@ -62,14 +62,16 @@ def init_inference(model: Any = None, config: Union[Dict, None] = None,
                    **kwargs) -> InferenceEngine:
     """Build the inference engine: ``model`` is the port's
     ``TransformerLM``; ``model_parameters=`` (a state dict) and
-    ``device=`` are optional; other keys configure the engine."""
+    ``device=`` are optional; other keys configure the engine
+    (``enable_cuda_graph=True``: decode steps replay captured CUDA
+    graphs)."""
     return InferenceEngine(model=model, config=config, **kwargs)
 
 
 # serving keys the JAX ``init_serving`` routes to the ServingEngine
 SERVE_KEYS = ("policy", "do_sample", "temperature", "top_k", "top_p", "seed",
               "monitor", "prefill_chunk", "prefill_token_budget",
-              "paged_kv") + NOT_PORTED
+              "paged_kv", "strict_recompile", "overlap") + NOT_PORTED
 
 
 def init_serving(model: Any = None, config: Union[Dict, None] = None,
@@ -86,10 +88,14 @@ def init_serving(model: Any = None, config: Union[Dict, None] = None,
     (False: contiguous rows; True or ``{"num_pages", "page_size",
     "prefix_cache", "kernel"}``: the page pool with its prefix cache,
     decode reading pages in place through the paged attention kernel
-    unless ``kernel="off"``). The JAX package's other serving keys are
-    accepted and raise ``NotImplementedError`` unless off (None/False).
+    unless ``kernel="off"``); ``strict_recompile`` (a new program
+    signature or decode capture after ``end_warmup()`` raises at the step
+    boundary) and ``overlap`` (the pipelined step: decode issued before
+    admission). The JAX package's other serving keys are accepted and
+    raise ``NotImplementedError`` unless off (None/False).
     Per-request ``max_new_tokens`` and ``eos_token_id`` ride on
-    ``submit()``. Everything else configures the inference engine.
+    ``submit()``. Everything else configures the inference engine, among
+    it ``enable_cuda_graph``: every decode step then replays a CUDA graph.
 
     The default serving path on the card::
 

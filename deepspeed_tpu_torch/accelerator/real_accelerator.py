@@ -71,3 +71,15 @@ def get_accelerator(device: Union[str, torch.device, None] = None
                     ) -> Accelerator:
     """The accelerator for ``device`` (resolved by :func:`resolve_device`)."""
     return _ACCELERATORS[resolve_device(device).type]()
+
+
+def copy_from_host(dst: torch.Tensor, src) -> torch.Tensor:
+    """Copy host data (a numpy array or CPU tensor) into the device tensor
+    ``dst`` in stream order, without making the host wait for the device:
+    a copy from pageable memory waits for the stream's earlier work, so on
+    a card the data goes through pinned memory (PyTorch's pinned-block
+    cache keeps each block until its copy has run). Returns ``dst``."""
+    src = torch.as_tensor(src)
+    if dst.device.type == "cuda":
+        return dst.copy_(src.pin_memory(), non_blocking=True)
+    return dst.copy_(src)

@@ -7,11 +7,15 @@ Weight quantization (``dtype="int8"`` or ``quant.enabled``) is
 accepted; the engine serves it through the int8 compute tier or raises for
 the storage tier it has no kernel for.
 
-The CUDA switches parse as they do in the JAX package, where they are
-no-ops: ``use_triton`` and ``triton_autotune`` mean nothing to a port whose
-kernels are hand-written CUDA C++, and are recorded only. ``enable_cuda_graph``
-is recorded as well: it is to become the switch for capturing the decode
-step in a CUDA graph (ROADMAP.md queue 1); today the step runs eagerly.
+``enable_cuda_graph`` (default False, as in both packages) is the switch
+for the captured decode step: with it the engine replays every one-token
+decode step (``decode``, ``decode_paged``, ``generate()``'s loop, and so
+every serving decode step) from a CUDA graph captured per signature
+(``decode_graph.py``), or raises if the step cannot be captured; on a CPU
+engine the same static-buffer step runs eagerly. ``use_triton`` and
+``triton_autotune`` parse as they do in the JAX package, where they are
+no-ops; they mean nothing to a port whose kernels are hand-written CUDA
+C++, and are recorded only.
 """
 
 from __future__ import annotations
@@ -44,8 +48,9 @@ class DeepSpeedInferenceConfig:
     replace_method: str = "auto"
     replace_with_kernel_inject: bool = False
     return_tuple: bool = True
-    # accepted and recorded, no-ops (module docstring)
+    # capture and replay the decode step (module docstring)
     enable_cuda_graph: bool = False
+    # accepted and recorded, no-ops (module docstring)
     use_triton: bool = False
     triton_autotune: bool = False
     # sampling defaults for generate() and serving

@@ -8,8 +8,18 @@ serving path's bucketed prefill, projecting one position),
 ``decode_paged`` (the same over a page pool), ``sample`` and
 ``generate``. The model is moved to the engine's device once; its
 parameters are already in the config dtype (the engine checks), as the JAX
-engine's ``_finalize_params`` casts them. Capturing the decode step as a
-CUDA graph is later work.
+engine's ``_finalize_params`` casts them.
+
+With ``enable_cuda_graph`` the decode step is what the JAX engine's
+whole-step ``jax.jit`` makes it, one program: ``decode``, ``decode_paged``
+and ``generate()``'s loop replay a step captured in a CUDA graph per
+signature (``decode_graph.DecodeGraphs``, :attr:`InferenceEngine.
+decode_graphs`), and ``generate()`` prefills into a static cache the
+signature owns and replays one step per token with no host sync between
+tokens (the counterpart of the JAX ``_compile_decode_scan``). A step that
+cannot be captured raises; on a CUDA engine no decode step then runs
+eagerly. On a CPU engine the same static-buffer step runs eagerly. Prefill
+(whole-prompt and chunked) stays eager.
 
 Weight-only int8 (``dtype="int8"`` or ``quant.enabled`` with 8 bits) on a
 ``TransformerLM`` in bf16 on one device is the JAX engine's int8 COMPUTE
@@ -34,6 +44,7 @@ from ..accelerator import resolve_device
 from ..ops.quantization.convert import DENSE_KEYS, quantize_lm_params
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
+from .decode_graph import DecodeGraphs
 
 
 def _filter_logits(last, temperature: float, top_k: int, top_p: float):
@@ -106,8 +117,12 @@ class InferenceEngine:
                     "not ported; the int8 compute tier needs a bf16 "
                     "TransformerLM on one device")
             self._quantize_structured()
+        # the decode steps captured so far (enable_cuda_graph), else None
+        self.decode_graphs = (DecodeGraphs(self.module, self.device)
+                              if self._config.enable_cuda_graph else None)
         log_dist(f"InferenceEngine: device={self.device} "
-                 f"dtype={self._config.dtype}", ranks=[0])
+                 f"dtype={self._config.dtype} "
+                 f"cuda_graph={self.decode_graphs is not None}", ranks=[0])
 
     # ------------------------------------------------------------------
     # int8 compute tier (JAX engine.py:189-219)
@@ -170,20 +185,44 @@ class InferenceEngine:
         return self.module.prefill_chunk(self._ids(input_ids), [start],
                                          last_idx, cache, rows)
 
+    def _pos(self, pos):
+        """Decode positions as an int or a tensor on the engine's device."""
+        if isinstance(pos, (int, np.integer)):
+            return int(pos)
+        return torch.as_tensor(pos).to(self.device)
+
     @torch.no_grad()
     def decode(self, cache, tokens, pos) -> torch.Tensor:
         """One token per row: ``tokens`` (B, 1), ``pos`` the current cache
         lengths (int or (B,)). Writes ``cache`` in place; returns (B, 1, V)
-        fp32 logits."""
-        return self.module.decode(self._ids(tokens), pos, cache)
+        fp32 logits. With ``enable_cuda_graph`` the step replays the one
+        captured for this signature and cache."""
+        tokens = self._ids(tokens)
+        if self.decode_graphs is not None:
+            return self.decode_graphs.run("contiguous", cache, tokens,
+                                          self._pos(pos)).clone()
+        return self.module.decode(tokens, pos, cache)
 
     @torch.no_grad()
-    def decode_paged(self, pages, tokens, pos, table) -> torch.Tensor:
+    def decode_paged(self, pages, tokens, pos, table,
+                     scratch_page: bool = False) -> torch.Tensor:
         """:meth:`decode` over a page pool (``KVCacheSpec.paged_cache``)
         through the (B, pages_per_slot) int32 page ``table``: the step's
         K/V rows are written into the pages in place and attention reads
-        them there. Returns (B, 1, V) fp32 logits."""
-        return self.module.decode_paged(self._ids(tokens), pos, pages, table)
+        them there. ``scratch_page``: the last page is the pool's scratch
+        page (``TransformerLM.decode_paged``), which a captured step needs.
+        Returns (B, 1, V) fp32 logits."""
+        tokens = self._ids(tokens)
+        if self.decode_graphs is not None:
+            if not scratch_page:
+                raise ValueError(
+                    "a captured paged decode step writes its dropped rows "
+                    "to the pool's scratch page: pass pages allocated with "
+                    "one (PagedKVPool does) and scratch_page=True")
+            return self.decode_graphs.run("paged", pages, tokens,
+                                          self._pos(pos), table).clone()
+        return self.module.decode_paged(tokens, pos, pages, table,
+                                        scratch_page)
 
     @torch.no_grad()
     def sample(self, logits, generator: torch.Generator, temperature: float,
@@ -227,13 +266,21 @@ class InferenceEngine:
         sample = lambda lg: self.sample(  # noqa: E731
             lg, gen, temperature, top_k, top_p, not do_sample)
 
-        logits, cache = self.prefill_at(ids)
+        graphs = self.decode_graphs
+        # captured: prefill into the signature's own cache and replay one
+        # step per token (static logits, sampled before the next replay)
+        logits, cache = self.prefill_at(
+            ids, cache=graphs.static_cache(B) if graphs is not None else None)
         token = sample(logits)
         out = [token]
         finished = np.zeros((B,), bool)
         pos = T
         for _ in range(max_new_tokens - 1):
-            nxt = sample(self.decode(cache, token[:, None], pos))
+            if graphs is not None:
+                logits = graphs.run("contiguous", cache, token[:, None], pos)
+            else:
+                logits = self.decode(cache, token[:, None], pos)
+            nxt = sample(logits)
             if eos_token_id is not None:
                 finished |= token.cpu().numpy() == eos_token_id
                 if finished.all():

@@ -295,6 +295,13 @@ class CachedAttention(nn.Module):
         self.k_proj = _dense(cfg, C, KV * D, cfg.qkv_bias, **fk)
         self.v_proj = _dense(cfg, C, KV * D, cfg.qkv_bias, **fk)
         self.o_proj = _dense(cfg, H * D, C, cfg.qkv_bias, **fk)
+        if cfg.pos_emb == "alibi":
+            # built once on the module's device, not per forward: a copy
+            # from host memory cannot be captured in a CUDA graph; not
+            # persistent, so the state dict and the weight bridge are
+            # unchanged
+            self.register_buffer("alibi", alibi_slopes(H).to(fk.get("device")),
+                                 persistent=False)
 
     def _use_flash(self, T: int) -> bool:
         use = self.config.use_flash_attention
@@ -331,8 +338,7 @@ class CachedAttention(nn.Module):
             rd = int(cfg.rotary_pct * D) // 2 * 2
             q = apply_rotary(q, positions, rotary_dim=rd, theta=cfg.rope_theta)
             k = apply_rotary(k, positions, rotary_dim=rd, theta=cfg.rope_theta)
-        slopes = alibi_slopes(H).to(x.device) \
-            if cfg.pos_emb == "alibi" else None
+        slopes = self.alibi.float() if cfg.pos_emb == "alibi" else None
         if mode == "prefill" and T == 1 and cfg.kv_cache_quant:
             # the JAX module attends a one-token prompt through its cache,
             # which for an int8 cache means the quantized row: write it, then
@@ -345,9 +351,10 @@ class CachedAttention(nn.Module):
 
         if mode == "paged" or (mode == "decode" and T > 1):
             sel, a, b = write
-            _write_rows(kv, (a, slice(None), b),
-                        k.reshape(B * T, KV, D)[sel],
-                        v.reshape(B * T, KV, D)[sel])
+            k_rows, v_rows = k.reshape(B * T, KV, D), v.reshape(B * T, KV, D)
+            if sel is not None:
+                k_rows, v_rows = k_rows[sel], v_rows[sel]
+            _write_rows(kv, (a, slice(None), b), k_rows, v_rows)
             if mode == "paged":
                 sc = {f"{name}_pages": val
                       for name, val in _scales(kv).items()}
@@ -546,7 +553,7 @@ class TransformerLM(nn.Module):
         return self.embed_tokens.weight.device
 
     def _transform(self, input_ids, positions, mode="fresh", cache=None,
-                   rows=None, start=None, table=None):
+                   rows=None, start=None, table=None, scratch_page=False):
         cfg = self.config
         x = self.embed_tokens(input_ids)
         if cfg.pos_emb == "learned":
@@ -556,7 +563,8 @@ class TransformerLM(nn.Module):
         write = None
         if mode == "paged":
             _, P, _, ps, _ = cache["k"].shape
-            write = page_writes(positions, table, P, ps)
+            write = page_writes(positions, table, P - scratch_page, ps,
+                                scratch=scratch_page)
         elif mode == "decode" and input_ids.shape[1] > 1:
             write = _row_writes(positions, rows, cache["k"].shape[3])
         for li, block in enumerate(self.blocks):
@@ -658,17 +666,23 @@ class TransformerLM(nn.Module):
         return self._project_head(self._pick(x, last_idx))
 
     @torch.no_grad()
-    def decode_paged(self, input_ids, start_pos, pages, table):
+    def decode_paged(self, input_ids, start_pos, pages, table,
+                     scratch_page: bool = False):
         """:meth:`decode` over a page pool: ``pages`` is
         :meth:`KVCacheSpec.paged_cache`'s dict, ``table`` the (B,
         pages_per_slot) int32 page table on the device (sentinel =
-        ``P``). The step's K/V rows are written through the table in
-        place (sentinel and out-of-range entries are dropped) and
-        attention reads the pages where they lie, through
-        ``paged_decode_attention``. 1 <= T <= ``MAX_QUERY_ROWS``. Returns
-        (B, T, V) logits."""
+        ``P``, the pages' count). The step's K/V rows are written through
+        the table in place (sentinel and out-of-range entries are dropped)
+        and attention reads the pages where they lie, through
+        ``paged_decode_attention``. With ``scratch_page`` the last of the
+        pages is a scratch page and the sentinel is its id (``P - 1``):
+        dropped rows are written there, which needs no host sync
+        (``page_writes``), so the step can be captured in a CUDA graph;
+        the serving pool allocates its pages so. 1 <= T <=
+        ``MAX_QUERY_ROWS``. Returns (B, T, V) logits."""
         B, T = input_ids.shape
         start = self._starts(start_pos, B)
         x = self._transform(input_ids, self._positions(B, T, start),
-                            "paged", pages, None, start, table)
+                            "paged", pages, None, start, table,
+                            scratch_page)
         return self._project_head(x)

@@ -64,22 +64,35 @@ def paged_plan(B: int, T: int, H: int, KV: int, S: int, D: int,
     return decode_plan(B, T * H, KV, S, D, sm_count)
 
 
-def page_writes(positions, table, num_pages: int, page_size: int):
+def page_writes(positions, table, num_pages: int, page_size: int,
+                scratch: bool = False):
     """Where a step's cache rows land in the pool: position p of slot b goes
-    to ``pages[table[b, p // page_size], :, p % page_size]``. Positions past
-    the table and unmapped (sentinel ``num_pages``) entries are dropped, so
-    a free or padding row never touches a real page. ``positions`` and
-    ``table`` are (B, W) and (B, pages_per_slot) on one device. Returns
-    ``(sel, page ids, rows in page)`` over the flattened (B*W) positions
-    (one host sync)."""
+    to ``pages[table[b, p // page_size], :, p % page_size]``. Positions
+    outside the table and unmapped (sentinel ``num_pages``) entries are
+    dropped, so a free or padding row never touches a real page.
+    ``positions`` and ``table`` are (B, W) and (B, pages_per_slot) on one
+    device. Returns ``(sel, page ids, rows in page)`` over the flattened
+    (B*W) positions.
+
+    Two forms drop a write. By default ``sel`` selects the kept positions,
+    which reads the mask on the host (one sync, so it cannot be captured in
+    a CUDA graph). With ``scratch`` the pages hold one page past the
+    table's: page ``num_pages``, the sentinel's own id, which no live
+    position maps. Every position then gets a target, the dropped ones that
+    scratch page, and ``sel`` is None: no host sync, and no dropped write
+    lands where a live one does (:class:`~deepspeed_tpu_torch.serving.
+    paged_pool.PagedKVPool` allocates its pages so)."""
     max_pages = table.shape[1]
     pidx = (positions // page_size).clamp(0, max_pages - 1)
     page = table.long().gather(1, pidx)
     ok = (positions >= 0) & (positions < max_pages * page_size) \
         & (page < num_pages)
+    offs = positions % page_size
+    if scratch:
+        return (None, torch.where(ok, page, num_pages).reshape(-1),
+                offs.reshape(-1))
     sel = ok.reshape(-1).nonzero()[:, 0]
-    return (sel, page.reshape(-1)[sel],
-            (positions % page_size).reshape(-1)[sel])
+    return sel, page.reshape(-1)[sel], offs.reshape(-1)[sel]
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, table, starts,

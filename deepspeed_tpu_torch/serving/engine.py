@@ -26,8 +26,23 @@ cached pages (stall-free mode only: a hit enters the chunked path at its
 first uncached position), admission is page-denominated, and a step that
 runs out of pages preempts the youngest other request back to the queue.
 
-Speculative decoding, the pipelined ``overlap`` step and the resilience and
-telemetry keys are later slices; passing any of them raises
+Captured decode. With the inference config's ``enable_cuda_graph`` every
+decode step replays a CUDA graph captured for the server's pool (one per
+server: the batch is always ``num_slots``); the step writes the tokens
+and positions into the graph's static buffers and samples after the
+replay. ``overlap=True`` takes the pipelined order of the JAX engine: the
+decode for the slots already running is issued first, then admission and
+the prefill chunk, with one fetch at the end of the step; outcomes are the
+serial step's.
+
+Recompiles. :attr:`watchdog` (``telemetry.RecompileWatchdog``) records one
+signature per call of each watched entry point and every decode capture;
+after :meth:`end_warmup` a new one counts as a recompile, and with
+``strict_recompile`` the step boundary raises ``RecompileAfterWarmupError``
+(after the step's fetch, so no request is failed by it).
+
+Speculative decoding and the resilience and telemetry keys other than
+``strict_recompile`` are later slices; passing any of them raises
 ``NotImplementedError``.
 """
 
@@ -39,6 +54,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..telemetry.watchdog import RecompileWatchdog
 from ..utils.logging import log_dist
 from .metrics import ServingMetrics
 from .paged_pool import PagedKVPool, PagePoolExhausted
@@ -52,12 +68,20 @@ _MIN_PREFILL_BUCKET = 16
 
 # serving keys of the JAX engine that this port does not have yet; None or
 # False means "off" and is accepted, any other value raises
-NOT_PORTED = ("spec_decode", "overlap", "tracer", "registry",
-              "strict_recompile", "timeline_capacity", "deadline_default_ms",
-              "step_wall_budget_ms", "guard_numerics", "degradation",
-              "preempt_queue_threshold", "preempt_min_run_steps",
-              "fault_injector", "cost_model", "slo", "flight_recorder",
-              "dump_dir", "priority", "clock", "role")
+NOT_PORTED = ("spec_decode", "tracer", "registry", "timeline_capacity",
+              "deadline_default_ms", "step_wall_budget_ms", "guard_numerics",
+              "degradation", "preempt_queue_threshold",
+              "preempt_min_run_steps", "fault_injector", "cost_model", "slo",
+              "flight_recorder", "dump_dir", "priority", "clock", "role")
+
+# the port's counterparts of the entry points the JAX watchdog wraps
+# (_WATCHED_ENGINE_JITS, _WATCHED_POOL_JITS); the paged ones exist only
+# on a PagedKVPool (attach skips absentees). A captured decode step
+# records through DecodeGraphs.capture, on every call
+_WATCHED_ENGINE = ("prefill_at", "prefill_chunk", "decode", "decode_paged",
+                   "sample")
+_WATCHED_POOL = ("admit_rows", "run_decode", "run_prefill_chunk",
+                 "_copy_page")
 
 PAGED_KV_KEYS = ("num_pages", "page_size", "prefix_cache", "kernel")
 
@@ -80,7 +104,8 @@ class ServingEngine:
                  seed: int = 0, monitor: Optional[Any] = None,
                  prefill_chunk: int = 64,
                  prefill_token_budget: Optional[int] = None,
-                 paged_kv: Any = False, **not_ported: Any):
+                 paged_kv: Any = False, strict_recompile: bool = False,
+                 overlap: bool = False, **not_ported: Any):
         for key, val in not_ported.items():
             if key not in NOT_PORTED:
                 raise TypeError(f"unexpected ServingEngine argument {key!r}")
@@ -123,6 +148,12 @@ class ServingEngine:
         else:
             self.pool = SlotPool(spec, num_slots, self.device)
         self._paged = isinstance(self.pool, PagedKVPool)
+        graphs = getattr(engine, "decode_graphs", None)
+        if graphs is not None and self._paged and not self.pool.kernel_active:
+            raise ValueError(
+                "enable_cuda_graph captures the paged decode step through "
+                "the paged kernel; paged_kv kernel='off' builds a dense "
+                "view of the pages at every step, which cannot be captured")
         self.scheduler = FIFOScheduler(
             num_slots, max_queue_depth, policy, capacity=self.pool.capacity,
             page_size=self.pool.page_size if self._paged else None,
@@ -147,6 +178,18 @@ class ServingEngine:
         self._prefill_queue: List[Request] = []
         self.step_id = 0
         self.metrics = ServingMetrics(monitor, step_fn=lambda: self.step_id)
+        self._overlap = bool(overlap)
+        self.watchdog = RecompileWatchdog(strict=bool(strict_recompile),
+                                          step_fn=lambda: self.step_id)
+        for attr in _WATCHED_ENGINE:
+            self.watchdog.attach(engine, attr,
+                                 name=f"InferenceEngine.{attr}")
+        for attr in _WATCHED_POOL:
+            self.watchdog.attach(self.pool, attr, name=f"SlotPool.{attr}")
+        if graphs is not None:
+            self.watchdog.attach(graphs, "capture",
+                                 name="DecodeGraphs.capture",
+                                 every_call=True)
         cfg = engine._config
         self.temperature = cfg.temperature if temperature is None \
             else temperature
@@ -173,7 +216,8 @@ class ServingEngine:
         log_dist(f"ServingEngine: slots={num_slots} policy={policy} "
                  f"capacity={self.pool.capacity} "
                  f"max_queue_depth={max_queue_depth} admission={admission} "
-                 f"kv={storage}", ranks=[0])
+                 f"kv={storage} cuda_graph={graphs is not None} "
+                 f"overlap={self._overlap}", ranks=[0])
 
     # ------------------------------------------------------------------
     @property
@@ -183,6 +227,12 @@ class ServingEngine:
     @property
     def pending(self) -> int:
         return self.scheduler.pending
+
+    def end_warmup(self) -> None:
+        """Declare warmup traffic over: from here on a new signature or
+        capture counts against :attr:`watchdog` ``.recompiles`` (and, with
+        ``strict_recompile``, raises at the next step boundary)."""
+        self.watchdog.end_warmup()
 
     def submit(self, prompt, max_new_tokens: int = 32,
                eos_token_id: Optional[int] = None) -> Request:
@@ -486,7 +536,7 @@ class ServingEngine:
             self._ensure_decode_pages(1)
         running = [(slot, req) for slot, req in self._slot_req.items()
                    if req.state is RequestState.RUNNING]
-        pos = torch.as_tensor(self.pool.positions(), device=self.device)
+        pos = self.pool.positions_dev()
         tokens = self._cur[:, None]
         if self._paged:
             logits = self.pool.run_decode(self.engine, tokens, pos)
@@ -499,8 +549,9 @@ class ServingEngine:
         self.pool.advance(deltas)
         nxt = self._sample(logits)
         # every row's next current token is this decode's sample for it
-        # (other rows hold values no live row ever reads)
-        self._cur = nxt
+        # (other rows hold values no live row ever reads); in place, so
+        # the token vector keeps its address
+        self._cur.copy_(nxt)
 
         def _on_decode(nxt, running=running):
             emitted = 0
@@ -560,13 +611,17 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def step(self) -> List[Request]:
         """One scheduler iteration: admit into free slots, run at most one
-        prefill chunk, then one decode step for every running slot.
-        Returns the requests that finished.
+        prefill chunk, then one decode step for every running slot (with
+        ``overlap``: the decode for the slots running at entry first, then
+        admission and the chunk; slots admitted this step join the decode
+        next step). Returns the requests that finished.
 
         Exception-safe: if the engine raises mid-step, no slot or page
         leaks. Granted-but-unadmitted and PREFILLING requests go back to
         the head of the queue, running ones are FAILED (reason
-        ``"error"``), the pool is reset, and the error propagates."""
+        ``"error"``), the pool is reset, and the error propagates. The
+        strict recompile check runs after the step, at its boundary, and
+        fails no request."""
         finished: List[Request] = []
         self.step_id += 1
         t_step = self._now()
@@ -587,6 +642,12 @@ class ServingEngine:
                 self.pool.free_count, self.live_count,
                 page_budget=page_budget, page_cost=page_cost)
         try:
+            decoded = False
+            if self._overlap and self._running_count():
+                # pipelined order: the running slots' decode is issued
+                # first, so admission's host work overlaps it on the card
+                self._decode_step(finished, self._now())
+                decoded = True
             if self._stall_free:
                 self._admit_stall_free(granted, finished)
                 self._prefill_chunk_step(finished)
@@ -595,12 +656,16 @@ class ServingEngine:
                     self._admit_batch(
                         [req], self._bucket(req.seed_len, self.pool.capacity),
                         finished)
-            if self._running_count():
+            if not decoded and self._running_count():
                 self._decode_step(finished, self._now())
             self._drain_deferred()
         except Exception:
             self._abort_step(granted)
             raise
+        # the strict recompile gate sits at the step boundary: raising
+        # mid-step would abort the step and FAIL requests whose state is
+        # consistent
+        self.watchdog.check()
         if running_at_entry:
             # a running request waited through this whole step for its
             # next token: the user-visible inter-token gap

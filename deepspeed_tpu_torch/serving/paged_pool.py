@@ -27,10 +27,14 @@ the step's column back through the table. Chunked prefill always takes
 that composition for the one slot it fills (a chunk is wider than the
 kernel's query rows), as in the JAX package.
 
-Sentinel convention: table entry ``num_pages`` means "unmapped". Reads
-clip it to page ``num_pages - 1`` and are masked by length; writes through
-it are dropped (``page_writes``), so a free or padding row never touches a
-real page.
+Sentinel convention: table entry ``num_pages`` means "unmapped". The pool
+holds one page more than it hands out, page ``num_pages`` itself, a
+scratch page: reads through a sentinel entry land there and are masked by
+length, and the writes ``page_writes`` drops (sentinel entries, positions
+past the table) are written there, so a free or padding row never touches
+a real page and no step waits on the host to select its writes. The device
+table is one tensor for the pool's life, refreshed in place after host
+edits, so a decode step captured in a CUDA graph keeps reading it.
 
 Not in this slice (each raises ``NotImplementedError``): the cross-pool
 page transfer of disaggregated serving (``import_pages``, ``seat_pages``)
@@ -46,6 +50,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..accelerator import copy_from_host
 from ..ops.attention.paged_attention import MAX_QUERY_ROWS, page_writes
 from .prefix_cache import PrefixCache
 from .slot_pool import SlotPool
@@ -102,7 +107,10 @@ class PagedKVPool(SlotPool):
         heapq.heapify(self._free_pages)   # smallest page first: deterministic
         self._free_page_set = set(self._free_pages)
         self.table = np.full((num_slots, self.pages_per_slot), P, np.int32)
-        self._table_dev = None            # uploaded on first use after edits
+        # its device copy, refreshed on first use after host edits
+        self._table_dev = torch.full((num_slots, self.pages_per_slot), P,
+                                     dtype=torch.int32, device=device)
+        self._table_stale = False
         self.cow_copies = 0
         self.page_evictions = 0
         self.prefix = PrefixCache(page_size) if prefix_cache else None
@@ -115,20 +123,22 @@ class PagedKVPool(SlotPool):
     # state containers
     # ------------------------------------------------------------------
     def _fresh_cache(self) -> Dict[str, Any]:
-        return self.spec.paged_cache(self.num_pages, self.page_size,
+        # page num_pages is the scratch page (module docstring)
+        return self.spec.paged_cache(self.num_pages + 1, self.page_size,
                                      self.device)
 
     def _sync_table(self) -> None:
         """Mark the device table stale after a host-side table edit."""
-        self._table_dev = None
+        self._table_stale = True
 
     @property
     def table_dev(self) -> torch.Tensor:
         """The page table on the pool's device, (num_slots,
-        pages_per_slot) int32."""
-        if self._table_dev is None:
-            self._table_dev = torch.from_numpy(self.table.copy()).to(
-                self.device)
+        pages_per_slot) int32: always the same tensor, brought up to date
+        with the host table (without a host sync) when it is read."""
+        if self._table_stale:
+            copy_from_host(self._table_dev, self.table)
+            self._table_stale = False
         return self._table_dev
 
     @property
@@ -318,13 +328,15 @@ class PagedKVPool(SlotPool):
         """Write the dense view's rows at ``positions`` ((B, W) absolute,
         aligned with the dense batch) back into the pages through
         ``tables`` ((B, pages_per_slot)), every leaf (scales too);
-        sentinel entries and positions past the table are dropped."""
+        sentinel entries and positions past the table are dropped (to the
+        scratch page)."""
         B, W = positions.shape
-        sel, page, offs = page_writes(positions, tables, self.num_pages,
-                                      self.page_size)
+        _, page, offs = page_writes(positions, tables, self.num_pages,
+                                    self.page_size, scratch=True)
         rows = torch.arange(B, device=positions.device)[:, None] \
-            .expand(B, W).reshape(-1)[sel]
-        cols = positions.reshape(-1)[sel]
+            .expand(B, W).reshape(-1)
+        # a dropped position may lie past the dense view: any row will do
+        cols = positions.clamp(0, dense["k"].shape[3] - 1).reshape(-1)
         for key, leaf in self.cache.items():
             leaf[:, page, :, offs] = dense[key][:, rows, :, cols]
 
@@ -334,7 +346,7 @@ class PagedKVPool(SlotPool):
         pos = torch.as_tensor(pos, device=self.device).long()
         if self.kernel_active:
             return engine.decode_paged(self.cache, tokens, pos,
-                                       self.table_dev)
+                                       self.table_dev, scratch_page=True)
         dense = self.spec.dense_from_pages(self.cache, self.table_dev)
         logits = engine.decode(dense, tokens, pos)
         self._scatter_cols(dense, self.table_dev, pos[:, None])
@@ -394,8 +406,8 @@ class PagedKVPool(SlotPool):
     def page_nbytes(self) -> int:
         """Bytes one page occupies across every cache leaf and layer (an
         int8 cache's scale pages included)."""
-        return sum(leaf.numel() * leaf.element_size()
-                   for leaf in self.cache.values()) // self.num_pages
+        return sum(leaf[:, 0].numel() * leaf.element_size()
+                   for leaf in self.cache.values())
 
     def page_stats(self) -> dict:
         free = len(self._free_pages)

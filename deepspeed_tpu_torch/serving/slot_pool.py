@@ -16,6 +16,12 @@ occupant's values; attention never reads them, because each slot's length
 (:attr:`starts`) masks them and the next write lands exactly at that
 length. :meth:`admit_rows` then records the lengths. The paged pool
 (``paged_pool.PagedKVPool``) keeps the same contract over pages.
+
+The cache tensors live as long as the pool: :meth:`reset` zeroes them in
+place, and the decode positions go to the device through one static
+buffer (:meth:`positions_dev`). A decode step captured in a CUDA graph
+(``inference/decode_graph.py``) holds their addresses, so a new allocation
+would leave it writing into freed memory.
 """
 
 from __future__ import annotations
@@ -24,6 +30,9 @@ import heapq
 from typing import Any, Dict
 
 import numpy as np
+import torch
+
+from ..accelerator import copy_from_host
 
 
 class SlotPool:
@@ -39,6 +48,9 @@ class SlotPool:
         self.cache: Dict[str, Any] = self._fresh_cache()
         # per-slot cache lengths, host side: decode reads them every step
         self.starts = np.zeros((num_slots,), np.int32)
+        # their device copy at each decode step (positions_dev)
+        self._pos_dev = torch.zeros((num_slots,), dtype=torch.int32,
+                                    device=device)
         self._free = list(range(num_slots))
         heapq.heapify(self._free)  # smallest slot first: deterministic
         self._free_set = set(self._free)
@@ -76,8 +88,9 @@ class SlotPool:
 
     def reset(self) -> None:
         """Recovery after a mid-step exception: free every slot and zero
-        the cache."""
-        self.cache = self._fresh_cache()
+        the cache, in place."""
+        for leaf in self.cache.values():
+            leaf.zero_()
         self.starts[:] = 0
         self._free = list(range(self.num_slots))
         heapq.heapify(self._free)
@@ -120,6 +133,12 @@ class SlotPool:
         pos = np.minimum(self.starts, self.capacity - 1).astype(np.int32)
         pos[list(self._free_set)] = 0
         return pos
+
+    def positions_dev(self) -> torch.Tensor:
+        """:meth:`positions` in the pool's static (num_slots,) int32 device
+        buffer, copied without a host sync (stream-ordered: a step that
+        read the previous values has already been issued)."""
+        return copy_from_host(self._pos_dev, self.positions())
 
     def consistency_errors(self) -> list:
         """Bookkeeping audit for ``check_invariants()``: the free heap and

@@ -1212,3 +1212,170 @@ def test_block_sparse_autograd_and_refusals(gen):
     with pytest.raises(ValueError, match="grouped-query"):
         block_sparse_fwd(x, x[:, :, :2].contiguous(), x, idx, cnt, 128, True,
                          1.0)
+
+
+# -- the captured decode step (inference/decode_graph.py) -------------------
+# A 2-layer model on the card at serving widths: GPT-2's (12 heads, D 64,
+# bf16) or a GQA 8/2 llama with int8 weights and the int8 KV cache. The
+# captured step replays the same kernels on the same inputs as the eager
+# one, so its logits are held to 1e-3 relative per row (bit-equal is
+# expected) and its greedy tokens exactly.
+
+def _graph_engines(gen, int8: bool):
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.transformer_lm import (TransformerLM,
+                                                           transformer_config)
+
+    if int8:
+        cfg = transformer_config("llama", vocab_size=512, n_embd=512,
+                                 n_layer=2, n_head=8, n_kv_head=2,
+                                 max_seq_len=256, kv_cache_quant=True,
+                                 dtype=torch.bfloat16)
+    else:
+        cfg = transformer_config("gpt2", vocab_size=512, n_embd=768,
+                                 n_layer=2, n_head=12, max_seq_len=256,
+                                 dtype=torch.bfloat16)
+    model = TransformerLM(cfg, device="cuda")
+    model.init_weights(gen)
+    # int8: the first engine quantizes the model in place; the second
+    # serves the same int8 model (its compute tier is already applied)
+    eager = dst.init_inference(model, config={
+        "dtype": "int8" if int8 else "bfloat16"})
+    graph = dst.init_inference(model, config={"dtype": "bfloat16",
+                                              "enable_cuda_graph": True})
+    return eager, graph
+
+
+def _launch_counts():
+    from deepspeed_tpu_torch.inference.decode_graph import LAUNCH_COUNTERS
+    return [getattr(fn, attr) for fn, attr in LAUNCH_COUNTERS]
+
+
+def _decode_steps(eng, route, cache, pool, toks, starts):
+    out = []
+    for step, tok in enumerate(toks):
+        pos = starts + step
+        if route == "paged":
+            for s in range(len(starts)):
+                pool.ensure_writable(s, int(pos[s]), int(pos[s]) + 1)
+            out.append(eng.decode_paged(cache, tok, pos, pool.table_dev,
+                                        scratch_page=True))
+        else:
+            out.append(eng.decode(cache, tok, pos))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("route", ["contiguous", "paged"])
+def test_captured_decode_equals_eager_with_exact_launch_counts(gen, route,
+                                                              int8):
+    from deepspeed_tpu_torch.serving import PagedKVPool
+
+    eager, graph = _graph_engines(gen, int8)
+    B, T, L = 4, 40, 2
+    ids = torch.randint(0, 512, (B, T), generator=gen, device="cuda")
+    starts = torch.tensor([T, 33, 12, 1], dtype=torch.int32, device="cuda")
+    toks = torch.randint(0, 512, (5, B, 1), generator=gen, device="cuda")
+    _, dense = eager.prefill_at(ids)
+    caches, pools = [], []
+    for _ in range(2):
+        if route == "paged":
+            pool = PagedKVPool(eager.kv_cache_spec(), num_slots=B,
+                               page_size=16, device="cuda",
+                               prefix_cache=False)
+            slots = [pool.alloc() for _ in range(B)]
+            pool.admit_rows(dense, slots, np.full(B, T))
+            caches.append(pool.cache)
+            pools.append(pool)
+        else:
+            caches.append({k: v.clone() for k, v in dense.items()})
+            pools.append(None)
+    runs = []
+    for eng, cache, pool in ((eager, caches[0], pools[0]),
+                             (graph, caches[1], pools[1])):
+        before = _launch_counts()
+        runs.append(_decode_steps(eng, route, cache, pool, toks, starts))
+        runs.append([a - b for a, b in zip(_launch_counts(), before)])
+    (want, eager_counts), (got, graph_counts) = runs[:2], runs[2:]
+    assert graph.decode_graphs.captures == 1
+    assert graph_counts == eager_counts
+    attn = ("paged_decode_attention" if route == "paged"
+            else "decode_attention")
+    from deepspeed_tpu_torch.inference.decode_graph import LAUNCH_COUNTERS
+    counts = {(fn.__name__, attr): n for (fn, attr), n in
+              zip(LAUNCH_COUNTERS, graph_counts)}
+    assert counts[attn, "int8_launches" if int8 else "launches"] == L * 5
+    assert counts["int8_matmul", "launches"] == (7 * L * 5 if int8 else 0)
+    assert counts["int8_matmul", "prefill_launches"] == 0
+    for step, (a, b) in enumerate(zip(got, want)):
+        rel = ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+        assert rel <= 1e-3, f"step {step}: rel {rel}"
+        assert torch.equal(a.argmax(-1), b.argmax(-1)), f"step {step}"
+    for key in caches[0]:
+        if route == "paged":    # the scratch page takes dropped rows
+            assert torch.equal(caches[0][key][:, :-1], caches[1][key][:, :-1])
+        else:
+            assert torch.equal(caches[0][key], caches[1][key]), key
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_captured_server_replays_across_churn_and_reset(gen, paged):
+    """A captured server's one decode graph survives slot churn, a pool
+    reset and a fresh generate(): nothing is captured again, and the greedy
+    tokens are the eager server's."""
+    import deepspeed_tpu_torch as dst
+
+    eager, graph = _graph_engines(gen, int8=False)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, int(n)).astype(np.int32)
+               for n in rng.integers(4, 90, 10)]
+    tokens = {}
+    for name, eng in (("eager", eager), ("graph", graph)):
+        srv = dst.ServingEngine(eng, num_slots=4, prefill_chunk=32,
+                                paged_kv={"page_size": 16} if paged
+                                else False, strict_recompile=True)
+        out = []
+        for wave in range(2):
+            reqs = [srv.submit(p, max_new_tokens=12) for p in prompts]
+            srv.run_until_drained()
+            srv.check_invariants()
+            out.append([r.tokens() for r in reqs])
+            if wave == 0:
+                srv.end_warmup()
+                srv.pool.reset()
+        tokens[name] = out
+        assert srv.watchdog.recompiles == 0
+    assert graph.decode_graphs.captures == 1
+    for wave in range(2):
+        for a, b in zip(tokens["eager"][wave], tokens["graph"][wave]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_a_decode_step_that_cannot_be_captured_raises(gen):
+    """With the switch on, a step that syncs the host (here the paged
+    write made to select its rows on the host) raises at its first call
+    instead of running eagerly. A failed capture can leave the CUDA
+    context unusable, so it runs in a process of its own."""
+    import subprocess
+    import sys
+    code = (
+        "import numpy as np, torch\n"
+        "import deepspeed_tpu_torch as dst\n"
+        "from deepspeed_tpu_torch.models import transformer_lm as tl\n"
+        "orig = tl.page_writes\n"
+        "tl.page_writes = lambda *a, scratch=False: orig(*a)\n"
+        "cfg = tl.transformer_config('gpt2', vocab_size=512, n_embd=768,\n"
+        "    n_layer=2, n_head=12, max_seq_len=256, dtype=torch.bfloat16)\n"
+        "eng = dst.init_inference(tl.TransformerLM(cfg),\n"
+        "    config={'dtype': 'bfloat16', 'enable_cuda_graph': True})\n"
+        "srv = dst.ServingEngine(eng, num_slots=2, paged_kv=True)\n"
+        "srv.submit(np.arange(9, dtype=np.int32), max_new_tokens=4)\n"
+        "try:\n"
+        "    srv.run_until_drained()\n"
+        "except RuntimeError as e:\n"
+        "    print('RAISED', e)\n")
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=600)
+    assert "RAISED" in done.stdout, done.stdout + done.stderr
+    assert "captur" in done.stdout.lower(), done.stdout

@@ -192,7 +192,7 @@ def test_no_slot_leaks_on_a_mid_step_error(stack):
 def test_unported_serving_keys_raise(stack):
     _, _, pcfg, state = stack
     model = P.TransformerLM(pcfg)
-    for key, val in (("spec_decode", True), ("overlap", True),
+    for key, val in (("spec_decode", True), ("deadline_default_ms", 100),
                      ("priority", True)):
         with pytest.raises(NotImplementedError):
             dst.init_serving(model, config={"dtype": "float32"},
@@ -201,7 +201,8 @@ def test_unported_serving_keys_raise(stack):
         dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
                          paged_kv={"pages": 4})
     srv = dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
-                           paged_kv=False, prefill_chunk=0, overlap=False)
+                           paged_kv=False, prefill_chunk=0,
+                           deadline_default_ms=None)
     assert srv.pool.num_slots == 4 and srv.prefill_chunk == 0
     # the JAX defaults: stall-free chunk 64 (capped at the capacity), and
     # the page pool sized from the chunk when paged_kv is on

@@ -15,7 +15,10 @@ non-zero:
             the serving path's shapes, and time the kernel, the plain version,
             one PyTorch library call computing the same function (none
             reads a page table, so none for the paged kernel), and the
-            card's bound for the same work. The decode and paged kernels
+            card's bound for the same work. The paged kernel is checked at
+            every T from 1 to 8 (a verify step's K+1 rows) and timed at
+            T=5 too, bf16 and int8; int8_matmul at a verify layer's M=40.
+            The decode and paged kernels
             (one template; design mma: mma.sync) are also held and timed in
             their FMA design, the same split-S grouped kernel on the FMA
             units, and timed at 1, 2, 4 and 8 chunks beside decode_plan's
@@ -61,6 +64,31 @@ non-zero:
 4c. overlap  ``serve_paged``'s traffic on an ``overlap=True`` server over a
             captured engine: every request's tokens equal the serial
             step's.
+4d. serve_spec  speculative decoding, the JAX package's spec row
+            (bench.py:704-731): 32 requests tiling a random motif of 4-8
+            tokens to 32-128 tokens, budgets 64-224, on 8 slots of the
+            contiguous pool, the n-gram drafter at k=8 (T = 9 rows a
+            verify step, over the paged kernel's 8), each arm on a captured
+            engine with ``strict_recompile``: spec off, spec on and spec on
+            with a drafter that never drafts. Each arm serves the traffic
+            once to warm up, then again measured: budgets met, audits
+            clean, one captured step, no recompile. The spec-on tokens
+            equal the no-drafts arm's exactly; against the spec-off arm
+            (the one-row decode kernel) every request is identical or
+            parts at a near-tie of its top two logits (``TIE_FACTOR``).
+            Printed: tokens/s, tokens a slot-step, acceptance, draft
+            overhead, step gap p50/p99 and one verify replay's device ms.
+4e. serve_spec_paged  the same traffic over ``serve_paged``'s page pool at
+            k=4 (T = 5 through the paged kernel): serial, ``overlap=True``
+            and no-drafts arms, captured and strict; tokens as in 4d, the
+            paged kernel exactly 12 times a verify step, one captured
+            verify step's (8, 5, V) logits against the eager forward on a
+            copy of the pool (1e-3 relative), no slot or page leak.
+4f. serve_spec_model  the small-model drafter: GPT-2 small drafting for
+            itself through a second captured engine, k=4, paged, 8 of the
+            requests: tokens equal 4e's no-drafts arm's; each step's draft
+            prefill (flash), 3 draft decodes (decode kernel) and verify
+            (paged kernel) counted exactly; acceptance printed.
 5.  int8 kernels  the int8_matmul kernel at TinyLlama-1.1B's decode shapes
             (8 rows), a 64-row prefill chunk and a 512-row prompt through
             gate, and the int8-cache variants of the decode and paged
@@ -78,6 +106,12 @@ non-zero:
             and the int8 paged kernel 22 times per decode step.
 6b. serve_int8_contiguous  the same int8 engine, ``paged_kv=False,
             prefill_chunk=0``: a few requests through the int8 decode kernel.
+6c. serve_spec_int8  TinyLlama int8 at k=4 over ``serve_int8``'s page
+            pool: 16 motif requests (budgets 64-128), spec off, on and
+            no-drafts arms, captured and strict, tokens as in 4d; the int8
+            paged kernel 22 times a verify step, ``int8_matmul`` 22 x 7
+            times a verify step in its prefill tiles (M = 40) beside the
+            prefill forwards' own.
 7.  reference_int8  served logits (kernels) against the same int8 model with
             every kernel off, through the paged path and the contiguous one;
             printed, not held: the paged error with one kernel group on at a
@@ -209,6 +243,15 @@ LOGITS_REL_TOL = 5e-2
 # A captured decode step replays the eager step's kernels on the same
 # inputs: its logits are expected bit-equal; held to 1e-3 relative per row
 CAPTURED_REL_TOL = 1e-3
+# Speculative decoding's greedy tokens equal plain decoding's through the
+# same verify forward exactly (the no-drafts arms). Against the one-row
+# decode step, which computes the same logits with other kernels and other
+# product shapes, two bf16 arms can part where the top two logits are
+# closer than their rounding differences. Where they part, each arm's token
+# is the argmax of logits within about e of a reference (e: the largest
+# |decode path - reference| measured there), so it lies at most 2e below
+# the reference's top logit; a wrong acceptance gives tokens far below it.
+TIE_FACTOR = 2.0
 # reference_train: one GPT-2 medium micro-batch in bf16, the kernel arms'
 # loss and each parameter's gradient (relative L2 norm) against the plain
 # arm's on the same weights. Both round to bf16 (2^-9 relative), at other
@@ -474,11 +517,12 @@ def read_launches() -> dict:
 class ForwardCounter:
     """Counts the model forwards (one ``_transform`` each: every layer's
     projections run once per forward) inside a ``with`` block, and among
-    them the one-token decode steps run eagerly (a replayed CUDA graph
-    runs no ``_transform``)."""
+    them the decode steps run eagerly (``rows`` query rows a slot: 1, or
+    K+1 for a speculative verify step; a replayed CUDA graph runs no
+    ``_transform``)."""
 
-    def __init__(self, model):
-        self.model, self.n, self.eager_decodes = model, 0, 0
+    def __init__(self, model, rows: int = 1):
+        self.model, self.rows, self.n, self.eager_decodes = model, rows, 0, 0
 
     def __enter__(self):
         inner = self.model._transform
@@ -486,7 +530,8 @@ class ForwardCounter:
         def counted(*args, **kwargs):
             self.n += 1
             mode = args[2] if len(args) > 2 else kwargs.get("mode")
-            if mode in ("decode", "paged") and args[0].shape[1] == 1:
+            if mode in ("decode", "paged") and \
+                    args[0].shape[1] == self.rows:
                 self.eager_decodes += 1
             return inner(*args, **kwargs)
 
@@ -722,13 +767,43 @@ def slot_tables(gen: torch.Generator, T: int, P: int, ps: int,
     return table.masked_fill(dead, P).contiguous(), starts
 
 
+def verify_row(label: str, gen: torch.Generator, call, B: int, H: int,
+               KV: int, D: int, P: int, ps: int, per_slot: int, layers: int,
+               esize: float, t1_ms: float, T: int = 5) -> dict:
+    """A paged kernel row's time at ``T`` query rows a slot (a k = 4
+    verify step): ``call(q, table, starts)`` runs the ``layers`` layers'
+    kernels over the row's pages, ragged starts with room for T rows. The
+    bound reads every live position's K/V rows (``esize`` bytes an element,
+    an int8 cache's scales included) once and does T query rows' work."""
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    table, starts = slot_tables(gen, T, P, ps, per_slot)
+    ms = cuda_ms(lambda: call(q, table, starts), reps=4) / layers
+    live = int((starts.long() + T).sum())
+    # query row t of slot b attends starts[b] + t + 1 positions
+    attended = int((starts.long() * T).sum()) + B * T * (T + 1) // 2
+    pages_read = int(((starts.long() + T - 1) // ps + 1).sum())
+    rule = paged_rule(B, T, H, KV, ps * per_slot, D)
+    out = dict(T=T, ms=ms, **rule,
+               **bound(2 * KV * live * D * esize + 2 * B * T * H * D * 2
+                       + 4 * (pages_read + B), 4 * H * attended * D))
+    log(f"{label} T={T} (verify, k=4): kernel {ms:.4f} ms (T=1 {t1_ms:.4f}; "
+        f"{ms / t1_ms:.2f}x for {T}x the query rows; plan "
+        f"{rule.get('splits')} x {rule.get('chunk')}), bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']})")
+    return out
+
+
 def paged_kernel(gen: torch.Generator) -> dict:
     """The paged kernel at the serving path's shapes: 8 slots, GPT-2 heads,
     64-position pages, 16 pages per slot, shuffled page ids, sentinels past
     each slot's live pages, ragged starts on and beside page boundaries;
-    also checked at TinyLlama's heads at T=8 (4 row tiles a KV head) and
-    over 24-position pages (16-position groups cross pages). T=1 is timed
-    beside the FMA design and 1, 2, 4, 8 chunks."""
+    checked at every T from 1 to 8 (speculative verify's K+1 rows: partial
+    row tiles at T = 5 under GQA 32/4, 40 of 48 rows, and at GQA 12/12) at
+    GPT-2's and TinyLlama's heads, with ALiBi, and over 24-position pages
+    (16-position groups cross pages). T=1 is timed beside the FMA design
+    and 1, 2, 4, 8 chunks, and T=5 (a k=4 verify step) beside its own
+    bound."""
     from deepspeed_tpu_torch.ops.attention.decode_attention import (
         alibi_slopes, decode_attention)
     from deepspeed_tpu_torch.ops.attention.paged_attention import (
@@ -756,10 +831,11 @@ def paged_kernel(gen: torch.Generator) -> dict:
                                              sl), what)
 
     err = rel = 0.0
-    cases = [(T, 12, 12, False, ps) for T in (1, 4, 8)] + [
+    cases = [(T, H, KV, False, ps) for T in range(1, 9)
+             for H, KV in ((12, 12), (32, 4))] + [
         (1, 12, 4, False, ps), (4, 12, 4, False, ps), (1, 12, 12, True, ps),
-        (8, 12, 12, True, ps), (8, 32, 4, False, ps), (1, 12, 12, True, 24),
-        (8, 32, 4, False, 24)]
+        (8, 12, 12, True, ps), (5, 12, 12, True, ps), (1, 12, 12, True, 24),
+        (8, 32, 4, False, 24), (5, 32, 4, False, 24)]
     for T, H, KV, alibi, page in cases:
         # 24-position pages: 43 a slot hold the 1024 positions; two layers
         layers, pages = (L, per_slot) if page == ps else (2, -(-S // page))
@@ -807,11 +883,16 @@ def paged_kernel(gen: torch.Generator) -> dict:
                dense_ms=dense_ms, **rule, **fma,
                **bound(2 * KV * live * D * esize + 2 * B * H * D * esize
                        + 4 * (pages_read + B), 4 * H * live * D))
+    out["verify"] = verify_row(
+        "[kernels] paged_decode_attention", gen, lambda qv, tv, sv: [
+            paged_decode_attention(qv, k[i], v[i], tv, sv)
+            for i in range(L)], B, H, KV, D, P, ps, per_slot, L, esize, ms)
     log(f"[kernels] paged_decode_attention B={B} H=KV={H} D={D} page {ps} x "
         f"{per_slot} pages/slot, P={P} shuffled, starts {starts.tolist()}; "
-        f"checked T 1/4/8, GQA 12/4 and 32/4 (T=8: 4 row tiles), ALiBi, "
-        f"24-position pages: max|err| {err:.3g} (tol {OUT_ATOL}), row rel "
-        f"{rel:.3g} (tol {ROW_REL_TOL}); T=1 kernel {ms:.4f} ms "
+        f"checked every T 1-8 at GQA 12/12 and 32/4 (T=5: partial row "
+        f"tiles), 12/4, ALiBi, 24-position pages: max|err| {err:.3g} (tol "
+        f"{OUT_ATOL}), row rel {rel:.3g} (tol {ROW_REL_TOL}); T=1 kernel "
+        f"{ms:.4f} ms "
         f"({rule.get('design', 'older tree')}, plan {rule.get('splits')} x "
         f"{rule.get('chunk')}){decode_variants_log(fma)}, plain "
         f"{plain_ms:.4f} ms, library none, bound {out['bound_ms']:.4f} ms")
@@ -1100,12 +1181,13 @@ def int8_matmul_kernel(gen: torch.Generator) -> dict:
     """int8_matmul at TinyLlama's projection shapes: the decode step's 8
     rows through the 7 projections of one layer (q, k, v, o: K 2048 to N
     2048, 256, 256, 2048; gate, up: 2048 to 5632; down: 5632 to 2048), a
-    64-row prefill chunk through gate (serve_int8's chunked admission) and
-    a 512-row one (serve_int8_contiguous's longest whole prompt). The JSON
-    row is one decode layer, the sum of its 7 calls, with the prefill rows
-    beside it under ``prefill``. Weights are N(0, 0.02) quantized per
-    channel; each shape is timed over enough weight copies to pass the 50
-    MB L2, as 22 layers' weights do."""
+    k=4 verify step's 40 rows (8 slots x 5) through the same 7, a 64-row
+    prefill chunk through gate (serve_int8's chunked admission) and a
+    512-row one (serve_int8_contiguous's longest whole prompt). The JSON
+    row is one decode layer, the sum of its 7 calls, with the verify layer
+    under ``verify_layer`` and the prefill rows under ``prefill``. Weights
+    are N(0, 0.02) quantized per channel; each shape is timed over enough
+    weight copies to pass the 50 MB L2, as 22 layers' weights do."""
     import importlib
 
     from deepspeed_tpu_torch.ops.quantization.int8_matmul import (
@@ -1121,8 +1203,9 @@ def int8_matmul_kernel(gen: torch.Generator) -> dict:
                  nbytes=0, flops=0)
     err = rel = 0.0
     rows, prefill = [], []
-    for M, (K, N) in [(8, kn) for kn in layer] + [(64, (2048, 5632)),
-                                                  (512, (2048, 5632))]:
+    verify = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+    for M, (K, N) in [(8, kn) for kn in layer] + [(40, kn) for kn in layer] \
+            + [(64, (2048, 5632)), (512, (2048, 5632))]:
         wf = torch.randn(N, K, generator=gen, device=dev) * 0.02
         q, s = quantize_columns(wf.t())
         w, s = q.t().contiguous(), s.reshape(-1).contiguous()
@@ -1163,24 +1246,33 @@ def int8_matmul_kernel(gen: torch.Generator) -> dict:
                     f"kernel {ms:.4f} ms{other}, plain {plain_ms:.4f}, bf16 "
                     f"F.linear {lib_ms:.4f}, bound {b['bound_ms']:.4f} "
                     f"({b['bound_by']}), row rel {r:.3g}")
-        if M == 8:
+        if M in (8, 40):
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("library_ms", lib_ms), ("nbytes", nbytes),
                              ("flops", flops)):
-                total[key] += val
+                (total if M == 8 else verify)[key] += val
         else:
             prefill.append(dict(M=M, K=K, N=N, ms=ms, plain_ms=plain_ms,
                                 library_ms=lib_ms, **b))
     for row in rows:
         log(f"[int8_kernels] int8_matmul {row}")
+    verify_layer = dict(M=40, ms=verify["ms"], plain_ms=verify["plain_ms"],
+                        library_ms=verify["library_ms"],
+                        **bound(verify["nbytes"], verify["flops"]))
     out = dict(max_abs_err=err, ms=total["ms"], plain_ms=total["plain_ms"],
                library_ms=total["library_ms"],
-               **bound(total["nbytes"], total["flops"]), prefill=prefill)
+               **bound(total["nbytes"], total["flops"]), prefill=prefill,
+               verify_layer=verify_layer)
     log(f"[int8_kernels] int8_matmul one decode layer (7 calls, M=8): "
         f"max|err| {err:.3g} (tol {OUT_ATOL}), row rel {rel:.3g} (tol "
         f"{ROW_REL_TOL}); kernel {out['ms']:.4f} ms, plain "
         f"{out['plain_ms']:.4f} ms, bf16 F.linear {out['library_ms']:.4f} ms, "
         f"bound {out['bound_ms']:.4f} ms ({out['bound_by']})")
+    log(f"[int8_kernels] int8_matmul one k=4 verify layer (7 calls, M=40 = "
+        f"8 slots x 5 rows, the prefill tiles): kernel "
+        f"{verify_layer['ms']:.4f} ms, plain {verify_layer['plain_ms']:.4f} "
+        f"ms, bf16 F.linear {verify_layer['library_ms']:.4f} ms, bound "
+        f"{verify_layer['bound_ms']:.4f} ms ({verify_layer['bound_by']})")
     return out
 
 
@@ -1255,10 +1347,11 @@ def int8_decode_kernel(gen: torch.Generator, L: int, H: int, KV: int,
 def int8_paged_kernel(gen: torch.Generator) -> dict:
     """The int8 paged kernel with TinyLlama's heads (32 over 4 KV heads,
     D=64): 8 slots, 64-position pages, 16 pages per slot, shuffled ids,
-    sentinels past each slot's live pages; T 1/4/8 (T=8: 4 row tiles a KV
-    head), ALiBi and 24-position pages checked, T=1 timed over 22 layers'
-    pools (95 MB, past the L2) beside the FMA design and 1, 2, 4, 8
-    chunks."""
+    sentinels past each slot's live pages; every T from 1 to 8 (T=5: 40 of
+    48 rows in 3 row tiles a KV head; T=8: 4 full tiles), ALiBi and
+    24-position pages checked, T=1 timed over 22 layers' pools (95 MB, past
+    the L2) beside the FMA design and 1, 2, 4, 8 chunks, and T=5 (a k=4
+    verify step) beside its bound."""
     from deepspeed_tpu_torch.ops.attention.decode_attention import (
         alibi_slopes, decode_attention, quantize_kv_rows)
     from deepspeed_tpu_torch.ops.attention.paged_attention import (
@@ -1291,9 +1384,9 @@ def int8_paged_kernel(gen: torch.Generator) -> dict:
     # 24-position pages: 43 a slot hold the 1024 positions; two layers
     pages24 = -(-S // 24)
     small = pools(2, 24, pages24)
-    for T, alibi, page in ((1, False, ps), (4, False, ps), (8, False, ps),
-                           (1, True, ps), (8, True, ps), (1, True, 24),
-                           (8, False, 24)):
+    for T, alibi, page in [(T, False, ps) for T in range(1, 9)] + [
+            (1, True, ps), (8, True, ps), (5, True, ps), (1, True, 24),
+            (8, False, 24), (5, False, 24)]:
         q = torch.randn(B, T, H, D, generator=gen, device=dev).to(bf16)
         pool, layers = ((k8, ks, v8, vs), L) if page == ps else (small, 2)
         args = (q, *pool) + slot_tables(
@@ -1342,9 +1435,16 @@ def int8_paged_kernel(gen: torch.Generator) -> dict:
                dense_ms=dense_ms, **rule, **fma,
                **bound(2 * KV * live * (D + 4) + 2 * B * H * D * 2
                        + 4 * (pages_read + B), 4 * H * live * D))
+    out["verify"] = verify_row(
+        "[int8_kernels] paged_decode_attention_int8", gen,
+        lambda qv, tv, sv: [paged_decode_attention(
+            qv, k8[i], v8[i], tv, sv, k_scale_pages=ks[i],
+            v_scale_pages=vs[i]) for i in range(L)],
+        B, H, KV, D, P, ps, per_slot, L, (D + 4) / D, ms)
     log(f"[int8_kernels] paged_decode_attention_int8 B={B} H={H} KV={KV} "
-        f"D={D} page {ps} x {per_slot} pages/slot, P={P} shuffled; checked T "
-        f"1/4/8 (T=8: 4 row tiles), ALiBi, 24-position pages: max|err| "
+        f"D={D} page {ps} x {per_slot} pages/slot, P={P} shuffled; checked "
+        f"every T 1-8 (T=5: partial row tiles), ALiBi, 24-position pages: "
+        f"max|err| "
         f"{err:.3g}, row rel {rel:.3g} (tol {ROW_REL_TOL}); T=1 kernel "
         f"{ms:.4f} ms ({rule.get('design', 'older tree')}, plan "
         f"{rule.get('splits')} x {rule.get('chunk')})"
@@ -1815,6 +1915,406 @@ def phase_overlap_captured(label: str, engine, eager_reqs, warm, prompts,
         f"{wall:.2f} s wall, tokens identical to the serial step's; "
         f"{serve_line(st)}; TTFT p99 {st['ttft_p99_ms']:.2f} ms")
     return st
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding (serving/spec_decode/): draft + one (8, K+1) verify
+# forward a step, captured, under strict_recompile
+SPEC_NGRAM = {"drafter": "ngram", "k": 8, "max_ngram": 3}
+
+
+def motif_traffic(rng, vocab: int, n: int, budget_hi: int = 224):
+    """The JAX package's spec row traffic (bench.py:704-731): each prompt
+    tiles a random motif of 4-8 tokens to 32-128 tokens, budgets 64 to
+    ``budget_hi``. Weights are random, so what the drafter finds in it
+    says nothing about real text."""
+    prompts, budgets = [], []
+    for _ in range(n):
+        T = int(rng.integers(32, 129))
+        motif = rng.integers(0, vocab, size=int(rng.integers(4, 9)))
+        prompts.append(np.tile(motif, T // len(motif) + 1)[:T]
+                       .astype(np.int32))
+        budgets.append(int(rng.integers(64, budget_hi + 1)))
+    return prompts, budgets
+
+
+def hold_captured_verify(srv, eager_engine) -> tuple:
+    """A paged server's captured verify forward on its live pool against
+    the eager forward (``eager_engine``, the same model) on a copy of the
+    pool: the current tokens and the last drafts, the same positions and
+    table, held on the running slots' (num_slots, K+1, V) rows. The K+1
+    positions are mapped first, as the next step would; the next step
+    rewrites every row the replay wrote before reading it. Returns (max
+    |diff|, max row relative diff); expected 0."""
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    pool, K = srv.pool, srv._spec.k
+    srv._ensure_decode_pages(K + 1)
+    rows = [slot for slot, req in srv._slot_req.items()
+            if req.state is RequestState.RUNNING]
+    tokens = torch.cat([srv._cur[:, None], srv._draft], dim=1)
+    pos = pool.positions_dev().long()
+    copy_ = {k: v.clone() for k, v in pool.cache.items()}
+    want = eager_engine.decode_paged(copy_, tokens, pos,
+                                     pool.table_dev.clone(), scratch_page=True)
+    # the pool's own call form, so the watchdog sees no new signature
+    got = srv.engine.decode_paged(pool.cache, tokens, pos, pool.table_dev,
+                                  scratch_page=True)
+    got, want = got[rows], want[rows]
+    assert got.shape[1:] == (K + 1, srv.engine.module.config.vocab_size)
+    diff = (got - want).abs().max().item()
+    rel = ((got - want).norm(dim=-1)
+           / want.norm(dim=-1).clamp_min(1e-6)).max().item()
+    return diff, rel
+
+
+def spec_arm(label: str, srv, prompts, budgets, device: str = "cuda",
+             eager_engine=None, rows: int = 1) -> dict:
+    """One server's arm: the traffic once as warm-up (it reaches every
+    program the traffic can; with ``eager_engine`` one captured verify
+    step is held against the eager one there), its prefix pages dropped,
+    ``end_warmup()``, then the traffic again, measured: every request
+    finishes with its budget, the audits hold, no recompile after warm-up
+    (``strict_recompile`` raises at the step that makes one) and one
+    captured step in all. ``rows``: the query rows of the server's decode
+    step (K+1 with speculation)."""
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    held = None
+    reqs = [srv.submit(p, max_new_tokens=int(n))
+            for p, n in zip(prompts, budgets)]
+    while srv.pending or srv.live_count:
+        srv.step()
+        if eager_engine is not None and held is None and \
+                captures_of(srv) == 1 and srv._running_count() >= 2:
+            held = hold_captured_verify(srv, eager_engine)
+    assert all(r.state is RequestState.FINISHED for r in reqs)
+    warm_up(srv, [])
+    srv.end_warmup()
+    srv.metrics = ServingMetrics(step_fn=lambda: srv.step_id)
+    sync(device)
+    with ForwardCounter(srv.engine.module, rows) as forwards:
+        reset_launches()
+        t0 = time.perf_counter()
+        reqs = drive(srv, prompts, budgets, first_alone=False)
+        sync(device)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    bad = [(r.request_id, r.state.value, len(r.output_tokens), int(n))
+           for r, n in zip(reqs, budgets)
+           if r.state is not RequestState.FINISHED
+           or len(r.output_tokens) != n]
+    assert not bad, f"{label}: requests not FINISHED with their budget: {bad}"
+    srv.check_invariants()
+    if srv._paged:
+        pool = srv.pool
+        held_pages = len(pool.prefix.page_counts())
+        assert (pool.table == pool.num_pages).all() and \
+            pool.free_page_count + held_pages == pool.num_pages, \
+            f"{label}: pages leaked"
+    assert srv.watchdog.recompiles == 0, \
+        f"{label}: recompiles after warmup: {srv.watchdog.events[-3:]}"
+    assert captures_of(srv) == 1, \
+        f"{label}: {captures_of(srv)} steps captured, want 1"
+    st = srv.stats()
+    assert forwards.eager_decodes == (0 if device == "cuda"
+                                      else st["decode_steps"]), \
+        f"{label}: {forwards.eager_decodes} decode steps ran eagerly"
+    if eager_engine is not None:
+        assert held is not None, f"{label}: no step with two running rows"
+        assert math.isfinite(held[1]) and held[1] <= CAPTURED_REL_TOL, \
+            f"{label}: captured verify logits vs eager rel err {held[1]} > " \
+            f"{CAPTURED_REL_TOL} (max |diff| {held[0]})"
+    rep = replay_ms(srv) if device == "cuda" else float("nan")
+    return dict(srv=srv, reqs=reqs, launches=launches, stats=st, wall=wall,
+                forwards=forwards.n - forwards.eager_decodes, replay_ms=rep,
+                held=held)
+
+
+def spec_line(arm: dict) -> str:
+    st = arm["stats"]
+    acc = st["spec_acceptance_rate"]
+    over = st["draft_overhead_pct"]
+    return (f"{st['new_tokens']} tokens in {arm['wall']:.2f} s wall, "
+            f"{st['decode_steps']} decode steps; tokens/s "
+            f"{st['tokens_per_s']:.1f}; tokens per slot-step "
+            f"{st['tokens_per_decode_step']:.3f}; acceptance "
+            f"{'n/a' if acc is None else f'{acc:.3f}'}; draft overhead "
+            f"{'n/a' if over is None else f'{over:.2f}'}%; step gap p50 "
+            f"{st['step_gap_p50_ms']:.2f} ms p99 {st['step_gap_p99_ms']:.2f} "
+            f"ms; TTFT p50 {st['ttft_p50_ms']:.2f} ms; one replay "
+            f"{arm['replay_ms']:.4f} ms")
+
+
+def same_tokens(label: str, arm: dict, ref_reqs, what: str) -> None:
+    differ = [r.request_id for r, e in zip(arm["reqs"], ref_reqs)
+              if not np.array_equal(r.tokens(), e.tokens())]
+    assert not differ, f"{label}: tokens differ from {what} for requests " \
+        f"{differ}"
+
+
+def no_drafts():
+    """A drafter that never drafts: every verify step is then plain greedy
+    decoding through the verify forward itself (draft_len 0 in every
+    row), the exact oracle for what drafting may not change."""
+    from deepspeed_tpu_torch.serving.spec_decode import Drafter
+
+    class NoDrafts(Drafter):
+        name = "none"
+
+        def propose(self, histories, k):
+            return (np.zeros((len(histories), k), np.int32),
+                    np.zeros((len(histories),), np.int32))
+
+    return NoDrafts()
+
+
+def divergences(label: str, spec_reqs, off_reqs, engine, ref) -> dict:
+    """The spec arm's greedy tokens against the one-row decode step's
+    (``off_reqs``), which computes the same logits with other kernels and
+    other product shapes, so in bf16 an argmax whose top two logits are
+    closer than their rounding differences can fall either way, after
+    which the two continuations part. For each request that differs, at
+    its first differing token: the teacher-forced logits of the decode
+    path (``engine``) and of ``ref`` (fp32 or plain kernels) on the common
+    prefix, and both arms' tokens' distance below ``ref``'s maximum as a
+    multiple of the largest |decode path - ref| at that position. Returns
+    the counts and the worst multiple."""
+    same, worst, rows = 0, 0.0, []
+    for r, o in zip(spec_reqs, off_reqs):
+        a, b = np.asarray(r.output_tokens), np.asarray(o.output_tokens)
+        d = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if d is None:
+            same += 1
+            continue
+        prompt = np.asarray(r.prompt)
+        got = served_path_logits(engine, prompt, a[:d])[-1].float()
+        with torch.no_grad():
+            want = ref.logits(torch.as_tensor(
+                np.concatenate([prompt, a[:d]])[None],
+                device=got.device))[0, -1].float()
+        err = (got - want).abs().max().item()
+        top = want.max().item()
+        gap = max(top - want[int(a[d])].item(), top - want[int(b[d])].item())
+        worst = max(worst, gap / err)
+        rows.append((r.request_id, d, round(gap, 5), round(err, 5)))
+    log(f"[{label}] vs the one-row decode step: {same} of {len(spec_reqs)} "
+        f"requests identical; first differences (request, token, gap below "
+        f"the reference's top logit, max |decode path - reference|): "
+        f"{rows}; worst gap / error {worst:.3g} (limit {TIE_FACTOR})")
+    assert worst <= TIE_FACTOR, \
+        f"{label}: a token where the arms part lies {worst:.3g} rounding " \
+        f"errors below the reference's top logit (limit {TIE_FACTOR}): not " \
+        f"a tie, a wrong token: {rows}"
+    return dict(same=same, n=len(spec_reqs), worst=worst, rows=rows)
+
+
+def phase_serve_spec(model, seed: int, device: str = "cuda") -> dict:
+    """bench.py's spec row on the port: GPT-2 small bf16, 32 motif
+    requests on 8 slots, the n-gram drafter at k=8, the contiguous pool
+    (ServingEngine's default: T = 9 exceeds the paged kernel's 8 rows);
+    spec off and spec on, each on a captured engine with
+    ``strict_recompile``: identical tokens, one captured step each (the
+    verify forward for spec on), 0 recompiles after warm-up."""
+    import deepspeed_tpu_torch as dst
+
+    rng = np.random.default_rng(seed + 5)
+    prompts, budgets = motif_traffic(rng, model.config.vocab_size, 32)
+    arms = {}
+    for name, spec in (("off", None), ("on", SPEC_NGRAM),
+                       ("no drafts", dict(SPEC_NGRAM, drafter=no_drafts()))):
+        srv = dst.ServingEngine(graph_engine(model, device), num_slots=8,
+                                max_queue_depth=64, seed=seed,
+                                strict_recompile=True, spec_decode=spec)
+        arms[name] = spec_arm(f"serve_spec {name}", srv, prompts, budgets,
+                              device, rows=1 if spec is None
+                              else spec["k"] + 1)
+    same_tokens("serve_spec", arms["on"], arms["no drafts"]["reqs"],
+                "the no-drafts arm's")
+    eager = dst.init_inference(model, config={"dtype": "bfloat16"},
+                               device=device)
+    arms["divergences"] = divergences(
+        "serve_spec", arms["on"]["reqs"], arms["off"]["reqs"], eager,
+        fp32_reference(model, eager, device))
+    on = arms["on"]
+    k = SPEC_NGRAM["k"]
+    assert on["launches"]["decode_attention"] == 0, \
+        "serve_spec: a verify step ran the one-row decode kernel"
+    assert arms["off"]["launches"]["decode_attention"] == \
+        12 * arms["off"]["stats"]["decode_steps"]
+    assert on["stats"]["spec_drafted"] > 0
+    for name in ("off", "on", "no drafts"):
+        arm = arms[name]
+        log(f"[serve_spec] spec {name} (gpt2-small bf16, 8 slots, contiguous, "
+            f"captured, strict_recompile; 32 motif requests, prompts "
+            f"{min(map(len, prompts))}-{max(map(len, prompts))}, new "
+            f"{min(budgets)}-{max(budgets)}): {spec_line(arm)}")
+    ratio = on["stats"]["tokens_per_s"] / arms["off"]["stats"]["tokens_per_s"]
+    log(f"[serve_spec] ngram k={k}: tokens identical to the no-drafts "
+        f"arm's; 1 capture each (the verify forward (8, {k + 1}) with "
+        f"speculation), 0 recompiles after warm-up; spec-on/off tokens/s "
+        f"{ratio:.2f} on random weights (motif traffic: not a speed-up "
+        f"users see); launches spec on {on['launches']}")
+    return arms
+
+
+def phase_serve_spec_paged(model, seed: int, spec_arms: dict, prompts,
+                           budgets, device: str = "cuda") -> dict:
+    """``serve_spec``'s traffic over ``serve_paged``'s PAGED_KV at k=4: a
+    verify step sends T = 5 query rows a slot through the paged kernel.
+    A serial arm, an ``overlap=True`` arm and a no-drafts arm, captured,
+    strict: the serial arm's tokens equal the no-drafts arm's and the
+    overlap arm's; against ``serve_spec``'s spec-off arm as
+    :func:`divergences` holds them; the paged kernel runs exactly 12 times
+    a verify step (replays counted); one captured verify step's (8, 5, V)
+    logits equal the eager forward's on a copy of the pool; no slot or
+    page leaks."""
+    import deepspeed_tpu_torch as dst
+
+    spec = dict(SPEC_NGRAM, k=4)
+    eager = dst.init_inference(model, config={"dtype": "bfloat16"},
+                               device=device)
+    arms = {}
+    for name, overlap, drafter in (("serial", False, "ngram"),
+                                   ("overlap", True, "ngram"),
+                                   ("no drafts", False, no_drafts())):
+        srv = dst.ServingEngine(graph_engine(model, device), num_slots=8,
+                                max_queue_depth=64, prefill_chunk=64,
+                                paged_kv=dict(PAGED_KV), seed=seed,
+                                strict_recompile=True, overlap=overlap,
+                                spec_decode=dict(spec, drafter=drafter))
+        arm = spec_arm(f"serve_spec_paged {name}", srv, prompts, budgets,
+                       device, eager_engine=eager if name == "serial"
+                       else None, rows=spec["k"] + 1)
+        steps = arm["stats"]["decode_steps"]
+        assert arm["launches"]["paged_decode_attention"] == 12 * steps, \
+            f"serve_spec_paged {name}: paged kernel ran " \
+            f"{arm['launches']['paged_decode_attention']} times in {steps} " \
+            f"verify steps (want 12 each)"
+        arms[name] = arm
+        log(f"[serve_spec_paged] {name} (k=4, T=5 through the paged kernel, "
+            f"paged_kv={PAGED_KV}, captured, strict_recompile): "
+            f"{spec_line(arm)}; paged kernel launches "
+            f"{arm['launches']['paged_decode_attention']} = 12 x {steps} "
+            f"verify steps")
+    same_tokens("serve_spec_paged", arms["serial"], arms["no drafts"]["reqs"],
+                "the no-drafts arm's")
+    same_tokens("serve_spec_paged overlap", arms["overlap"],
+                arms["serial"]["reqs"], "the serial arm's")
+    arms["divergences"] = divergences(
+        "serve_spec_paged", arms["serial"]["reqs"], spec_arms["off"]["reqs"],
+        eager, fp32_reference(model, eager, device))
+    held = arms["serial"]["held"]
+    log(f"[serve_spec_paged] tokens equal the no-drafts and overlap arms'; "
+        f"captured verify logits (8, 5, V) vs eager on a copy of the pool: "
+        f"max |diff| {held[0]:.3g}, row rel {held[1]:.3g} (tol "
+        f"{CAPTURED_REL_TOL}); launches serial {arms['serial']['launches']}")
+    return arms
+
+
+def phase_serve_spec_model(model, seed: int, paged_arms: dict, prompts,
+                           budgets, device: str = "cuda") -> dict:
+    """The small-model drafter: GPT-2 small drafting for itself (a second,
+    captured engine over the same weights), k=4, over the paged pool, the
+    first 8 of ``serve_spec``'s requests at once: tokens equal
+    ``serve_spec_paged``'s no-drafts arm's (the same verify forward); each
+    step runs the draft prefill (flash kernel), k-1 draft decode replays
+    (the decode kernel) and one verify replay (the paged kernel).
+    Acceptance is reported, not held: the drafter's decode kernel and the
+    verify's paged kernel round differently."""
+    import deepspeed_tpu_torch as dst
+
+    k = 4
+    drafter_engine = graph_engine(model, device)
+    srv = dst.ServingEngine(
+        graph_engine(model, device), num_slots=8, max_queue_depth=64,
+        prefill_chunk=64, paged_kv=dict(PAGED_KV), seed=seed,
+        spec_decode={"drafter": "model", "k": k,
+                     "draft_engine": drafter_engine})
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = drive(srv, prompts, budgets, first_alone=False)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    arm = dict(reqs=reqs, launches=launches, stats=srv.stats(), wall=wall,
+               replay_ms=replay_ms(srv) if device == "cuda"
+               else float("nan"))
+    srv.check_invariants()
+    assert all(len(r.output_tokens) == n for r, n in zip(reqs, budgets))
+    same_tokens("serve_spec_model", arm,
+                paged_arms["no drafts"]["reqs"][:len(reqs)],
+                "serve_spec_paged's no-drafts arm")
+    steps = arm["stats"]["decode_steps"]
+    assert launches["paged_decode_attention"] == 12 * steps
+    assert launches["decode_attention"] == 12 * (k - 1) * steps, \
+        f"serve_spec_model: decode kernel ran {launches['decode_attention']}" \
+        f" times in {steps} steps (want 12 x {k - 1} draft decodes each)"
+    assert launches["flash_attention_fwd"] >= 12 * steps
+    log(f"[serve_spec_model] SmallModelDrafter (gpt2-small drafting for "
+        f"itself, captured draft engine), k={k}, paged, {len(reqs)} "
+        f"requests: {spec_line(arm)}; tokens equal the no-drafts arm's; "
+        f"launches {launches}")
+    return arm
+
+
+def phase_serve_spec_int8(engine, seed: int, paged_kv: dict, eager, ref,
+                          device: str = "cuda") -> dict:
+    """TinyLlama-1.1B int8 (int8 weights, int8 KV pages) at k=4: 16 motif
+    requests (budgets 64-128) on a spec-off, a spec-on and a no-drafts
+    server over the captured int8 engine, strict: the spec-on tokens equal
+    the no-drafts arm's, and against the spec-off arm as
+    :func:`divergences` holds them (``eager``: the int8 engine, ``ref``:
+    the int8 model with every kernel off); the int8 paged kernel runs 22
+    times a verify step, and int8_matmul 22 x 7 times a verify step in its
+    prefill tiles (M = 8 x 5 = 40), beside the prefill chunks' own 22 x 7
+    a forward."""
+    import deepspeed_tpu_torch as dst
+
+    L = engine.module.config.n_layer
+    rng = np.random.default_rng(seed + 6)
+    prompts, budgets = motif_traffic(rng, engine.module.config.vocab_size,
+                                     16, budget_hi=128)
+    arms = {}
+    for name, spec in (("off", None), ("on", dict(SPEC_NGRAM, k=4)),
+                       ("no drafts", dict(SPEC_NGRAM, k=4,
+                                          drafter=no_drafts()))):
+        srv = dst.ServingEngine(engine, num_slots=8, max_queue_depth=64,
+                                prefill_chunk=64, paged_kv=dict(paged_kv),
+                                seed=seed, strict_recompile=True,
+                                spec_decode=spec)
+        arms[name] = spec_arm(f"serve_spec_int8 {name}", srv, prompts,
+                              budgets, device, rows=1 if spec is None else 5)
+    same_tokens("serve_spec_int8", arms["on"], arms["no drafts"]["reqs"],
+                "the no-drafts arm's")
+    arms["divergences"] = divergences(
+        "serve_spec_int8", arms["on"]["reqs"], arms["off"]["reqs"], eager,
+        ref)
+    on = arms["on"]
+    steps, fwd = on["stats"]["decode_steps"], on["forwards"]
+    lau = on["launches"]
+    assert lau["paged_decode_attention_int8"] == L * steps, \
+        f"serve_spec_int8: int8 paged kernel ran " \
+        f"{lau['paged_decode_attention_int8']} times in {steps} verify steps"
+    assert lau["int8_matmul_prefill"] == PROJECTIONS * L * (steps + fwd), \
+        f"serve_spec_int8: int8_matmul prefill tiles ran " \
+        f"{lau['int8_matmul_prefill']} times (want {PROJECTIONS} x {L} x " \
+        f"({steps} verify steps + {fwd} prefill forwards))"
+    assert lau["int8_matmul"] == lau["int8_matmul_prefill"], \
+        "serve_spec_int8: a verify projection took the decode tiles"
+    for name in ("off", "on", "no drafts"):
+        log(f"[serve_spec_int8] spec {name} (tinyllama-1.1B widths int8, "
+            f"kv_cache_quant, paged_kv={paged_kv}, captured, "
+            f"strict_recompile; 16 motif requests, new {min(budgets)}-"
+            f"{max(budgets)}): {spec_line(arms[name])}")
+    log(f"[serve_spec_int8] k=4: spec-on tokens equal the no-drafts arm's; "
+        f"int8 paged kernel {lau['paged_decode_attention_int8']} = {L} x "
+        f"{steps} verify steps; int8_matmul {lau['int8_matmul']}, all in "
+        f"the prefill tiles: {PROJECTIONS} x {L} x ({steps} verify steps at "
+        f"M=40 + {fwd} prefill forwards)")
+    return arms
 
 
 def int8_variant(srv_int8, seed: int, matmul: str = "off",
@@ -2935,7 +3435,17 @@ def main(argv=None) -> int:
     runs += [paged_launches, pcap["launches"]]
     phase_overlap_captured("serve_paged", graph_engine(model), preqs, pwarm,
                            *ptraffic, seed)
-    del model, srv, ref, psrv, geng, pgeng, cap, pcap
+    del srv, ref, psrv, geng, pgeng, cap, pcap
+    spec = phase_serve_spec(model, seed)
+    straffic = ([r.prompt for r in spec["off"]["reqs"]],
+                [r.max_new_tokens for r in spec["off"]["reqs"]])
+    spaged = phase_serve_spec_paged(model, seed, spec, *straffic)
+    smodel = phase_serve_spec_model(model, seed, spaged,
+                                    *(x[:8] for x in straffic))
+    runs += [arm["launches"] for group in (spec, spaged)
+             for arm in group.values() if "launches" in arm]
+    runs.append(smodel["launches"])
+    del model, spec, spaged, smodel
     torch.cuda.empty_cache()
 
     llama = tinyllama(seed)
@@ -2970,15 +3480,21 @@ def main(argv=None) -> int:
         kernel_ms=L * (results["decode_attention_int8"]["ms"]
                        + results["int8_matmul"]["ms"]))
     runs += [contig_launches, ccap["launches"]]
+    qspec = phase_serve_spec_int8(
+        qgeng, seed, qtraffic[2], qsrv.engine,
+        int8_variant(qsrv, seed).engine.module)
+    qspec_launches = [arm["launches"] for arm in qspec.values()
+                      if "launches" in arm]
+    runs += qspec_launches
     served = (int8_launches, qcap["launches"], contig_launches,
-              ccap["launches"])
-    del qgeng, qcap, ccap, csrv
+              ccap["launches"], *qspec_launches)
+    del qgeng, qcap, ccap, csrv, qspec
     prefill = sum(r["int8_matmul_prefill"] for r in served)
     results["int8_matmul"]["launches_by_regime"] = dict(
         decode=sum(r["int8_matmul"] for r in served) - prefill,
         prefill=prefill)
-    log(f"[serve_int8] int8_matmul launches over both int8 serving phases "
-        f"and their captured arms by regime: "
+    log(f"[serve_int8] int8_matmul launches over the int8 serving phases "
+        f"(their captured arms and serve_spec_int8 included) by regime: "
         f"{results['int8_matmul']['launches_by_regime']} (decode M <= 16, "
         f"prefill M > 16)")
     qhit = next(r for r in qreqs if r.prefix_hit_tokens > 0)

@@ -71,7 +71,8 @@ def init_inference(model: Any = None, config: Union[Dict, None] = None,
 # serving keys the JAX ``init_serving`` routes to the ServingEngine
 SERVE_KEYS = ("policy", "do_sample", "temperature", "top_k", "top_p", "seed",
               "monitor", "prefill_chunk", "prefill_token_budget",
-              "paged_kv", "strict_recompile", "overlap") + NOT_PORTED
+              "paged_kv", "strict_recompile", "overlap",
+              "spec_decode") + NOT_PORTED
 
 
 def init_serving(model: Any = None, config: Union[Dict, None] = None,
@@ -91,8 +92,14 @@ def init_serving(model: Any = None, config: Union[Dict, None] = None,
     unless ``kernel="off"``); ``strict_recompile`` (a new program
     signature or decode capture after ``end_warmup()`` raises at the step
     boundary) and ``overlap`` (the pipelined step: decode issued before
-    admission). The JAX package's other serving keys are accepted and
-    raise ``NotImplementedError`` unless off (None/False).
+    admission); ``spec_decode`` (None/False: off; True, a dict or a
+    ``SpecDecodeConfig``: speculative decoding, e.g. ``{"drafter":
+    "ngram", "k": 4, "max_ngram": 3}`` or ``{"drafter": "model", "k": 4,
+    "draft_engine": <InferenceEngine>}``; each step verifies ``k`` draft
+    tokens a slot in one (num_slots, k+1) forward, greedy tokens unchanged,
+    and admission reserves ``k`` positions). The JAX package's other
+    serving keys are accepted and raise ``NotImplementedError`` unless off
+    (None/False).
     Per-request ``max_new_tokens`` and ``eos_token_id`` ride on
     ``submit()``. Everything else configures the inference engine, among
     it ``enable_cuda_graph``: every decode step then replays a CUDA graph.

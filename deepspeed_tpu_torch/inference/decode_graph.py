@@ -10,20 +10,25 @@ launches for a 12-layer model, so the port records one decode step in a
 :class:`DecodeGraphs` holds one captured step per signature: the route
 (``"contiguous"``, ``TransformerLM.decode`` over a stacked cache, or
 ``"paged"``, ``decode_paged`` over a page pool and its table), the batch
-(and query rows a slot, one for a decode step), the cache leaves' shapes
-and dtypes and, for the pool, the table's width.
+and query rows a slot (one for a decode step, K+1 for a speculative verify
+forward), the cache leaves' shapes and dtypes and, for the pool, the
+table's width.
 
 A captured step owns static inputs, tokens (B, T) long (T = 1 for a
-decode step), positions (B,) long and for the pool the table (B,
-pages_per_slot) int32, which each call fills before the replay, and a
-static fp32 logits output (B, T, V). It
+decode step, K+1 for verify), positions (B,) long and for the pool the
+table (B, pages_per_slot) int32, which each call fills before the replay,
+and a static fp32 logits output (B, T, V). It
 updates the cache leaves it was captured on in place, so it is bound to
 those tensors too: a cache of the same signature at another address gets a
 graph of its own, and a graph whose leaves were freed is dropped. Sampling
 runs after the replay, outside the graph, greedy or drawn from the caller's
 ``torch.Generator``: one graph serves every sampling mode, sampled tokens
 equal the eager path's for the same seed, and no generator state is
-captured.
+captured. Speculative acceptance (``serving/spec_decode/verify.py``) runs
+after a verify replay the same way. A contiguous verify forward's writes
+past the allocation are dropped without a host sync
+(``models/transformer_lm._row_writes``), a paged one's go to the pool's
+scratch page.
 
 Capture: the step first runs eagerly once on a side stream (which builds
 the kernels at first use, never inside a capture, and computes this step),

@@ -5,14 +5,16 @@ eagerly, so each program here is a plain method: ``prefill_at`` (the
 serving path's bucketed prefill, projecting one position),
 ``prefill_chunk`` (one chunk of a long prompt into a slot's cache row),
 ``decode`` (one token per row against a cache updated in place),
-``decode_paged`` (the same over a page pool), ``sample`` and
-``generate``. The model is moved to the engine's device once; its
-parameters are already in the config dtype (the engine checks), as the JAX
-engine's ``_finalize_params`` casts them.
+``decode_paged`` (the same over a page pool), ``verify_k`` (speculative
+verification of K draft tokens a row), ``sample`` and ``generate``. The
+model is moved to the engine's device once; its parameters are already in
+the config dtype (the engine checks), as the JAX engine's
+``_finalize_params`` casts them.
 
 With ``enable_cuda_graph`` the decode step is what the JAX engine's
-whole-step ``jax.jit`` makes it, one program: ``decode``, ``decode_paged``
-and ``generate()``'s loop replay a step captured in a CUDA graph per
+whole-step ``jax.jit`` makes it, one program: ``decode``, ``decode_paged``,
+``verify_k``'s forward and ``generate()``'s loop replay a step captured in
+a CUDA graph per
 signature (``decode_graph.DecodeGraphs``, :attr:`InferenceEngine.
 decode_graphs`), and ``generate()`` prefills into a static cache the
 signature owns and replays one step per token with no host sync between
@@ -191,17 +193,58 @@ class InferenceEngine:
             return int(pos)
         return torch.as_tensor(pos).to(self.device)
 
+    def _decode(self, cache, tokens, pos) -> torch.Tensor:
+        """The contiguous decode forward of ``tokens`` (B, T) long on the
+        device: replayed (the graph's static logits) or eager."""
+        if self.decode_graphs is not None:
+            return self.decode_graphs.run("contiguous", cache, tokens,
+                                          self._pos(pos))
+        return self.module.decode(tokens, pos, cache)
+
     @torch.no_grad()
     def decode(self, cache, tokens, pos) -> torch.Tensor:
         """One token per row: ``tokens`` (B, 1), ``pos`` the current cache
         lengths (int or (B,)). Writes ``cache`` in place; returns (B, 1, V)
         fp32 logits. With ``enable_cuda_graph`` the step replays the one
         captured for this signature and cache."""
+        logits = self._decode(cache, self._ids(tokens), pos)
+        return logits.clone() if self.decode_graphs is not None else logits
+
+    @torch.no_grad()
+    def verify_k(self, cache, tokens, pos, draft, draft_len,
+                 generator: Optional[torch.Generator], temperature: float,
+                 greedy: bool, top_k: int, top_p: float):
+        """Speculative verification on a contiguous cache: score K draft
+        positions for every row in ONE (B, K+1) forward, then accept
+        (greedy accept-prefix, or lossless rejection sampling under the
+        serving sampler's filtered distribution when not ``greedy``,
+        drawing from ``generator``; ``serving/spec_decode/verify.py``).
+
+        ``tokens`` (B, K+1): [current token, draft_0 .. draft_{K-1}] per
+        row; ``pos`` (B,) per-slot cache offsets; ``draft`` (B, K);
+        ``draft_len`` (B,) in [0, K] (0: a plain decode step for that row;
+        dead slots ride along so). The forward is ``TransformerLM.decode``
+        with T = K+1, the window-masked attention the JAX chunked decode
+        runs (no kernel there either), and with ``enable_cuda_graph`` it
+        replays the step captured for this signature and cache; acceptance
+        runs after it, outside the graph. ``cache`` comes back with all K+1
+        positions written for every row (a position past the allocation is
+        dropped); the caller rolls back the rejected ones through the
+        per-slot lengths (``SlotPool.advance``).
+
+        Returns ``(out (B, K+1) long, n_emit (B,) long)``: row ``i`` emits
+        ``out[i, :n_emit[i]]``, the accepted prefix plus the bonus or
+        correction token (``n_emit >= 1``)."""
+        from ..serving.spec_decode.verify import make_verify_fn
+
         tokens = self._ids(tokens)
-        if self.decode_graphs is not None:
-            return self.decode_graphs.run("contiguous", cache, tokens,
-                                          self._pos(pos)).clone()
-        return self.module.decode(tokens, pos, cache)
+        if tokens.shape[1] < 2:
+            raise ValueError(f"verify_k wants (B, K+1) tokens with K >= 1, "
+                             f"got {tuple(tokens.shape)}")
+        verify = make_verify_fn(self._decode, _filter_logits)
+        return verify(cache, tokens, pos, torch.as_tensor(draft),
+                      torch.as_tensor(draft_len), generator, temperature,
+                      greedy, top_k, top_p)
 
     @torch.no_grad()
     def decode_paged(self, pages, tokens, pos, table,

@@ -220,16 +220,25 @@ def _dense(cfg: TransformerConfig, in_features: int, out_features: int,
     return nn.Linear(in_features, out_features, bias=bias, **fk)
 
 
-def _write_rows(kv: Dict[str, Any], idx, k_rows, v_rows) -> None:
+def _write_rows(kv: Dict[str, Any], idx, k_rows, v_rows,
+                keep=None) -> None:
     """Store K/V rows (..., D) at ``buf[idx]`` in one layer's cache leaves;
     an int8 cache quantizes them per row and stores their scales at the same
-    index of ``k_scale``/``v_scale``."""
+    index of ``k_scale``/``v_scale``. With ``keep`` (a bool per row) a row
+    it marks False writes back the value already at its index, so the
+    cache is unchanged there (see :func:`_row_writes`)."""
     for side, rows in (("k", k_rows), ("v", v_rows)):
         buf = kv[side]
         if f"{side}_scale" in kv:
             rows, sc = quantize_kv_rows(rows)
-            kv[f"{side}_scale"][idx] = sc
-        buf[idx] = rows.to(buf.dtype)
+            scales = kv[f"{side}_scale"]
+            if keep is not None:
+                sc = torch.where(keep[:, None], sc, scales[idx])
+            scales[idx] = sc
+        rows = rows.to(buf.dtype)
+        if keep is not None:
+            rows = torch.where(keep[:, None, None], rows, buf[idx])
+        buf[idx] = rows
 
 
 def _scales(kv: Dict[str, Any], sel=None) -> Dict[str, Any]:
@@ -262,13 +271,26 @@ def _fresh_reference(q, k, v, slopes=None):
 
 def _row_writes(positions, rows, S: int):
     """Cache writes of a multi-token step into contiguous rows: token t of
-    row b goes to ``buf[rows[b], :, positions[b, t]]``; positions past the
-    allocation ``S`` are dropped. Returns ``(sel, row ids, positions)``
-    over the flattened (B*T) tokens (one host sync, once per forward)."""
+    row b goes to ``buf[rows[b], :, positions[b, t]]``, where ``positions
+    [b]`` is ``start[b] + arange(T)`` (T <= S); positions past the
+    allocation ``S`` are dropped, as the JAX scatter drops them. Returns
+    ``(None, row ids, positions, keep)`` over the flattened (B*T) tokens,
+    the ``write`` of :class:`CachedAttention`.
+
+    A dropped token is written too, with the value already there
+    (:func:`_write_rows`' ``keep``), at a position of its row that no kept
+    token of this step writes: ``min(start[b], S) + t - T``, which lies
+    before the row's first kept position. So no write is selected on the
+    host, the forward never syncs with it and can be captured in a CUDA
+    graph, and the cache ends as if the dropped tokens were never
+    written."""
     B, T = positions.shape
-    sel = (positions < S).reshape(-1).nonzero()[:, 0]
-    return (sel, rows[:, None].expand(B, T).reshape(-1)[sel],
-            positions.reshape(-1)[sel])
+    keep = positions < S
+    back = positions[:, :1].clamp(max=S) - T \
+        + torch.arange(T, device=positions.device)[None]
+    target = torch.where(keep, positions, back.clamp(min=0))
+    return (None, rows[:, None].expand(B, T).reshape(-1), target.reshape(-1),
+            keep.reshape(-1))
 
 
 class CachedAttention(nn.Module):
@@ -282,10 +304,11 @@ class CachedAttention(nn.Module):
     through the page ``table``).
 
     ``kv`` is one layer's cache leaves (``k``, ``v`` and, for an int8 cache,
-    ``k_scale``, ``v_scale``). ``write`` is ``(sel, a, b)`` from
+    ``k_scale``, ``v_scale``). ``write`` is ``(sel, a, b, keep)`` from
     :func:`_row_writes` or ``page_writes``, computed once per forward for
-    every layer: the flattened token rows ``sel`` that land in the cache,
-    and where (``buf[a, :, b]``)."""
+    every layer: the flattened token rows ``sel`` that land in the cache
+    (None: all), where (``buf[a, :, b]``), and ``keep`` (None, or the
+    tokens whose rows are stored; the others write back what is there)."""
 
     def __init__(self, cfg: TransformerConfig, **fk):
         super().__init__()
@@ -350,11 +373,11 @@ class CachedAttention(nn.Module):
             return self.o_proj(y.to(x.dtype).reshape(B, 1, H * D))
 
         if mode == "paged" or (mode == "decode" and T > 1):
-            sel, a, b = write
+            sel, a, b, keep = write
             k_rows, v_rows = k.reshape(B * T, KV, D), v.reshape(B * T, KV, D)
             if sel is not None:
                 k_rows, v_rows = k_rows[sel], v_rows[sel]
-            _write_rows(kv, (a, slice(None), b), k_rows, v_rows)
+            _write_rows(kv, (a, slice(None), b), k_rows, v_rows, keep)
             if mode == "paged":
                 sc = {f"{name}_pages": val
                       for name, val in _scales(kv).items()}
@@ -564,7 +587,7 @@ class TransformerLM(nn.Module):
         if mode == "paged":
             _, P, _, ps, _ = cache["k"].shape
             write = page_writes(positions, table, P - scratch_page, ps,
-                                scratch=scratch_page)
+                                scratch=scratch_page) + (None,)
         elif mode == "decode" and input_ids.shape[1] > 1:
             write = _row_writes(positions, rows, cache["k"].shape[3])
         for li, block in enumerate(self.blocks):

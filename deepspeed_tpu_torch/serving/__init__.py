@@ -8,3 +8,4 @@ from .resilience.errors import (InvariantViolation,  # noqa: F401
                                 ServingStalledError)
 from .scheduler import FIFOScheduler  # noqa: F401
 from .slot_pool import SlotPool  # noqa: F401
+from .spec_decode import SpecDecodeConfig  # noqa: F401

@@ -35,15 +35,29 @@ decode for the slots already running is issued first, then admission and
 the prefill chunk, with one fetch at the end of the step; outcomes are the
 serial step's.
 
+Speculative decoding. With a ``spec_decode`` config the decode step is
+draft-verify (``serving/spec_decode/``): a host-side drafter proposes up to
+K tokens per running slot, one (num_slots, K+1) verify forward scores them
+all (``InferenceEngine.verify_k`` on contiguous rows; ``PagedKVPool.
+run_verify`` over pages, through the paged kernel for K+1 <= 8), and each
+slot keeps its accepted prefix plus one bonus token. Rejected positions
+roll back through the per-slot lengths (:meth:`SlotPool.advance`), never a
+reshape, so speculation adds no shape; admission reserves K positions of
+headroom (``capacity - k``). Greedy output is plain decoding's through
+the same verify forward (in bf16 the one-row decode step rounds otherwise,
+so the two can part where the top two logits tie). With
+``enable_cuda_graph`` the verify forward is the server's one captured
+step, and acceptance runs after its replay.
+
 Recompiles. :attr:`watchdog` (``telemetry.RecompileWatchdog``) records one
 signature per call of each watched entry point and every decode capture;
 after :meth:`end_warmup` a new one counts as a recompile, and with
 ``strict_recompile`` the step boundary raises ``RecompileAfterWarmupError``
 (after the step's fetch, so no request is failed by it).
 
-Speculative decoding and the resilience and telemetry keys other than
-``strict_recompile`` are later slices; passing any of them raises
-``NotImplementedError``.
+The resilience and telemetry keys other than ``strict_recompile`` are later
+slices; passing any of them raises ``NotImplementedError``. Speculation's
+load-shedding branch (drafts suspended under overload) comes with them.
 """
 
 from __future__ import annotations
@@ -54,6 +68,8 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..accelerator import copy_from_host
+from ..ops.attention.paged_attention import MAX_QUERY_ROWS
 from ..telemetry.watchdog import RecompileWatchdog
 from ..utils.logging import log_dist
 from .metrics import ServingMetrics
@@ -63,12 +79,13 @@ from .resilience.errors import InvariantViolation, ServingStalledError
 from .resilience.preemption import select_victims
 from .scheduler import FIFOScheduler
 from .slot_pool import SlotPool
+from .spec_decode import SpecDecodeConfig, make_drafter
 
 _MIN_PREFILL_BUCKET = 16
 
 # serving keys of the JAX engine that this port does not have yet; None or
 # False means "off" and is accepted, any other value raises
-NOT_PORTED = ("spec_decode", "tracer", "registry", "timeline_capacity",
+NOT_PORTED = ("tracer", "registry", "timeline_capacity",
               "deadline_default_ms", "step_wall_budget_ms", "guard_numerics",
               "degradation", "preempt_queue_threshold",
               "preempt_min_run_steps", "fault_injector", "cost_model", "slo",
@@ -76,12 +93,15 @@ NOT_PORTED = ("spec_decode", "tracer", "registry", "timeline_capacity",
 
 # the port's counterparts of the entry points the JAX watchdog wraps
 # (_WATCHED_ENGINE_JITS, _WATCHED_POOL_JITS); the paged ones exist only
-# on a PagedKVPool (attach skips absentees). A captured decode step
-# records through DecodeGraphs.capture, on every call
+# on a PagedKVPool (attach skips absentees). A captured decode or verify
+# step records through DecodeGraphs.capture, on every call
 _WATCHED_ENGINE = ("prefill_at", "prefill_chunk", "decode", "decode_paged",
-                   "sample")
+                   "sample", "verify_k")
 _WATCHED_POOL = ("admit_rows", "run_decode", "run_prefill_chunk",
-                 "_copy_page")
+                 "run_verify", "_copy_page")
+# a model drafter's engine programs (the JAX _WATCHED_DRAFTER_JITS: the
+# draft model's prefill and decode run every step too)
+_WATCHED_DRAFTER = ("prefill_at", "decode")
 
 PAGED_KV_KEYS = ("num_pages", "page_size", "prefix_cache", "kernel")
 
@@ -105,7 +125,8 @@ class ServingEngine:
                  prefill_chunk: int = 64,
                  prefill_token_budget: Optional[int] = None,
                  paged_kv: Any = False, strict_recompile: bool = False,
-                 overlap: bool = False, **not_ported: Any):
+                 overlap: bool = False, spec_decode: Any = None,
+                 **not_ported: Any):
         for key, val in not_ported.items():
             if key not in NOT_PORTED:
                 raise TypeError(f"unexpected ServingEngine argument {key!r}")
@@ -148,16 +169,37 @@ class ServingEngine:
         else:
             self.pool = SlotPool(spec, num_slots, self.device)
         self._paged = isinstance(self.pool, PagedKVPool)
+        self._spec: Optional[SpecDecodeConfig] = None
+        self._drafter = None
+        sched_capacity = self.pool.capacity
+        sc = SpecDecodeConfig.from_value(spec_decode)
+        if sc is not None and sc.enabled:     # False / enabled=False: off
+            sc.validate(self.pool.capacity)
+            self._spec = sc
+            self._drafter = make_drafter(sc)
+            # verify writes k+1 positions past a slot's length (the
+            # rejected tail is masked padding); reserving k of them at
+            # admission keeps even a fully rejected chunk inside the
+            # allocation, clear of any other request's positions
+            sched_capacity = self.pool.capacity - sc.k
         graphs = getattr(engine, "decode_graphs", None)
         if graphs is not None and self._paged and not self.pool.kernel_active:
             raise ValueError(
                 "enable_cuda_graph captures the paged decode step through "
                 "the paged kernel; paged_kv kernel='off' builds a dense "
                 "view of the pages at every step, which cannot be captured")
+        if graphs is not None and self._paged and self._spec is not None \
+                and self._spec.k + 1 > MAX_QUERY_ROWS:
+            raise ValueError(
+                f"enable_cuda_graph captures the paged verify step through "
+                f"the paged kernel, which takes k+1 <= {MAX_QUERY_ROWS} query "
+                f"rows; spec_decode.k={self._spec.k} verifies over a dense "
+                f"view of the pages, which cannot be captured")
         self.scheduler = FIFOScheduler(
-            num_slots, max_queue_depth, policy, capacity=self.pool.capacity,
+            num_slots, max_queue_depth, policy, capacity=sched_capacity,
             page_size=self.pool.page_size if self._paged else None,
-            num_pages=self.pool.num_pages if self._paged else None)
+            num_pages=self.pool.num_pages if self._paged else None,
+            page_headroom=self._spec.k if self._spec is not None else 0)
         self._stall_free = chunk > 0 and policy == "continuous"
         self.prefill_chunk = chunk if self._stall_free else 0
         self.prefill_token_budget = None
@@ -190,6 +232,15 @@ class ServingEngine:
             self.watchdog.attach(graphs, "capture",
                                  name="DecodeGraphs.capture",
                                  every_call=True)
+        draft_engine = getattr(self._drafter, "engine", None)
+        if draft_engine is not None:
+            for attr in _WATCHED_DRAFTER:
+                self.watchdog.attach(draft_engine, attr,
+                                     name=f"Drafter.{attr}")
+            draft_graphs = getattr(draft_engine, "decode_graphs", None)
+            if draft_graphs is not None:
+                self.watchdog.attach(draft_graphs, "capture",
+                                     name="Drafter.capture", every_call=True)
         cfg = engine._config
         self.temperature = cfg.temperature if temperature is None \
             else temperature
@@ -202,6 +253,12 @@ class ServingEngine:
         # it without waiting for the host
         self._cur = torch.zeros((num_slots,), dtype=torch.long,
                                 device=self.device)
+        if self._spec is not None:
+            # the step's drafts on the device, uploaded in place
+            self._draft = torch.zeros((num_slots, self._spec.k),
+                                      dtype=torch.long, device=self.device)
+            self._draft_len = torch.zeros((num_slots,), dtype=torch.long,
+                                          device=self.device)
         # (device tensor, callback) pairs replayed after the step's fetch
         self._deferred: List[Tuple[torch.Tensor, Callable]] = []
         self._next_id = 0
@@ -217,7 +274,9 @@ class ServingEngine:
                  f"capacity={self.pool.capacity} "
                  f"max_queue_depth={max_queue_depth} admission={admission} "
                  f"kv={storage} cuda_graph={graphs is not None} "
-                 f"overlap={self._overlap}", ranks=[0])
+                 f"overlap={self._overlap} spec_k="
+                 f"{self._spec.k if self._spec is not None else 0}",
+                 ranks=[0])
 
     # ------------------------------------------------------------------
     @property
@@ -411,10 +470,14 @@ class ServingEngine:
                 self._preempt_req(victims[0])
 
     def _ensure_decode_pages(self, width: int) -> None:
-        """Back every RUNNING slot's next ``width`` write positions with
-        owned pages before the decode. PREFILLING slots are skipped: their
-        masked garbage writes hit unmapped entries (dropped) or pages the
-        seating already forked."""
+        """Back every RUNNING slot's next ``width`` write positions (1 for
+        decode, K+1 for verify) with owned pages before the step.
+        PREFILLING slots are skipped: their ``width`` masked garbage writes
+        start at their chunk offset, and every page at or past it is either
+        unmapped (the write goes to the scratch page) or owned by the slot
+        (allocated for an earlier chunk, or forked by the prefix seating,
+        which forks every mapped page from the offset on); the next chunk
+        overwrites them."""
         for slot, req in list(self._slot_req.items()):
             if req.state is RequestState.RUNNING:
                 idx = int(self.pool.starts[slot])
@@ -567,6 +630,83 @@ class ServingEngine:
 
         self._defer(nxt, _on_decode)
 
+    def _spec_decode_step(self, finished: List[Request], t0: float) -> None:
+        """Draft K tokens per running slot, verify them all in ONE
+        fixed-shape (num_slots, K+1) forward, keep each slot's accepted
+        prefix + bonus token, and roll back the rejected positions through
+        the per-slot lengths."""
+        K = self._spec.k
+        B = self.pool.num_slots
+        if self._paged:
+            # verify writes K+1 columns past every RUNNING slot's length:
+            # page them in first (under pressure this may preempt, so
+            # before the drafter snapshots the live set)
+            self._ensure_decode_pages(K + 1)
+        if self._deferred:
+            # admissions sampled first tokens earlier in THIS step (the
+            # serial order): the drafter's host histories need them, so
+            # settle them now. Steady decode steps, and overlap mode,
+            # which verifies before admitting, keep one fetch a step
+            self._drain_deferred()
+        # PREFILLING and free slots keep histories None: draft_len 0, and
+        # their deltas stay 0 below, so verify's masked writes roll back
+        histories: List[Optional[np.ndarray]] = [None] * B
+        for slot, req in self._slot_req.items():
+            if req.state is RequestState.RUNNING:
+                histories[slot] = req.tokens()
+        draft, draft_len = self._drafter.propose(histories, K)
+        draft = np.asarray(draft, np.int64)
+        draft_len = np.clip(np.asarray(draft_len, np.int64), 0, K)
+        t_draft = self._now() - t0
+        # stream-ordered uploads into static buffers: no host sync
+        copy_from_host(self._draft, draft)
+        copy_from_host(self._draft_len, draft_len)
+        tokens = torch.cat([self._cur[:, None], self._draft], dim=1)
+        args = (tokens, self.pool.positions_dev(), self._draft,
+                self._draft_len, self._gen, self.temperature, self._greedy,
+                self.top_k, self.top_p)
+        if self._paged:
+            out, n_emit = self.pool.run_verify(self.engine, *args)
+        else:
+            out, n_emit = self.engine.verify_k(self.pool.cache, *args)
+        # the next current token of row b is its last EMITTED one,
+        # out[b, n_emit[b] - 1] (masked rows: never read); in place, so
+        # the token vector keeps its address for the captured step
+        self._cur.copy_(out.gather(1, (n_emit - 1).clamp(min=0)[:, None])
+                        [:, 0])
+        live = [(slot, req) for slot, req in self._slot_req.items()
+                if req.state is RequestState.RUNNING]
+
+        def _on_verify(fetched, live=live, draft_len=draft_len):
+            deltas = np.zeros((B,), np.int32)
+            emitted = drafted = accepted = 0
+            for slot, req in live:
+                if req.state is not RequestState.RUNNING:
+                    continue  # retired by its first token in this drain
+                row = fetched[slot]
+                e = row[-1]
+                # the row holds e new positions whatever the request
+                # consumes below: an eos or budget cut retires it this
+                # step, and the surplus becomes padding of a freed slot
+                deltas[slot] = e
+                drafted += int(draft_len[slot])
+                accepted += e - 1
+                req.spec_drafted += int(draft_len[slot])
+                req.spec_accepted += e - 1
+                for token in row[:e]:
+                    req.output_tokens.append(token)
+                    emitted += 1
+                    self._maybe_retire(req, token, finished)
+                    if req.state is not RequestState.RUNNING:
+                        break
+            self.pool.advance(deltas)       # per-slot KV rollback
+            self.metrics.record_decode_step(
+                emitted, len(live), drafted=drafted, accepted=accepted,
+                draft_s=t_draft, step_s=self._now() - t0)
+
+        # one fetch: the emitted tokens with their counts in a last column
+        self._defer(torch.cat([out, n_emit[:, None]], dim=1), _on_verify)
+
     def _maybe_retire(self, req: Request, token: int,
                       finished: List[Request]) -> None:
         if req.eos_token_id is not None and token == req.eos_token_id:
@@ -642,11 +782,14 @@ class ServingEngine:
                 self.pool.free_count, self.live_count,
                 page_budget=page_budget, page_cost=page_cost)
         try:
+            decode = (self._spec_decode_step if self._spec is not None
+                      else self._decode_step)
             decoded = False
             if self._overlap and self._running_count():
-                # pipelined order: the running slots' decode is issued
-                # first, so admission's host work overlaps it on the card
-                self._decode_step(finished, self._now())
+                # pipelined order: the running slots' decode (or draft +
+                # verify) is issued first, so admission's host work
+                # overlaps it on the card
+                decode(finished, self._now())
                 decoded = True
             if self._stall_free:
                 self._admit_stall_free(granted, finished)
@@ -657,7 +800,7 @@ class ServingEngine:
                         [req], self._bucket(req.seed_len, self.pool.capacity),
                         finished)
             if not decoded and self._running_count():
-                self._decode_step(finished, self._now())
+                decode(finished, self._now())
             self._drain_deferred()
         except Exception:
             self._abort_step(granted)
@@ -797,10 +940,12 @@ class ServingEngine:
             raise InvariantViolation(errors)
 
     def stats(self) -> dict:
-        """Aggregate SLO snapshot (see ``ServingMetrics.snapshot``); with
-        paged KV a ``"paging"`` sub-dict carries the page-pool and
-        prefix-cache counters (``PagedKVPool.page_stats``)."""
+        """Aggregate SLO snapshot (see ``ServingMetrics.snapshot``) and
+        ``spec_k`` (the draft length, 0 with speculation off); with paged
+        KV a ``"paging"`` sub-dict carries the page-pool and prefix-cache
+        counters (``PagedKVPool.page_stats``)."""
         snap = self.metrics.snapshot()
+        snap["spec_k"] = int(self._spec.k) if self._spec is not None else 0
         if self._paged:
             snap["paging"] = self.pool.page_stats()
         return snap

@@ -33,9 +33,16 @@ class ServingMetrics:
         self.rejected: Dict[str, int] = {}
         self.failed: int = 0
         self.preempted: int = 0
+        # decode-step aggregates (speculative decoding efficiency):
+        # slot_steps counts (live slot, step) pairs, so tokens per decode
+        # step is per slot: plain decode pins it at 1.0 and every accepted
+        # draft pushes it above, whatever the batch occupancy
         self.decode_steps: int = 0
         self.decode_tokens: int = 0
         self.slot_steps: int = 0
+        self.drafted: int = 0
+        self.accepted_drafts: int = 0
+        self.draft_time: float = 0.0
         self.step_time: float = 0.0
         self.prefill_tokens: int = 0
         self.prefill_dispatches: int = 0
@@ -90,11 +97,22 @@ class ServingMetrics:
         self._emit([("serving/prefix_hit_tokens", float(hit_tokens))])
 
     def record_decode_step(self, emitted: int, live_slots: int,
-                           step_s: float = 0.0) -> None:
+                           drafted: int = 0, accepted: int = 0,
+                           draft_s: float = 0.0, step_s: float = 0.0) -> None:
+        """One decode (or draft + verify) step: ``emitted`` tokens across
+        ``live_slots`` live slots; ``drafted``/``accepted`` count the draft
+        proposals offered and accepted (0/0 with speculation off)."""
         self.decode_steps += 1
         self.decode_tokens += emitted
         self.slot_steps += live_slots
+        self.drafted += drafted
+        self.accepted_drafts += accepted
+        self.draft_time += draft_s
         self.step_time += step_s
+        if drafted:
+            self._emit([("serving/spec_acceptance", accepted / drafted),
+                        ("serving/spec_tokens_per_slot_step",
+                         emitted / max(live_slots, 1))])
 
     def record_step_gap(self, seconds: float) -> None:
         self.step_gaps.append(seconds)
@@ -145,6 +163,14 @@ class ServingMetrics:
             "tokens_per_decode_step": (
                 self.decode_tokens / self.slot_steps
                 if self.slot_steps else None),
+            "spec_drafted": self.drafted,
+            "spec_accepted": self.accepted_drafts,
+            "spec_acceptance_rate": (
+                self.accepted_drafts / self.drafted
+                if self.drafted else None),
+            "draft_overhead_pct": (
+                100.0 * self.draft_time / self.step_time
+                if self.step_time > 0 else None),
             "prefix_lookups": self.prefix_lookups,
             "prefix_hits": self.prefix_hits,
             "prefix_hit_rate": (self.prefix_hits / self.prefix_lookups

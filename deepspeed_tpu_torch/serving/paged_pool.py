@@ -36,9 +36,13 @@ a real page and no step waits on the host to select its writes. The device
 table is one tensor for the pool's life, refreshed in place after host
 edits, so a decode step captured in a CUDA graph keeps reading it.
 
+Speculative verify (:meth:`run_verify`) scores K+1 query rows a slot:
+through ``decode_paged`` and the paged kernel for K+1 <= ``MAX_QUERY_ROWS``
+on a kernel pool, else through the dense composition (the JAX package's
+choice too), its K+1 columns written back through the table.
+
 Not in this slice (each raises ``NotImplementedError``): the cross-pool
-page transfer of disaggregated serving (``import_pages``, ``seat_pages``)
-and speculative verify (``run_verify``).
+page transfer of disaggregated serving (``import_pages``, ``seat_pages``).
 """
 
 from __future__ import annotations
@@ -369,9 +373,46 @@ class PagedKVPool(SlotPool):
         self._scatter_cols(dense, row, cols)
         return logits
 
-    def run_verify(self, *args, **kwargs):
-        raise NotImplementedError("speculative verify over pages is a "
-                                  "later slice of the port")
+    def run_verify(self, engine: Any, tokens, pos, draft, draft_len,
+                   generator, temperature: float, greedy: bool, top_k: int,
+                   top_p: float):
+        """Speculative verify over the pages (``InferenceEngine.verify_k``'s
+        semantics; ``tokens`` (num_slots, K+1)), updated in place; returns
+        ``(out, n_emit)``. On a kernel pool with K+1 <= ``MAX_QUERY_ROWS``
+        the forward is ``decode_paged`` with T = K+1 (the paged kernel on
+        the card, a captured step with ``enable_cuda_graph``), each row's
+        writes through the table, those of unmapped positions to the
+        scratch page. Otherwise (wider chunks, or ``kernel="off"``) it is
+        the dense composition: gather the slots' dense view, run the
+        contiguous (B, K+1) forward, write the K+1 columns back."""
+        from ..inference.engine import _filter_logits
+        from .spec_decode.verify import make_verify_fn
+
+        if self.kernel_active and tokens.shape[1] <= MAX_QUERY_ROWS:
+            def forward(cache, tokens, pos):
+                return engine.decode_paged(cache, tokens, pos.long(),
+                                           self.table_dev, scratch_page=True)
+        else:
+            if engine.decode_graphs is not None:
+                raise ValueError(
+                    "a captured verify step reads the pages in place through "
+                    "the paged kernel (kernel on, K+1 <= "
+                    f"{MAX_QUERY_ROWS}); the dense composition builds a new "
+                    "view of the pages at every step, which cannot be "
+                    "captured")
+
+            def forward(cache, tokens, pos):
+                dense = self.spec.dense_from_pages(cache, self.table_dev)
+                logits = engine.decode(dense, tokens, pos)
+                cols = pos.long()[:, None] + torch.arange(
+                    tokens.shape[1], device=self.device)[None]
+                self._scatter_cols(dense, self.table_dev, cols)
+                return logits
+
+        verify = make_verify_fn(forward, _filter_logits)
+        return verify(self.cache, tokens,
+                      torch.as_tensor(pos, device=self.device), draft,
+                      draft_len, generator, temperature, greedy, top_k, top_p)
 
     # ------------------------------------------------------------------
     # admission (SlotPool API, paged storage)

@@ -10,8 +10,8 @@ with its generated tokens, which its next admission prefills again
 (:attr:`Request.seed_tokens`). The object doubles as the per-request SLO
 record: the engine stamps times at each transition and the latencies are
 derived properties. Terminal reasons are closed ``str`` enums, so
-``req.finish_reason == "eos"`` works. The JAX package's deadline,
-multi-tenant and speculative-decoding fields arrive with those slices.
+``req.finish_reason == "eos"`` works. The JAX package's deadline and
+multi-tenant fields arrive with those slices.
 """
 
 from __future__ import annotations
@@ -87,6 +87,9 @@ class Request:
     prefix_hit_tokens: int = 0              # seed tokens skipped at seating
     #                                         through the prefix cache
     chunks: int = 0                         # chunked-prefill dispatches run
+    spec_drafted: int = 0                   # draft tokens proposed for this
+    #                                         request's slot
+    spec_accepted: int = 0                  # draft tokens accepted
 
     submit_time: Optional[float] = None
     admit_time: Optional[float] = None      # prefill issued (slot granted)

@@ -32,7 +32,7 @@ class FIFOScheduler:
     def __init__(self, num_slots: int, max_queue_depth: int = 64,
                  policy: str = "continuous", capacity: Optional[int] = None,
                  page_size: Optional[int] = None,
-                 num_pages: Optional[int] = None):
+                 num_pages: Optional[int] = None, page_headroom: int = 0):
         if policy not in POLICIES:
             raise ValueError(f"unknown policy {policy!r}; expected one of "
                              f"{POLICIES}")
@@ -40,17 +40,21 @@ class FIFOScheduler:
         self.max_queue_depth = max_queue_depth
         self.policy = policy
         self.capacity = capacity
-        # paged KV: the admission currency is pages, not rows
+        # paged KV: the admission currency is pages, not rows;
+        # ``page_headroom`` is extra columns charged per request
+        # (speculative verify's k-past-the-length writes)
         self.page_size = page_size
         self.num_pages = num_pages
+        self.page_headroom = int(page_headroom)
         self.queue: Deque[Request] = collections.deque()
 
     def page_footprint(self, req: Request) -> Optional[int]:
         """Worst-case pages ``req`` could ever hold (seed + remaining
-        budget), or None when the pool is not paged."""
+        budget + headroom), or None when the pool is not paged."""
         if self.page_size is None:
             return None
-        cols = req.seed_len + req.max_new_tokens - len(req.output_tokens)
+        cols = (req.seed_len + req.max_new_tokens - len(req.output_tokens)
+                + self.page_headroom)
         return -(-cols // self.page_size)
 
     @property

@@ -1379,3 +1379,111 @@ def test_a_decode_step_that_cannot_be_captured_raises(gen):
                           text=True, timeout=600)
     assert "RAISED" in done.stdout, done.stdout + done.stderr
     assert "captur" in done.stdout.lower(), done.stdout
+
+
+# -- speculative verify (serving/spec_decode/) ------------------------------
+# A verify step sends K+1 query rows a slot through the paged kernel: every
+# T from 1 to 8 at the serving layout (64-position pages, the plan's own
+# split) under GPT-2's heads and TinyLlama's GQA 32/4, where T = 5 leaves
+# the last row tile of a KV head partly empty (40 of 48 rows).
+
+@pytest.mark.parametrize("T", range(1, 9))
+@pytest.mark.parametrize("H,KV", [(12, 12), (32, 4)])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_kernel_every_verify_width(gen, monkeypatch, T, H, KV, int8):
+    table, starts, P = _paged_case(gen, T, 64, None, monkeypatch)
+    B, D = starts.shape[0], 64
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    if int8:
+        k, ks = _int8_rows(gen, P, KV, 64, D)
+        v, vs = _int8_rows(gen, P, KV, 64, D)
+        scales = dict(k_scale_pages=ks, v_scale_pages=vs)
+    else:
+        k, v = (torch.randn(P, KV, 64, D, generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        scales = {}
+    counter = "int8_launches" if int8 else "launches"
+    before = getattr(paged_decode_attention, counter)
+    got = paged_decode_attention(q, k, v, table, starts, **scales)
+    want = paged_decode_attention_reference(
+        q, k, v, table, starts, 1 / math.sqrt(D), None,
+        scales.get("k_scale_pages"), scales.get("v_scale_pages"))
+    torch.cuda.synchronize()
+    assert getattr(paged_decode_attention, counter) == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("route", ["contiguous", "paged"])
+def test_captured_verify_equals_eager_with_exact_launch_counts(gen, route,
+                                                              int8):
+    """Three k=4 verify steps (random drafts, draft lengths 0-4, positions
+    advanced by what each step emits) on an eager engine and on a captured
+    one: the same emitted tokens and counts, the same cache, one capture,
+    and the same launches, counted exactly: the paged kernel (route
+    "paged") 2 layers a step, no decode kernel (the contiguous verify is
+    the window-masked einsum), and with int8 weights int8_matmul 7 x 2 a
+    step in its prefill tiles (M = 4 slots x 5 rows)."""
+    from deepspeed_tpu_torch.inference.decode_graph import LAUNCH_COUNTERS
+    from deepspeed_tpu_torch.serving import PagedKVPool
+
+    eager, graph = _graph_engines(gen, int8)
+    B, T, L, K, steps = 4, 40, 2, 4, 3
+    ids = torch.randint(0, 512, (B, T), generator=gen, device="cuda")
+    tokens = torch.randint(0, 512, (steps, B, K + 1), generator=gen,
+                           device="cuda")
+    lens = torch.randint(0, K + 1, (steps, B), generator=gen, device="cuda")
+    _, dense = eager.prefill_at(ids)
+    runs = []
+    for eng in (eager, graph):
+        if route == "paged":
+            pool = PagedKVPool(eager.kv_cache_spec(), num_slots=B,
+                               page_size=16, device="cuda",
+                               prefix_cache=False)
+            pool.admit_rows(dense, [pool.alloc() for _ in range(B)],
+                            np.full(B, T))
+            cache = pool.cache
+        else:
+            cache = {k: v.clone() for k, v in dense.items()}
+        before = _launch_counts()
+        pos = torch.tensor([T, 33, 12, 1], dtype=torch.int32, device="cuda")
+        outs = []
+        for step in range(steps):
+            args = (tokens[step], pos, tokens[step, :, 1:], lens[step], None,
+                    1.0, True, 0, 1.0)
+            if route == "paged":
+                for s in range(B):
+                    pool.ensure_writable(s, int(pos[s]), int(pos[s]) + K + 1)
+                out, n_emit = pool.run_verify(eng, *args)
+            else:
+                out, n_emit = eng.verify_k(cache, *args)
+            outs.append((out.clone(), n_emit.clone()))
+            pos = pos + n_emit.int()
+        torch.cuda.synchronize()
+        counts = [a - b for a, b in zip(_launch_counts(), before)]
+        runs.append((outs, counts, cache))
+    (want, eager_counts, eager_cache), (got, graph_counts, graph_cache) = runs
+    assert graph.decode_graphs.captures == 1
+    assert graph_counts == eager_counts
+    counts = {(fn.__name__, attr): n for (fn, attr), n in
+              zip(LAUNCH_COUNTERS, graph_counts)}
+    paged = L * steps if route == "paged" else 0
+    assert counts["paged_decode_attention",
+                  "int8_launches" if int8 else "launches"] == paged
+    assert counts["decode_attention", "launches"] == 0
+    assert counts["decode_attention", "int8_launches"] == 0
+    assert counts["int8_matmul", "launches"] == \
+        counts["int8_matmul", "prefill_launches"] == \
+        (7 * L * steps if int8 else 0)
+    for step, ((a, na), (b, nb)) in enumerate(zip(got, want)):
+        assert torch.equal(na, nb), f"step {step}"
+        assert torch.equal(a, b), f"step {step}"
+    for key in eager_cache:
+        if route == "paged":    # the scratch page takes dropped rows
+            assert torch.equal(eager_cache[key][:, :-1],
+                               graph_cache[key][:, :-1]), key
+        else:
+            assert torch.equal(eager_cache[key], graph_cache[key]), key

@@ -192,7 +192,7 @@ def test_no_slot_leaks_on_a_mid_step_error(stack):
 def test_unported_serving_keys_raise(stack):
     _, _, pcfg, state = stack
     model = P.TransformerLM(pcfg)
-    for key, val in (("spec_decode", True), ("deadline_default_ms", 100),
+    for key, val in (("tracer", True), ("deadline_default_ms", 100),
                      ("priority", True)):
         with pytest.raises(NotImplementedError):
             dst.init_serving(model, config={"dtype": "float32"},

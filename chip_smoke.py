@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--decode-only]
+    python3 chip_smoke.py [--seed N] [--decode-only | --resilience-only]
 
 ``--decode-only`` runs the build and the decode and paged kernels' rows
 alone (phase 2's decode and paged rows, phase 5's two int8 decode rows and
@@ -89,6 +89,28 @@ non-zero:
             requests: tokens equal 4e's no-drafts arm's; each step's draft
             prefill (flash), 3 draft decodes (decode kernel) and verify
             (paged kernel) counted exactly; acceptance printed.
+4g. serve_resilience  the default path (8 slots, serve_paged's pool, chunk
+            64, captured, strict) with every resilience and telemetry key
+            on (tracer, registry, timelines, SLO with two priority classes,
+            flight recorder, guard_numerics, the degradation ladder,
+            pressure preemption, deadlines, a step wall budget) on a fake
+            clock, one 64-token admission a step: after a quiet warm-up,
+            48 requests arrive (a burst of 24 tips the ladder into
+            OVERLOADED) while a FaultInjector raises admit_oom at the 3rd
+            admission and step_host_error at the 28th step, poisons the
+            12th decode's logits with a NaN row and slows the 20th step
+            past the wall budget. Held: untouched requests have the
+            fault-free arm's tokens exactly (touched ones part only at
+            near-ties), the poisoned request alone ends numerical_error,
+            0 recompiles and one capture a server, a clean audit with no
+            slot or page leak, every step span in the exported trace and
+            the step_host_error's post-mortem keys. A contiguous arm (the
+            decode kernel) under a NaN and an abort; a k=4 spec arm driven
+            into OVERLOADED drafts nothing there and gives 4e's no-drafts
+            tokens. Printed: the fault-free traffic's step gap with all
+            telemetry on against all of it off (arms in turns off, on,
+            on, off), telemetry_overhead_s a step. ``--resilience-only``
+            runs the build, 4d, 4e and this.
 5.  int8 kernels  the int8_matmul kernel at TinyLlama-1.1B's decode shapes
             (8 rows), a 64-row prefill chunk and a 512-row prompt through
             gate, and the int8-cache variants of the decode and paged
@@ -2070,7 +2092,8 @@ def no_drafts():
     return NoDrafts()
 
 
-def divergences(label: str, spec_reqs, off_reqs, engine, ref) -> dict:
+def divergences(label: str, spec_reqs, off_reqs, engine, ref,
+                against: str = "the one-row decode step") -> dict:
     """The spec arm's greedy tokens against the one-row decode step's
     (``off_reqs``), which computes the same logits with other kernels and
     other product shapes, so in bf16 an argmax whose top two logits are
@@ -2079,8 +2102,9 @@ def divergences(label: str, spec_reqs, off_reqs, engine, ref) -> dict:
     its first differing token: the teacher-forced logits of the decode
     path (``engine``) and of ``ref`` (fp32 or plain kernels) on the common
     prefix, and both arms' tokens' distance below ``ref``'s maximum as a
-    multiple of the largest |decode path - ref| at that position. Returns
-    the counts and the worst multiple."""
+    multiple of the largest |decode path - ref| at that position
+    (``against`` names ``off_reqs``' arm in the log). Returns the counts
+    and the worst multiple."""
     same, worst, rows = 0, 0.0, []
     for r, o in zip(spec_reqs, off_reqs):
         a, b = np.asarray(r.output_tokens), np.asarray(o.output_tokens)
@@ -2099,7 +2123,7 @@ def divergences(label: str, spec_reqs, off_reqs, engine, ref) -> dict:
         gap = max(top - want[int(a[d])].item(), top - want[int(b[d])].item())
         worst = max(worst, gap / err)
         rows.append((r.request_id, d, round(gap, 5), round(err, 5)))
-    log(f"[{label}] vs the one-row decode step: {same} of {len(spec_reqs)} "
+    log(f"[{label}] vs {against}: {same} of {len(spec_reqs)} "
         f"requests identical; first differences (request, token, gap below "
         f"the reference's top logit, max |decode path - reference|): "
         f"{rows}; worst gap / error {worst:.3g} (limit {TIE_FACTOR})")
@@ -2258,6 +2282,419 @@ def phase_serve_spec_model(model, seed: int, paged_arms: dict, prompts,
         f"requests: {spec_line(arm)}; tokens equal the no-drafts arm's; "
         f"launches {launches}")
     return arm
+
+
+# ---------------------------------------------------------------------------
+# serving resilience and telemetry (serving/resilience/, telemetry/): the
+# default serving path with every fault-tolerance and telemetry key on,
+# under a seeded fault schedule, on a fake clock
+RESILIENCE_TICK = 0.02       # fake-clock seconds a step
+# one 64-wide admission (or one prefill chunk) a step, in every load state:
+# every prefill runs alone, so a request's tokens never depend on who else
+# was admitted with it, and a fault that reorders admissions changes no
+# token of a request it did not touch
+RESILIENCE_BUDGET = 64
+RESILIENCE_FAULTS = {"admit_oom": [3], "nan_logits": [12],
+                     "step_host_error": [28], "slow_dispatch": [20]}
+RESILIENCE_SLOW_MS = 100.0
+RESILIENCE_WALL_BUDGET_MS = 50.0
+PRIORITY = {"classes": ("interactive", "batch")}
+# the interactive class's TTFT target; a class alerts only when under a
+# fifth of its requests in the window finish within target (goodput
+# target 0.5, warn at burn 1.6), so the burn-rate shedding of the batch
+# class guards against a real miss, not the backlog of a burst
+RESILIENCE_SLO = {"classes": {"interactive": {"ttft_ms": 2000.0,
+                                              "gap_ms": None}},
+                  "window_steps": 64, "goodput_target": 0.5,
+                  "warn_burn": 1.6, "page_burn": 1.9}
+RESILIENCE_LADDER = {"queue_pressured": 8, "queue_overloaded": 16,
+                     "cooldown_steps": 4, "retry_after_s": 0.5}
+RESILIENCE_PREEMPT_QUEUE = 16
+# arrivals a step: one every other step, a burst of 24 at step 32 (which
+# tips the ladder into OVERLOADED and sheds some of what follows), then
+# one every other step again: 48 in all
+RESILIENCE_ARRIVALS = [1, 0] * 16 + [24, 0] + [1, 0] * 8
+
+
+class FakeClock:
+    """The serving engine's clock (``clock=``), advanced by the caller."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def clocked_faults(clock, **kw):
+    """A FaultInjector whose ``slow_dispatch`` moves the fake clock by
+    ``slow_ms`` (the step then takes that long on the engine's clock)
+    instead of sleeping."""
+    from deepspeed_tpu_torch.serving.resilience import FaultInjector
+
+    class ClockedFaults(FaultInjector):
+        def maybe_sleep(self, point="slow_dispatch"):
+            if self._roll(point):
+                clock.t += self.slow_ms / 1e3
+                return True
+            return False
+
+    return ClockedFaults(**kw)
+
+
+def resilience_traffic(rng, vocab: int) -> list:
+    """48 requests arriving RESILIENCE_ARRIVALS a step: prompts of 33-64
+    tokens (one 64-wide bucketed admission each) or 65-200 (chunked),
+    budgets 16-48, every third of class interactive and the rest batch, a
+    400 ms deadline on every eighth. Returns [(arrival step, prompt,
+    submit kwargs)]."""
+    steps = [s for s, n in enumerate(RESILIENCE_ARRIVALS) for _ in range(n)]
+    out = []
+    for i, step in enumerate(steps):
+        T = int(rng.integers(33, 65) if i % 2 == 0 else rng.integers(65, 201))
+        kw = dict(max_new_tokens=int(rng.integers(16, 49)),
+                  priority="interactive" if i % 3 == 0 else "batch")
+        if i % 8 == 5:
+            kw["deadline_ms"] = 400.0
+        out.append((step, rng.integers(0, vocab, T).astype(np.int32), kw))
+    return out
+
+
+def resilience_warmup(rng, vocab: int) -> list:
+    """:func:`paged_warmup`'s waves (every chunk width, the bucketed
+    admission, a prefix hit with its copy-on-write fork) and a wave of two
+    10-token prompts admitted together (the batched admission)."""
+    return paged_warmup(rng, vocab) + [[rng.integers(0, vocab, 10),
+                                        rng.integers(0, vocab, 10)]]
+
+
+def fault_free_arm(engine, traffic, warm, seed: int, telemetry: bool,
+                   device: str = "cuda") -> dict:
+    """The traffic with no faults, deadlines, classes or degradation, all
+    submitted at once, on the real clock: telemetry all on (tracer, SLO
+    tracker, flight recorder, timelines) or all off (tracer off, no SLO
+    tracker, no flight recorder, one timeline kept)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+    from deepspeed_tpu_torch.serving.request import RequestState
+    from deepspeed_tpu_torch.telemetry import Tracer
+
+    knobs = (dict(tracer=Tracer(), slo=True, flight_recorder=True)
+             if telemetry else
+             dict(tracer=None, slo=None, flight_recorder=False,
+                  timeline_capacity=1))
+    srv = dst.ServingEngine(engine, num_slots=8, prefill_chunk=64,
+                            prefill_token_budget=RESILIENCE_BUDGET,
+                            paged_kv=dict(PAGED_KV), seed=seed,
+                            strict_recompile=True, **knobs)
+    warm_up(srv, warm)
+    srv.end_warmup()
+    srv.metrics = ServingMetrics(registry=srv.registry,
+                                 step_fn=lambda: srv.step_id)
+    over0, steps0 = srv.telemetry_overhead_s, srv.step_id
+    sync(device)
+    t0 = time.perf_counter()
+    reqs = [srv.submit(p, max_new_tokens=kw["max_new_tokens"])
+            for _, p, kw in traffic]
+    srv.run_until_drained()
+    sync(device)
+    wall = time.perf_counter() - t0
+    assert all(r.state is RequestState.FINISHED for r in reqs)
+    assert srv.watchdog.recompiles == 0
+    srv.check_invariants()
+    st = srv.stats()
+    steps = srv.step_id - steps0
+    return dict(reqs=reqs, stats=st, wall=wall, steps=steps,
+                overhead_per_step_ms=(srv.telemetry_overhead_s - over0)
+                / steps * 1e3)
+
+
+def fault_arm(engine, traffic, warm, seed: int,
+              device: str = "cuda") -> dict:
+    """serve_resilience's fault arm: the server with every resilience and
+    telemetry key on, warmed quietly (the warm-up waves, then a wave of
+    interactive requests that seeds that class's SLO windows), then the
+    traffic arriving step by step on the fake clock under
+    RESILIENCE_FAULTS. An injected fault is caught at the step boundary
+    (where the engine has already rolled the step back); for the
+    step_host_error the harness writes the flight recorder's
+    post-mortem."""
+    import tempfile
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.serving.resilience import InjectedFault
+    from deepspeed_tpu_torch.telemetry import Tracer
+
+    clock = FakeClock()
+    faults = clocked_faults(clock, seed=seed, slow_ms=RESILIENCE_SLOW_MS)
+    srv = dst.ServingEngine(
+        engine, num_slots=8, prefill_chunk=64,
+        prefill_token_budget=RESILIENCE_BUDGET, paged_kv=dict(PAGED_KV),
+        seed=seed, strict_recompile=True, tracer=Tracer(),
+        slo=RESILIENCE_SLO, flight_recorder=True,
+        dump_dir=tempfile.mkdtemp(prefix="serve_resilience-"),
+        guard_numerics=True, degradation=RESILIENCE_LADDER,
+        preempt_queue_threshold=RESILIENCE_PREEMPT_QUEUE, priority=PRIORITY,
+        step_wall_budget_ms=RESILIENCE_WALL_BUDGET_MS, clock=clock,
+        fault_injector=faults)
+    warm_up(srv, warm)
+    for _, p, kw in traffic[:8]:
+        srv.submit(p[:40], max_new_tokens=4, priority="interactive")
+    srv.run_until_drained()
+    srv.end_warmup()
+    faults.load_schedule(RESILIENCE_FAULTS)
+    captures = captures_of(srv)
+    reqs, errors, levels, post_mortem = [], [], [], None
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    step = 0
+    while step <= traffic[-1][0] or srv.pending or srv.live_count:
+        for _, p, kw in (x for x in traffic if x[0] == step):
+            reqs.append(srv.submit(p, **kw))
+        try:
+            srv.step()
+        except InjectedFault as e:
+            errors.append(e.point)
+            if e.point == "step_host_error":
+                post_mortem = srv.recorder.dump(
+                    "step_host_error", error=e, timelines=srv.timelines,
+                    registry=srv.registry, tracer=srv.tracer)
+        levels.append(srv._load.state)
+        clock.t += RESILIENCE_TICK
+        step += 1
+        assert step < 2000, "serve_resilience: the traffic never drained"
+    sync(device)
+    return dict(srv=srv, reqs=reqs, errors=errors, levels=levels,
+                faults=faults, post_mortem=post_mortem,
+                launches=read_launches(), wall=time.perf_counter() - t0,
+                steps=step, captures=captures)
+
+
+def touched(req, timeline) -> bool:
+    """Whether a fault, deadline, preemption or shedding touched ``req``."""
+    names = [e["event"] for e in timeline]
+    return (req.state.value != "finished"
+            or str(req.finish_reason) not in ("length", "eos")
+            or req.preemptions > 0 or "requeued" in names)
+
+
+def phase_serve_resilience(model, seed: int, spec_prompts, spec_budgets,
+                           no_drafts_reqs, device: str = "cuda") -> dict:
+    """The default serving path (8 slots, PAGED_KV, chunk 64, captured,
+    strict_recompile) with every resilience and telemetry key on: tracer,
+    registry, timelines, SLO tracker with two priority classes, flight
+    recorder (post-mortems into a temporary directory), guard_numerics,
+    the degradation ladder, pressure preemption, deadlines on every eighth
+    request, a step wall budget, and the engine's clock a fake clock moved
+    RESILIENCE_TICK a step. After a quiet warm-up and ``end_warmup()``, a
+    FaultInjector fires RESILIENCE_FAULTS (the 3rd admission raises
+    admit_oom, the 12th decode's logits get a NaN row, the 28th step
+    raises step_host_error, the 20th step's dispatch is slow against the
+    wall budget) while 48 requests arrive (RESILIENCE_ARRIVALS). Held:
+
+    1. every request no fault, deadline, preemption or shedding touched
+       has exactly the tokens of the fault-free arm; the others' tokens
+       part from it only at near-ties (``divergences``);
+    2. exactly one request, the poisoned one, ends FAILED numerical_error;
+    3. no recompile and no new capture after warm-up;
+    4. after the drain the audit is clean, no slot or page leaks;
+    5. the exported trace holds every step span, and the step_host_error's
+       post-mortem (written by this harness from the flight recorder)
+       carries POST_MORTEM_KEYS;
+    6. a spec arm (n-gram, k=4) driven into OVERLOADED drafts nothing
+       while overloaded, captures nothing new, and gives the no-drafts
+       arm's tokens exactly (``no_drafts_reqs``: serve_spec_paged's, over
+       ``spec_prompts``).
+
+    Also a contiguous arm (the decode kernel) under the NaN and the
+    step_host_error faults. Prints the fault-free traffic's step gap with
+    all telemetry on against all of it off (four arms, in turns off, on,
+    on, off), and ``telemetry_overhead_s`` per step."""
+    import os
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.serving.request import RequestState
+    from deepspeed_tpu_torch.serving.resilience import (InjectedFault,
+                                                        LoadState)
+    from deepspeed_tpu_torch.telemetry import POST_MORTEM_KEYS, Tracer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 14)
+    vocab = model.config.vocab_size
+    traffic = resilience_traffic(rng, vocab)
+    warm = resilience_warmup(rng, vocab)
+    eager = dst.init_inference(model, config={"dtype": "bfloat16"},
+                               device=device)
+
+    # the fault-free arms, telemetry off and on in turns (off, on, on,
+    # off): the same tokens in all four
+    ref_engine = graph_engine(model, device)
+    turns = [(on, fault_free_arm(ref_engine, traffic, warm, seed, on,
+                                 device)) for on in (False, True, True,
+                                                     False)]
+    for on, arm in turns[1:]:
+        same_tokens(f"serve_resilience telemetry {'on' if on else 'off'}",
+                    arm, turns[0][1]["reqs"], "the first arm's")
+    arms = {"on": turns[1][1], "off": turns[0][1]}
+    ref_tokens = [r.output_tokens for r in arms["on"]["reqs"]]
+
+    # the fault arm
+    fa = fault_arm(graph_engine(model, device), traffic, warm, seed, device)
+    srv, reqs, errors, levels, faults = (fa[k] for k in (
+        "srv", "reqs", "errors", "levels", "faults"))
+    post_mortem, launches, wall, step = (fa[k] for k in (
+        "post_mortem", "launches", "wall", "steps"))
+    dump_dir = srv.dump_dir
+
+    # 2-4: the poisoned request alone, no recompile or capture, no leaks
+    assert sorted(errors) == ["admit_oom", "step_host_error"], errors
+    assert faults.fired == {p: len(RESILIENCE_FAULTS.get(p, ()))
+                            for p in faults.fired}, faults.fired
+    poisoned = [r for r in reqs if r.finish_reason == "numerical_error"]
+    assert len(poisoned) == 1 and poisoned[0].state is RequestState.FAILED
+    assert srv.watchdog.recompiles == 0, srv.watchdog.events[-3:]
+    assert captures_of(srv) == fa["captures"] == 1
+    srv.check_invariants()
+    pool = srv.pool
+    held_pages = len(pool.prefix.page_counts())
+    assert srv.live_count == 0 and pool.free_count == pool.num_slots
+    assert (pool.table == pool.num_pages).all() and \
+        pool.free_page_count + held_pages == pool.num_pages, "pages leaked"
+    assert srv.timelines.open_ids() == []
+    st = srv.stats()
+    assert st["step_overruns"] == 1
+    # 1: untouched requests exactly, touched ones up to near-ties
+    untouched = [i for i, r in enumerate(reqs)
+                 if not touched(r, srv.timeline(r.request_id))]
+    differ = [reqs[i].request_id for i in untouched
+              if reqs[i].output_tokens != ref_tokens[i]]
+    assert not differ, f"serve_resilience: untouched requests {differ} " \
+        f"differ from the fault-free arm"
+    hit = [i for i in range(len(reqs)) if i not in untouched
+           and reqs[i].output_tokens]
+    ties = divergences("serve_resilience", [reqs[i] for i in hit],
+                       [arms["on"]["reqs"][i] for i in hit], eager,
+                       fp32_reference(model, eager, device),
+                       against="the fault-free arm (touched requests)")
+    # 5: every step span in the exported trace; the post-mortem's keys
+    path = os.path.join(dump_dir, "trace.json")
+    srv.tracer.export(path)
+    with open(path) as f:
+        spans = {e["name"] for e in json.load(f)["traceEvents"]
+                 if e["ph"] == "X"}
+    want = {"serving/step", "serving/grant", "serving/admit",
+            "serving/prefill_batch", "serving/prefill_chunk",
+            "serving/decode", "serving/sample"}
+    assert want <= spans, f"serve_resilience: spans missing: {want - spans}"
+    assert post_mortem is not None
+    with open(post_mortem) as f:
+        assert sorted(json.load(f)) == sorted(POST_MORTEM_KEYS)
+    reasons = {}
+    for r in reqs:
+        key = str(r.finish_reason or r.reject_reason)
+        reasons[key] = reasons.get(key, 0) + 1
+    if device == "cuda":
+        for name in ("paged_decode_attention", "flash_attention_fwd"):
+            assert launches[name] > 0, f"serve_resilience: {name} never ran"
+
+    # the contiguous pool (the decode kernel) under the NaN and the abort
+    cclock = FakeClock()
+    cfaults = clocked_faults(cclock, seed=seed)
+    csrv = dst.ServingEngine(
+        graph_engine(model, device), num_slots=8, prefill_chunk=64,
+        prefill_token_budget=RESILIENCE_BUDGET, paged_kv=False, seed=seed,
+        strict_recompile=True, guard_numerics=True, clock=cclock,
+        fault_injector=cfaults, tracer=Tracer())
+    ctraffic = [(p, kw["max_new_tokens"]) for _, p, kw in traffic[:12]]
+    for p, n in ctraffic:                 # the same traffic as warm-up
+        csrv.submit(p, max_new_tokens=n)
+    csrv.run_until_drained()
+    csrv.end_warmup()
+    cfaults.load_schedule({"nan_logits": [5], "step_host_error": [9]})
+    reset_launches()
+    creqs = [csrv.submit(p, max_new_tokens=n) for p, n in ctraffic]
+    while csrv.pending or csrv.live_count:
+        try:
+            csrv.step()
+        except InjectedFault as e:
+            assert e.point == "step_host_error"
+        cclock.t += RESILIENCE_TICK
+    claunches = read_launches()
+    assert sum(r.finish_reason == "numerical_error" for r in creqs) == 1
+    assert csrv.watchdog.recompiles == 0 and captures_of(csrv) == 1
+    csrv.check_invariants()
+    assert csrv.live_count == 0 and csrv.timelines.open_ids() == []
+    if device == "cuda":
+        assert claunches["decode_attention"] > 0
+
+    # 6: speculation suspended under OVERLOADED (the whole traffic queued
+    # at once: overloaded until a quarter of it is left waiting)
+    n_spec = len(spec_prompts)
+    ladder = {"queue_pressured": max(1, n_spec // 8),
+              "queue_overloaded": max(2, n_spec // 4), "cooldown_steps": 4}
+    spec = dst.ServingEngine(
+        graph_engine(model, device), num_slots=8, max_queue_depth=64,
+        prefill_chunk=64, paged_kv=dict(PAGED_KV), seed=seed,
+        strict_recompile=True, spec_decode=dict(SPEC_NGRAM, k=4),
+        degradation=ladder)
+    for p, n in zip(spec_prompts, spec_budgets):
+        spec.submit(p, max_new_tokens=int(n))
+    spec.run_until_drained()
+    warm_up(spec, [])
+    spec.end_warmup()
+    sreqs = [spec.submit(p, max_new_tokens=int(n))
+             for p, n in zip(spec_prompts, spec_budgets)]
+    overloaded = drafted_overloaded = drafted = 0
+    while spec.pending or spec.live_count:
+        before = spec.metrics.drafted
+        spec.step()
+        if spec._load.state is LoadState.OVERLOADED:
+            overloaded += 1
+            drafted_overloaded += spec.metrics.drafted - before
+        else:
+            drafted += spec.metrics.drafted - before
+    assert overloaded > 0 and drafted_overloaded == 0 and drafted > 0
+    assert spec.watchdog.recompiles == 0 and captures_of(spec) == 1
+    spec.check_invariants()
+    same_tokens("serve_resilience spec", dict(reqs=sreqs), no_drafts_reqs,
+                "serve_spec_paged's no-drafts arm")
+
+    def column(on: bool, key: str) -> str:
+        return " / ".join(f"{arm['stats'][key]:.3f}" for o, arm in turns
+                          if o is on)
+
+    log(f"[serve_resilience] fault-free traffic (48 requests, gpt2-small "
+        f"bf16, paged, captured), arms in turns off, on, on, off: step gap "
+        f"p50 {column(True, 'step_gap_p50_ms')} ms, p99 "
+        f"{column(True, 'step_gap_p99_ms')} ms with all telemetry on "
+        f"(tracer, SLO, flight recorder, timelines) against p50 "
+        f"{column(False, 'step_gap_p50_ms')} ms, p99 "
+        f"{column(False, 'step_gap_p99_ms')} ms with it off; "
+        f"telemetry_overhead_s "
+        + " / ".join(f"{arm['overhead_per_step_ms']:.4f}"
+                     for o, arm in turns if o)
+        + f" ms a step over {arms['on']['steps']} steps; tokens/s on "
+        f"{column(True, 'tokens_per_s')}, off "
+        f"{column(False, 'tokens_per_s')}; tokens identical")
+    log(f"[serve_resilience] fault arm: {len(reqs)} requests in {step} "
+        f"steps ({wall:.2f} s wall): outcomes {reasons}; faults raised "
+        f"{errors}, fired {faults.fired}; {st['preempted']} preemptions, "
+        f"{st['step_overruns']} step overrun, load states walked "
+        f"{sorted({lv.name for lv in levels})}; {len(untouched)} untouched "
+        f"requests identical to the fault-free arm, {len(hit)} touched ones "
+        f"held at near-ties ({ties['same']} identical); 0 recompiles, 1 "
+        f"capture; audit clean, no slot or page leak; trace spans "
+        f"{sorted(spans)}; post-mortem {os.path.basename(post_mortem)}; "
+        f"launches {launches}")
+    log(f"[serve_resilience] contiguous arm: 12 requests, 1 "
+        f"numerical_error, 0 recompiles, launches {claunches}; spec arm "
+        f"(k=4, {n_spec} requests, ladder {ladder}): {overloaded} "
+        f"overloaded steps drafted 0 tokens, "
+        f"{drafted} drafted otherwise, tokens equal the no-drafts arm's; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, contiguous_launches=claunches,
+                arms=arms, reasons=reasons)
 
 
 def phase_serve_spec_int8(engine, seed: int, paged_kv: dict, eager, ref,
@@ -3370,6 +3807,9 @@ def main(argv=None) -> int:
     ap.add_argument("--decode-only", action="store_true",
                     help="build, then time the decode and paged kernels' "
                     "rows alone")
+    ap.add_argument("--resilience-only", action="store_true",
+                    help="build, then run the serve_resilience phase alone "
+                    "(with the spec phases it compares against)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3386,6 +3826,16 @@ def main(argv=None) -> int:
         phase_int8_kernels(gen, decode_only=True, rows=rows)
         log(card)
         print(json.dumps({"decode_rows": rows}), flush=True)
+        return 0
+    if args.resilience_only:
+        model = gpt2_small(args.seed)
+        spec = phase_serve_spec(model, args.seed)
+        straffic = ([r.prompt for r in spec["off"]["reqs"]],
+                    [r.max_new_tokens for r in spec["off"]["reqs"]])
+        spaged = phase_serve_spec_paged(model, args.seed, spec, *straffic)
+        phase_serve_resilience(model, args.seed, *straffic,
+                               spaged["no drafts"]["reqs"])
+        log(card)
         return 0
     results = phase_kernels(gen)
     log("[kernels] bf16 times beside PERF.md's (H100 80GB HBM3, 700 W): "
@@ -3445,7 +3895,10 @@ def main(argv=None) -> int:
     runs += [arm["launches"] for group in (spec, spaged)
              for arm in group.values() if "launches" in arm]
     runs.append(smodel["launches"])
-    del model, spec, spaged, smodel
+    res = phase_serve_resilience(model, seed, *straffic,
+                                 spaged["no drafts"]["reqs"])
+    runs += [res["launches"], res["contiguous_launches"]]
+    del model, spec, spaged, smodel, res
     torch.cuda.empty_cache()
 
     llama = tinyllama(seed)

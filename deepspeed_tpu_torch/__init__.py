@@ -71,8 +71,13 @@ def init_inference(model: Any = None, config: Union[Dict, None] = None,
 # serving keys the JAX ``init_serving`` routes to the ServingEngine
 SERVE_KEYS = ("policy", "do_sample", "temperature", "top_k", "top_p", "seed",
               "monitor", "prefill_chunk", "prefill_token_budget",
-              "paged_kv", "strict_recompile", "overlap",
-              "spec_decode") + NOT_PORTED
+              "paged_kv", "strict_recompile", "overlap", "spec_decode",
+              "tracer", "registry", "timeline_capacity",
+              "deadline_default_ms", "step_wall_budget_ms", "guard_numerics",
+              "degradation", "preempt_queue_threshold",
+              "preempt_min_run_steps", "fault_injector", "slo",
+              "flight_recorder", "dump_dir", "priority",
+              "clock") + tuple(NOT_PORTED)
 
 
 def init_serving(model: Any = None, config: Union[Dict, None] = None,
@@ -97,12 +102,33 @@ def init_serving(model: Any = None, config: Union[Dict, None] = None,
     "ngram", "k": 4, "max_ngram": 3}`` or ``{"drafter": "model", "k": 4,
     "draft_engine": <InferenceEngine>}``; each step verifies ``k`` draft
     tokens a slot in one (num_slots, k+1) forward, greedy tokens unchanged,
-    and admission reserves ``k`` positions). The JAX package's other
-    serving keys are accepted and raise ``NotImplementedError`` unless off
-    (None/False).
-    Per-request ``max_new_tokens`` and ``eos_token_id`` ride on
-    ``submit()``. Everything else configures the inference engine, among
-    it ``enable_cuda_graph``: every decode step then replays a CUDA graph.
+    and admission reserves ``k`` positions).
+
+    Telemetry keys: ``tracer`` (a ``telemetry.Tracer``, or True for a
+    default one; off by default), ``registry`` (a ``telemetry.
+    MetricsRegistry``; one is made by default), ``timeline_capacity``
+    (per-request lifecycle timelines kept, default 4096), ``slo`` (True,
+    a dict or an ``SLOConfig``: windowed TTFT/gap quantiles, goodput and
+    burn-rate alerts), ``flight_recorder`` (default True: a ring of
+    per-step records; False, a capacity, a kwargs dict or an instance)
+    and ``dump_dir`` (where its post-mortems go). Fault-tolerance keys:
+    ``deadline_default_ms`` (the TTL of a submit without its own
+    ``deadline_ms``), ``step_wall_budget_ms`` (the per-step wall watchdog),
+    ``guard_numerics`` (fail only the slot whose decode logits hold a
+    NaN/inf), ``degradation`` (True, a dict or a ``DegradationConfig``:
+    the HEALTHY/PRESSURED/OVERLOADED ladder), ``preempt_queue_threshold``
+    and ``preempt_min_run_steps`` (automatic pressure preemption),
+    ``fault_injector`` (a ``serving.resilience.FaultInjector``, for chaos
+    tests), ``priority`` (True, a dict or a ``PriorityConfig``: priority
+    classes and tenant limits) and ``clock`` (the one clock every deadline,
+    SLO and degradation decision reads; ``time.perf_counter`` by default).
+    The JAX keys ``cost_model`` and ``role`` are not ported yet and raise
+    ``NotImplementedError`` unless off (None, False, ``"both"``).
+
+    Per-request ``max_new_tokens``, ``eos_token_id``, ``deadline_ms``,
+    ``priority`` and ``tenant`` ride on ``submit()``. Everything else
+    configures the inference engine, among it ``enable_cuda_graph``: every
+    decode step then replays a CUDA graph.
 
     The default serving path on the card::
 

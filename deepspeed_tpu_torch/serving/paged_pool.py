@@ -117,6 +117,7 @@ class PagedKVPool(SlotPool):
         self._table_stale = False
         self.cow_copies = 0
         self.page_evictions = 0
+        self.registry = None              # optional MetricsRegistry
         self.prefix = PrefixCache(page_size) if prefix_cache else None
         # "auto"/"on": decode through decode_paged (the kernel on the card,
         # its plain version on the CPU); "off": the dense composition
@@ -153,6 +154,10 @@ class PagedKVPool(SlotPool):
     # ------------------------------------------------------------------
     # page refcounting / allocation
     # ------------------------------------------------------------------
+    def _inc(self, name: str, amount: float = 1.0) -> None:
+        if self.registry is not None:
+            self.registry.counter(name).inc(amount)
+
     @property
     def free_page_count(self) -> int:
         return len(self._free_pages)
@@ -190,7 +195,10 @@ class PagedKVPool(SlotPool):
         first; raises :class:`PagePoolExhausted` when even the trie has
         nothing to give, the caller's cue to preempt."""
         if not self._free_pages and self.prefix is not None:
-            self.page_evictions += self.prefix.evict(self, 1)
+            freed = self.prefix.evict(self, 1)
+            if freed:
+                self.page_evictions += freed
+                self._inc("paging/evictions", freed)
         if not self._free_pages:
             raise PagePoolExhausted(
                 f"page pool exhausted: {self.num_pages} pages all "
@@ -274,7 +282,9 @@ class PagedKVPool(SlotPool):
                 self._sync_table()
                 self.unref_page(pid)
                 ncow += 1
-        self.cow_copies += ncow
+        if ncow:
+            self.cow_copies += ncow
+            self._inc("paging/cow_copies", ncow)
         return ncow
 
     def map_prefix(self, slot: int, page_ids: Sequence[int]) -> None:

@@ -1,17 +1,26 @@
 """Request model for the serving subsystem (the port's copy of
-``deepspeed_tpu/serving/request.py``, cut to what this slice serves).
+``deepspeed_tpu/serving/request.py``; the router's ``journey_id`` and
+``hop`` come with the router).
 
-A :class:`Request` moves through ``QUEUED -> [PREFILLING ->] RUNNING ->
-FINISHED`` (or ``REJECTED`` straight out of admission control, or
-``FAILED`` when a step raised while it was seated). ``PREFILLING`` is the
-stall-free stage in which a long prompt streams into its slot chunk by
-chunk; page-pressure preemption sends a seated request back to ``QUEUED``
-with its generated tokens, which its next admission prefills again
-(:attr:`Request.seed_tokens`). The object doubles as the per-request SLO
-record: the engine stamps times at each transition and the latencies are
-derived properties. Terminal reasons are closed ``str`` enums, so
-``req.finish_reason == "eos"`` works. The JAX package's deadline and
-multi-tenant fields arrive with those slices.
+A :class:`Request` is one user generation job moving through the
+lifecycle ``QUEUED -> [PREFILLING ->] RUNNING -> FINISHED`` (or
+``REJECTED`` straight out of admission control; ``PREFILLING`` is the
+stall-free chunked-admission stage for prompts longer than the serving
+engine's chunk width; preemption sends a seated request back to
+``QUEUED`` carrying its generated-so-far tokens). The object doubles as
+the per-request SLO record: the scheduler stamps wall-clock times at
+each transition and the latency metrics (TTFT, queue wait, per-token
+latency) are derived properties, so there is exactly one place timing
+truth lives.
+
+Terminal reasons are CLOSED ENUMS (:class:`FinishReason`,
+:class:`RejectReason`), not free-form strings: every monitor event,
+stats key and timeline attribute derives from them, and
+:class:`~deepspeed_tpu_torch.serving.metrics.ServingMetrics` validates each
+recorded reason against the enum so a typo'd reason fails loudly at the
+emit site instead of silently forking a new metrics series. Both enums
+are ``str`` subclasses, so ``req.finish_reason == "eos"`` keeps
+working everywhere.
 """
 
 from __future__ import annotations
@@ -25,7 +34,8 @@ import numpy as np
 
 class RequestState(enum.Enum):
     QUEUED = "queued"
-    PREFILLING = "prefilling"  # seated, prompt streaming in by chunks
+    PREFILLING = "prefilling"  # seated in a slot, prompt streaming in by
+    #                            bounded chunks (stall-free admission)
     RUNNING = "running"
     FINISHED = "finished"
     REJECTED = "rejected"
@@ -33,14 +43,22 @@ class RequestState(enum.Enum):
 
 
 class FinishReason(str, enum.Enum):
-    """Why a request left via FINISHED (or FAILED)."""
+    """Why a request left via FINISHED (or FAILED — the error reasons).
 
-    EOS = "eos"                  # emitted its eos_token_id
-    LENGTH = "length"            # hit max_new_tokens
-    LENGTH_CAP = "length_cap"    # cache row full (capacity)
-    ERROR = "error"              # mid-step engine exception
+    ``str`` mixin: members compare and format as their values, so
+    existing ``finish_reason == "eos"`` comparisons and f-string tags
+    are unchanged.
+    """
 
-    __str__ = str.__str__
+    EOS = "eos"                          # emitted its eos_token_id
+    LENGTH = "length"                    # hit max_new_tokens
+    LENGTH_CAP = "length_cap"            # cache row full (capacity)
+    DEADLINE = "deadline"                # per-request deadline expired
+    CANCELLED = "cancelled"              # client cancelled / disconnected
+    ERROR = "error"                      # mid-step engine exception
+    NUMERICAL_ERROR = "numerical_error"  # NaN/inf logits in this slot
+
+    __str__ = str.__str__  # "eos", not "FinishReason.EOS" (py<3.11 quirk)
 
     @classmethod
     def of(cls, value: Union[str, "FinishReason"]) -> "FinishReason":
@@ -53,6 +71,11 @@ class RejectReason(str, enum.Enum):
 
     QUEUE_FULL = "queue_full"            # bounded queue at depth
     PROMPT_TOO_LONG = "prompt_too_long"  # can never fit the KV capacity
+    RETRY_AFTER = "retry_after"          # shed by overload degradation or
+    #                                      burn-rate class shedding;
+    #                                      retry_after_s carries the hint
+    RATE_LIMITED = "rate_limited"        # tenant token bucket empty
+    TENANT_QUOTA = "tenant_quota"        # tenant queue quota reached
 
     __str__ = str.__str__
 
@@ -61,19 +84,28 @@ class RejectReason(str, enum.Enum):
         return cls(value)
 
 
-@dataclasses.dataclass(eq=False)  # identity semantics: numpy prompts
+@dataclasses.dataclass(eq=False)  # identity semantics: a generated __eq__
+#                                   would elementwise-compare numpy prompts
+#                                   (ambiguous truth) and drop hashability
 class Request:
     """One generation request plus its lifecycle/metric record.
 
-    ``output_tokens`` holds every sampled token, the EOS token included, as
-    ``InferenceEngine.generate`` returns it. Times are ``perf_counter``
-    stamps, ``None`` until the transition happens.
+    ``output_tokens`` includes every sampled token (the EOS token too,
+    matching ``InferenceEngine.generate`` which returns the row through
+    its first EOS). Timing fields are ``time.perf_counter`` stamps set
+    by the serving engine; they are ``None`` until the corresponding
+    transition happens.
     """
 
     request_id: int
     prompt: np.ndarray                      # (T,) int32
     max_new_tokens: int
     eos_token_id: Optional[int] = None
+
+    # -- multi-tenancy --------------------------------------------------
+    priority_class: str = "default"         # scheduling class; rank order
+    #                                         comes from PriorityConfig
+    tenant: str = "default"                 # rate-limit / quota bucket
 
     state: RequestState = RequestState.QUEUED
     reject_reason: Optional[RejectReason] = None
@@ -82,10 +114,17 @@ class Request:
     prefill_pos: int = 0                    # seed tokens already written
     #                                         into the slot (chunked prefill)
     output_tokens: List[int] = dataclasses.field(default_factory=list)
+
+    # -- resilience -----------------------------------------------------
+    deadline_ms: Optional[float] = None     # TTL from submit; None = none
+    deadline_time: Optional[float] = None   # absolute perf_counter stamp
+    retry_after_s: Optional[float] = None   # backoff hint on RETRY_AFTER
     preemptions: int = 0                    # times bounced back to QUEUED
     last_admit_step: int = -1               # engine step_id of last seating
+
+    # telemetry counters (per-request lifecycle accounting)
     prefix_hit_tokens: int = 0              # seed tokens skipped at seating
-    #                                         through the prefix cache
+    #                                         via the paged prefix cache
     chunks: int = 0                         # chunked-prefill dispatches run
     spec_drafted: int = 0                   # draft tokens proposed for this
     #                                         request's slot
@@ -106,21 +145,26 @@ class Request:
             [np.asarray(self.prompt, np.int32),
              np.asarray(self.output_tokens, np.int32)])
 
+    # -- preemption resume ---------------------------------------------
     @property
     def seed_tokens(self) -> np.ndarray:
-        """What admission prefills into a slot: the prompt, plus, after a
-        preemption, everything generated so far. The last generated token
-        has not been fed through the model yet, so prefilling the whole
-        history and sampling at its last position gives exactly the token
-        the next decode step would have: greedy output is unchanged by a
-        preemption."""
+        """What admission must prefill into a slot: the prompt, plus —
+        after a preemption — everything generated so far. The last
+        generated token has never been fed through the model (the
+        decode loop feeds it next), so re-prefilling the FULL history
+        and sampling at its last position produces exactly the token
+        the next decode step would have: greedy output is bitwise
+        identical across preemptions."""
         return self.tokens() if self.output_tokens else \
             np.asarray(self.prompt, np.int32)
 
     @property
     def seed_len(self) -> int:
-        """Tokens admission prefills: the prompt plus those generated."""
         return self.prompt_len + len(self.output_tokens)
+
+    def expired(self, now: float) -> bool:
+        """Deadline passed? (False when no deadline is set.)"""
+        return self.deadline_time is not None and now >= self.deadline_time
 
     # -- derived SLO metrics (seconds; None until the inputs exist) ----
     @property
@@ -138,7 +182,8 @@ class Request:
 
     @property
     def per_token_latency(self) -> Optional[float]:
-        """Mean gap per token after the first."""
+        """Mean decode latency per token AFTER the first (the steady-state
+        inter-token gap users see while a response streams)."""
         if self.first_token_time is None or self.finish_time is None:
             return None
         n = len(self.output_tokens)

@@ -61,6 +61,13 @@ class FIFOScheduler:
     def pending(self) -> int:
         return len(self.queue)
 
+    def head(self) -> Optional[Request]:
+        """The request the next ``grant`` would pop first, or None. The
+        engine peeks here (never at ``queue[0]``) for its starvation and
+        pressure decisions, so a subclass with another grant order
+        (priority scheduling) redefines the head in one place."""
+        return self.queue[0] if self.queue else None
+
     def submit(self, req: Request) -> Tuple[bool, Optional[RejectReason]]:
         """Admission control: ``(accepted, reject_reason)``. The capacity
         check covers the request's whole footprint (prompt + budget)."""
@@ -95,6 +102,16 @@ class FIFOScheduler:
         for r in reqs:
             r.state = RequestState.QUEUED
             self.queue.append(r)
+
+    def expire(self, now: float) -> List[Request]:
+        """Remove and return the queued requests whose deadline has
+        passed, before they cost a slot and a prefill; the engine retires
+        them ``finish_reason="deadline"``."""
+        expired = [r for r in self.queue if r.expired(now)]
+        if expired:
+            self.queue = collections.deque(
+                r for r in self.queue if not r.expired(now))
+        return expired
 
     def grant(self, free_slots: int, live_slots: int,
               token_budget: Optional[int] = None,

@@ -25,12 +25,21 @@ failing in-flight requests.
 Proxies are shared: attaching a second watchdog to an entry point another
 one already wraps adds it to that proxy's watchers, and the signatures the
 proxy has seen stay seen, as a jitted function's compile cache is shared
-by every server over one engine. The registry, tracer and monitor sinks of
-the JAX watchdog are not ported yet.
+by every server over one engine.
+
+Each detection is emitted into the sinks the JAX watchdog feeds: the
+registry counter ``telemetry/recompiles`` (``telemetry/recompiles_warmup``
+before :meth:`RecompileWatchdog.end_warmup`), a ``telemetry/recompile``
+tracer instant, and after warmup a ``telemetry/recompile`` monitor event
+on the engine's step axis. The JAX watchdog's other source, a
+``jax.monitoring`` listener counting every backend compile of the process
+(``backend_compiles``), has no counterpart: there is no XLA here, and a
+watched entry point's first call with a signature is the compile.
 """
 
 from __future__ import annotations
 
+import contextlib
 import weakref
 from typing import Any, Dict, List, Optional
 
@@ -68,6 +77,60 @@ def fast_key(args: tuple, kwargs: Dict[str, Any]) -> tuple:
     return tuple(map(_key_one, args))
 
 
+def _fast_one(x: Any) -> str:
+    shape = getattr(x, "shape", None)
+    if shape is not None:
+        return (f"{_dtype_name(getattr(x, 'dtype', '?'))}"
+                f"[{','.join(map(str, shape))}]")
+    if isinstance(x, dict):
+        return f"dict{len(x)}"
+    if isinstance(x, (list, tuple)):
+        return f"{type(x).__name__}{len(x)}"
+    if isinstance(x, bool) or x is None or isinstance(x, str):
+        return repr(x)
+    return type(x).__name__
+
+
+def fast_signature(args: tuple, kwargs: Dict[str, Any]) -> str:
+    """:func:`fast_key` as a string: arrays by dtype/shape, containers by
+    length, scalars by type; never walks a container."""
+    parts = [_fast_one(a) for a in args]
+    if kwargs:
+        parts += [f"{k}={_fast_one(v)}" for k, v in sorted(kwargs.items())]
+    return "|".join(parts)
+
+
+def _leaves(x: Any) -> List[Any]:
+    if isinstance(x, dict):
+        return [leaf for v in x.values() for leaf in _leaves(v)]
+    if isinstance(x, (list, tuple)):
+        return [leaf for v in x for leaf in _leaves(v)]
+    return [x]
+
+
+def _sig_one(x: Any) -> str:
+    shape = getattr(x, "shape", None)
+    dtype = getattr(x, "dtype", None)
+    if shape is not None and dtype is not None:
+        return f"{_dtype_name(dtype)}[{','.join(map(str, shape))}]"
+    if isinstance(x, (list, tuple, dict)):
+        leaves = _leaves(x)
+        if leaves:
+            return f"tree({len(leaves)} leaves, first={_sig_one(leaves[0])})"
+        return f"{type(x).__name__}()"
+    if isinstance(x, (bool, int, float, str)) or x is None:
+        return repr(x)
+    return type(x).__name__
+
+
+def abstract_signature(args: tuple, kwargs: Dict[str, Any]) -> str:
+    """A readable abstraction of a call's argument shapes, walking
+    containers (the JAX grammar: ``(float32[2,3], 5, flag=True)``)."""
+    parts = [_sig_one(a) for a in args]
+    parts += [f"{k}={_sig_one(v)}" for k, v in sorted(kwargs.items())]
+    return "(" + ", ".join(parts) + ")"
+
+
 def manifest_signature(args: tuple, kwargs: Dict[str, Any]) -> str:
     """One watched call rendered for a person and for the warmup manifest
     (the JAX grammar): arrays as ``dtype[d1,d2]``, containers as ``*``,
@@ -89,6 +152,24 @@ def manifest_signature(args: tuple, kwargs: Dict[str, Any]) -> str:
 # ----------------------------------------------------------------------
 # per-entry-point proxies
 # ----------------------------------------------------------------------
+# depth of suppress_compile_events() scopes
+_suppress_compiles = 0
+
+
+@contextlib.contextmanager
+def suppress_compile_events():
+    """Hide the watched entry points' new signatures from the watchdogs
+    for the scope: such a call records nothing and leaves its signature
+    unseen, as an out-of-band compile in the JAX package leaves the jit
+    cache unfilled."""
+    global _suppress_compiles
+    _suppress_compiles += 1
+    try:
+        yield
+    finally:
+        _suppress_compiles -= 1
+
+
 class _Watched:
     """Transparent wrapper over an entry point: a call with a signature
     the proxy has not seen (``every_call``: any call, for a capture) is
@@ -111,6 +192,8 @@ class _Watched:
             self._manifest.add(manifest_signature(args, kwargs))
         key = None if self._every_call else fast_key(args, kwargs)
         out = self._fn(*args, **kwargs)
+        if _suppress_compiles:
+            return out
         if key is None or key not in self._seen:
             self._seen.add(key)
             sig = manifest_signature(args, kwargs)
@@ -138,7 +221,11 @@ class RecompileWatchdog:
     next :meth:`check` raises.
     """
 
-    def __init__(self, strict: bool = False, step_fn=None):
+    def __init__(self, registry=None, tracer=None, monitor=None,
+                 strict: bool = False, step_fn=None):
+        self.registry = registry
+        self.tracer = tracer
+        self.monitor = monitor
         self.strict = strict
         self._step_fn = step_fn or (lambda: 0)
         self._warmed = False
@@ -175,6 +262,18 @@ class RecompileWatchdog:
             self.warmup_recompiles += 1
         else:
             self._post_warmup += 1
+        if self.registry is not None:
+            key = "telemetry/recompiles_warmup" if warmup \
+                else "telemetry/recompiles"
+            self.registry.counter(key).inc()
+        if self.tracer is not None:
+            self.tracer.instant("telemetry/recompile", program=program,
+                                signature=signature, warmup=warmup)
+        mon = self.monitor
+        if mon is not None and getattr(mon, "enabled", False) and not warmup:
+            mon.write_events([("telemetry/recompile",
+                               float(self._post_warmup),
+                               int(self._step_fn()))])
 
     # -- lifecycle -----------------------------------------------------
     def end_warmup(self) -> None:

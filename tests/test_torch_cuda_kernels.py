@@ -1352,6 +1352,56 @@ def test_captured_server_replays_across_churn_and_reset(gen, paged):
             np.testing.assert_array_equal(a, b)
 
 
+def test_guard_fails_a_poisoned_row_of_a_captured_paged_step_alone(gen):
+    """The numerics guard on a captured paged decode step: a FaultInjector
+    writes NaN into one running row of a replayed step's logits (on the
+    card, in place). That request alone ends FAILED numerical_error, the
+    others' tokens are an unpoisoned server's, every step makes at most one
+    device-to-host fetch (exactly one when it decodes: the guard's flags
+    ride the tokens'), and nothing is captured again."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.serving import RequestState
+    from deepspeed_tpu_torch.serving.resilience import FaultInjector
+
+    _, graph = _graph_engines(gen, int8=False)
+    rng = np.random.default_rng(5)
+    # four requests on four slots: both servers admit them alike
+    prompts = [rng.integers(0, 512, int(n)).astype(np.int32)
+               for n in (9, 30, 45, 60)]
+    out = {}
+    for name, schedule in (("clean", {}), ("poisoned", {"nan_logits": [3]})):
+        srv = dst.ServingEngine(graph, num_slots=4, prefill_chunk=32,
+                                paged_kv={"page_size": 16},
+                                guard_numerics=True, strict_recompile=True,
+                                fault_injector=FaultInjector(
+                                    seed=0, schedule=schedule))
+        reqs = [srv.submit(p, max_new_tokens=12) for p in prompts]
+        while srv.pending or srv.live_count:
+            fetches, decodes = srv.fetches, srv.metrics.decode_steps
+            srv.step()
+            decoded = srv.metrics.decode_steps - decodes
+            assert srv.fetches - fetches == decoded or \
+                (decoded == 0 and srv.fetches - fetches <= 1)
+        srv.check_invariants()
+        assert srv.pool.free_page_count + len(
+            srv.pool.prefix.page_counts()) == srv.pool.num_pages
+        captures = [e for e in srv.watchdog.events
+                    if e["program"] == "DecodeGraphs.capture"]
+        assert len(captures) == 1
+        out[name] = reqs
+    assert graph.decode_graphs.captures == 2      # one per server's pool
+    bad = [r for r in out["poisoned"] if r.state is RequestState.FAILED]
+    assert len(bad) == 1 and bad[0].finish_reason == "numerical_error"
+    for a, b in zip(out["poisoned"], out["clean"]):
+        assert b.state is RequestState.FINISHED
+        if a is not bad[0]:
+            assert a.state is RequestState.FINISHED
+            np.testing.assert_array_equal(a.tokens(), b.tokens())
+        else:
+            # the tokens before the poisoned step are the clean ones
+            assert a.output_tokens == b.output_tokens[:len(a.output_tokens)]
+
+
 def test_a_decode_step_that_cannot_be_captured_raises(gen):
     """With the switch on, a step that syncs the host (here the paged
     write made to select its rows on the host) raises at its first call

@@ -192,9 +192,26 @@ def test_no_slot_leaks_on_a_mid_step_error(stack):
 def test_unported_serving_keys_raise(stack):
     _, _, pcfg, state = stack
     model = P.TransformerLM(pcfg)
+    # the resilience and telemetry keys are ported: each is accepted, with
+    # the JAX defaults and validation messages
     for key, val in (("tracer", True), ("deadline_default_ms", 100),
-                     ("priority", True)):
-        with pytest.raises(NotImplementedError):
+                     ("priority", True), ("registry", None),
+                     ("timeline_capacity", 16), ("step_wall_budget_ms", 5.0),
+                     ("guard_numerics", True), ("degradation", True),
+                     ("preempt_queue_threshold", 2),
+                     ("preempt_min_run_steps", 1), ("fault_injector", None),
+                     ("slo", True), ("flight_recorder", 8),
+                     ("dump_dir", None), ("clock", lambda: 0.0),
+                     ("cost_model", False), ("role", "both")):
+        srv = dst.init_serving(model, config={"dtype": "float32"},
+                               device="cpu", **{key: val})
+        assert srv.pool.num_slots == 4
+    with pytest.raises(ValueError, match="deadline_default_ms must be > 0"):
+        dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
+                         deadline_default_ms=0)
+    # only the cost model and the disaggregated roles are still to come
+    for key, val in (("cost_model", True), ("role", "prefill")):
+        with pytest.raises(NotImplementedError, match=key):
             dst.init_serving(model, config={"dtype": "float32"},
                              device="cpu", **{key: val})
     with pytest.raises(ValueError, match="paged_kv keys"):

@@ -154,8 +154,10 @@ non-zero:
             and dk/dv kernels' other design (fma: fp32, and D=32) is held
             against the plain versions at small shapes, and the fp32
             ln_linear kernels at C=2048 are held and timed once. The flash
-            forward, dq and dkv are timed at the training shape, at D=128
-            and (phase 12) at T=8192, each beside its bound and SDPA.
+            forward, dq and dkv are timed at the training shape, at D=128,
+            at TinyLlama's training shape (B=4, T=2048, 32 query heads over
+            4 KV heads: phase 15's, held against the plain versions too) and
+            (phase 12) at T=8192, each beside its bound and SDPA.
 9.  train   GPT-2 medium at its published widths (random weights from the
             seed) at the JAX bench's flagship configuration through
             ``initialize`` and ``train_batch``: bf16 with fp32 master
@@ -200,6 +202,37 @@ non-zero:
             with the sparse kernels against the same weights with attention
             through the gather formulation (the JAX package's non-kernel
             route), remat "full".
+15. train_llama  TinyLlama-1.1B at its published widths (vocab 32000,
+            2048/5632, 22 layers, 32 heads over 4 KV heads, RMSNorm, rotary
+            theta 1e4, untied head; random weights from the seed) at 2048
+            positions through ``initialize`` and ``train_batch``: bf16 with
+            fp32 master weights, ZeRO stage 2, AdamW (lr 3e-4, weight decay
+            0.1), clipping 1.0, micro-batch 4 x gas 4, ``remat=True``,
+            ``loss_chunk=512``; two warm-up steps, then six timed steps (the
+            loss rises for Adam's first five updates, then falls). The loss
+            ends below its value at initialisation, and the flash forward
+            runs 44 times (each block recomputed), dq and dkv 22 times a
+            micro-batch. Printed: tokens/s, ms a micro-batch, peak memory.
+16. reference_llama  one such micro-batch at TinyLlama's widths and 2
+            layers: the loss and every parameter's gradient of the kernel
+            arm (bf16, flash, loss_chunk 512) against the plain arm (the
+            same weights in fp32, einsum attention, dense loss), and of the
+            streamed loss against the dense one, held as in 11; the peak
+            memory of the dense and streamed loss arms printed.
+17. checkpoint  GPT-2 medium under phase 9's configuration: 2 steps,
+            ``save_checkpoint`` into a temporary directory, a fresh engine
+            from other weights ``load_checkpoint``s it (parameters, master
+            weights and Adam moments bit-equal to the saver's), then 2 more
+            steps of each: the resumed losses equal the saver's unbroken
+            ones exactly, printed beside the gap between two unbroken runs
+            (0: these steps are bit-reproducible on the card in PyTorch's
+            default mode, so no deterministic mode is set).
+            ``ds_to_universal`` and a stage-0 engine through
+            ``checkpoint.load_universal`` give the same next loss;
+            ``zero_to_fp32`` returns the master weights exactly. Printed:
+            bytes written, seconds to save, load, export and convert; the
+            directory is deleted. The flash launches of its 11 steps over
+            five engines are held against phase 9's count a micro-batch.
 
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
@@ -212,6 +245,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -628,22 +662,31 @@ def flash_times(q, k, v, do, label: str, reps: int,
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
+    KV = k.shape[2]
+    gqa = {"enable_gqa": True} if KV != H else {}
 
     def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              **gqa)
 
     sdpa_fwd = cuda_ms(sdpa, reps=reps)
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(
         sdpa(), (qt, kt, vt), dot), reps=reps) - sdpa_fwd
     tok = q.numel() * q.element_size()      # one (B, T, H, D) tensor
+    kv = k.numel() * k.element_size()       # one (B, T, KV, D) tensor
     stat = B * H * T * 4                    # lse or delta
     pairs = B * H * T * (T + 1) // 2        # causal (query, key) pairs
-    r = dict(fwd=fwd, fwd_bound=bound(4 * tok + stat, 2 * 2 * D * pairs),
+    # forward: q, k, v in, out and lse out; dq: q, k, v, dO, lse, delta in,
+    # dq out; dk/dv: the same in, dk and dv (KV heads) out
+    r = dict(fwd=fwd, fwd_bound=bound(2 * tok + 2 * kv + stat,
+                                      2 * 2 * D * pairs),
              sdpa_fwd=sdpa_fwd, dq=dq,
-             dq_bound=bound(5 * tok + 2 * stat, 3 * 2 * D * pairs), dkv=dkv,
-             dkv_bound=bound(6 * tok + 2 * stat, 4 * 2 * D * pairs),
+             dq_bound=bound(3 * tok + 2 * kv + 2 * stat, 3 * 2 * D * pairs),
+             dkv=dkv,
+             dkv_bound=bound(2 * tok + 4 * kv + 2 * stat, 4 * 2 * D * pairs),
              sdpa_bwd=sdpa_bwd, design=fa.flash_design(q.dtype, D))
-    log(f"[flash_times] {label} B={B} H={H} D={D} T={T} causal "
+    heads = f"H={H}" if KV == H else f"H={H} KV={KV}"
+    log(f"[flash_times] {label} B={B} {heads} D={D} T={T} causal "
         f"({r['design']}, {rows}-row blocks): forward {fwd:.4f} ms (bound "
         f"{r['fwd_bound']['bound_ms']:.4f}, {r['fwd_bound']['bound_by']}; "
         f"SDPA {sdpa_fwd:.4f}); dq {dq:.4f} ms (bound "
@@ -2853,6 +2896,15 @@ def phase_reference_int8(srv_int8, bf16_ref, reqs, contiguous_reqs,
 GPT2_MEDIUM = dict(vocab_size=50257, n_positions=1024, n_embd=1024,
                    n_layer=24, n_head=16)
 MICRO_BS, GAS, SEQ = 10, 16, 1024
+# train_llama: TinyLlama-1.1B at its published widths (TINYLLAMA) and its
+# 2048 positions, micro-batch 4 x gas 4, the streaming loss 512 positions a
+# chunk
+LLAMA_MICRO_BS, LLAMA_GAS, LLAMA_SEQ, LLAMA_CHUNK = 4, 4, 2048, 512
+# a fresh TinyLlama under AdamW lr 3e-4 without warmup rises for Adam's
+# first five updates (to 14.3 from 10.64 on the H100) and falls below its
+# initial loss at the seventh step, so the two warm-up steps are followed
+# by six timed ones and the last is held below the first
+LLAMA_TIMED_STEPS = 6
 
 
 def flagship_config(gas: int) -> dict:
@@ -2893,11 +2945,11 @@ def flash_backward_kernels(gen: torch.Generator) -> tuple:
     stats = {"fwd": [0.0, 0.0], "dq": [0.0, 0.0], "dkv": [0.0, 0.0]}
     lse_err = 0.0
 
-    def inputs(B, T, S):
-        q, do = (torch.randn(B, T, H, D, generator=gen, device=dev).to(bf16)
-                 for _ in range(2))
-        k, v = (torch.randn(B, S, H, D, generator=gen, device=dev).to(bf16)
-                for _ in range(2))
+    def inputs(B, T, S, heads=H, kv_heads=H):
+        q, do = (torch.randn(B, T, heads, D, generator=gen, device=dev)
+                 .to(bf16) for _ in range(2))
+        k, v = (torch.randn(B, S, kv_heads, D, generator=gen, device=dev)
+                .to(bf16) for _ in range(2))
         return q, k, v, do
 
     def check(q, k, v, do, causal, label):
@@ -2929,6 +2981,14 @@ def flash_backward_kernels(gen: torch.Generator) -> tuple:
 
     check(*inputs(4, 512, 512), False, "non-causal T=S=512")
     check(*inputs(2, 1000, 1000), True, "causal ragged T=1000")
+    # TinyLlama's training shape (train_llama): 32 query heads over 4 KV
+    # heads, the dk/dv kernel summing each group of 8
+    llama = inputs(LLAMA_MICRO_BS, LLAMA_SEQ, LLAMA_SEQ,
+                   TINYLLAMA["n_head"], TINYLLAMA["n_kv_head"])
+    check(*llama, True, f"causal GQA 32/4 B={LLAMA_MICRO_BS} "
+          f"T={LLAMA_SEQ}")
+    flash_times(*llama, "TinyLlama training", reps=3, other=False)
+    del llama
     fma_design_check(gen)
     pack_probe(gen)
     B, T = MICRO_BS, SEQ
@@ -2957,13 +3017,14 @@ def flash_backward_kernels(gen: torch.Generator) -> tuple:
             library_ms=lib_bwd, design=times["design"],
             **times["dkv_bound"]),
     }
-    log(f"[train_kernels] flash_attention_fwd at the same three shapes: "
+    log(f"[train_kernels] flash_attention_fwd at the same four shapes: "
         f"max|err| {stats['fwd'][0]:.3g}, row rel {stats['fwd'][1]:.3g} "
         f"(tol {ROW_REL_TOL}), lse max|err| {lse_err:.3g} (tol {LSE_ATOL})")
     for name in ("dq", "dkv"):
         r = out[f"flash_attention_{name}"]
         log(f"[train_kernels] flash_attention_{name} B={B} H={H} D={D} "
-            f"T={T} causal (checked also non-causal 512, causal 1000): "
+            f"T={T} causal (checked also non-causal 512, causal 1000, GQA "
+            f"32/4 at T={LLAMA_SEQ}): "
             f"max|err| {stats[name][0]:.3g}, row rel {stats[name][1]:.3g} "
             f"(tol {ROW_REL_TOL}); kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -3214,22 +3275,44 @@ TRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
 
 
 def micro_batch_launches(cfg) -> dict:
-    """Each training kernel's launches in one micro-batch of a GPT-2 with
-    ``cfg``: the attention forward (block-sparse with a layout, else flash)
-    once a layer, twice when the block is recomputed (remat "full" or
-    "dots_plain"); its dq and dkv once a layer; with ``fused_ln_linear``
-    the ln_linear forward twice as often as the attention forward and the
-    backward-dx twice a layer."""
+    """Each training kernel's launches in one micro-batch of a GPT-2 or
+    ``TransformerLM`` with ``cfg``: the attention forward (block-sparse
+    with a layout, else flash) once a layer, twice when the block is
+    recomputed (remat "full" or "dots_plain"; a ``TransformerLM``
+    checkpoints each block whole); its dq and dkv once a layer; with
+    ``fused_ln_linear`` the ln_linear forward twice as often as the
+    attention forward and the backward-dx twice a layer."""
     L = cfg.n_layer
-    runs = 2 if cfg.remat and cfg.remat_policy != "dots" else 1
-    attn = "block_sparse" if cfg.sparse_attention is not None \
-        else "flash_attention"
+    policy = getattr(cfg, "remat_policy", "full")
+    runs = 2 if cfg.remat and policy != "dots" else 1
+    attn = "block_sparse" if getattr(cfg, "sparse_attention", None) \
+        is not None else "flash_attention"
     want = dict.fromkeys(TRAIN_KERNELS, 0)
     want.update({f"{attn}_fwd": runs * L, f"{attn}_dq": L,
                  f"{attn}_dkv": L})
-    if cfg.fused:
+    if getattr(cfg, "fused", False):
         want.update(ln_linear_fwd=2 * runs * L, ln_linear_bwd_dx=2 * L)
     return want
+
+
+def describe(cfg) -> str:
+    """A training model's config, for a phase's log line."""
+    if hasattr(cfg, "n_positions"):            # GPT-2
+        layout = "none" if cfg.sparse_attention is None else \
+            type(cfg.sparse_attention).__name__
+        return (f"GPT-2 {cfg.n_embd}/{cfg.n_layer}/{cfg.n_head} vocab "
+                f"{cfg.vocab_size} seq {cfg.n_positions}, sparse layout "
+                f"{layout}, fused_ln_linear={cfg.fused}, remat "
+                f"{cfg.remat_policy}")
+    return (f"TransformerLM {cfg.n_embd}/{int(cfg.mlp_ratio * cfg.n_embd)}/"
+            f"{cfg.n_layer}, GQA {cfg.n_head}/{cfg.kv_heads}, vocab "
+            f"{cfg.vocab_size} seq {cfg.max_seq_len}, {cfg.norm}, "
+            f"{cfg.pos_emb}, tied head {cfg.tie_word_embeddings}, remat "
+            f"{cfg.remat}, loss_chunk {cfg.loss_chunk}")
+
+
+def train_seq(cfg) -> int:
+    return getattr(cfg, "n_positions", None) or cfg.max_seq_len
 
 
 def phase_train(model, seed: int, config: dict, steps: int, label: str,
@@ -3247,7 +3330,7 @@ def phase_train(model, seed: int, config: dict, steps: int, label: str,
     micro, gas = (config["train_micro_batch_size_per_gpu"],
                   config["gradient_accumulation_steps"])
     batches = token_batches(seed, micro * gas, cfg.vocab_size,
-                            cfg.n_positions)
+                            train_seq(cfg))
     warm = [float(engine.train_batch(batch=batches[i])) for i in (1, 0)]
     sync(device)
     if device == "cuda":
@@ -3269,20 +3352,16 @@ def phase_train(model, seed: int, config: dict, steps: int, label: str,
     want = {k: n * micros for k, n in micro_batch_launches(cfg).items()}
     got = {k: launches[k] for k in want}
     assert got == want, f"{label}: launches {got}, want {want}"
-    tokens = micros * micro * cfg.n_positions
+    tokens = micros * micro * train_seq(cfg)
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-    layout = "none" if cfg.sparse_attention is None else \
-        type(cfg.sparse_attention).__name__
-    log(f"[{label}] GPT-2 {cfg.n_embd}/{cfg.n_layer}/{cfg.n_head} vocab "
-        f"{cfg.vocab_size} seq {cfg.n_positions}, micro {micro} x gas "
-        f"{gas}, sparse layout {layout}, fused_ln_linear={cfg.fused}, remat "
-        f"{cfg.remat_policy}: warm-up losses {[round(x, 4) for x in warm]}, "
-        f"then {steps} steps "
+    log(f"[{label}] {describe(cfg)}, micro {micro} x gas {gas}: warm-up "
+        f"losses {[round(x, 4) for x in warm]}, then {steps} steps "
         f"{[round(x, 4) for x in losses]}; {tokens} tokens in {wall:.2f} s: "
         f"{tokens / wall:.1f} tokens/s, {wall / steps * 1e3:.1f} ms a step, "
         f"{wall / micros * 1e3:.1f} ms a micro-batch; peak "
         f"{peak / 2 ** 30:.2f} GiB allocated; launches "
-        f"{ {k: n for k, n in got.items() if n} }")
+        f"{ {k: n for k, n in got.items() if n} } (expected "
+        f"{ {k: n for k, n in want.items() if n} })")
     if device == "cuda":
         # one more step traced: the device's busy share is its kernels'
         # time over the untraced step's wall time
@@ -3801,6 +3880,229 @@ def phase_reference_sparse(seed: int, device: str = "cuda", **overrides):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# TinyLlama training, its reference, and checkpoints
+# train_llama: bf16 with fp32 masters, ZeRO 2, AdamW lr 3e-4 wd 0.1, clip 1.0
+LLAMA_TRAIN_CONFIG = {
+    "train_micro_batch_size_per_gpu": LLAMA_MICRO_BS,
+    "gradient_accumulation_steps": LLAMA_GAS, "bf16": {"enabled": True},
+    "zero_optimization": {"stage": 2},
+    "optimizer": {"type": "AdamW",
+                  "params": {"lr": 3e-4, "weight_decay": 0.1}},
+    "gradient_clipping": 1.0, "steps_per_print": 1000000}
+
+
+def tinyllama_train(seed: int, device: str = "cuda", **overrides):
+    """TinyLlama-1.1B at its published widths (``TINYLLAMA``) for
+    training: bf16 activations, ``remat=True``, ``loss_chunk=LLAMA_CHUNK``,
+    the flash kernels forced; fp32 random N(0, 0.02) weights drawn on
+    ``device`` from ``seed`` (the engine keeps them as its master weights
+    and casts the module to bf16). ``overrides`` replace config fields (a
+    rehearsal narrows the widths; the reference arms cut the depth)."""
+    from deepspeed_tpu_torch.models.transformer_lm import (
+        TransformerLM, transformer_config)
+
+    fields = {**TINYLLAMA, "remat": True, "loss_chunk": LLAMA_CHUNK,
+              "use_flash_attention": True, **overrides}
+    model = TransformerLM(transformer_config("llama", **fields,
+                                             dtype=torch.float32),
+                          device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    model.replace_config(dtype=torch.bfloat16)
+    return model
+
+
+def phase_train_llama(seed: int, steps: int, device: str = "cuda",
+                      **overrides) -> dict:
+    """``train_llama``: :func:`phase_train` on :func:`tinyllama_train`'s
+    model under ``LLAMA_TRAIN_CONFIG``; returns its launches."""
+    model = tinyllama_train(seed, device, **overrides)
+    engine, _, launches, _ = phase_train(model, seed, LLAMA_TRAIN_CONFIG,
+                                         steps, "train_llama", device)
+    del engine, model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def loss_grads_peak(model, batch, device: str) -> tuple:
+    """:func:`grads_of` and the peak device memory its forward and backward
+    allocated above what was allocated before (0 on the CPU)."""
+    model.zero_grad(set_to_none=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    loss = model(batch)
+    loss.backward()
+    peak = torch.cuda.max_memory_allocated() - base if device == "cuda" \
+        else 0
+    grads = {k: p.grad.float() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return (loss.item(), grads), peak
+
+
+def phase_reference_llama(seed: int, device: str = "cuda", **overrides):
+    """One train_llama micro-batch at TinyLlama's widths and 2 layers: the
+    kernel arm (bf16, flash, ``loss_chunk``) against the plain arm (the
+    same bf16 weights in fp32, einsum attention, dense loss), and the
+    streamed loss against the dense one (both kernel arms); each arm's
+    loss and every parameter's gradient held as reference_train holds
+    them. Prints the peak memory of the two loss arms."""
+    model = tinyllama_train(seed, device, **{"n_layer": 2, **overrides}
+                            ).to(torch.bfloat16)
+    plain = copy.deepcopy(model).float()
+    plain.replace_config(dtype=torch.float32, use_flash_attention=False,
+                         loss_chunk=0)
+    cfg = model.config
+    batch = token_batches(seed + 7, LLAMA_MICRO_BS, cfg.vocab_size,
+                          cfg.max_seq_len)[0]
+    arms, peaks = {}, {}
+    for name, arm, chunk in (("plain", plain, 0), ("dense", model, 0),
+                             ("chunked", model, cfg.loss_chunk)):
+        arm.replace_config(loss_chunk=chunk)
+        reset_launches()
+        arms[name], peaks[name] = loss_grads_peak(arm, batch, device)
+        want = 0 if arm is plain else 2 * cfg.n_layer
+        got = read_launches()["flash_attention_fwd"]
+        assert got == want, f"reference_llama {name}: {got} flash " \
+            f"forwards, want {want}"
+    del plain
+    hold_gradients("reference_llama", f"kernels (bf16, flash, loss_chunk "
+                   f"{cfg.loss_chunk}) vs plain (fp32, einsum, dense loss)",
+                   arms["chunked"], arms["plain"])
+    hold_gradients("reference_llama", f"loss_chunk {cfg.loss_chunk} vs "
+                   f"dense loss (bf16, flash)", arms["chunked"],
+                   arms["dense"])
+    log(f"[reference_llama] peak memory of a micro-batch's forward and "
+        f"backward above the weights (B={LLAMA_MICRO_BS}, T="
+        f"{cfg.max_seq_len}, vocab {cfg.vocab_size}, {cfg.n_layer} layers): "
+        f"dense loss {peaks['dense'] / 2 ** 30:.3f} GiB, loss_chunk "
+        f"{cfg.loss_chunk} {peaks['chunked'] / 2 ** 30:.3f} GiB (drop "
+        f"{(peaks['dense'] - peaks['chunked']) / 2 ** 30:.3f} GiB); fp32 "
+        f"plain arm {peaks['plain'] / 2 ** 30:.3f} GiB")
+    del model, arms
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def same_state(a, b) -> bool:
+    """Two engines' parameters, master weights and optimizer moments
+    bit-equal."""
+    pairs = list(zip(a._params, b._params)) + \
+        list(zip(a.master, b.master)) + \
+        [(x, y) for fa, fb in zip(a.opt_state, b.opt_state)
+         for x, y in zip(fa, fb)]
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def phase_checkpoint(seed: int, gas: int = GAS, device: str = "cuda",
+                     **overrides) -> dict:
+    """``checkpoint``: GPT-2 medium under the train phase's config. Trains
+    2 steps, saves,
+    loads into an engine built from other weights (bit-equal parameters,
+    master weights and moments right after), and 2 more steps of both
+    equal the saver's unbroken run; a second unbroken run gives the gap
+    between two unbroken runs. ``ds_to_universal`` then a stage-0 engine
+    through ``checkpoint.load_universal``: the next loss equal; and
+    ``zero_to_fp32`` equal to the saver's master weights. The directory
+    (a temporary one) is deleted. Returns the training launches."""
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.checkpoint import (
+        ds_to_universal, get_fp32_state_dict_from_zero_checkpoint)
+
+    config = flagship_config(gas)
+
+    def engine(model_seed, cfg=config):
+        eng, *_ = dst.initialize(model=gpt2_medium(model_seed, device,
+                                                   **overrides),
+                                 config=cfg, device=device)
+        return eng
+
+    step_s, ran = [], []
+
+    def steps(eng, idx):
+        sync(device)
+        t0 = time.perf_counter()
+        out = [float(eng.train_batch(batch=batches[i % 2])) for i in idx]
+        step_s.append((time.perf_counter() - t0) / len(out))
+        ran.append(len(out))
+        return out
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_checkpoint_")
+    try:
+        reset_launches()
+        saver = engine(seed)
+        cfg = saver.module.config
+        batches = token_batches(seed, MICRO_BS * gas, cfg.vocab_size,
+                                cfg.n_positions)
+        losses = steps(saver, range(2))
+        sync(device)
+        t0 = time.perf_counter()
+        saver.save_checkpoint(root)
+        t_save = time.perf_counter() - t0
+        nbytes = dir_bytes(root)
+        resumed = engine(seed + 1)
+        t0 = time.perf_counter()
+        resumed.load_checkpoint(root)
+        sync(device)
+        t_load = time.perf_counter() - t0
+        assert same_state(resumed, saver), \
+            "checkpoint: the loaded state differs from the saver's"
+        t0 = time.perf_counter()
+        fp32 = get_fp32_state_dict_from_zero_checkpoint(root)
+        t_fp32 = time.perf_counter() - t0
+        assert all(np.array_equal(fp32[name], m.cpu().numpy()) for name, m
+                   in zip(saver._param_names, saver.master)), \
+            "checkpoint: zero_to_fp32 differs from the master weights"
+        t0 = time.perf_counter()
+        ds_to_universal(root)
+        t_universal = time.perf_counter() - t0
+        ueng = engine(seed + 2, dict(config, zero_optimization={"stage": 0},
+                                     checkpoint={"load_universal": True}))
+        ueng.load_checkpoint(root)
+        universal_loss = steps(ueng, [2])[0]
+        del ueng
+        losses += steps(saver, (2, 3))
+        resumed_losses = steps(resumed, (2, 3))
+        del saver, resumed
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        again = steps(engine(seed), range(4))
+        launches = read_launches()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gap_unbroken = max(abs(a - b) for a, b in zip(losses, again))
+    gap_resumed = max(abs(a - b) for a, b in zip(losses[2:], resumed_losses))
+    micros = gas * sum(ran)
+    want = {k: n * micros for k, n in micro_batch_launches(cfg).items()}
+    got = {k: launches[k] for k in want}
+    log(f"[checkpoint] GPT-2 {cfg.n_embd}/{cfg.n_layer}/{cfg.n_head}, micro "
+        f"{MICRO_BS} x gas {gas}: unbroken losses "
+        f"{losses}, resumed after step 2 {resumed_losses}, a second "
+        f"unbroken run {again}; max |gap| between two unbroken runs "
+        f"{gap_unbroken}, to the resumed run {gap_resumed}; universal "
+        f"(stage 2 -> 0) next loss {universal_loss} vs {losses[2]}; "
+        f"zero_to_fp32 equals the master weights; {nbytes} bytes written "
+        f"(save {t_save:.2f} s, load {t_load:.2f} s, zero_to_fp32 "
+        f"{t_fp32:.2f} s, ds_to_universal {t_universal:.2f} s; directory "
+        f"deleted); {np.mean(step_s):.2f} s a step; {sum(ran)} steps of "
+        f"{gas} micro-batches over five engines: launches {got}, want "
+        f"{want}")
+    assert got == want, f"checkpoint: launches {got}, want {want}"
+    assert gap_resumed == 0.0, "checkpoint: resumed losses differ"
+    assert universal_loss == losses[2], "checkpoint: universal loss differs"
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3970,6 +4272,9 @@ def main(argv=None) -> int:
     phase_reference_train(args.seed)
     runs.extend(phase_train_sparse(args.seed, 3))
     phase_reference_sparse(args.seed)
+    runs.append(phase_train_llama(args.seed, LLAMA_TIMED_STEPS))
+    phase_reference_llama(args.seed)
+    runs.append(phase_checkpoint(args.seed))
     # each kernel's launches over the serving and training runs (each
     # counted from 0 just before its run and read just after)
     kernels = [dict(name=name, route="cuda", **KERNELS[name],

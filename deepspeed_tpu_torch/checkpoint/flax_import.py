@@ -23,6 +23,11 @@ the scanned ``blocks/block/{ln_1, attn/qkv, attn/proj, ln_2, mlp/fc,
 mlp/proj}`` and ``ln_f``, mapped by the same rules. The JAX model's tree is
 the same with ``fused_ln_linear=True`` (its ``_LNParams``/``_DenseParams``
 register the same names), so one bridge serves both arms.
+
+:func:`engine_checkpoint_from_flax` turns a whole checkpoint the JAX
+engine saved into the port engine's: its module, master weights and every
+optimizer moment go leaf by leaf through these rules, the step counters,
+loss scale and schedule carry over.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch
 
 from ..models.transformer_lm import TransformerConfig
 from ..ops.quantization.convert import DENSE_KEYS
+from ..runtime.checkpoint_engine.checkpoint_engine import as_numpy
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -43,7 +49,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
         if isinstance(val, Mapping):
             out.update(_flatten(val, path))
         else:
-            out[path] = np.asarray(val)
+            out[path] = as_numpy(val)
     return out
 
 
@@ -86,12 +92,9 @@ def _tensor(cfg: TransformerConfig, key: str, arr: np.ndarray):
     return out if key.endswith(".scale") else out.to(cfg.dtype)
 
 
-def state_dict_from_flax(cfg: TransformerConfig,
-                         params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's ``TransformerLM(cfg).state_dict()`` from a flax params
-    tree, in ``cfg.dtype`` (int8 weights and their fp32 scales as they
-    are). Raises on a leaf the bridge does not know or a layer count that
-    disagrees with ``cfg.n_layer``."""
+def _lm_arrays(cfg: TransformerConfig,
+               params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """``TransformerLM`` names -> arrays, in the flax leaves' dtypes."""
     sd: Dict[str, np.ndarray] = {}
     for path, arr in _flatten(params).items():
         if path.startswith("blocks/block/"):
@@ -104,7 +107,16 @@ def state_dict_from_flax(cfg: TransformerConfig,
         else:
             key, val = _leaf(cfg, path, arr)
             sd[key] = val
-    return {k: _tensor(cfg, k, v) for k, v in sd.items()}
+    return sd
+
+
+def state_dict_from_flax(cfg: TransformerConfig,
+                         params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's ``TransformerLM(cfg).state_dict()`` from a flax params
+    tree, in ``cfg.dtype`` (int8 weights and their fp32 scales as they
+    are). Raises on a leaf the bridge does not know or a layer count that
+    disagrees with ``cfg.n_layer``."""
+    return {k: _tensor(cfg, k, v) for k, v in _lm_arrays(cfg, params).items()}
 
 
 def gpt2_state_dict_from_flax(cfg, params: Mapping[str, Any]
@@ -132,3 +144,51 @@ def gpt2_state_dict_from_flax(cfg, params: Mapping[str, Any]
             sd[f"{prefix}{'.'.join(mods)}.{suffix}"] = torch.from_numpy(
                 np.array(val, dtype=np.float32))
     return sd
+
+
+def _fp32_state_dict(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    if isinstance(cfg, TransformerConfig):
+        return {k: torch.from_numpy(np.array(v, dtype=np.float32))
+                for k, v in _lm_arrays(cfg, tree).items()}
+    return gpt2_state_dict_from_flax(cfg, tree)
+
+
+_CARRIED = ("step", "opt_step", "scale", "global_steps", "global_samples",
+            "micro_steps", "skipped_steps", "dp_world_size", "mp_world_size",
+            "lr_scheduler", "client_state")
+
+
+def engine_checkpoint_from_flax(cfg, sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port engine's checkpoint dict from one the JAX engine saved
+    (``ArrayCheckpointEngine.load`` of its ``mp_rank_00_model_states``, in
+    either package), for ``GPT2LMHeadModel(cfg)`` (a ``GPT2Config``) or
+    ``TransformerLM(cfg)``: ``module`` through the model's bridge (GPT-2
+    fp32, ``TransformerLM`` in ``cfg.dtype``); ``master`` and each
+    optimizer field (``exp_avg``, ``exp_avg_sq``, ...) leaf by leaf through
+    the same rules, in fp32; the counters, loss scale, schedule and client
+    state as they are. Save it with the port's ``ArrayCheckpointEngine``
+    and ``engine.load_checkpoint`` resumes the run.
+
+    ``rng`` is left out: the JAX engine's is a PRNG key, which no torch
+    generator state can stand for, so the loading engine keeps its own
+    model's dropout generator. The offloaded-optimizer and one-bit states
+    are not ported and raise."""
+    for key in ("offload_optimizer", "onebit"):
+        if sd.get(key) is not None:
+            raise NotImplementedError(f"the checkpoint holds {key!r} state, "
+                                      f"which the port has no engine for")
+    module = sd["module"]
+    if isinstance(cfg, TransformerConfig):
+        module_sd = state_dict_from_flax(cfg, module)
+    else:
+        module_sd = gpt2_state_dict_from_flax(cfg, module)
+    master = sd.get("master")
+    optimizer = sd.get("optimizer")
+    out = {"module": module_sd,
+           "master": _fp32_state_dict(cfg, master) if master else None,
+           "optimizer": {str(field): _fp32_state_dict(cfg, tree)
+                         for field, tree in optimizer.items()}
+           if optimizer else None,
+           "offload_optimizer": None, "onebit": None, "rng": None}
+    out.update({key: sd[key] for key in _CARRIED if key in sd})
+    return out

@@ -2,7 +2,9 @@
 JSON surface as a plain dataclass.
 
 Keys for features this port does not have yet raise instead of being
-ignored: tensor parallelism above 1, ZeRO-Inference and checkpoint loading.
+ignored: tensor parallelism above 1, ZeRO-Inference and the injection
+policy. ``checkpoint`` (a path, a dict or None) parses and is recorded, as
+in the JAX package, where no code reads it either.
 Weight quantization (``dtype="int8"`` or ``quant.enabled``) is
 accepted; the engine serves it through the int8 compute tier or raises for
 the storage tier it has no kernel for.
@@ -21,7 +23,7 @@ C++, and are recorded only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -34,7 +36,7 @@ _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
 _QUANT_DEFAULTS = {"enabled": False, "bits": 8, "group_size": 0}
 
 # key -> the value that means "off" (anything else raises)
-_NOT_PORTED = {"zero": {}, "checkpoint": None, "injection_policy": None}
+_NOT_PORTED = {"zero": {}, "injection_policy": None}
 
 
 @dataclasses.dataclass
@@ -48,6 +50,8 @@ class DeepSpeedInferenceConfig:
     replace_method: str = "auto"
     replace_with_kernel_inject: bool = False
     return_tuple: bool = True
+    # recorded, no effect (module docstring)
+    checkpoint: Union[str, Dict[str, Any], None] = None
     # capture and replay the decode step (module docstring)
     enable_cuda_graph: bool = False
     # accepted and recorded, no-ops (module docstring)

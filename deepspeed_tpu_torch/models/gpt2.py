@@ -44,10 +44,14 @@ its plain versions on the CPU) when ``supports_pallas(block, T)`` holds,
 else through the gather formulation. The JAX model takes its kernel on a
 TPU only; both routes compute the same function.
 
+``loss_chunk > 0`` streams the loss: the hidden states (the last position
+dropped) go through ``ops.transformer.chunked_softmax_xent`` against
+``wte.weight`` in ``dtype``, ``loss_chunk`` positions at a time, so the
+(B, T, V) logits are never held whole; the dense path is unchanged.
+
 ``scan_unroll`` is accepted for config compatibility and has no effect:
 the blocks are a Python loop in eager PyTorch, not a ``lax.scan``.
-``sequence_parallel`` and ``loss_chunk`` are not ported and raise unless
-off.
+``sequence_parallel`` is not ported and raises unless off.
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ from ..ops.sparse_attention.block_sparse_kernel import (
 from ..ops.sparse_attention.sparse_self_attention import \
     block_sparse_attention
 from ..ops.transformer.ln_linear import LN_LINEAR_OP, ln_linear
-from .transformer_lm import to_torch_dtype
+from .transformer_lm import CausalLMTraining, _dropout, to_torch_dtype
 
 __all__ = ["GPT2Config", "GPT2_SIZES", "gpt2_config", "GPT2LMHeadModel",
            "REMAT_POLICIES"]
@@ -99,7 +103,7 @@ class GPT2Config:
     scan_unroll: int = 1         # accepted, no effect (module docstring)
     sparse_attention: Optional[Any] = None      # a SparsityConfig
     fused_ln_linear: Any = "auto"   # True | False | "auto" (= off)
-    loss_chunk: int = 0          # not ported
+    loss_chunk: int = 0          # > 0: the streaming loss, this many a chunk
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", to_torch_dtype(self.dtype))
@@ -107,11 +111,10 @@ class GPT2Config:
             raise ValueError("sparse_attention does not compose with "
                              "sequence_parallel (the layout is over the "
                              "full sequence)")
-        for key, off in (("sequence_parallel", None), ("loss_chunk", 0)):
-            if getattr(self, key) not in (off, False):
-                raise NotImplementedError(
-                    f"GPT2Config.{key} is not ported to the PyTorch/CUDA "
-                    f"package yet")
+        if self.sequence_parallel not in (None, False):
+            raise NotImplementedError(
+                "GPT2Config.sequence_parallel is not ported to the "
+                "PyTorch/CUDA package yet")
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                              f"got {self.remat_policy!r}")
@@ -160,13 +163,6 @@ def _layer_norm(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 def _ln_linear(ln: nn.LayerNorm, dense: nn.Linear, x: torch.Tensor):
     return ln_linear(x, ln.weight, ln.bias, dense.weight, dense.bias,
                      eps=ln.eps)
-
-
-def _dropout(x, p: float, gen: Optional[torch.Generator]):
-    if gen is None or p == 0:
-        return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
-    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 class CausalSelfAttention(nn.Module):
@@ -272,7 +268,7 @@ def _policy(saved):
     return fn
 
 
-class GPT2LMHeadModel(nn.Module):
+class GPT2LMHeadModel(CausalLMTraining, nn.Module):
     """Causal LM with the tied embedding head. ``forward(batch)`` returns
     the mean cross-entropy; ``batch`` = {"input_ids": (B, T) ints, optional
     "labels": (B, T)} (arrays or tensors; moved to the model's device)."""
@@ -318,19 +314,9 @@ class GPT2LMHeadModel(nn.Module):
                 mod.config = cfg
         return cfg
 
-    def seed_dropout(self, seed: int) -> None:
-        self.dropout_generator.manual_seed(seed)
-
     @property
     def device(self) -> torch.device:
         return self.wte.weight.device
-
-    def _block_seeds(self, deterministic: bool):
-        if deterministic or self.config.dropout == 0:
-            return [None] * self.config.n_layer
-        base = int(torch.randint(0, 2 ** 62, (1,),
-                                 generator=self.dropout_generator))
-        return [base + i for i in range(self.config.n_layer)]
 
     def hidden(self, input_ids, deterministic: bool = True):
         """Final hidden states (B, T, C) after ``ln_f``."""
@@ -363,18 +349,8 @@ class GPT2LMHeadModel(nn.Module):
     def logits(self, input_ids, deterministic: bool = True):
         return self._attend(self.hidden(input_ids, deterministic))
 
-    def forward(self, batch, deterministic: bool = False):
-        ids = torch.as_tensor(batch["input_ids"], device=self.device).long()
-        labels = batch.get("labels") if hasattr(batch, "get") else None
-        labels = ids if labels is None else \
-            torch.as_tensor(labels, device=self.device).long()
-        targets = labels[:, 1:]
-        mask = (targets >= 0).float()
-        targets = targets.clamp(min=0)
-        # causal shift: position t predicts token t+1 (the last position's
-        # logits are never used, so they are not computed)
-        logits = self._attend(self.hidden(ids, deterministic)[:, :-1])
-        logp = F.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, targets[..., None])[..., 0]
-        return (nll.float() * mask).sum() / mask.sum().clamp(min=1.0)
+    _dense_logits = _attend
 
+    def _loss_head(self):
+        """The streamed loss's projection: the tied table in ``dtype``."""
+        return self.wte.weight, self.config.dtype

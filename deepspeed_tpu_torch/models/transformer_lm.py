@@ -40,8 +40,26 @@ version.
 Int8 weights (``int8_weights``): every projection is a ``QuantDense``
 (int8 weight, fp32 scale per output channel) running the CUDA
 ``int8_matmul`` kernel; the vocabulary head stays full precision unless
-``int8_head``. This port serves only; there is no training loss, so
-``dropout``, ``remat`` and ``loss_chunk`` have no effect here.
+``int8_head``.
+
+Training: ``forward(batch, deterministic=False)`` (``CausalLMTraining``,
+shared with GPT-2) is the JAX ``TransformerLM.__call__``, the engine's
+model convention: the causal shift, ``mask = targets >= 0`` and the mean
+cross-entropy over the kept positions, dense (the head's logits, then ``log_softmax``) or, with
+``loss_chunk > 0``, streamed through ``ops.transformer.
+chunked_softmax_xent`` (a tied head in ``dtype``, an untied one in fp32,
+as the JAX head computes). ``hidden`` runs the blocks with gradients:
+``remat=True`` checkpoints each block whole (non-reentrant
+``torch.utils.checkpoint``, the JAX ``nn.remat`` of the block), and
+``dropout > 0`` drops attention probabilities and the MLP's output, masks
+drawn from a ``torch.Generator`` seeded per block and forward (from
+``dropout_generator``), so a recomputed block draws the same masks. The
+fresh attention takes the flash kernel under the JAX ``_use_flash`` rule
+(not with ALiBi, nor with dropout in training), K/V at their own
+``n_kv_head`` heads: the kernels map grouped heads and the dk/dv kernel sums
+each group, so nothing is repeated on the card. ``logits`` is the same
+fresh forward without gradients; the cached serving methods run the blocks
+through ``_transform``.
 """
 
 from __future__ import annotations
@@ -54,6 +72,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention.decode_attention import (alibi_slopes,
                                               decode_attention,
@@ -64,6 +83,7 @@ from ..ops.attention.flash_attention import NEG_INF, flash_attention
 from ..ops.attention.paged_attention import (page_writes,
                                              paged_decode_attention)
 from ..ops.quantization.linear import QuantDense
+from ..ops.transformer.chunked_xent import chunked_softmax_xent
 
 __all__ = ["TransformerConfig", "FAMILY_PRESETS", "transformer_config",
            "apply_rotary", "alibi_slopes", "CachedAttention",
@@ -103,13 +123,13 @@ class TransformerConfig:
     embed_layernorm: bool = False       # bloom
     tie_word_embeddings: bool = True
     layer_norm_epsilon: float = 1e-5
-    dropout: float = 0.0                # serving is deterministic: no effect
+    dropout: float = 0.0                # training only (module docstring)
     dtype: Any = torch.bfloat16
     # "auto" | "on" | True: the flash kernel for every fresh causal forward
     # with T > 1 and no ALiBi (no TPU-tuned length crossover on CUDA);
     # False | "off": the plain attention
     use_flash_attention: Any = "auto"
-    remat: bool = False                 # training only: no effect here
+    remat: bool = False                 # training: checkpoint each block
     # "auto" | "on": the decode kernel for T=1 cached attention; "off": the
     # plain einsum math
     decode_kernel: str = "auto"
@@ -127,7 +147,7 @@ class TransformerConfig:
     # plain version (only with int8_weights)
     int8_kernel: str = "auto"
     int8_head: bool = False             # only with int8_weights
-    loss_chunk: int = 0                 # training only: no effect here
+    loss_chunk: int = 0                 # > 0: the streaming training loss
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", to_torch_dtype(self.dtype))
@@ -241,6 +261,62 @@ def _write_rows(kv: Dict[str, Any], idx, k_rows, v_rows,
         buf[idx] = rows
 
 
+def _dropout(x, p: float, gen: Optional[torch.Generator]):
+    """Inverted dropout of ``x`` at rate ``p`` with masks from ``gen``
+    (None, or ``p`` 0: ``x`` unchanged)."""
+    if gen is None or p == 0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
+
+
+class CausalLMTraining:
+    """The training half of ``GPT2LMHeadModel`` and ``TransformerLM``:
+    per-forward dropout seeds and the engine's loss ``forward``. The model
+    gives ``config`` (``n_layer``, ``dropout``, ``loss_chunk``),
+    ``dropout_generator``, ``device``, ``hidden(ids, deterministic)``,
+    ``_loss_head()`` (the (V, C) projection and its dtype for the streamed
+    loss) and ``_dense_logits(x)``."""
+
+    def seed_dropout(self, seed: int) -> None:
+        self.dropout_generator.manual_seed(seed)
+
+    def _block_seeds(self, deterministic: bool):
+        """One dropout seed a block for this forward (None: no dropout),
+        so a recomputed block draws the same masks."""
+        if deterministic or self.config.dropout == 0:
+            return [None] * self.config.n_layer
+        base = int(torch.randint(0, 2 ** 62, (1,),
+                                 generator=self.dropout_generator))
+        return [base + i for i in range(self.config.n_layer)]
+
+    def forward(self, batch, deterministic: bool = False):
+        """The mean next-token cross-entropy of ``batch`` = {"input_ids":
+        (B, T) ints, optional "labels": (B, T), negative = ignored}
+        (arrays or tensors; moved to the model's device)."""
+        chunk = self.config.loss_chunk
+        if chunk:
+            w, cd = self._loss_head()
+        ids = torch.as_tensor(batch["input_ids"], device=self.device).long()
+        labels = batch.get("labels") if hasattr(batch, "get") else None
+        labels = ids if labels is None else \
+            torch.as_tensor(labels, device=self.device).long()
+        targets = labels[:, 1:]
+        mask = (targets >= 0).float()
+        targets = targets.clamp(min=0)
+        # causal shift: position t predicts token t+1 (the last position's
+        # logits are never used, so they are not computed)
+        x = self.hidden(ids, deterministic)[:, :-1]
+        if chunk:
+            nll_sum = chunked_softmax_xent(x, w, targets, mask, chunk,
+                                           compute_dtype=cd)
+        else:
+            logp = F.log_softmax(self._dense_logits(x), dim=-1)
+            nll = -logp.gather(-1, targets[..., None])[..., 0]
+            nll_sum = (nll.float() * mask).sum()
+        return nll_sum / mask.sum().clamp(min=1.0)
+
+
 def _scales(kv: Dict[str, Any], sel=None) -> Dict[str, Any]:
     """An int8 cache's ``k_scale``/``v_scale`` keywords (rows ``sel`` of
     them when given); empty for a full-precision cache."""
@@ -250,9 +326,10 @@ def _scales(kv: Dict[str, Any], sel=None) -> Dict[str, Any]:
             for name in ("k_scale", "v_scale")}
 
 
-def _fresh_reference(q, k, v, slopes=None):
+def _fresh_reference(q, k, v, slopes=None, dropout: float = 0.0, gen=None):
     """Plain causal attention over fresh q/k/v (B, T, H|KV, D) in fp32,
-    with optional ALiBi ``slope·(kpos − qpos)``: the JAX einsum path."""
+    with optional ALiBi ``slope·(kpos − qpos)`` and, with ``gen``, dropout
+    of the probabilities: the JAX einsum path."""
     B, T, H, D = q.shape
     KV = k.shape[2]
     k32, v32 = k.float(), v.float()
@@ -265,7 +342,7 @@ def _fresh_reference(q, k, v, slopes=None):
         s = s + slopes.to(q.device)[None, :, None, None] \
             * (pos[None, :] - pos[:, None]).float()[None, None]
     s = s.masked_fill(pos[None, :] > pos[:, None], NEG_INF)
-    p = torch.softmax(s, dim=-1)
+    p = _dropout(torch.softmax(s, dim=-1), dropout, gen)
     return torch.einsum("bhts,bshd->bthd", p, v32).to(q.dtype)
 
 
@@ -326,16 +403,24 @@ class CachedAttention(nn.Module):
             self.register_buffer("alibi", alibi_slopes(H).to(fk.get("device")),
                                  persistent=False)
 
-    def _use_flash(self, T: int) -> bool:
-        use = self.config.use_flash_attention
+    def _use_flash(self, T: int, deterministic: bool = True) -> bool:
+        """The JAX rule without its TPU length crossover: ALiBi has no bias
+        hook in the kernel and probability dropout no kernel twin, so both
+        stay on the einsum path (forcing the kernel with them raises)."""
+        cfg = self.config
+        use = cfg.use_flash_attention
         if use is False or use == "off":
             return False
-        alibi = self.config.pos_emb == "alibi"
+        alibi = cfg.pos_emb == "alibi"
+        drop_ok = cfg.dropout == 0 or deterministic
         if use == "auto":
-            return T > 1 and not alibi
+            return T > 1 and not alibi and drop_ok
         if alibi:
             raise ValueError("use_flash_attention=True does not compose with "
                              "pos_emb='alibi' (no bias hook in the kernel)")
+        if not drop_ok:
+            raise ValueError("use_flash_attention=True does not support "
+                             "attention-probability dropout in train mode")
         return True
 
     def _attend_cache(self, q, kv, lengths, slopes):
@@ -350,7 +435,8 @@ class CachedAttention(nn.Module):
                                 lengths, alibi_slopes=slopes, **_scales(kv))
 
     def forward(self, x, positions, mode: str = "fresh", kv=None,
-                rows=None, start=None, table=None, write=None):
+                rows=None, start=None, table=None, write=None, gen=None):
+        """``gen`` (fresh mode, training): the block's dropout generator."""
         cfg = self.config
         B, T, _ = x.shape
         H, KV, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
@@ -398,11 +484,11 @@ class CachedAttention(nn.Module):
         if mode == "prefill":
             _write_rows(kv, (rows, slice(None), slice(0, T)),
                         k.transpose(1, 2), v.transpose(1, 2))
-        if self._use_flash(T):
+        if self._use_flash(T, deterministic=gen is None):
             y, _ = flash_attention(q.contiguous(), k.contiguous(),
                                    v.contiguous(), causal=True)
         else:
-            y = _fresh_reference(q, k, v, slopes)
+            y = _fresh_reference(q, k, v, slopes, cfg.dropout, gen)
         return self.o_proj(y.to(x.dtype).reshape(B, T, H * D))
 
 
@@ -417,7 +503,7 @@ class TransformerMLP(nn.Module):
         self.up_proj = _dense(cfg, cfg.n_embd, hidden, cfg.mlp_bias, **fk)
         self.down_proj = _dense(cfg, hidden, cfg.n_embd, cfg.mlp_bias, **fk)
 
-    def forward(self, x):
+    def forward(self, x, gen=None):
         act = self.config.activation
         if act == "swiglu":
             h = F.silu(self.gate_proj(x)) * self.up_proj(x)
@@ -425,7 +511,7 @@ class TransformerMLP(nn.Module):
             h = F.gelu(self.up_proj(x), approximate="tanh")
         else:
             h = F.relu(self.up_proj(x))
-        return self.down_proj(h)
+        return _dropout(self.down_proj(h), self.config.dropout, gen)
 
 
 class TransformerBlock(nn.Module):
@@ -438,13 +524,17 @@ class TransformerBlock(nn.Module):
         self.mlp = TransformerMLP(cfg, **fk)
 
     def forward(self, x, positions, mode="fresh", kv=None, rows=None,
-                start=None, table=None, write=None):
+                start=None, table=None, write=None, seed=None):
+        """``seed`` (None: no dropout) seeds this block's dropout masks."""
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=x.device).manual_seed(seed)
         a = self.attn(self.ln_1(x), positions, mode, kv, rows, start, table,
-                      write)
+                      write, gen)
         if self.config.parallel_residual:
-            return x + a + self.mlp(self.ln_2(x))
+            return x + a + self.mlp(self.ln_2(x), gen)
         x = x + a
-        return x + self.mlp(self.ln_2(x))
+        return x + self.mlp(self.ln_2(x), gen)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -505,10 +595,11 @@ class KVCacheSpec:
         return out
 
 
-class TransformerLM(nn.Module):
-    """Causal LM over any family preset: ``logits``, ``prefill``,
-    ``prefill_last``, ``prefill_chunk``, ``decode`` and ``decode_paged``
-    (see the module docstring)."""
+class TransformerLM(CausalLMTraining, nn.Module):
+    """Causal LM over any family preset: the training loss ``forward`` and
+    ``hidden``; ``logits``, ``prefill``, ``prefill_last``,
+    ``prefill_chunk``, ``decode`` and ``decode_paged`` (see the module
+    docstring)."""
 
     def __init__(self, config: TransformerConfig, device=None):
         super().__init__()
@@ -534,6 +625,7 @@ class TransformerLM(nn.Module):
             # full precision, the default of the int8 tier too
             self.lm_head = nn.Linear(cfg.n_embd, cfg.vocab_size, bias=False,
                                      **fk)
+        self.dropout_generator = torch.Generator().manual_seed(0)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator,
@@ -575,14 +667,51 @@ class TransformerLM(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.weight.device
 
-    def _transform(self, input_ids, positions, mode="fresh", cache=None,
-                   rows=None, start=None, table=None, scratch_page=False):
+    def _embed(self, input_ids, positions):
         cfg = self.config
         x = self.embed_tokens(input_ids)
         if cfg.pos_emb == "learned":
             x = x + self.embed_pos(positions)
         if cfg.embed_layernorm:
             x = self.embed_ln(x)
+        return x
+
+    def hidden(self, input_ids, deterministic: bool = True):
+        """Final hidden states (B, T, C) after ``ln_f``, with gradients,
+        ``remat`` and dropout (the module docstring's training path)."""
+        ids = torch.as_tensor(input_ids, device=self.device).long()
+        B, T = ids.shape
+        positions = self._positions(B, T)
+        x = self._embed(ids, positions)
+        remat = self.config.remat and torch.is_grad_enabled()
+        for block, seed in zip(self.blocks, self._block_seeds(deterministic)):
+            if remat:
+                x = checkpoint(block, x, positions, seed=seed,
+                               use_reentrant=False)
+            else:
+                x = block(x, positions, seed=seed)
+        return self.ln_f(x)
+
+    def _loss_head(self):
+        """The streamed loss's projection: a tied head in ``dtype``, an
+        untied one in fp32 (the JAX head's ``cd``)."""
+        cfg = self.config
+        if cfg.tie_word_embeddings:
+            return self.embed_tokens.weight, cfg.dtype
+        if cfg.int8_weights and cfg.int8_head:
+            raise ValueError(
+                "loss_chunk does not compose with an int8-quantized "
+                "untied lm_head (QuantDense stores an int8 kernel + "
+                "scale; the streaming loss reads a plain kernel). "
+                "Serve int8 with the dense loss, keep the head fp32, "
+                "or tie the embeddings.")
+        return self.lm_head.weight, torch.float32
+
+    def _transform(self, input_ids, positions, mode, cache, rows=None,
+                   start=None, table=None, scratch_page=False):
+        """The blocks against a cache: ``mode`` "prefill", "decode" or
+        "paged" (the fresh forward is :meth:`hidden`)."""
+        x = self._embed(input_ids, positions)
         write = None
         if mode == "paged":
             _, P, _, ps, _ = cache["k"].shape
@@ -591,8 +720,7 @@ class TransformerLM(nn.Module):
         elif mode == "decode" and input_ids.shape[1] > 1:
             write = _row_writes(positions, rows, cache["k"].shape[3])
         for li, block in enumerate(self.blocks):
-            kv = {key: leaf[li] for key, leaf in cache.items()} \
-                if cache is not None else None
+            kv = {key: leaf[li] for key, leaf in cache.items()}
             x = block(x, positions, mode, kv, rows, start, table, write)
         return self.ln_f(x)
 
@@ -608,6 +736,8 @@ class TransformerLM(nn.Module):
             return self.lm_head(x).float()
         return F.linear(x.float(), self.lm_head.weight.float())
 
+    _dense_logits = _project_head
+
     def _positions(self, B: int, T: int, offset=None):
         pos = torch.arange(T, device=self.device)[None].expand(B, T)
         return pos if offset is None else pos + offset[:, None]
@@ -615,9 +745,7 @@ class TransformerLM(nn.Module):
     @torch.no_grad()
     def logits(self, input_ids):
         """(B, T) token ids -> (B, T, V) fp32 logits, no cache."""
-        B, T = input_ids.shape
-        return self._project_head(
-            self._transform(input_ids, self._positions(B, T)))
+        return self._project_head(self.hidden(input_ids))
 
     def _prefill_hidden(self, input_ids, cache, rows):
         B, T = input_ids.shape

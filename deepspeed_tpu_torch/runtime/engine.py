@@ -28,11 +28,25 @@ differently. In fp32 the optimizer updates the parameters themselves.
 
 ZeRO stages 0-3 on one device give the same numbers (``zero/policy.py``).
 The eager ``forward``/``backward``/``step`` triple accumulates the same
-way. Checkpoint save and load are not ported yet and raise.
+way.
+
+Checkpoints are the JAX engine's single-host files
+(``runtime/checkpoint_engine``): ``save_checkpoint`` writes
+``<dir>/<tag>/mp_rank_00_model_states.{npz,meta}`` and ``<dir>/latest``;
+the state dict has the JAX top-level keys with the port's parameter names
+(``module``: the module's ``state_dict``; ``master`` and each optimizer
+field, e.g. ``exp_avg``/``exp_avg_sq``: ``{parameter name: tensor}``),
+``step``/``opt_step``, the loss ``scale``, ``rng`` (the model's dropout
+generator state), the four counters, the world sizes, ``lr_scheduler`` and
+``client_state``. ``load_checkpoint`` restores all of it bit for bit;
+``load_universal_checkpoint`` reads ``checkpoint.universal_checkpoint``'s
+layout (the ``checkpoint.load_universal`` switch routes there). The
+multi-process orbax layout is not ported (world size 1 only).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
@@ -45,10 +59,13 @@ from ..utils.logging import log_dist
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                            STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER,
                            SynchronizedWallClockTimer, ThroughputTimer)
+from .checkpoint_engine.checkpoint_engine import (ArrayCheckpointEngine,
+                                                  checkpoint_meta_path,
+                                                  read_latest, write_latest)
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
-from .fp16.loss_scaler import (has_inf_or_nan, make_loss_scale_state,
-                               update_scale)
+from .fp16.loss_scaler import (LossScaleState, has_inf_or_nan,
+                               make_loss_scale_state, update_scale)
 from .lr_schedules import get_lr_schedule
 from .utils import clip_grads_by_global_norm, count_parameters, global_grad_norm
 from .zero.policy import ZeroShardingPolicy
@@ -79,6 +96,15 @@ def _rows(batch, lo: int, hi: int):
     if isinstance(batch, (tuple, list)):
         return type(batch)(_rows(v, lo, hi) for v in batch)
     return batch[lo:hi]
+
+
+def _plain(value):
+    """A loaded leaf as a Python value (0-d arrays to scalars, in dicts)."""
+    if isinstance(value, dict):
+        return {k: _plain(v) for k, v in value.items()}
+    if isinstance(value, np.ndarray) and value.ndim == 0:
+        return value.item()
+    return value
 
 
 def _leading(batch) -> int:
@@ -137,8 +163,11 @@ class DeepSpeedEngine:
                        model.parameters() if p.requires_grad] \
             if self._keep_master else None
         self.module = model.to(self.compute_dtype)
-        self._params = [p for p in self.module.parameters()
-                        if p.requires_grad]
+        named = [(n, p) for n, p in self.module.named_parameters()
+                 if p.requires_grad]
+        self._param_names = [n for n, _ in named]
+        self._params = [p for _, p in named]
+        self.checkpoint_engine = ArrayCheckpointEngine()
         self._loss_fn = loss_fn
         if hasattr(self.module, "seed_dropout"):
             self.module.seed_dropout(self._config.seed + 1)
@@ -412,10 +441,159 @@ class DeepSpeedEngine:
                 return self.module(batch, deterministic=True)
         return eval_loss
 
-    def save_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("save_checkpoint is not ported to the "
-                                  "PyTorch/CUDA package yet")
+    # --- checkpoints ---------------------------------------------------------
+    def _named(self, tensors) -> Dict[str, torch.Tensor]:
+        return dict(zip(self._param_names, tensors))
 
-    def load_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError("load_checkpoint is not ported to the "
-                                  "PyTorch/CUDA package yet")
+    @torch.no_grad()
+    def _copy_named(self, targets, saved: Dict[str, Any]) -> None:
+        """Copy ``saved[name]`` (arrays or tensors) into each target tensor,
+        aligned with the trainable parameters' names."""
+        for name, t in zip(self._param_names, targets):
+            t.copy_(torch.as_tensor(saved[name]))
+
+    @torch.no_grad()
+    def _recast_params(self) -> None:
+        for p, m in zip(self._params, self.master):
+            p.copy_(m)
+
+    def _state_dict(self) -> Dict[str, Any]:
+        """The JAX engine's checkpoint dict (module docstring); tensors stay
+        on the device until the checkpoint engine copies them."""
+        gen = getattr(self.module, "dropout_generator", None)
+        opt = self.opt_state
+        sched = self.lr_scheduler
+        return {
+            "module": self.module.state_dict(),
+            "master": self._named(self.master) if self._keep_master
+            else None,
+            "optimizer": {field: self._named(getattr(opt, field))
+                          for field in opt._fields},
+            "offload_optimizer": None,
+            "onebit": None,
+            "step": self.global_steps,
+            "opt_step": self._opt_step,
+            "scale": self.loss_scale_state._asdict()
+            if self.loss_scale_state is not None else None,
+            "rng": gen.get_state() if gen is not None else None,
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "dp_world_size": self.dp_world_size,
+            "mp_world_size": 1,
+            "lr_scheduler": sched.state_dict()
+            if sched is not None and hasattr(sched, "state_dict") else None,
+        }
+
+    def save_checkpoint(self, save_dir: str, tag: Optional[str] = None,
+                        client_state: Optional[Dict] = None,
+                        save_latest: bool = True) -> None:
+        """Write the state to ``<save_dir>/<tag>/`` (tag default
+        ``global_step{N}``) and, with ``save_latest``, ``tag`` to
+        ``<save_dir>/latest``."""
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        self.checkpoint_engine.create(tag)
+        sd = self._state_dict()
+        if client_state:
+            sd["client_state"] = client_state
+        self.checkpoint_engine.save(
+            sd, checkpoint_meta_path(save_dir, tag, "model"))
+        self.checkpoint_engine.commit(tag)
+        if save_latest:
+            write_latest(save_dir, tag)
+        log_dist(f"saved checkpoint {save_dir}/{tag}", ranks=[0])
+
+    def _restore_counters(self, saved: Dict[str, Any],
+                          load_lr_scheduler_states: bool = True) -> None:
+        step = int(saved.get("step", 0))
+        self.global_steps = int(saved.get("global_steps", step))
+        self._opt_step = int(saved.get("opt_step", step))
+        self.global_samples = int(saved.get("global_samples", 0))
+        self.micro_steps = int(saved.get("micro_steps", 0))
+        self.skipped_steps = int(saved.get("skipped_steps", 0))
+        sched = self.lr_scheduler
+        if load_lr_scheduler_states and sched is not None and \
+                saved.get("lr_scheduler") and \
+                hasattr(sched, "load_state_dict"):
+            sched.load_state_dict(_plain(saved["lr_scheduler"]))
+
+    def _clear_accumulation(self) -> None:
+        torch._foreach_zero_(self._grad_acc)
+        self._loss_acc = None
+        self._pending = None
+
+    def load_checkpoint(self, load_dir: str, tag: Optional[str] = None,
+                        load_module_strict: bool = True,
+                        load_optimizer_states: bool = True,
+                        load_lr_scheduler_states: bool = True,
+                        load_module_only: bool = False):
+        """Restore a :meth:`save_checkpoint` directory (``tag`` default: the
+        one in ``latest``); returns ``(load_dir, client_state)``. With
+        ``load_module_only``, or from a checkpoint without master weights,
+        the master weights are re-seeded from the loaded module (as the
+        JAX engine re-seeds its offloaded and one-bit masters), so the
+        next step starts from the loaded weights."""
+        if self._config.checkpoint.load_universal:
+            return self.load_universal_checkpoint(load_dir, tag)
+        if tag is None:
+            tag = read_latest(load_dir)
+        if os.path.isdir(os.path.join(load_dir, str(tag), "orbax_state")):
+            raise NotImplementedError(
+                "orbax (multi-process) checkpoints are not ported to the "
+                "PyTorch/CUDA package")
+        sd = self.checkpoint_engine.load(
+            checkpoint_meta_path(load_dir, tag, "model"))
+        module_sd = {k: torch.as_tensor(v) for k, v in sd["module"].items()}
+        self.module.load_state_dict(module_sd, strict=load_module_strict)
+        master = None if load_module_only else sd.get("master")
+        if self._keep_master:
+            self._copy_named(self.master, master if master is not None
+                             else module_sd)
+        if not load_module_only:
+            opt = sd.get("optimizer")
+            if load_optimizer_states and opt is not None:
+                for field in self.opt_state._fields:
+                    self._copy_named(getattr(self.opt_state, field),
+                                     opt[field])
+            scale = sd.get("scale")
+            if scale is not None and self.loss_scale_state is not None:
+                self.loss_scale_state = LossScaleState(
+                    float(scale["loss_scale"]), int(scale["good_steps"]),
+                    int(scale["hysteresis"]))
+            gen = getattr(self.module, "dropout_generator", None)
+            if sd.get("rng") is not None and gen is not None:
+                gen.set_state(torch.as_tensor(sd["rng"]).to(torch.uint8))
+            self._restore_counters(sd, load_lr_scheduler_states)
+        self._clear_accumulation()
+        log_dist(f"loaded checkpoint {load_dir}/{tag}", ranks=[0])
+        return load_dir, sd.get("client_state", {})
+
+    def load_universal_checkpoint(self, load_dir: str,
+                                  tag: Optional[str] = None):
+        """Load ``checkpoint.ds_to_universal``'s layout: the fp32 weights
+        into the master (or the parameters, in fp32), the parameters recast
+        from them, each optimizer field it holds, the counters and the
+        schedule. Returns ``(load_dir, {})``."""
+        from ..checkpoint.universal_checkpoint import (load_universal,
+                                                       universal_dir)
+
+        if tag is None:
+            tag = read_latest(load_dir)
+        univ = load_universal(universal_dir(load_dir, tag))
+        if self._keep_master:
+            self._copy_named(self.master, univ["fp32"])
+            self._recast_params()
+        else:
+            self._copy_named(self._params, univ["fp32"])
+        for field, tree in univ["opt"].items():
+            if field in self.opt_state._fields:
+                self._copy_named(getattr(self.opt_state, field), tree)
+        meta = univ["meta"]
+        self._restore_counters(meta)
+        self._clear_accumulation()
+        log_dist(f"loaded universal checkpoint {load_dir}/{tag} (saved at "
+                 f"dp={meta.get('source_dp_world_size')}, now "
+                 f"dp={self.dp_world_size})", ranks=[0])
+        return load_dir, {}

@@ -702,6 +702,31 @@ def test_flash_backward_kernels_match_plain(gen, dtype, D, causal, T, S, H,
 
 
 @pytest.mark.parametrize("rows", [64, 128])
+def test_flash_backward_at_the_tinyllama_training_shape(gen, monkeypatch,
+                                                        rows):
+    """dq and dk/dv at TinyLlama's training shape (B=4, T=2048, 32 query
+    heads over 4 KV heads, D=64, bf16, causal), in both block sizes: the
+    dk/dv kernel sums each group of 8 query heads into its KV head."""
+    import deepspeed_tpu_torch.ops.attention.flash_attention as fa
+
+    monkeypatch.setattr(fa, "block_rows", lambda *_: rows)
+    B, T, H, KV, D = 4, 2048, 32, 4, 64
+    q, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, T, KV, D, generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    out, lse = flash_attention(q, k, v)
+    args = (q, k, v, do, lse, attention_delta(out, do), True,
+            1 / math.sqrt(D))
+    tol = TRAIN_TOL[torch.bfloat16]
+    _close_to_max(flash_attention_dq(*args), flash_dq_reference(*args), tol,
+                  "dq")
+    for got, ref, name in zip(flash_attention_dkv(*args),
+                              flash_dkv_reference(*args), ("dk", "dv")):
+        _close_to_max(got, ref, tol, name)
+
+
+@pytest.mark.parametrize("rows", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("causal,T,S,H,KV", [

@@ -23,7 +23,7 @@ from deepspeed_tpu_torch.ops.attention.paged_attention import \
 from deepspeed_tpu_torch.ops.quantization import QuantDense, int8_matmul
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = {"jax", "jaxlib", "flax", "deepspeed_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "ml_dtypes", "deepspeed_tpu"}
 
 
 def _port_files():

@@ -292,7 +292,8 @@ def test_unported_keys_raise(key, value):
                        device="cpu")
 
 
-def test_flagship_config_parses_and_cpu_must_be_asked_for(monkeypatch):
+def test_flagship_config_parses_and_cpu_must_be_asked_for(monkeypatch,
+                                                          tmp_path):
     cfg = dst.DeepSpeedConfig.load(BENCH_CONFIG)
     assert (cfg.train_batch_size, cfg.precision_dtype,
             int(cfg.zero_optimization.stage)) == (160, torch.bfloat16, 2)
@@ -302,10 +303,15 @@ def test_flagship_config_parses_and_cpu_must_be_asked_for(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dst.initialize(model=model, config=CONFIG)
     engine, *_ = dst.initialize(model=model, config=CONFIG, device="cpu")
-    with pytest.raises(NotImplementedError):
-        engine.save_checkpoint("ckpt")
-    with pytest.raises(NotImplementedError):
-        engine.load_checkpoint("ckpt")
+    # the CPU engine's checkpoint round trip (tests/test_torch_checkpoint.py
+    # holds it bit for bit at every precision)
+    engine.train_batch(batch=_batches(1)[0])
+    engine.save_checkpoint(str(tmp_path))
+    saved = _state(engine)
+    engine.train_batch(batch=_batches(2)[1])
+    assert engine.load_checkpoint(str(tmp_path)) == (str(tmp_path), {})
+    assert engine.global_steps == 1
+    _assert_params_close(_state(engine), saved, 0.0)
     eval_loss = engine.eval_batch_fn()(_batches(1)[0])
     assert eval_loss.requires_grad is False and np.isfinite(float(eval_loss))
 

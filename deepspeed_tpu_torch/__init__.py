@@ -76,7 +76,7 @@ SERVE_KEYS = ("policy", "do_sample", "temperature", "top_k", "top_p", "seed",
               "deadline_default_ms", "step_wall_budget_ms", "guard_numerics",
               "degradation", "preempt_queue_threshold",
               "preempt_min_run_steps", "fault_injector", "slo",
-              "flight_recorder", "dump_dir", "priority",
+              "cost_model", "flight_recorder", "dump_dir", "priority",
               "clock") + tuple(NOT_PORTED)
 
 
@@ -122,8 +122,12 @@ def init_serving(model: Any = None, config: Union[Dict, None] = None,
     tests), ``priority`` (True, a dict or a ``PriorityConfig``: priority
     classes and tenant limits) and ``clock`` (the one clock every deadline,
     SLO and degradation decision reads; ``time.perf_counter`` by default).
-    The JAX keys ``cost_model`` and ``role`` are not ported yet and raise
-    ``NotImplementedError`` unless off (None, False, ``"both"``).
+    ``cost_model`` (False by default; True, a ``telemetry.
+    ProgramCostModel`` kwargs dict or an instance): analytic flops and
+    bytes per program call, read back as MFU and bandwidth utilization
+    through ``srv.efficiency_snapshot()``. The JAX key ``role`` is not
+    ported yet and raises ``NotImplementedError`` unless off (None,
+    ``"both"``).
 
     Per-request ``max_new_tokens``, ``eos_token_id``, ``deadline_ms``,
     ``priority`` and ``tenant`` ride on ``submit()``. Everything else

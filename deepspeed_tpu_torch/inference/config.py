@@ -2,12 +2,16 @@
 JSON surface as a plain dataclass.
 
 Keys for features this port does not have yet raise instead of being
-ignored: tensor parallelism above 1, ZeRO-Inference and the injection
-policy. ``checkpoint`` (a path, a dict or None) parses and is recorded, as
-in the JAX package, where no code reads it either.
-Weight quantization (``dtype="int8"`` or ``quant.enabled``) is
-accepted; the engine serves it through the int8 compute tier or raises for
-the storage tier it has no kernel for.
+ignored: tensor parallelism above 1 and a truthy injection policy (the JAX
+engine reads ``injection_policy`` only when it is truthy, so None and ``{}``
+parse). ``checkpoint`` (a path, a dict or None) and ``zero`` (a dict) parse
+and are recorded, as in the JAX package, where no code reads them either:
+ZeRO-Inference there and here is its own engine,
+``inference.zero_inference.ZeroInferenceEngine``.
+Weight quantization (``dtype="int8"`` or ``quant.enabled``) is accepted;
+the engine serves it through the int8 compute tier or the int8 storage
+tier (``inference/engine.py``). ``quant.group_size`` defaults to 64, as in
+the JAX package.
 
 ``enable_cuda_graph`` (default False, as in both packages) is the switch
 for the captured decode step: with it the engine replays every one-token
@@ -33,10 +37,10 @@ _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
            "bf16": torch.bfloat16,
            # int8 weights: activations in bf16 (the JAX jnp_dtype)
            "int8": torch.bfloat16}
-_QUANT_DEFAULTS = {"enabled": False, "bits": 8, "group_size": 0}
+_QUANT_DEFAULTS = {"enabled": False, "bits": 8, "group_size": 64}
 
-# key -> the value that means "off" (anything else raises)
-_NOT_PORTED = {"zero": {}, "injection_policy": None}
+# keys accepted only when falsy (None, {}): a truthy value raises
+_NOT_PORTED = ("injection_policy",)
 
 
 @dataclasses.dataclass
@@ -52,6 +56,8 @@ class DeepSpeedInferenceConfig:
     return_tuple: bool = True
     # recorded, no effect (module docstring)
     checkpoint: Union[str, Dict[str, Any], None] = None
+    zero: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    injection_policy: Optional[Dict[str, Any]] = None
     # capture and replay the decode step (module docstring)
     enable_cuda_graph: bool = False
     # accepted and recorded, no-ops (module docstring)
@@ -74,8 +80,8 @@ class DeepSpeedInferenceConfig:
         if "mp_size" in cfg:
             cfg.setdefault("tensor_parallel", {})["tp_size"] = \
                 cfg.pop("mp_size")
-        for key, off in _NOT_PORTED.items():
-            if key in cfg and cfg.pop(key) != off:
+        for key in _NOT_PORTED:
+            if cfg.get(key):
                 raise NotImplementedError(
                     f"inference config key {key!r} is not ported to the "
                     f"PyTorch/CUDA package yet")
@@ -90,6 +96,9 @@ class DeepSpeedInferenceConfig:
         if unknown:
             raise ValueError(f"unknown quant keys {unknown}; expected "
                              f"{sorted(_QUANT_DEFAULTS)}")
+        if not isinstance(out.zero, dict):
+            raise ValueError(f"inference config key 'zero' must be a dict, "
+                             f"got {type(out.zero).__name__}")
         out.quant = {**_QUANT_DEFAULTS, **out.quant}
         out.torch_dtype()
         return out

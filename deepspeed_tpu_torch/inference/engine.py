@@ -28,22 +28,52 @@ Weight-only int8 (``dtype="int8"`` or ``quant.enabled`` with 8 bits) on a
 tier: every projection named in ``DENSE_KEYS`` (the vocabulary head only
 with ``int8_head``) is swapped, in place and on the device, for a
 ``QuantDense`` running the CUDA ``int8_matmul`` kernel, and the model's
-config becomes ``int8_weights=True``. The JAX STORAGE tier (group-quantized
-weights dequantized inside each compiled program, for fp32, TP > 1 or
-non-LM modules; ``_maybe_quantize``/``_dequant`` there) has no kernel and
-is not ported: it raises ``NotImplementedError``.
+config becomes ``int8_weights=True``. Every other quantized case (fp32 or
+fp16, ``bits != 8``, a module that is not a ``TransformerLM``, an
+``int8_weights`` model) is the JAX engine's int8 STORAGE tier
+(``_maybe_quantize``/``_dequant`` there): every floating leaf of rank >= 2
+of the JAX parameter tree, the embeddings included, is stored as int8 with
+one fp32 scale per group (``quant.group_size`` elements of the flattened
+leaf, or one group when the size does not divide) and dequantized to the
+compute dtype at each use by a parametrization of the module that owns it
+(:class:`GroupDequant`), so one weight at a time is live in the compute
+dtype, and the dequantization records inside a captured decode step. No
+Pallas kernel exists for it in the JAX package, and it runs on stock torch
+ops here.
+
+The groups are those of the JAX leaf, which has another layout: an
+``nn.Linear`` weight (out, in) is the flax Dense kernel (in, out)
+transposed (the weight bridge's rule, ``checkpoint/flax_import.py``), and
+the blocks of a model with a ``blocks`` list are one scanned leaf with a
+leading layer axis, so a block's biases and norm scales are leaves of rank
+2 there and a group may span layers (one group spans them all). Each
+parameter is quantized as the JAX leaf it belongs to, its int8 values
+stored in the torch layout beside the scales of the groups it touches; the
+dequantized weight then equals the JAX ``_dequant`` output, through the
+bridge, bit for bit. A module without ``blocks`` is grouped parameter by
+parameter (the Linear rule still holds). In an ``int8_weights`` model the
+projections are int8 already and stay as they are, their per-channel
+scales in fp32 (the JAX tier requantizes its scale rows, padded to 128
+lanes, which the port does not store); its embeddings and norms are
+quantized.
+
+A module with no ``logits`` method runs through :meth:`InferenceEngine.
+forward` as a plain call (the JAX ``_generic_forward``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.utils import parametrize
 
 from ..accelerator import resolve_device
 from ..ops.quantization.convert import DENSE_KEYS, quantize_lm_params
+from ..runtime.weight_quantizer import WeightQuantization
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
 from .decode_graph import DecodeGraphs
@@ -68,6 +98,60 @@ def _filter_logits(last, temperature: float, top_k: int, top_p: float):
         scaled = torch.where(scaled < cutoff, torch.full_like(scaled, -1e30),
                              scaled)
     return scaled
+
+
+class GroupDequant(nn.Module):
+    """The storage tier's parametrization of one weight: its int8 values,
+    read in the JAX leaf's order (transposed for an ``nn.Linear`` weight),
+    are elements ``offset ..`` of a leaf quantized in groups of
+    ``group_len`` elements, and ``scale`` (k, 1) holds the k groups they
+    touch; each value times its group's scale, in fp32, then the compute
+    dtype (the JAX ``_dequant``: the same products, so the same bits)."""
+
+    def __init__(self, scale: torch.Tensor, offset: int, group_len: int,
+                 transposed: bool, dtype: torch.dtype):
+        super().__init__()
+        self.register_buffer("scale", scale)
+        self.offset, self.group_len = int(offset), int(group_len)
+        self.transposed = transposed
+        self.dtype = dtype
+
+    def forward(self, q):
+        src = q.t() if self.transposed else q
+        flat = src.float().reshape(-1)
+        n = flat.numel()
+        if self.scale.shape[0] == 1:
+            flat = flat * self.scale[0]
+        elif self.offset == 0 and n % self.group_len == 0:
+            flat = flat.reshape(-1, self.group_len) * self.scale
+        else:       # groups that straddle this weight's ends
+            idx = (torch.arange(n, device=flat.device) + self.offset) \
+                // self.group_len
+            flat = flat * self.scale[idx, 0]
+        w = flat.reshape(src.shape).to(self.dtype)
+        return w.t() if self.transposed else w
+
+
+def _storage_leaves(module: nn.Module) -> Dict[str, list]:
+    """The JAX parameter tree's leaves as lists of (owner module, name,
+    parameter): a ``blocks`` list's parameters stacked by name over its
+    layers (keys ``blocks.*.``), every other parameter alone."""
+    blocks = getattr(module, "blocks", None)
+    stacked = isinstance(blocks, nn.ModuleList) and len(blocks) > 0
+    skip = set(map(id, blocks.parameters())) if stacked else set()
+    leaves: Dict[str, list] = {}
+    for path, mod in module.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if id(p) not in skip:
+                leaves[f"{path}.{name}"] = [(mod, name, p)]
+    if stacked:
+        for path, mod in blocks[0].named_modules():
+            for name, _ in mod.named_parameters(recurse=False):
+                leaves[f"blocks.*.{path}.{name}"] = [
+                    (blk.get_submodule(path), name,
+                     getattr(blk.get_submodule(path), name))
+                    for blk in blocks]
+    return leaves
 
 
 class InferenceEngine:
@@ -111,14 +195,10 @@ class InferenceEngine:
                        else model.to(device=self.device, dtype=self.dtype))
         self.module.eval()
         if self._config.quant_enabled:
-            if not self._use_int8_compute():
-                raise NotImplementedError(
-                    "the int8 storage tier (group-quantized weights "
-                    "dequantized per call: fp32 or fp16, bits != 8, TP > 1, "
-                    "non-TransformerLM modules or an int8_weights model) is "
-                    "not ported; the int8 compute tier needs a bf16 "
-                    "TransformerLM on one device")
-            self._quantize_structured()
+            if self._use_int8_compute():
+                self._quantize_structured()
+            else:
+                self._quantize_storage()
         # the decode steps captured so far (enable_cuda_graph), else None
         self.decode_graphs = (DecodeGraphs(self.module, self.device)
                               if self._config.enable_cuda_graph else None)
@@ -151,8 +231,56 @@ class InferenceEngine:
                  f"QuantDense (CUDA int8_matmul)", ranks=[0])
 
     # ------------------------------------------------------------------
+    # int8 storage tier (JAX engine.py:221-262)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _quantize_storage(self) -> None:
+        """Store every floating JAX leaf of rank >= 2 as int8 + per-group
+        fp32 scales, quantized on the host with ``WeightQuantization`` as
+        the JAX engine does, and dequantized at each use through a
+        :class:`GroupDequant` parametrization (module docstring)."""
+        qcfg = self._config.quant
+        gs = int(qcfg["group_size"])
+        wq = WeightQuantization(num_bits=int(qcfg["bits"]))
+        n_leaves = 0
+        for key, parts in _storage_leaves(self.module).items():
+            p0 = parts[0][2]
+            stacked = key.startswith("blocks.*.")
+            if not p0.is_floating_point() or p0.dim() + stacked < 2:
+                continue
+            transposed = isinstance(parts[0][0], nn.Linear) and \
+                parts[0][1] == "weight"
+            src = np.stack([(p.detach().float().cpu().numpy().T
+                             if transposed else
+                             p.detach().float().cpu().numpy())
+                            for _, _, p in parts])
+            groups = src.size // gs if gs and src.size % gs == 0 else 1
+            q, scale = wq.quantize_value(src, groups)
+            n = src[0].size
+            group_len = src.size // groups
+            for li, (mod, name, p) in enumerate(parts):
+                ql = torch.from_numpy(np.ascontiguousarray(
+                    q[li].T if transposed else q[li]))
+                g0, g1 = li * n // group_len, ((li + 1) * n - 1) // group_len
+                setattr(mod, name, nn.Parameter(ql.to(p.device),
+                                                requires_grad=False))
+                parametrize.register_parametrization(
+                    mod, name, GroupDequant(
+                        torch.from_numpy(scale[g0:g1 + 1]).to(p.device),
+                        li * n - g0 * group_len, group_len, transposed,
+                        self.dtype),
+                    unsafe=True)
+            n_leaves += 1
+        log_dist(f"inference weight quantization: int{qcfg['bits']}, "
+                 f"{n_leaves} kernels, group_size={gs}", ranks=[0])
+
+    # ------------------------------------------------------------------
     def kv_cache_spec(self):
-        return self.module.kv_cache_spec()
+        """The served module's KV-cache contract, or None for a module
+        that declares none (the JAX engine's answer for foreign
+        modules)."""
+        spec_fn = getattr(self.module, "kv_cache_spec", None)
+        return spec_fn() if callable(spec_fn) else None
 
     def _ids(self, input_ids) -> torch.Tensor:
         ids = torch.as_tensor(np.asarray(input_ids) if not
@@ -161,10 +289,21 @@ class InferenceEngine:
         return ids[None] if ids.dim() == 1 else ids
 
     @torch.no_grad()
-    def forward(self, input_ids) -> torch.Tensor:
+    def forward(self, input_ids, *args, **kwargs):
         """Full-context (B, T, V) fp32 logits, no cache (the JAX engine's
-        ``forward`` for LM modules)."""
+        ``forward`` for LM modules). A module with no ``logits`` method is
+        called with the arguments as given, tensors and arrays moved to
+        the engine's device (the JAX ``_generic_forward``)."""
+        if not hasattr(self.module, "logits"):
+            def dev(a):
+                if torch.is_tensor(a) or isinstance(a, np.ndarray):
+                    return torch.as_tensor(a).to(self.device)
+                return a
+            return self.module(*map(dev, (input_ids,) + args),
+                               **{k: dev(v) for k, v in kwargs.items()})
         return self.module.logits(self._ids(input_ids))
+
+    __call__ = forward
 
     @torch.no_grad()
     def prefill_at(self, input_ids, last_pos=None, cache=None, rows=None):
@@ -339,3 +478,15 @@ class InferenceEngine:
             toks = np.where(after, eos_token_id, toks)
         return np.concatenate([ids.cpu().numpy().astype(np.int32), toks],
                               axis=1)
+
+    def throughput(self, input_ids,
+                   max_new_tokens: int = 64) -> Dict[str, float]:
+        """Decode throughput of :meth:`generate` (the JAX engine's probe):
+        new tokens a second over the whole batch, and the seconds it took
+        (the tokens come back to the host, so the time is the device's
+        too)."""
+        t0 = time.perf_counter()
+        toks = self.generate(input_ids, max_new_tokens=max_new_tokens)
+        dt = time.perf_counter() - t0
+        n_new = toks.shape[1] - np.shape(input_ids)[-1]
+        return {"tokens_per_sec": n_new * toks.shape[0] / dt, "elapsed_s": dt}

@@ -5,19 +5,22 @@ The JAX function walks a flax parameter tree on the host. Here the tree is
 the port's ``nn.Module`` tree: every ``nn.Linear`` whose attribute name is in
 :data:`DENSE_KEYS` is replaced in place by a :class:`~.linear.QuantDense`,
 quantized per output channel on the device the model lives on (a 1.1B model
-is not quantized in numpy on the host).
+is not quantized in numpy on the host). :func:`quantize_lm_state_dict` is
+its host-side twin over a state dict, for weights that never sit in a
+module on the device (ZeRO-Inference's host tier).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
 
+from .int8_matmul import quantize_columns
 from .linear import QuantDense
 
-__all__ = ["DENSE_KEYS", "quantize_lm_params"]
+__all__ = ["DENSE_KEYS", "quantize_lm_params", "quantize_lm_state_dict"]
 
 DENSE_KEYS = frozenset({
     "q_proj", "k_proj", "v_proj", "o_proj",
@@ -39,3 +42,30 @@ def quantize_lm_params(model: nn.Module, dense_keys=DENSE_KEYS,
         setattr(parent, name, QuantDense.from_linear(
             child, dtype=dtype, kernel_mode=kernel_mode))
     return model, len(targets)
+
+
+@torch.no_grad()
+def quantize_lm_state_dict(sd: Dict[str, torch.Tensor],
+                           dense_keys=DENSE_KEYS
+                           ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """:func:`quantize_lm_params` over a state dict on its own device:
+    every float ``<...>.<dense>.weight`` (N, K) with ``<dense>`` in
+    ``dense_keys`` becomes the QuantDense layout, an int8 ``weight`` (N, K)
+    and an fp32 ``scale`` (N,) beside it, quantized as
+    ``QuantDense.from_linear`` quantizes; every other entry is kept.
+    Returns (the new dict, the number of weights converted)."""
+    out: Dict[str, torch.Tensor] = {}
+    n = 0
+    for key, w in sd.items():
+        parts = key.split(".")
+        w = torch.as_tensor(w)
+        if len(parts) >= 2 and parts[-1] == "weight" and \
+                parts[-2] in dense_keys and w.dim() == 2 and \
+                w.is_floating_point():
+            q, s = quantize_columns(w.t())
+            out[key] = q.t().contiguous()
+            out[key[:-len("weight")] + "scale"] = s.reshape(-1)
+            n += 1
+        else:
+            out[key] = w
+    return out, n

@@ -86,7 +86,11 @@ def quantize_columns(w: torch.Tensor, num_bits: int = 8):
     1. Rounding is half to even, as ``np.round``. Runs on ``w``'s device."""
     v = w.float()
     q_range = 2 ** (num_bits - 1) - 1
-    scales = v.abs().amax(dim=0, keepdim=True) / q_range
+    # a divisor tensor on w's device: CUDA divides by a Python number as a
+    # multiply by its reciprocal, which can differ from the quotient by an
+    # ulp, and then the card's scales would not be the host's or numpy's
+    scales = v.abs().amax(dim=0, keepdim=True) / torch.full(
+        (), q_range, dtype=torch.float32, device=v.device)
     scales = torch.where(scales == 0, torch.ones_like(scales), scales)
     q = torch.round(v / scales).clamp(-q_range - 1, q_range).to(torch.int8)
     return q, scales

@@ -105,9 +105,18 @@ after :meth:`end_warmup` a new one counts as a recompile, and with
 ``strict_recompile`` the step boundary raises ``RecompileAfterWarmupError``
 (after the step's fetch, so no request is failed by it).
 
-The JAX engine's ``cost_model`` (``telemetry/costs.py``, with
-``efficiency_snapshot``) and ``role`` (disaggregated prefill/decode) are
-later slices; passing either raises ``NotImplementedError`` unless off.
+Efficiency. ``cost_model`` (False by default; True, a
+``telemetry.ProgramCostModel`` kwargs dict or an instance) charges every
+watched program call its analytic flops and bytes
+(``telemetry/costs.py``); each step folds them into MFU, bandwidth
+utilization and tokens per GFLOP against its wall time, and every
+``kv_every`` steps reconciles the pool's KV bytes against the spec's.
+:meth:`efficiency_snapshot` rolls the cost model, the SLO tracker and the
+instrumentation's own overhead up; :meth:`reset_efficiency_window` starts
+a measured window after warmup.
+
+The JAX engine's ``role`` (disaggregated prefill/decode) is a later slice;
+passing it raises ``NotImplementedError`` unless off.
 """
 
 from __future__ import annotations
@@ -121,8 +130,9 @@ import torch
 from ..accelerator import copy_from_host
 from ..ops.attention.paged_attention import MAX_QUERY_ROWS
 from ..telemetry import (FlightRecorder, MetricsRegistry,
-                         RecompileAfterWarmupError, RecompileWatchdog,
-                         SLOTracker, TimelineStore, Tracer)
+                         ProgramCostModel, RecompileAfterWarmupError,
+                         RecompileWatchdog, SLOTracker, TimelineStore,
+                         Tracer)
 from ..utils.logging import log_dist
 from .metrics import ServingMetrics
 from .paged_pool import PagedKVPool, PagePoolExhausted
@@ -138,7 +148,7 @@ _MIN_PREFILL_BUCKET = 16
 
 # serving keys of the JAX engine that this port does not have yet, each
 # with its "off" value; None or that value is accepted, any other raises
-NOT_PORTED = {"cost_model": False, "role": "both"}
+NOT_PORTED = {"role": "both"}
 
 # the port's counterparts of the entry points the JAX watchdog wraps
 # (_WATCHED_ENGINE_JITS, _WATCHED_POOL_JITS); the paged ones exist only
@@ -195,6 +205,7 @@ class ServingEngine:
                  fault_injector: Optional[Any] = None,
                  paged_kv: Any = False,
                  slo: Any = None,
+                 cost_model: Any = False,
                  flight_recorder: Any = True,
                  dump_dir: Optional[str] = None,
                  priority: Any = None,
@@ -306,6 +317,18 @@ class ServingEngine:
         self.slo = (SLOTracker(slo, registry=self.registry,
                                tracer=self.tracer, monitor=monitor)
                     if slo else None)
+        # cost_model: False (off), True (defaults), a ProgramCostModel
+        # kwargs dict, or an instance; the peaks are the engine's card's
+        if cost_model is True:
+            cost_model = ProgramCostModel(registry=self.registry,
+                                          device=self.device)
+        elif isinstance(cost_model, dict):
+            cost_model = ProgramCostModel(
+                **{"registry": self.registry, "device": self.device,
+                   **cost_model})
+        elif not cost_model:
+            cost_model = None
+        self.costs = cost_model
         # flight_recorder: True (defaults), int capacity, kwargs dict,
         # an instance, or False. Default ON: one deque append per step
         if flight_recorder is True:
@@ -324,7 +347,11 @@ class ServingEngine:
         self.recorder = flight_recorder
         self.dump_dir = dump_dir
         self._tokens_emitted = 0        # lifetime tokens (all paths)
+        self._tokens_prev = 0           # snapshot for per-step deltas
         self._telemetry_ns = 0          # step-boundary instrumentation
+        # accumulated step wall: the overhead_pct denominator when no cost
+        # model is attached
+        self.step_wall_s = 0.0
         self.registry.add_collector(self._collect_telemetry_health)
         if self._paged:
             # pool-internal events (CoW copies, trie evictions) land in
@@ -378,7 +405,8 @@ class ServingEngine:
         self._overlap = bool(overlap)
         self.watchdog = RecompileWatchdog(
             registry=self.registry, tracer=self.tracer, monitor=monitor,
-            strict=bool(strict_recompile), step_fn=lambda: self.step_id)
+            strict=bool(strict_recompile), step_fn=lambda: self.step_id,
+            cost_model=self.costs)
         for attr in _WATCHED_ENGINE:
             self.watchdog.attach(engine, attr,
                                  name=f"InferenceEngine.{attr}")
@@ -496,9 +524,12 @@ class ServingEngine:
     @property
     def telemetry_overhead_s(self) -> float:
         """Host seconds spent in the step-boundary instrumentation (the
-        self-timed SLO and flight-recorder block) plus the SLO tracker's
-        observe/on_step work."""
+        self-timed block) plus the cost model's per-call accounting and
+        the SLO tracker's observe/on_step work (the cost model's one-time
+        counts are warmup, in ``costs.summary()['harvest_s']``)."""
         total = self._telemetry_ns / 1e9
+        if self.costs is not None:
+            total += self.costs.overhead_s
         if self.slo is not None:
             total += self.slo.overhead_s
         return total
@@ -506,19 +537,27 @@ class ServingEngine:
     def _telemetry_step(self, wall: float, running_at_entry: int,
                         granted: List[Request],
                         finished: List[Request]) -> None:
-        """Step-boundary SLO and flight-recorder bookkeeping, self-timed
-        so its cost can be reported instead of read off noisy walls."""
-        slo, rec = self.slo, self.recorder
-        if slo is None and rec is None:
+        """Step-boundary cost-model, SLO and flight-recorder bookkeeping,
+        self-timed so its cost can be reported instead of read off noisy
+        walls."""
+        costs, slo, rec = self.costs, self.slo, self.recorder
+        if costs is None and slo is None and rec is None:
             return
         t0 = time.perf_counter_ns()
         # the SLO tracker self-times its own methods; subtract its delta
         # from this envelope so telemetry_overhead_s never double-counts
         slo_ns0 = slo.overhead_ns if slo is not None else 0
+        tokens = self._tokens_emitted - self._tokens_prev
+        self._tokens_prev = self._tokens_emitted
         if slo is not None:
             if running_at_entry:
                 slo.observe_gap(wall)
             slo.on_step(self.step_id)
+        if costs is not None:
+            costs.step_update(wall, tokens=tokens, tracer=self.tracer)
+            if self.step_id % costs.kv_every == 0:
+                costs.reconcile_kv(self.pool, monitor=self.metrics.monitor,
+                                   step=self.step_id, tracer=self.tracer)
         if rec is not None:
             rec.record(self._step_record(wall, granted, finished))
         spent = time.perf_counter_ns() - t0
@@ -584,7 +623,54 @@ class ServingEngine:
                    telemetry_overhead_s=self.telemetry_overhead_s)
         if self.slo is not None:
             out["slo"] = self.slo.snapshot()
+        if self.costs is not None:
+            out["costs"] = self.costs.summary()
         return out
+
+    def efficiency_snapshot(self) -> dict:
+        """The bench-facing rollup: the cost model's MFU and bandwidth
+        share, SLO goodput and latency quantiles, the KV reconciliation,
+        and the instrumentation's overhead as a share of the accumulated
+        step wall."""
+        out: dict = {"telemetry_overhead_s": self.telemetry_overhead_s}
+        wall = None
+        if self.costs is not None:
+            # reconcile fresh: the loop does it only every kv_every steps
+            self.costs.reconcile_kv(self.pool, step=self.step_id)
+            cs = self.costs.summary()
+            wall = cs["wall_s"]
+            out["costs"] = cs
+            out["mfu"] = cs["mfu"]
+            out["bandwidth_util"] = cs["bandwidth_util"]
+            hbm = cs["hbm"]
+            out["hbm_drift"] = hbm.get("hbm_drift")
+            out["hbm_peak_bytes"] = hbm.get("hbm_peak_bytes")
+        if self.slo is not None:
+            ss = self.slo.snapshot()
+            out["slo"] = ss
+            out["goodput_slo"] = ss["goodput_slo"]
+            out["ttft_p99_ms"] = ss["ttft_p99_ms"]
+            out["gap_p99_ms"] = ss["gap_p99_ms"]
+            out["alert_state"] = ss["alert_state"]
+        if not wall:
+            # no cost model: the accumulated step wall keeps overhead_pct
+            # honest on SLO-only configurations
+            wall = self.step_wall_s
+        if wall:
+            out["overhead_pct"] = 100.0 * out["telemetry_overhead_s"] / wall
+        return out
+
+    def reset_efficiency_window(self) -> None:
+        """Zero the cost model's totals, the SLO windows and the overhead
+        clocks (counted programs are kept): call it after warmup so the
+        efficiency numbers cover only the measured run."""
+        if self.costs is not None:
+            self.costs.reset_totals()
+        if self.slo is not None:
+            self.slo.reset()
+        self._telemetry_ns = 0
+        self.step_wall_s = 0.0
+        self._tokens_prev = self._tokens_emitted
 
     def _chaos_corrupt_state(self) -> None:
         """Chaos-only (the ``state_corruption`` fault point): corrupt the
@@ -1053,6 +1139,13 @@ class ServingEngine:
                 self._fail_slot(req, FinishReason.NUMERICAL_ERROR)
         return ok
 
+    def _positions_dev(self) -> torch.Tensor:
+        """The pool's decode positions on the device; the cost model gets
+        their host copy, the live lengths the step's attention reads."""
+        if self.costs is not None:
+            self.costs.positions = self.pool.positions()
+        return self.pool.positions_dev()
+
     def _decode_step(self, finished: List[Request], t0: float) -> None:
         if self._paged:
             # page the write position in BEFORE snapshotting the running
@@ -1060,7 +1153,7 @@ class ServingEngine:
             self._ensure_decode_pages(1)
         running = [(slot, req) for slot, req in self._slot_req.items()
                    if req.state is RequestState.RUNNING]
-        pos = self.pool.positions_dev()
+        pos = self._positions_dev()
         tokens = self._cur[:, None]
         with self.tracer.span("serving/decode", live=len(running)):
             if self._paged:
@@ -1148,7 +1241,7 @@ class ServingEngine:
         copy_from_host(self._draft, draft)
         copy_from_host(self._draft_len, draft_len)
         tokens = torch.cat([self._cur[:, None], self._draft], dim=1)
-        args = (tokens, self.pool.positions_dev(), self._draft,
+        args = (tokens, self._positions_dev(), self._draft,
                 self._draft_len, self._gen, self.temperature, self._greedy,
                 self.top_k, self.top_p)
         with self.tracer.span("serving/verify_k", k=K):
@@ -1550,6 +1643,7 @@ class ServingEngine:
             # check_invariants and the flight recorder face REAL damage
             self._chaos_corrupt_state()
         wall = self._now() - t_step
+        self.step_wall_s += wall
         self._telemetry_step(wall, running_at_entry, granted, finished)
         # the strict recompile gate sits at the step boundary: raising
         # mid-step would abort the step and FAIL requests whose state is

@@ -19,15 +19,23 @@ and the crash flight recorder.
 * :class:`FlightRecorder` — a ring of per-step records that becomes a
   post-mortem JSON when the engine raises, and ``debug_dump()`` live.
 
-The JAX package's cost model (``costs.py``) and fleet aggregation
-(``fleet.py``) come in later slices.
+* :class:`ProgramCostModel` — analytic flops and bytes per serving
+  program and signature, charged per call through the watchdog's proxies:
+  live MFU, bandwidth utilization and tokens per GFLOP against the card's
+  published peaks (:func:`resolve_peaks`), and the KV footprint
+  reconciled against the pool (:func:`kv_hbm_report`,
+  :func:`device_memory_report`).
+
+The JAX package's fleet aggregation (``fleet.py``) comes in a later slice.
 
 Serving integration (all knobs on ``deepspeed_tpu_torch.init_serving``)::
 
-    srv = dst.init_serving(model, tracer=Tracer(), strict_recompile=True)
+    srv = dst.init_serving(model, tracer=Tracer(), strict_recompile=True,
+                           cost_model=True)
     srv.end_warmup()            # after warmup traffic
     srv.timeline(request_id)    # per-request lifecycle events
     srv.publish_telemetry()     # registry -> monitor sinks
+    srv.efficiency_snapshot()   # MFU, bandwidth share, KV drift, overhead
 """
 
 from .tracer import Tracer, export_merged, merge_chrome
@@ -39,6 +47,8 @@ from .watchdog import (RecompileAfterWarmupError, RecompileWatchdog,
 from .slo import (QuantileDigest, SLOConfig, SLOTargets, SLOTracker,
                   WindowedQuantiles)
 from .flight_recorder import FlightRecorder, POST_MORTEM_KEYS
+from .costs import (ProgramCostModel, device_memory_report, kv_hbm_report,
+                    resolve_peaks)
 
 __all__ = [
     "Tracer",
@@ -62,4 +72,8 @@ __all__ = [
     "SLOTracker",
     "FlightRecorder",
     "POST_MORTEM_KEYS",
+    "ProgramCostModel",
+    "resolve_peaks",
+    "kv_hbm_report",
+    "device_memory_report",
 ]

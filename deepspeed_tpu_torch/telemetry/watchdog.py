@@ -35,6 +35,13 @@ on the engine's step axis. The JAX watchdog's other source, a
 ``jax.monitoring`` listener counting every backend compile of the process
 (``backend_compiles``), has no counterpart: there is no XLA here, and a
 watched entry point's first call with a signature is the compile.
+
+A watchdog built with a ``cost_model`` (``telemetry/costs.py``) subscribes
+it to every program proxy it attaches (not to a capture proxy: a capture
+runs inside the decode program it records), and every watched call lands
+in ``ProgramCostModel.account``, as in the JAX watchdog. A program that
+calls another watched program (a pool program calling the engine's) is
+charged only when no call inside it was, so each forward is charged once.
 """
 
 from __future__ import annotations
@@ -154,6 +161,9 @@ def manifest_signature(args: tuple, kwargs: Dict[str, Any]) -> str:
 # ----------------------------------------------------------------------
 # depth of suppress_compile_events() scopes
 _suppress_compiles = 0
+# watched calls charged to a cost model so far: a call that sees it move
+# while it runs held a charged call inside it
+_charged = 0
 
 
 @contextlib.contextmanager
@@ -183,15 +193,24 @@ class _Watched:
         self._seen: set = set()
         self._watchers: "weakref.WeakSet[RecompileWatchdog]" = \
             weakref.WeakSet()
+        # ProgramCostModel instances charged per call (weak: a dead
+        # server's model drops off)
+        self._cost_models: "weakref.WeakSet" = weakref.WeakSet()
         # warmup signature manifest: frozen by end_warmup()
         self._manifest: set = set()
         self._recording = True
 
     def __call__(self, *args, **kwargs):
+        global _charged
         if self._recording:
             self._manifest.add(manifest_signature(args, kwargs))
         key = None if self._every_call else fast_key(args, kwargs)
+        charged = _charged
         out = self._fn(*args, **kwargs)
+        if self._cost_models and _charged == charged:
+            for cm in list(self._cost_models):
+                cm.account(self._name, self._fn, args, kwargs)
+            _charged += 1
         if _suppress_compiles:
             return out
         if key is None or key not in self._seen:
@@ -222,8 +241,10 @@ class RecompileWatchdog:
     """
 
     def __init__(self, registry=None, tracer=None, monitor=None,
-                 strict: bool = False, step_fn=None):
+                 strict: bool = False, step_fn=None, cost_model=None):
         self.registry = registry
+        # optional ProgramCostModel, subscribed to every program proxy
+        self.cost_model = cost_model
         self.tracer = tracer
         self.monitor = monitor
         self.strict = strict
@@ -251,6 +272,8 @@ class RecompileWatchdog:
             setattr(owner, attr, proxy)
         proxy._watchers.add(self)
         self._proxies.add(proxy)
+        if self.cost_model is not None and not every_call:
+            proxy._cost_models.add(self.cost_model)
         return proxy
 
     # -- recording -----------------------------------------------------

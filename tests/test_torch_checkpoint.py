@@ -55,6 +55,8 @@ from deepspeed_tpu_torch.models import transformer_lm as P
 from deepspeed_tpu_torch.runtime.checkpoint_engine.checkpoint_engine import (
     ArrayCheckpointEngine, checkpoint_meta_path, read_latest, write_latest)
 
+from _torch_threads import one_thread  # noqa: F401
+
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 2e-6
 V, T = 64, 16
@@ -75,17 +77,6 @@ PRECISION = {"fp32": ({}, torch.float32),
              "bf16": ({"bf16": {"enabled": True}}, torch.bfloat16),
              "fp16": ({"fp16": {"enabled": True, "initial_scale_power": 12,
                                 "loss_scale_window": 2}}, torch.float16)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for these tiny models: with PyTorch's default of
-    a thread a core, the suite's six workers oversubscribe the cores and
-    tiny CPU ops run tens of times slower than alone."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture

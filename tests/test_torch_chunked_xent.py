@@ -33,19 +33,10 @@ from deepspeed_tpu_torch.models import transformer_lm as PT
 from deepspeed_tpu_torch.ops.transformer.chunked_xent import \
     chunked_softmax_xent
 
+from _torch_threads import one_thread  # noqa: F401
+
 RTOL = 1e-5
 V, C = 97, 16
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for these tiny models: with PyTorch's default of
-    a thread a core, the suite's six workers oversubscribe the cores and
-    tiny CPU ops run tens of times slower than alone."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 def _close(got, want, what):

@@ -84,6 +84,9 @@ from deepspeed_tpu_torch.ops.transformer.ln_linear import (
     ln_linear, ln_linear_bwd_dx, ln_linear_bwd_dx_reference, ln_linear_fwd,
     ln_linear_fwd_reference)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
 NEG_INF32 = torch.tensor(-1e30).item()   # the kernels' masked value in fp32
@@ -1562,3 +1565,116 @@ def test_captured_verify_equals_eager_with_exact_launch_counts(gen, route,
                                graph_cache[key][:, :-1]), key
         else:
             assert torch.equal(eager_cache[key], graph_cache[key]), key
+
+
+# ---------------------------------------------------------------------------
+# the inference engine's remaining tiers: int8 quantization on the card and
+# on the host, the storage tier's captured step, ZeRO-Inference's stream
+
+def test_quantize_columns_on_the_card_equals_the_host(gen):
+    """The card's per-channel scales and values are the host's bit for
+    bit (a Python-number divisor would be a reciprocal multiply on CUDA):
+    ZeRO-Inference quantizes on the host what the compute tier quantizes
+    on the card."""
+    from deepspeed_tpu_torch.ops.quantization import quantize_columns
+
+    w = (torch.randn(2048, 5632, generator=gen, device="cuda")
+         * 0.02).to(torch.bfloat16)
+    qd, sd = quantize_columns(w)
+    qh, sh = quantize_columns(w.cpu())
+    assert torch.equal(sd.cpu(), sh) and torch.equal(qd.cpu(), qh)
+
+
+def test_storage_tier_captured_step_equals_eager(gen):
+    """fp16 with int8 at rest: a captured paged decode step (the
+    dequantization recorded in the graph) gives the eager step's logits
+    and cache bit for bit, with the paged kernel's launches exact."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.transformer_lm import (TransformerLM,
+                                                           transformer_config)
+    from deepspeed_tpu_torch.ops.attention.paged_attention import \
+        paged_decode_attention
+    from deepspeed_tpu_torch.serving import PagedKVPool
+
+    cfg = transformer_config("gpt2", vocab_size=512, n_embd=768, n_layer=2,
+                             n_head=12, max_seq_len=256,
+                             dtype=torch.float16)
+    model = TransformerLM(cfg, device="cuda")
+    model.init_weights(gen)
+    eager = dst.init_inference(model, config={
+        "dtype": "float16", "quant": {"enabled": True, "group_size": 64}})
+    assert eager.module.blocks[0].attn.q_proj.parametrizations.weight \
+        .original.dtype == torch.int8
+    graph = dst.init_inference(model, config={"dtype": "float16",
+                                              "enable_cuda_graph": True})
+    toks = torch.randint(0, 512, (4, 6, 1), generator=gen, device="cuda")
+    starts = torch.tensor([3, 40, 70, 130], device="cuda")
+    runs = []
+    for eng in (eager, graph):
+        pool = PagedKVPool(eng.kv_cache_spec(), 4, num_pages=32,
+                           page_size=16, device="cuda")
+        for s in range(4):
+            pool.ensure_writable(s, 0, int(starts[s]))
+        before = paged_decode_attention.launches
+        out = _decode_steps(eng, "paged", pool.cache, pool,
+                            toks.unbind(1), starts)
+        runs.append((out, paged_decode_attention.launches - before,
+                     pool.cache))
+    (want, n_eager, eager_cache), (got, n_graph, graph_cache) = runs
+    assert n_eager == n_graph == 2 * 6
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for key in eager_cache:
+        assert torch.equal(eager_cache[key][:, :-1],
+                           graph_cache[key][:, :-1]), key
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_zero_inference_streams_as_the_resident_model_computes(gen, int8):
+    """Layers streamed from pinned memory through 2-4 rotating buffers,
+    packed or a copy a leaf, give the resident model's logits and greedy
+    tokens bit for bit (int8: the resident model's int8 compute tier),
+    with the flash, decode and int8_matmul launches a pass exact."""
+    import copy
+
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference import ZeroInferenceEngine
+    from deepspeed_tpu_torch.models.transformer_lm import (TransformerLM,
+                                                           transformer_config)
+    from deepspeed_tpu_torch.ops.attention.decode_attention import \
+        decode_attention
+    from deepspeed_tpu_torch.ops.attention.flash_attention import \
+        flash_attention
+    from deepspeed_tpu_torch.ops.quantization import (DENSE_KEYS,
+                                                      int8_matmul,
+                                                      quantize_lm_params)
+
+    cfg = transformer_config("llama", vocab_size=512, n_embd=512, n_layer=3,
+                             n_head=8, n_kv_head=2, max_seq_len=256,
+                             dtype=torch.bfloat16)
+    model = TransformerLM(cfg, device="cuda")
+    model.init_weights(gen)
+    host = {k: v.cpu() for k, v in model.state_dict().items()}
+    resident = model
+    if int8:
+        resident = copy.deepcopy(model)
+        quantize_lm_params(resident, DENSE_KEYS - {"lm_head"})
+        resident.replace_config(int8_weights=True)
+    ids = torch.randint(0, 512, (4, 96), generator=gen, device="cuda")
+    with torch.no_grad():
+        want = resident.logits(ids)
+    expect = dst.init_inference(resident, config={"dtype": "bfloat16"}) \
+        .generate(ids[:, :16], max_new_tokens=5)
+    for prefetch, pack in ((0, True), (1, True), (2, True), (1, False)):
+        zi = ZeroInferenceEngine(cfg, host, prefetch=prefetch, pack=pack,
+                                 int8=int8)
+        before = (flash_attention.launches, int8_matmul.launches)
+        got = zi(ids)
+        torch.cuda.synchronize()
+        assert flash_attention.launches - before[0] == 3
+        assert int8_matmul.launches - before[1] == (21 if int8 else 0)
+        assert torch.equal(got, want), (prefetch, pack)
+        before = decode_attention.launches
+        toks = zi.generate(ids[:, :16], max_new_tokens=5)
+        assert decode_attention.launches - before == 3 * 4
+        np.testing.assert_array_equal(toks, expect)

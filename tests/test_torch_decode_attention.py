@@ -36,6 +36,9 @@ from deepspeed_tpu_torch.ops.attention.decode_attention import (
     MAX_SPLITS, PLAN_ROUND, alibi_slopes, decode_attention, decode_design,
     decode_plan, quantize_kv_rows)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 ATOL = 2e-5
 B, S, D = 3, 64, 32
 

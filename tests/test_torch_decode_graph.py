@@ -35,6 +35,9 @@ from deepspeed_tpu_torch.models import transformer_lm as P
 from deepspeed_tpu_torch.ops.attention.paged_attention import page_writes
 from deepspeed_tpu_torch.serving import PagedKVPool, RequestState, SlotPool
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 TINY = dict(vocab_size=64, max_seq_len=64, n_embd=32, n_layer=2, n_head=4,
             decode_kernel="off")
 # name -> (family, overrides, tolerance kind)

@@ -17,6 +17,9 @@ from deepspeed_tpu.ops.attention.flash_attention import \
 from deepspeed_tpu_torch.ops.attention.flash_attention import (
     block_rows, design_code, flash_attention, flash_design, mha_reference)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 ATOL = 2e-5
 
 

@@ -25,6 +25,9 @@ from deepspeed_tpu_torch.ops.attention.flash_attention import (
     attention_delta, flash_attention, flash_attention_backward,
     flash_attention_dkv, flash_attention_dq, mha_backward_reference)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 ATOL = 2e-5
 
 

@@ -39,6 +39,9 @@ from deepspeed_tpu_torch.models import gpt2 as P
 from deepspeed_tpu_torch.ops.sparse_attention import \
     sparsity_config as P_SPARSE
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 TINY = dict(vocab_size=128, n_positions=64, n_embd=128, n_layer=2, n_head=4)

@@ -14,6 +14,9 @@ from deepspeed_tpu.inference.config import \
 from deepspeed_tpu_torch.inference.config import (_NOT_PORTED,
                                                   DeepSpeedInferenceConfig)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 SWITCHES = ("enable_cuda_graph", "use_triton", "triton_autotune")
 
 
@@ -30,14 +33,30 @@ def test_all_switches_together_and_unported_keys_still_raise():
     cfg = DeepSpeedInferenceConfig.from_dict(dict.fromkeys(SWITCHES, True))
     assert all(getattr(cfg, k) for k in SWITCHES)
     assert not set(SWITCHES) & set(_NOT_PORTED)
-    on = {"zero": {"stage": 3}, "injection_policy": {"Block": ("attn",)}}
-    assert set(on) == set(_NOT_PORTED)
-    for key, value in on.items():
-        DeepSpeedInferenceConfig.from_dict({key: _NOT_PORTED[key]})
-        with pytest.raises(NotImplementedError, match=key):
-            DeepSpeedInferenceConfig.from_dict({key: value})
-    # the checkpoint key parses and is recorded, as in the JAX package
+    # a truthy injection policy still raises; None and {} parse, as the JAX
+    # engine reads the key only when it is truthy
+    assert _NOT_PORTED == ("injection_policy",)
+    for off in (None, {}):
+        assert DeepSpeedInferenceConfig.from_dict(
+            {"injection_policy": off}).injection_policy == \
+            JaxInferenceConfig(injection_policy=off).injection_policy == off
+    with pytest.raises(NotImplementedError, match="injection_policy"):
+        DeepSpeedInferenceConfig.from_dict(
+            {"injection_policy": {"Block": ("attn",)}})
+    # the checkpoint and zero keys parse and are recorded, as in the JAX
+    # package
     for value in ("ckpt.json", {"type": "Megatron", "checkpoints": []}, None):
         want = JaxInferenceConfig(checkpoint=value).checkpoint
         assert DeepSpeedInferenceConfig.from_dict(
             {"checkpoint": value}).checkpoint == want == value
+    for value in ({}, {"stage": 0}, {"stage": 3, "offload_param": "cpu"}):
+        want = JaxInferenceConfig(zero=value).zero
+        assert DeepSpeedInferenceConfig.from_dict(
+            {"zero": value}).zero == want == value
+    assert DeepSpeedInferenceConfig.from_dict({}).zero == \
+        JaxInferenceConfig().zero == {}
+    # quant defaults are the JAX config's
+    jq = JaxInferenceConfig(quant={"enabled": True}).quant
+    assert DeepSpeedInferenceConfig.from_dict(
+        {"quant": {"enabled": True}}).quant == {
+        "enabled": jq.enabled, "bits": jq.bits, "group_size": jq.group_size}

@@ -30,6 +30,9 @@ from deepspeed_tpu_torch.ops.attention.paged_attention import \
     paged_decode_attention
 from deepspeed_tpu_torch.serving import PagedKVPool
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 ATOL = 1e-4
 
 

@@ -35,6 +35,9 @@ from deepspeed_tpu_torch.ops.quantization.int8_matmul import (INT8_TILES,
                                                               MAX_SPLITS,
                                                               int8_plan)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 # the JAX package re-exports the function under the module's name
 jq = importlib.import_module("deepspeed_tpu.ops.quantization.int8_matmul")
 K, N = 64, 200          # N is not a multiple of 128

@@ -31,6 +31,9 @@ from deepspeed_tpu_torch.checkpoint.flax_import import state_dict_from_flax
 from deepspeed_tpu_torch.models import transformer_lm as P
 from deepspeed_tpu_torch.ops.quantization import DENSE_KEYS
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 TINY = dict(vocab_size=64, max_seq_len=64, n_embd=32, n_layer=2, n_head=4,
             n_kv_head=2, dtype=jnp.float32, decode_kernel="off")
 PS = CHUNK = 16

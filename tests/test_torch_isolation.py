@@ -22,6 +22,9 @@ from deepspeed_tpu_torch.ops.attention.paged_attention import \
     paged_decode_attention
 from deepspeed_tpu_torch.ops.quantization import QuantDense, int8_matmul
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "ml_dtypes", "deepspeed_tpu"}
 

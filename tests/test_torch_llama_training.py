@@ -40,6 +40,8 @@ from deepspeed_tpu.parallel import initialize_mesh
 from deepspeed_tpu_torch.checkpoint.flax_import import state_dict_from_flax
 from deepspeed_tpu_torch.models import transformer_lm as P
 
+from _torch_threads import one_thread  # noqa: F401
+
 RTOL = 1e-5
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 2e-6
@@ -82,17 +84,6 @@ def _random_params(model, ids, seed):
         lambda path, s: np.ones(s.shape, s.dtype)
         if path[-1].key == "scale" else
         rng.normal(0.0, 0.02, s.shape).astype(s.dtype), shapes)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread for these tiny models: with PyTorch's default of
-    a thread a core, the suite's six workers oversubscribe the cores and
-    tiny CPU ops run tens of times slower than alone."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

@@ -28,6 +28,9 @@ from deepspeed_tpu_torch.ops.transformer.ln_linear import (
     BLOCK_M, LN_LINEAR_OP, LN_SAVE_NAMES, ln_linear, ln_linear_bwd_dx,
     ln_linear_bwd_dx_reference, ln_linear_fwd, supports_fused)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 RTOL = 2e-5
 
 

@@ -46,6 +46,9 @@ from deepspeed_tpu_torch.ops.attention.decode_attention import (
 from deepspeed_tpu_torch.ops.attention.paged_attention import (
     MAX_QUERY_ROWS, paged_decode_attention, paged_plan)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 ATOL = 1e-5
 MODEL_ATOL = 1e-4
 

@@ -26,6 +26,9 @@ from deepspeed_tpu_torch.models import transformer_lm as P
 from deepspeed_tpu_torch.serving import (InvariantViolation, PagedKVPool,
                                          PagePoolExhausted, RequestState)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 TINY = dict(vocab_size=64, max_seq_len=128, n_embd=32, n_layer=2, n_head=4,
             dtype=jnp.float32)
 PS = CHUNK = 16

@@ -59,6 +59,9 @@ from deepspeed_tpu_torch.serving.resilience.degradation import \
     LoadStateMachine
 from deepspeed_tpu_torch.serving.resilience.preemption import select_victims
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 TINY = dict(vocab_size=64, max_seq_len=64, n_embd=32, n_layer=2, n_head=4,
             dtype=jnp.float32)
 PS = CHUNK = 16

@@ -25,6 +25,9 @@ from deepspeed_tpu_torch.models import transformer_lm as P
 from deepspeed_tpu_torch.serving import (InvariantViolation, RequestState,
                                          ServingEngine)
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 ATOL = 1e-4
 TINY = dict(vocab_size=64, max_seq_len=64, n_embd=32, n_layer=2, n_head=4,
             dtype=jnp.float32)
@@ -202,18 +205,26 @@ def test_unported_serving_keys_raise(stack):
                      ("preempt_min_run_steps", 1), ("fault_injector", None),
                      ("slo", True), ("flight_recorder", 8),
                      ("dump_dir", None), ("clock", lambda: 0.0),
-                     ("cost_model", False), ("role", "both")):
+                     ("cost_model", False), ("cost_model", True),
+                     ("cost_model", {"kv_every": 4}), ("role", "both")):
         srv = dst.init_serving(model, config={"dtype": "float32"},
                                device="cpu", **{key: val})
         assert srv.pool.num_slots == 4
     with pytest.raises(ValueError, match="deadline_default_ms must be > 0"):
         dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
                          deadline_default_ms=0)
-    # only the cost model and the disaggregated roles are still to come
-    for key, val in (("cost_model", True), ("role", "prefill")):
-        with pytest.raises(NotImplementedError, match=key):
-            dst.init_serving(model, config={"dtype": "float32"},
-                             device="cpu", **{key: val})
+    # the cost model is ported: True, a kwargs dict or an instance
+    from deepspeed_tpu_torch.telemetry import ProgramCostModel
+    cm = ProgramCostModel(kv_every=2)
+    srv = dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
+                           cost_model=cm)
+    assert srv.costs is cm and srv.watchdog.cost_model is cm
+    assert dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
+                            cost_model={"kv_every": 4}).costs.kv_every == 4
+    # only the disaggregated roles are still to come
+    with pytest.raises(NotImplementedError, match="role"):
+        dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
+                         role="prefill")
     with pytest.raises(ValueError, match="paged_kv keys"):
         dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
                          paged_kv={"pages": 4})

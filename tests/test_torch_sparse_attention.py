@@ -29,6 +29,9 @@ from deepspeed_tpu_torch.ops.sparse_attention import \
     sparse_self_attention as S
 from deepspeed_tpu_torch.ops.sparse_attention import sparsity_config as C
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 BLOCK = 128
 OUT_ATOL = 1e-4
 GRAD_ATOL = 5e-4

@@ -55,6 +55,9 @@ from deepspeed_tpu_torch.serving.spec_decode import (NGramDrafter,
 from deepspeed_tpu_torch.serving.spec_decode.drafter import bucket_width
 from deepspeed_tpu_torch.serving.spec_decode.verify import make_verify_fn
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 TINY = dict(vocab_size=64, max_seq_len=64, n_embd=32, n_layer=2, n_head=4)
 PS = 8
 # logits and cache rows of the two packages' fp32 forwards (summation order)

@@ -40,6 +40,9 @@ from deepspeed_tpu_torch.telemetry import (POST_MORTEM_KEYS, FlightRecorder,
                                            QuantileDigest, WindowedQuantiles)
 from deepspeed_tpu_torch.telemetry.flight_recorder import SCHEMA_VERSION
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 PS = CHUNK = 16
 POOLS = {"contiguous": False, "paged": {"page_size": PS}}
 BOTH = (jt, pt)

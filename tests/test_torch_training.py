@@ -53,6 +53,9 @@ from deepspeed_tpu_torch.ops import optimizers as PO
 from deepspeed_tpu_torch.runtime import lr_schedules as PL
 from deepspeed_tpu_torch.runtime.fp16 import loss_scaler as PS
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 2e-6
 SAME_ATOL = 1e-7

@@ -22,6 +22,9 @@ from deepspeed_tpu.models import transformer_lm as J
 from deepspeed_tpu_torch.checkpoint.flax_import import state_dict_from_flax
 from deepspeed_tpu_torch.models import transformer_lm as P
 
+from _torch_threads import one_thread  # noqa: F401
+
+
 ATOL = 1e-4
 TINY = dict(vocab_size=64, max_seq_len=64, n_embd=32, n_layer=2, n_head=4,
             dtype=jnp.float32, decode_kernel="on", decode_block=16,
@@ -123,14 +126,16 @@ def test_later_slices_raise():
     cfg = P.transformer_config("gpt2", vocab_size=64, max_seq_len=64,
                                n_embd=32, n_layer=1, n_head=4,
                                dtype=torch.float32)
-    # int8 weights and the int8 KV cache are ported; the JAX engine's int8
-    # storage tier (here: fp32 with quantization on) has no kernel and raises
+    # int8 weights, the int8 KV cache and the JAX engine's int8 storage
+    # tier (here: fp32 with quantization on; tests/test_torch_storage_tier.py
+    # holds it against JAX) are ported
     for ported in (dict(int8_weights=True), dict(kv_cache_quant=True)):
         P.TransformerLM(dataclasses.replace(cfg, **ported))
-    with pytest.raises(NotImplementedError, match="storage tier"):
-        dst.init_inference(P.TransformerLM(cfg), device="cpu",
-                           config={"dtype": "float32",
-                                   "quant": {"enabled": True}})
+    eng = dst.init_inference(P.TransformerLM(cfg), device="cpu",
+                             config={"dtype": "float32",
+                                     "quant": {"enabled": True}})
+    stored = eng.module.embed_tokens.parametrizations.weight.original
+    assert stored.dtype == torch.int8
     pm = P.TransformerLM(cfg)
     _, cache = pm.prefill(torch.zeros(1, 4, dtype=torch.long))
     # multi-token decode is ported: two tokens at once equal two steps

@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--decode-only | --resilience-only]
+    python3 chip_smoke.py [--seed N] [--decode-only | --resilience-only |
+                           --offload-only]
 
 ``--decode-only`` runs the build and the decode and paged kernels' rows
 alone (phase 2's decode and paged rows, phase 5's two int8 decode rows and
@@ -274,6 +275,38 @@ non-zero:
             bytes written, seconds to save, load, export and convert; the
             directory is deleted. The flash launches of its 11 steps over
             five engines are held against phase 9's count a micro-batch.
+
+18. train_offload  train_llama's model, configuration and batches with
+            ``"offload_optimizer": {"device": "cpu"}``: the fp32 master
+            weights and Adam moments on the host, the host Adam
+            (``ops/csrc/cpu_adam.cpp``) stepping them between the gradients'
+            copy down and the bf16 parameters' copy up (pinned staging, two
+            copy streams); two warm-up steps, then three timed. Every loss
+            within 2e-3 relative of train_llama's at the same step, the
+            flash kernels' launches a micro-batch as train_llama's, and the
+            peak at most train_llama's less 0.9 x 12 bytes a parameter.
+            Printed: tokens/s, ms a step split into device fwd/bwd and the
+            host step (host Adam; gradients down and parameters up, GB/s).
+19. train_offload_nvme  the same widths at 2 layers, three steps each with
+            the optimizer state on the host, in files under a temporary
+            directory (``device: nvme``, moved by ``ops/csrc/aio.cpp``) and
+            in files with the master kept in host memory (``swap_master:
+            false``): losses, final parameters, master and moments
+            bit-equal across the three. Printed: file bytes, the last
+            step's ``swap_in_s``/``compute_s``/``drain_s``, GB/s and whether
+            O_DIRECT ran; the directory is deleted.
+20. train_param_offload  TinyLlama at its widths and 22 layers with
+            ``"offload_param": {"device": "cpu"}``: the blocks' bf16 weights
+            in pinned host memory streamed through the card a layer at a
+            time, forward and (recomputing each block) backward, the host
+            Adam over every parameter; phase 18's batches, two warm-up and
+            two timed steps. Every loss within 5e-3 relative of phase 18's
+            (the streamed head computes the dense loss), the flash forward
+            twice a layer and dq, dk/dv once a layer a micro-batch, and the
+            peak under the bound the phase reckons from its pieces and
+            prints. Printed: tokens/s, the stream's and host step's seconds
+            a step, the stream's GB/s and the peak beside train_llama's.
+            ``--offload-only`` runs the build, train_llama and 18-20.
 
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
@@ -3775,13 +3808,15 @@ def train_seq(cfg) -> int:
 
 
 def phase_train(model, seed: int, config: dict, steps: int, label: str,
-                device: str = "cuda") -> tuple:
+                device: str = "cuda", record: dict = None) -> tuple:
     """Two warm-up steps, then ``steps`` timed steps through
     ``initialize(config=config)``; returns (engine, losses, launches,
     tokens/s). The second warm-up step keeps Adam's first steps out of the
     timed ones: they move every weight by about lr at once, and at width
     1024 the loss rises after the second update before it falls, so the
-    last loss is held below the loss at initialisation."""
+    last loss is held below the loss at initialisation. ``record``, when
+    given, receives every loss (warm-up first) and the timed steps' peak
+    memory."""
     import deepspeed_tpu_torch as dst
 
     cfg = model.config
@@ -3813,6 +3848,8 @@ def phase_train(model, seed: int, config: dict, steps: int, label: str,
     assert got == want, f"{label}: launches {got}, want {want}"
     tokens = micros * micro * train_seq(cfg)
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if record is not None:
+        record.update(losses=warm + losses, peak=peak)
     log(f"[{label}] {describe(cfg)}, micro {micro} x gas {gas}: warm-up "
         f"losses {[round(x, 4) for x in warm]}, then {steps} steps "
         f"{[round(x, 4) for x in losses]}; {tokens} tokens in {wall:.2f} s: "
@@ -4374,14 +4411,17 @@ def tinyllama_train(seed: int, device: str = "cuda", **overrides):
 def phase_train_llama(seed: int, steps: int, device: str = "cuda",
                       **overrides) -> dict:
     """``train_llama``: :func:`phase_train` on :func:`tinyllama_train`'s
-    model under ``LLAMA_TRAIN_CONFIG``; returns its launches."""
+    model under ``LLAMA_TRAIN_CONFIG``; returns {launches, losses (warm-up
+    first), peak}."""
     model = tinyllama_train(seed, device, **overrides)
+    record = {}
     engine, _, launches, _ = phase_train(model, seed, LLAMA_TRAIN_CONFIG,
-                                         steps, "train_llama", device)
+                                         steps, "train_llama", device,
+                                         record)
     del engine, model
     if device == "cuda":
         torch.cuda.empty_cache()
-    return launches
+    return dict(record, launches=launches)
 
 
 def loss_grads_peak(model, batch, device: str) -> tuple:
@@ -4562,12 +4602,393 @@ def phase_checkpoint(seed: int, gas: int = GAS, device: str = "cuda",
     return launches
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-Offload and ZeRO-Infinity training (phases 18-20)
+OFFLOAD_TIMED_STEPS = 3
+PARAM_OFFLOAD_TIMED_STEPS = 2
+OFFLOAD_LOSS_RTOL = 2e-3          # train_offload against train_llama
+PARAM_OFFLOAD_LOSS_RTOL = 5e-3    # train_param_offload against train_offload
+
+
+def offload_config(**zero) -> dict:
+    """``LLAMA_TRAIN_CONFIG`` with ``zero`` added to its ZeRO block."""
+    config = copy.deepcopy(LLAMA_TRAIN_CONFIG)
+    config["zero_optimization"].update(zero)
+    return config
+
+
+def fresh_device(device: str) -> int:
+    """Collect the earlier phases' engines (an engine can sit in a
+    reference cycle until the collector runs) and return the device's
+    allocated bytes."""
+    import gc
+
+    gc.collect()
+    if device != "cuda":
+        return 0
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def stage_peaks(engine, batch) -> dict:
+    """One more streamed step with the device's peak read and reset at
+    each stage boundary: the forward stream, the head (its loss and
+    backward), the backward stream, the host step."""
+    runner = engine._param_offload
+    marks = {}
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks[name] = max(marks.get(name, 0),
+                          torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    def wrap(obj, attr, before=None, after=None):
+        real = getattr(obj, attr)
+
+        def fn(*args, **kwargs):
+            if before:
+                before(*args)
+            out = real(*args, **kwargs)
+            if after:
+                after()
+            return out
+        setattr(obj, attr, fn)
+        return real
+
+    saved = [(runner, "_forward_stream", wrap(
+        runner, "_forward_stream", after=lambda: mark("forward stream"))),
+        (runner.store, "begin_pass", wrap(
+            runner.store, "begin_pass", before=lambda order: mark("head")
+            if len(order) > 1 and order[0] > order[-1] else None)),
+        (runner.opt, "step", wrap(
+            runner.opt, "step", before=lambda *a: mark("backward stream")
+            if "host step" not in marks else None))]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine.train_batch(batch=batch)
+    mark("host step")
+    for obj, attr, _ in saved:
+        delattr(obj, attr)
+    return marks
+
+
+def offload_steps(engine, batches, warm: int, steps: int, device: str):
+    """``warm`` untimed then ``steps`` timed ``train_batch`` calls on the
+    batches in train_llama's order (1, 0, 1, ...); returns (losses, timed
+    wall seconds, launches of the timed steps, peak of the timed steps,
+    fwd_bwd seconds summed over them)."""
+    order = [batches[(i + 1) % 2] for i in range(warm + steps)]
+    losses = [float(engine.train_batch(batch=b)) for b in order[:warm]]
+    sync(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    engine.offload_timings(reset=True)
+    reset_launches()
+    fwd_bwd, t0 = 0.0, time.perf_counter()
+    for b in order[warm:]:
+        losses.append(engine.train_batch(batch=b))
+        fwd_bwd += engine.last_timings.get("fwd_bwd_s", 0.0)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    return [float(x) for x in losses], wall, launches, peak, fwd_bwd
+
+
+def hold_losses(label: str, got, want, rtol: float, what: str) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert np.isfinite(got).all(), f"{label}: losses {got}"
+    err = float(np.max(np.abs(got - want) / np.abs(want)))
+    assert err <= rtol, f"{label}: losses {got.tolist()} against {what} " \
+        f"{want.tolist()}: {err:.2e} relative > {rtol}"
+    return err
+
+
+def hold_train_launches(label: str, cfg, launches: dict, micros: int):
+    want = {k: n * micros for k, n in micro_batch_launches(cfg).items()}
+    got = {k: launches[k] for k in want}
+    assert got == want, f"{label}: launches {got}, want {want}"
+    return {k: n for k, n in got.items() if n}
+
+
+def phase_train_offload(seed: int, llama: dict, device: str = "cuda",
+                        **overrides) -> dict:
+    """18. ``train_offload``: train_llama's model and batches with
+    ``offload_optimizer: {"device": "cpu"}``; every loss within
+    OFFLOAD_LOSS_RTOL of train_llama's at the same step, the flash
+    kernels' launches a micro-batch as train_llama's, and the peak at most
+    train_llama's less 0.9 x 12 bytes a parameter (the fp32 master and both
+    moments off the card)."""
+    import deepspeed_tpu_torch as dst
+
+    label = "train_offload"
+    base = fresh_device(device)
+    model = tinyllama_train(seed, device, **overrides)
+    cfg = model.config
+    n = sum(p.numel() for p in model.parameters())
+    engine, *_ = dst.initialize(model=model, device=device,
+                                config=offload_config(
+                                    offload_optimizer={"device": "cpu"}))
+    del model
+    micro, gas = LLAMA_MICRO_BS, LLAMA_GAS
+    batches = token_batches(seed, micro * gas, cfg.vocab_size,
+                            cfg.max_seq_len)
+    steps = OFFLOAD_TIMED_STEPS
+    losses, wall, launches, peak, fwd_bwd = offload_steps(
+        engine, batches, 2, steps, device)
+    tim = engine.offload_timings()
+    err = hold_losses(label, losses, llama["losses"][:len(losses)],
+                      OFFLOAD_LOSS_RTOL, "train_llama")
+    got = hold_train_launches(label, cfg, launches, gas * steps)
+    peak -= base
+    limit = llama["peak"] - 0.9 * 12 * n
+    if device == "cuda":
+        assert peak <= limit, f"{label}: peak {peak / 2 ** 30:.2f} GiB > " \
+            f"train_llama's {llama['peak'] / 2 ** 30:.2f} GiB - 0.9 x 12 " \
+            f"bytes x {n} parameters = {limit / 2 ** 30:.2f} GiB"
+    tokens = steps * gas * micro * cfg.max_seq_len
+    per = {k: tim[k] / steps for k in ("host_step_s", "adam_s", "down_s",
+                                       "up_s")}
+    log(f"[{label}] {describe(cfg)}, {n / 1e9:.3f}B parameters, micro "
+        f"{micro} x gas {gas}, optimizer on the host: losses "
+        f"{[round(x, 4) for x in losses]} (train_llama "
+        f"{[round(x, 4) for x in llama['losses'][:len(losses)]]}, largest "
+        f"gap {err:.2e} relative); {tokens} tokens in {wall:.2f} s: "
+        f"{tokens / wall:.1f} tokens/s, {wall / steps * 1e3:.1f} ms a step = "
+        f"device fwd/bwd {fwd_bwd / steps * 1e3:.1f} ms + host step "
+        f"{per['host_step_s'] * 1e3:.1f} ms (host Adam and bf16 rounding "
+        f"{per['adam_s'] * 1e3:.1f} ms; gradients down "
+        f"{tim['down_bytes'] / steps / 1e9:.2f} GB in {per['down_s'] * 1e3:.1f}"
+        f" ms of copies, {tim['down_bytes'] / max(tim['down_s'], 1e-9) / 1e9:.1f}"
+        f" GB/s; parameters up {tim['up_bytes'] / steps / 1e9:.2f} GB in "
+        f"{per['up_s'] * 1e3:.1f} ms, "
+        f"{tim['up_bytes'] / max(tim['up_s'], 1e-9) / 1e9:.1f} GB/s; copies "
+        f"overlap the host Adam); peak {peak / 2 ** 30:.2f} GiB allocated "
+        f"above the {base / 2 ** 30:.2f} GiB held before the phase "
+        f"against train_llama's {llama['peak'] / 2 ** 30:.2f} GiB (limit "
+        f"{limit / 2 ** 30:.2f} GiB); launches {got}")
+    del engine
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(launches=launches, losses=losses, peak=peak, n=n)
+
+
+def phase_train_offload_nvme(seed: int, device: str = "cuda",
+                             **overrides) -> None:
+    """19. ``train_offload_nvme``: TinyLlama's widths cut to 2 layers, 3
+    steps each with ``offload_optimizer`` on the host, on NVMe (files in a
+    temporary directory) and on NVMe with ``swap_master: false``: losses,
+    final parameters and host state bit-equal across the tiers."""
+    import shutil
+    import tempfile
+
+    import deepspeed_tpu_torch as dst
+
+    label = "train_offload_nvme"
+    fresh_device(device)
+    root = tempfile.mkdtemp(prefix="dstorch_offload_")
+    try:
+        arms = {}
+        for arm, block in (("cpu", {"device": "cpu"}),
+                           ("nvme", {"device": "nvme",
+                                     "nvme_path": f"{root}/nvme"}),
+                           ("nvme moments", {"device": "nvme",
+                                             "swap_master": False,
+                                             "nvme_path": f"{root}/moments"})):
+            model = tinyllama_train(seed, device, **{"n_layer": 2,
+                                                     **overrides})
+            cfg = model.config
+            engine, *_ = dst.initialize(
+                model=model, device=device,
+                config=offload_config(offload_optimizer=block))
+            del model
+            batches = token_batches(seed, LLAMA_MICRO_BS * LLAMA_GAS,
+                                    cfg.vocab_size, cfg.max_seq_len)
+            losses, wall, _, _, _ = offload_steps(engine, batches, 0, 3,
+                                                  device)
+            opt = engine._offload_opt
+            state = opt.state_dict()
+            arms[arm] = dict(losses=losses, wall=wall,
+                             params={k: v.detach().cpu().clone() for k, v in
+                                     engine.module.state_dict().items()},
+                             state=state, timings=dict(opt.last_timings),
+                             bytes=dir_bytes(block["nvme_path"])
+                             if "nvme_path" in block else 0,
+                             o_direct=opt._aio.o_direct if opt.nvme
+                             else None, n=opt.numel(),
+                             swap_master=opt.swap_master)
+            del engine, opt, state
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        ref = arms["cpu"]
+        for arm in ("nvme", "nvme moments"):
+            got = arms[arm]
+            assert got["losses"] == ref["losses"], \
+                f"{label}: {arm} losses {got['losses']} != cpu {ref['losses']}"
+            bad = [k for k, v in ref["params"].items()
+                   if not torch.equal(got["params"][k], v)]
+            bad += [f"{kind}/{k}" for kind in ("master", "m", "v")
+                    for k, v in ref["state"][kind].items()
+                    if not torch.equal(got["state"][kind][k], v)]
+            assert not bad, f"{label}: {arm} differs from cpu at {bad[:4]}"
+        lines = []
+        for arm, a in arms.items():
+            t = a["timings"]
+            line = (f"{arm}: losses {[round(x, 4) for x in a['losses']]}, "
+                    f"{a['wall'] / 3 * 1e3:.1f} ms a step")
+            if arm != "cpu":
+                kinds = 3 if a["swap_master"] else 2
+                moved = 2 * kinds * 4 * a["n"]
+                host = sum(t.values())
+                line += (f", {a['bytes'] / 1e9:.2f} GB of files, last step "
+                         f"swap_in_s {t['swap_in_s']:.3f} compute_s "
+                         f"{t['compute_s']:.3f} drain_s {t['drain_s']:.3f}: "
+                         f"{moved / 1e9:.2f} GB read and written in "
+                         f"{host:.3f} s of host step, "
+                         f"{moved / host / 1e9:.2f} GB/s, O_DIRECT "
+                         f"{'on' if a['o_direct'] else 'off (the filesystem refused it)'}")
+            lines.append(line)
+        log(f"[{label}] TinyLlama widths, 2 layers "
+            f"({arms['cpu']['n'] / 1e6:.1f}M parameters), files under "
+            f"{root}: the nvme tiers bit-equal to the cpu tier (losses, "
+            f"parameters, master, moments); " + "; ".join(lines))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def param_offload_peak_bound(engine, cfg) -> dict:
+    """train_param_offload's device memory, reckoned from its pieces (the
+    runner's docstring): the resident parameters and their fp32 gradient
+    sums, ``prefetch + 2`` layer buffers, L+1 boundary activations, one
+    layer's recompute (saved activations twice over for the backward's
+    transients, and three layers' gradients in flight) and the head (fp32
+    logits, their log-probabilities and gradient, and the fp32 head weight
+    and its gradient), plus 1 GiB."""
+    runner = engine._param_offload
+    B, T, C = LLAMA_MICRO_BS, cfg.max_seq_len, cfg.n_embd
+    H, V, L = int(cfg.mlp_ratio * C), cfg.vocab_size, cfg.n_layer
+    tokens = B * T
+    resident = sum(p.numel() * (p.element_size() + 4)
+                   for _, p in runner.resident)
+    layers = (runner.store.prefetch + 2) * runner.store.layer_nbytes
+    boundary = (L + 1) * tokens * C * 2
+    recompute = 2 * tokens * (6 * C + 4 * H) * 2 + \
+        3 * runner.store.layer_nbytes
+    head = 3 * B * (T - 1) * V * 4 + 2 * V * C * 4
+    parts = dict(resident=resident, layer_buffers=layers,
+                 boundary_activations=boundary, recompute=recompute,
+                 head=head, slack=2 ** 30)
+    parts["total"] = sum(parts.values())
+    return parts
+
+
+def phase_train_param_offload(seed: int, offload: dict, llama: dict,
+                              device: str = "cuda", **overrides) -> dict:
+    """20. ``train_param_offload``: TinyLlama at its widths and 22 layers
+    with ``offload_param: {"device": "cpu"}`` on train_offload's batches:
+    every loss within PARAM_OFFLOAD_LOSS_RTOL of train_offload's (the
+    streamed head computes the dense loss, train_offload the streamed
+    one), the flash forward twice a layer and dq, dk/dv once a layer a
+    micro-batch, and the peak under :func:`param_offload_peak_bound`."""
+    import deepspeed_tpu_torch as dst
+
+    label = "train_param_offload"
+    base = fresh_device(device)
+    model = tinyllama_train(seed, device, **overrides)
+    cfg = model.config
+    engine, *_ = dst.initialize(model=model, device=device,
+                                config=offload_config(
+                                    offload_param={"device": "cpu"}))
+    del model
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    runner = engine._param_offload
+    micro, gas = LLAMA_MICRO_BS, LLAMA_GAS
+    batches = token_batches(seed, micro * gas, cfg.vocab_size,
+                            cfg.max_seq_len)
+    steps = PARAM_OFFLOAD_TIMED_STEPS
+    streamed0 = runner.store.streamed_bytes
+    keys = ("forward_stream_s", "backward_stream_s", "host_adam_s",
+            "param_writeback_s", "grad_finalize_s")
+    totals = dict.fromkeys(keys, 0.0)
+    real = runner.train_batch
+
+    def timed(*args, **kwargs):
+        out = real(*args, **kwargs)
+        for k in keys:
+            totals[k] += runner.last_timings[k]
+        return out
+
+    runner.train_batch = timed
+    losses, wall, launches, peak, _ = offload_steps(engine, batches, 2,
+                                                    steps, device)
+    runner.train_batch = real
+    peak -= base
+    stages = {k: v - base for k, v in stage_peaks(engine, batches[1]).items()
+              } if device == "cuda" else {}
+    streamed = runner.store.streamed_bytes - streamed0
+    err = hold_losses(label, losses, offload["losses"][:len(losses)],
+                      PARAM_OFFLOAD_LOSS_RTOL, "train_offload")
+    got = hold_train_launches(label, cfg, launches, gas * steps)
+    parts = param_offload_peak_bound(engine, cfg)
+    if device == "cuda":
+        assert peak <= parts["total"], f"{label}: peak " \
+            f"{peak / 2 ** 30:.2f} GiB > the reckoned " \
+            f"{parts['total'] / 2 ** 30:.2f} GiB ({parts})"
+    total_steps = 2 + steps
+    per = {k: totals[k] / total_steps for k in keys}
+    stream_s = totals["forward_stream_s"] + totals["backward_stream_s"]
+    tokens = steps * gas * micro * cfg.max_seq_len
+    log(f"[{label}] {describe(cfg)}, {cfg.n_layer} layers x "
+        f"{runner.store.layer_nbytes / 1e6:.1f} MB streamed from pinned host "
+        f"memory (prefetch {runner.store.prefetch}): losses "
+        f"{[round(x, 4) for x in losses]} (train_offload "
+        f"{[round(x, 4) for x in offload['losses'][:len(losses)]]}, largest "
+        f"gap {err:.2e} relative); {tokens} tokens in {wall:.2f} s: "
+        f"{tokens / wall:.1f} tokens/s, {wall / steps * 1e3:.1f} ms a step; "
+        f"a step's mean over all {total_steps} steps: forward_stream_s "
+        f"{per['forward_stream_s']:.3f}, backward_stream_s "
+        f"{per['backward_stream_s']:.3f}, grad_finalize_s "
+        f"{per['grad_finalize_s']:.3f}, host_adam_s {per['host_adam_s']:.3f},"
+        f" param_writeback_s {per['param_writeback_s']:.3f}; the stream "
+        f"{streamed / stream_s / 1e9:.1f} GB/s over its passes; peak "
+        f"{peak / 2 ** 30:.2f} GiB allocated above the "
+        f"{base / 2 ** 30:.2f} GiB held before the phase (one more step's "
+        f"peak by stage: " + ", ".join(f"{k} {v / 2 ** 30:.2f}"
+                                      for k, v in stages.items())
+        + f"; reckoned bound "
+        f"{parts['total'] / 2 ** 30:.2f} GiB: "
+        + ", ".join(f"{k} {v / 2 ** 30:.2f}" for k, v in parts.items()
+                    if k != "total")
+        + f"; train_llama's peak {llama['peak'] / 2 ** 30:.2f} GiB); "
+        f"launches {got}")
+    del engine, runner
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(launches=launches, losses=losses, peak=peak)
+
+
+def offload_phases(seed: int, llama: dict, device: str = "cuda",
+                   **overrides) -> list:
+    """Phases 18-20 after train_llama (``llama``: its losses and peak);
+    returns the launches of the two full-depth phases."""
+    offload = phase_train_offload(seed, llama, device, **overrides)
+    phase_train_offload_nvme(seed, device, **overrides)
+    streamed = phase_train_param_offload(seed, offload, llama, device,
+                                         **overrides)
+    return [offload["launches"], streamed["launches"]]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--decode-only", action="store_true",
                     help="build, then time the decode and paged kernels' "
                     "rows alone")
+    ap.add_argument("--offload-only", action="store_true",
+                    help="build, then run train_llama and the offload "
+                    "phases (18-20) alone")
     ap.add_argument("--resilience-only", action="store_true",
                     help="build, then run the serve_resilience phase alone "
                     "(with the spec phases it compares against)")
@@ -4587,6 +5008,11 @@ def main(argv=None) -> int:
         phase_int8_kernels(gen, decode_only=True, rows=rows)
         log(card)
         print(json.dumps({"decode_rows": rows}), flush=True)
+        return 0
+    if args.offload_only:
+        llama = phase_train_llama(args.seed, LLAMA_TIMED_STEPS)
+        offload_phases(args.seed, llama)
+        log(card)
         return 0
     if args.resilience_only:
         model = gpt2_small(args.seed)
@@ -4735,9 +5161,11 @@ def main(argv=None) -> int:
     phase_reference_train(args.seed)
     runs.extend(phase_train_sparse(args.seed, 3))
     phase_reference_sparse(args.seed)
-    runs.append(phase_train_llama(args.seed, LLAMA_TIMED_STEPS))
+    llama = phase_train_llama(args.seed, LLAMA_TIMED_STEPS)
+    runs.append(llama["launches"])
     phase_reference_llama(args.seed)
     runs.append(phase_checkpoint(args.seed))
+    runs.extend(offload_phases(args.seed, llama))
     # each kernel's launches over the serving and training runs (each
     # counted from 0 just before its run and read just after)
     kernels = [dict(name=name, route="cuda", **KERNELS[name],

@@ -169,14 +169,20 @@ def engine_checkpoint_from_flax(cfg, sd: Mapping[str, Any]) -> Dict[str, Any]:
     state as they are. Save it with the port's ``ArrayCheckpointEngine``
     and ``engine.load_checkpoint`` resumes the run.
 
+    An offload engine's ``offload_optimizer`` state ({"master", "m",
+    "v"}, keyed by the JAX parameter paths) goes through the same bridge:
+    the JAX moments are raveled (and the blocks one stacked leaf), so each
+    entry is reshaped to its master leaf's shape first, then split per
+    layer, and the port keeps the moments flat again
+    (``OffloadedOptimizer.state_dict``'s layout).
+
     ``rng`` is left out: the JAX engine's is a PRNG key, which no torch
     generator state can stand for, so the loading engine keeps its own
-    model's dropout generator. The offloaded-optimizer and one-bit states
-    are not ported and raise."""
-    for key in ("offload_optimizer", "onebit"):
-        if sd.get(key) is not None:
-            raise NotImplementedError(f"the checkpoint holds {key!r} state, "
-                                      f"which the port has no engine for")
+    model's dropout generator. The one-bit state is not ported and
+    raises."""
+    if sd.get("onebit") is not None:
+        raise NotImplementedError("the checkpoint holds 'onebit' state, "
+                                  "which the port has no engine for")
     module = sd["module"]
     if isinstance(cfg, TransformerConfig):
         module_sd = state_dict_from_flax(cfg, module)
@@ -189,6 +195,23 @@ def engine_checkpoint_from_flax(cfg, sd: Mapping[str, Any]) -> Dict[str, Any]:
            "optimizer": {str(field): _fp32_state_dict(cfg, tree)
                          for field, tree in optimizer.items()}
            if optimizer else None,
-           "offload_optimizer": None, "onebit": None, "rng": None}
+           "offload_optimizer": _offload_state(cfg, sd.get(
+               "offload_optimizer")), "onebit": None, "rng": None}
     out.update({key: sd[key] for key in _CARRIED if key in sd})
+    return out
+
+
+def _offload_state(cfg, offload: Mapping[str, Any]):
+    """A JAX ``OffloadedOptimizer.state_dict`` in the port's names: the
+    master parameter-shaped, the moments flat (all fp32)."""
+    if not offload:
+        return None
+    master = _flatten(offload["master"])
+    out = {"master": _fp32_state_dict(cfg, master)}
+    for kind in ("m", "v"):
+        flat = {path: arr.reshape(master[path].shape)
+                for path, arr in _flatten(offload.get(kind) or {}).items()
+                if arr is not None}
+        out[kind] = {name: t.reshape(-1) for name, t in
+                     _fp32_state_dict(cfg, flat).items()}
     return out

@@ -7,10 +7,12 @@ each optimizer-moment tree, with a JSON meta for counters, the same files
 as the JAX package's. The source is the single-host file of
 ``engine.save_checkpoint`` (the port saves whole tensors, as the JAX engine
 saves whole logical arrays); ``engine.load_universal_checkpoint`` reads it
-back into a fresh engine at any ZeRO stage. The JAX package's
-multi-process orbax layout is not ported, and its converter raises; nor
-is the JAX converter's branch for host-offloaded optimizer state, which the
-port's engine has no counterpart for.
+back into a fresh engine at any ZeRO stage, with or without optimizer
+offload. An offload engine's checkpoint holds its master and moments under
+``offload_optimizer`` (the moments flat); they are written here with the
+parameters' shapes, so an on-device engine loads them too. The JAX
+package's multi-process orbax layout is not ported, and its converter
+raises.
 
 Layout::
 
@@ -118,17 +120,31 @@ def ds_to_universal(ckpt_dir: str, tag: Optional[str] = None,
 
     # fp32 master weights; fall back to (upcast) module params when training
     # ran without a separate master copy (pure fp32 runs)
-    master = sd.get("master")
+    offload = sd.get("offload_optimizer") or {}
+    master = sd.get("master") or offload.get("master")
     source = master if master else sd["module"]
     fp32_index = _save_tree_npz(os.path.join(out, "fp32.npz"), source)
 
-    # each field of the optimizer state aligned with params (AdamState:
-    # exp_avg / exp_avg_sq)
     opt_indices: Dict[str, Dict[str, str]] = {}
-    for key, sub in (sd.get("optimizer") or {}).items():
-        if sub is not None:
-            opt_indices[str(key)] = _save_tree_npz(
-                os.path.join(out, f"opt_{key}.npz"), sub)
+    if offload:
+        # the offload manager's moments are flat: back to the parameters'
+        # shapes, so the universal files hold whole logical tensors
+        shapes = {k: np.shape(v) for k, v in _flatten(master or {}).items()}
+        for name, key in (("exp_avg", "m"), ("exp_avg_sq", "v")):
+            if offload.get(key):
+                shaped = {p: (as_numpy(a).reshape(shapes[p])
+                              if p in shapes else a)
+                          for p, a in _flatten(offload[key]).items()
+                          if a is not None}
+                opt_indices[name] = _save_tree_npz(
+                    os.path.join(out, f"opt_{name}.npz"), shaped)
+    else:
+        # each field of the optimizer state aligned with params
+        # (AdamState: exp_avg / exp_avg_sq)
+        for key, sub in (sd.get("optimizer") or {}).items():
+            if sub is not None:
+                opt_indices[str(key)] = _save_tree_npz(
+                    os.path.join(out, f"opt_{key}.npz"), sub)
 
     def as_int(v, default=0):
         return int(np.asarray(v)) if v is not None else default

@@ -318,14 +318,21 @@ class GPT2LMHeadModel(CausalLMTraining, nn.Module):
     def device(self) -> torch.device:
         return self.wte.weight.device
 
+    def embed(self, ids):
+        """Token plus position embeddings of (B, T) ids, in ``dtype``."""
+        cfg = self.config
+        pos = torch.arange(ids.shape[1], device=ids.device)
+        return _cast(self.wte.weight, cfg.dtype)[ids] + \
+            _cast(self.wpe.weight, cfg.dtype)[pos][None]
+
+    def final_norm(self, x):
+        return _layer_norm(self.ln_f, x)
+
     def hidden(self, input_ids, deterministic: bool = True):
         """Final hidden states (B, T, C) after ``ln_f``."""
         cfg = self.config
         ids = torch.as_tensor(input_ids, device=self.device).long()
-        T = ids.shape[1]
-        pos = torch.arange(T, device=self.device)
-        x = _cast(self.wte.weight, cfg.dtype)[ids] + \
-            _cast(self.wpe.weight, cfg.dtype)[pos][None]
+        x = self.embed(ids)
         remat = cfg.remat and torch.is_grad_enabled()
         context_fn = None
         if remat and cfg.remat_policy in _SAVED_OPS:

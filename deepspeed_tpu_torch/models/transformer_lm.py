@@ -294,19 +294,28 @@ class CausalLMTraining:
         """The mean next-token cross-entropy of ``batch`` = {"input_ids":
         (B, T) ints, optional "labels": (B, T), negative = ignored}
         (arrays or tensors; moved to the model's device)."""
-        chunk = self.config.loss_chunk
+        if self.config.loss_chunk:
+            self._loss_head()       # refuses an int8 head before the blocks
+        ids = torch.as_tensor(batch["input_ids"], device=self.device).long()
+        return self.loss_from_hidden(self.hidden(ids, deterministic), batch)
+
+    def loss_from_hidden(self, h, batch, chunk: Optional[int] = None):
+        """The loss tail of :meth:`forward` over the final hidden states
+        ``h`` (B, T, C), after the final norm: streamed when ``chunk``
+        (default ``config.loss_chunk``) is set, else dense."""
+        chunk = self.config.loss_chunk if chunk is None else chunk
         if chunk:
             w, cd = self._loss_head()
-        ids = torch.as_tensor(batch["input_ids"], device=self.device).long()
+        ids = torch.as_tensor(batch["input_ids"], device=h.device).long()
         labels = batch.get("labels") if hasattr(batch, "get") else None
         labels = ids if labels is None else \
-            torch.as_tensor(labels, device=self.device).long()
+            torch.as_tensor(labels, device=h.device).long()
         targets = labels[:, 1:]
         mask = (targets >= 0).float()
         targets = targets.clamp(min=0)
         # causal shift: position t predicts token t+1 (the last position's
         # logits are never used, so they are not computed)
-        x = self.hidden(ids, deterministic)[:, :-1]
+        x = h[:, :-1]
         if chunk:
             nll_sum = chunked_softmax_xent(x, w, targets, mask, chunk,
                                            compute_dtype=cd)

@@ -5,8 +5,9 @@ central batch invariant ``train_batch_size = micro_batch_per_gpu ×
 gradient_accumulation_steps × dp_world_size`` is enforced. The training
 slice runs batch reconciliation, ``bf16``/``fp16`` (loss-scale keys),
 ``gradient_clipping``, ``optimizer``, ``scheduler``,
-``zero_optimization.stage``, ``steps_per_print``, ``seed`` and
-``prescale_gradients``/``gradient_predivide_factor``.
+``zero_optimization.stage`` with its ``offload_optimizer`` and
+``offload_param`` blocks (cpu and nvme), ``aio``, ``steps_per_print``,
+``seed`` and ``prescale_gradients``/``gradient_predivide_factor``.
 :meth:`DeepSpeedConfig.not_ported` names every key that is set to
 something other than off for a feature this port does not have yet;
 the engine raises ``NotImplementedError`` for them.
@@ -343,11 +344,6 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
         """Keys set (to anything but off) for features this port does not
         have yet."""
         out = []
-        zc = self.zero_optimization
-        for name in ("offload_param", "offload_optimizer"):
-            block = getattr(zc, name)
-            if block is not None and block.device.value != "none":
-                out.append(f"zero_optimization.{name}")
         opt = self.optimizer
         if opt is not None and opt.type.lower().replace("_", "") in \
                 ONEBIT_OPTIMIZERS:

@@ -30,12 +30,27 @@ ZeRO stages 0-3 on one device give the same numbers (``zero/policy.py``).
 The eager ``forward``/``backward``/``step`` triple accumulates the same
 way.
 
+Offload (``zero/offload.py``, ``zero/param_offload.py``). With
+``zero_optimization.offload_optimizer.device`` ``cpu`` or ``nvme`` (Adam,
+AdamW or CPUAdam only) the fp32 master weights and moments live in the host
+optimizer, not on the device: after the device's unscale, overflow check,
+norm and clip the fp32 gradients go to the host, the host Adam steps at the
+1-indexed step of the updates so far plus this one (an fp16 overflow skips
+it and counts it), and the new compute-dtype parameters come back; the
+eager triple works the same way. With ``offload_param.device`` ``cpu`` or
+``nvme`` the blocks stream through the device a layer at a time and
+``train_batch`` runs the parameter-offload runner, which takes the
+optimizer offload with it (its clip is taken on the host, as in JAX); the
+eager triple raises there.
+
 Checkpoints are the JAX engine's single-host files
 (``runtime/checkpoint_engine``): ``save_checkpoint`` writes
 ``<dir>/<tag>/mp_rank_00_model_states.{npz,meta}`` and ``<dir>/latest``;
 the state dict has the JAX top-level keys with the port's parameter names
-(``module``: the module's ``state_dict``; ``master`` and each optimizer
-field, e.g. ``exp_avg``/``exp_avg_sq``: ``{parameter name: tensor}``),
+(``module``: the module's ``state_dict``, read back from the layer store
+under parameter offload; ``master`` and each optimizer field, e.g.
+``exp_avg``/``exp_avg_sq``: ``{parameter name: tensor}``, or with offload
+``offload_optimizer``: the host optimizer's ``state_dict``),
 ``step``/``opt_step``, the loss ``scale``, ``rng`` (the model's dropout
 generator state), the four counters, the world sizes, ``lr_scheduler`` and
 ``client_state``. ``load_checkpoint`` restores all of it bit for bit;
@@ -47,6 +62,7 @@ multi-process orbax layout is not ported (world size 1 only).
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
@@ -68,6 +84,8 @@ from .fp16.loss_scaler import (LossScaleState, has_inf_or_nan,
                                make_loss_scale_state, update_scale)
 from .lr_schedules import get_lr_schedule
 from .utils import clip_grads_by_global_norm, count_parameters, global_grad_norm
+from .zero.offload import ADAM_TYPES, HostStepStaging, OffloadedOptimizer
+from .zero.offload_config import OffloadDeviceEnum
 from .zero.policy import ZeroShardingPolicy
 
 
@@ -148,6 +166,28 @@ class DeepSpeedEngine:
         if model is None:
             raise ValueError("initialize() needs a model (an nn.Module)")
 
+        # --- offload (module docstring) ----------------------------------
+        zc = self.zero_config
+        oo, op = zc.offload_optimizer, zc.offload_param
+        # parameter offload streams the layers and steps on the host
+        # itself, so it takes over the optimizer offload
+        param_offload = op is not None and op.device != OffloadDeviceEnum.none
+        offload = not param_offload and oo is not None and \
+            oo.device != OffloadDeviceEnum.none
+        opt_cfg = self._config.optimizer
+        opt_params = dict(opt_cfg.params) if opt_cfg else {}
+        opt_type = (opt_cfg.type if opt_cfg else "adam").lower()
+        if offload and opt_type not in ADAM_TYPES:
+            raise ValueError(f"offload_optimizer requires Adam/AdamW (got "
+                             f"{opt_type!r}); the host step runs "
+                             f"DeepSpeedCPUAdam")
+        self._base_lr = float(opt_params.get("lr", 1e-3))
+        opt_params.setdefault("lr", self._base_lr)
+        self._offload_opt: Optional[OffloadedOptimizer] = None
+        self._param_offload = None
+        self._staging = None
+        self.last_timings: Dict[str, float] = {}
+
         # --- model and precision -----------------------------------------
         self.compute_dtype = self._config.precision_dtype
         self.fp16_enabled = self._config.fp16.enabled
@@ -155,32 +195,52 @@ class DeepSpeedEngine:
         self._keep_master = self.compute_dtype != torch.float32
         if model_parameters is not None:
             model.load_state_dict(model_parameters)
-        model = model.to(self.device)
-        # the fp32 master copies come from the parameters as given, before
-        # every floating parameter is cast to the compute dtype (the JAX
-        # engine casts its parameter tree the same way)
-        self.master = [p.detach().float().clone() for p in
-                       model.parameters() if p.requires_grad] \
-            if self._keep_master else None
-        self.module = model.to(self.compute_dtype)
+        self.module = model
+        self._loss_fn = loss_fn
+        self.master = None
+        if param_offload:
+            from .zero.param_offload import ParamOffloadRunner, \
+                check_supported
+
+            check_supported(self)
+            # the blocks' weights move to the host store and the optimizer,
+            # the embeddings and head to the device (the runner's docstring)
+            self._param_offload = ParamOffloadRunner(self, opt_params)
+            self._offload_opt = self._param_offload.opt
+        else:
+            model = model.to(self.device)
+            trainable = [(n, p) for n, p in model.named_parameters()
+                         if p.requires_grad]
+            # the fp32 master copies come from the parameters as given,
+            # before every floating parameter is cast to the compute dtype
+            # (the JAX engine casts its parameter tree the same way); with
+            # offload they live on the host
+            if offload:
+                self._offload_opt = OffloadedOptimizer(
+                    dict(trainable), opt_params, oo,
+                    aio_config=self._config.aio)
+            elif self._keep_master:
+                self.master = [p.detach().float().clone()
+                               for _, p in trainable]
+            self.module = model.to(self.compute_dtype)
         named = [(n, p) for n, p in self.module.named_parameters()
                  if p.requires_grad]
         self._param_names = [n for n, _ in named]
         self._params = [p for _, p in named]
         self.checkpoint_engine = ArrayCheckpointEngine()
-        self._loss_fn = loss_fn
         if hasattr(self.module, "seed_dropout"):
             self.module.seed_dropout(self._config.seed + 1)
-        self._grad_acc = [torch.zeros_like(p, dtype=torch.float32)
-                          for p in self._params]
+        self._grad_acc = [] if param_offload else \
+            [torch.zeros_like(p, dtype=torch.float32) for p in self._params]
+        if offload:
+            self._staging = HostStepStaging(self._params, self.compute_dtype,
+                                            self.device)
 
         # --- optimizer, schedule, loss scale -----------------------------
-        opt_cfg = self._config.optimizer
-        opt_params = opt_cfg.params if opt_cfg else {}
-        self.optimizer_def: OptimizerDef = get_optimizer(
-            opt_cfg.type if opt_cfg else "adam", opt_params)
-        self.opt_state = self.optimizer_def.init(self._opt_targets())
-        self._base_lr = float(opt_params.get("lr", 1e-3))
+        self.optimizer_def: OptimizerDef = get_optimizer(opt_type,
+                                                         opt_params)
+        self.opt_state = None if self._offload_opt is not None else \
+            self.optimizer_def.init(self._opt_targets())
         sched_cfg = self._config.scheduler
         self.lr_scheduler = lr_scheduler if lr_scheduler is not None else \
             get_lr_schedule(sched_cfg.type if sched_cfg else None,
@@ -201,6 +261,7 @@ class DeepSpeedEngine:
         self._loss_acc = None       # eager path: summed micro losses
         self._pending = None        # eager path: forward()'s loss
         self._last_grad_norm = None
+        self._t_step = None         # train_batch's start (offload timings)
         self.timers = SynchronizedWallClockTimer(self.device)
         self.tput_timer = ThroughputTimer(
             batch_size=self.train_batch_size(),
@@ -322,12 +383,15 @@ class DeepSpeedEngine:
             clip_grads_by_global_norm(grads, cfg.gradient_clipping, norm)
         lr = self._lr_at(self.global_steps)
         if not overflow:
-            targets = self._opt_targets()
-            self.optimizer_def.update(grads, self.opt_state, targets, lr,
-                                      self._opt_step)
-            if self._keep_master:
-                for p, m in zip(self._params, self.master):
-                    p.copy_(m)
+            if self._offload_opt is not None:
+                self._host_step(lr)
+            else:
+                targets = self._opt_targets()
+                self.optimizer_def.update(grads, self.opt_state, targets, lr,
+                                          self._opt_step)
+                if self._keep_master:
+                    for p, m in zip(self._params, self.master):
+                        p.copy_(m)
             self._opt_step += 1
         else:
             self.skipped_steps += 1
@@ -340,6 +404,32 @@ class DeepSpeedEngine:
         torch._foreach_zero_(grads)
         return {"overflow": overflow, "grad_norm": norm, "lr": lr,
                 "loss_scale": scale}
+
+    def _host_step(self, lr: float) -> None:
+        """The optimizer-offload update (the JAX ``_host_optimizer_step``):
+        the unscaled, clipped fp32 gradients go to the host, the host Adam
+        steps (``step_num`` 1-indexed: the updates so far plus this one) and
+        the new compute-dtype parameters come back (``HostStepStaging``).
+        ``last_timings["fwd_bwd_s"]``: from ``train_batch``'s start to the
+        device finishing the clip."""
+        if self._t_step is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.last_timings["fwd_bwd_s"] = \
+                time.perf_counter() - self._t_step
+        self._staging.run(self._offload_opt, self._param_names,
+                          self._grad_acc, lr, self._opt_step + 1)
+        self.last_timings.update(self._offload_opt.last_timings)
+
+    def offload_timings(self, reset: bool = False) -> Dict[str, float]:
+        """The optimizer-offload transfers and host updates summed since the
+        last reset (``HostStepStaging.totals``); ``reset`` restarts them."""
+        if self._staging is None:
+            return {}
+        out = self._staging.totals()
+        if reset:
+            self._staging.reset_totals()
+        return out
 
     def train_batch(self, data_iter=None, batch=None):
         """One global step over ``gas`` micro-batches (see the module
@@ -356,15 +446,25 @@ class DeepSpeedEngine:
                                      else batch)
         self.timers(TRAIN_BATCH_TIMER).start()
         self.tput_timer.start()
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for mb in micros:
-            loss = self._loss(mb)
-            self._backward_into_acc(loss)
-            loss_sum += loss.detach().float()
         gas = self.gradient_accumulation_steps()
-        metrics = self._apply(float(gas))
-        loss = loss_sum / gas
-        metrics["loss"] = loss
+        if self._param_offload is not None:
+            metrics = self._param_offload.train_batch(
+                micros, lr=self._lr_at(self.global_steps),
+                step=self.global_steps)
+            self._opt_step += 1
+            loss = metrics["loss"]
+        else:
+            self._t_step = time.perf_counter()
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=self.device)
+            for mb in micros:
+                loss = self._loss(mb)
+                self._backward_into_acc(loss)
+                loss_sum += loss.detach().float()
+            metrics = self._apply(float(gas))
+            self._t_step = None
+            loss = loss_sum / gas
+            metrics["loss"] = loss
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
         self.micro_steps += gas
@@ -387,8 +487,16 @@ class DeepSpeedEngine:
                                  BACKWARD_GLOBAL_TIMER, STEP_GLOBAL_TIMER])
 
     # --- eager API ---------------------------------------------------------
+    def _eager_allowed(self) -> None:
+        if self._param_offload is not None:
+            raise RuntimeError(
+                "the eager forward()/backward()/step() API does not compose "
+                "with offload_param streaming (the blocks' weights are never "
+                "all on the device); drive training with train_batch()")
+
     def forward(self, batch):
         """The micro-batch's loss, its graph kept for :meth:`backward`."""
+        self._eager_allowed()
         self.timers(FORWARD_GLOBAL_TIMER).start()
         loss = self._loss(batch)
         self._pending = loss
@@ -399,6 +507,7 @@ class DeepSpeedEngine:
 
     def backward(self, loss=None):
         """Differentiate the pending loss into the fp32 accumulators."""
+        self._eager_allowed()
         if self._pending is None:
             raise RuntimeError("backward() before forward()")
         self.timers(BACKWARD_GLOBAL_TIMER).start()
@@ -414,6 +523,7 @@ class DeepSpeedEngine:
     def step(self):
         """The optimizer step at a gradient-accumulation boundary; a no-op
         between boundaries."""
+        self._eager_allowed()
         gas = self.gradient_accumulation_steps()
         if self.micro_steps % gas != 0:
             return
@@ -433,6 +543,9 @@ class DeepSpeedEngine:
 
     def eval_batch_fn(self):
         """A loss-only function of a batch: no gradients, no dropout."""
+        if self._param_offload is not None:
+            return self._param_offload.eval_loss
+
         def eval_loss(batch):
             with torch.no_grad():
                 batch = _to_device(batch, self.device)
@@ -452,10 +565,6 @@ class DeepSpeedEngine:
         for name, t in zip(self._param_names, targets):
             t.copy_(torch.as_tensor(saved[name]))
 
-    @torch.no_grad()
-    def _recast_params(self) -> None:
-        for p, m in zip(self._params, self.master):
-            p.copy_(m)
 
     def _state_dict(self) -> Dict[str, Any]:
         """The JAX engine's checkpoint dict (module docstring); tensors stay
@@ -463,13 +572,17 @@ class DeepSpeedEngine:
         gen = getattr(self.module, "dropout_generator", None)
         opt = self.opt_state
         sched = self.lr_scheduler
+        offload = self._offload_opt
         return {
-            "module": self.module.state_dict(),
-            "master": self._named(self.master) if self._keep_master
+            "module": self._param_offload.full_state_dict()
+            if self._param_offload is not None else self.module.state_dict(),
+            "master": self._named(self.master) if self.master is not None
             else None,
             "optimizer": {field: self._named(getattr(opt, field))
-                          for field in opt._fields},
-            "offload_optimizer": None,
+                          for field in opt._fields} if opt is not None
+            else None,
+            "offload_optimizer": offload.state_dict()
+            if offload is not None else None,
             "onebit": None,
             "step": self.global_steps,
             "opt_step": self._opt_step,
@@ -520,7 +633,8 @@ class DeepSpeedEngine:
             sched.load_state_dict(_plain(saved["lr_scheduler"]))
 
     def _clear_accumulation(self) -> None:
-        torch._foreach_zero_(self._grad_acc)
+        if self._grad_acc:
+            torch._foreach_zero_(self._grad_acc)
         self._loss_acc = None
         self._pending = None
 
@@ -533,8 +647,13 @@ class DeepSpeedEngine:
         one in ``latest``); returns ``(load_dir, client_state)``. With
         ``load_module_only``, or from a checkpoint without master weights,
         the master weights are re-seeded from the loaded module (as the
-        JAX engine re-seeds its offloaded and one-bit masters), so the
-        next step starts from the loaded weights."""
+        JAX engine re-seeds its offloaded master), so the next step starts
+        from the loaded weights. An offload engine restores its host master
+        and moments from the checkpoint's ``offload_optimizer`` (an
+        ``OffloadedOptimizer.state_dict``), or re-seeds the host master from
+        the module when the checkpoint has none, ``load_module_only`` or
+        not ``load_optimizer_states``; a parameter-offload engine installs
+        the module's weights in its layer store."""
         if self._config.checkpoint.load_universal:
             return self.load_universal_checkpoint(load_dir, tag)
         if tag is None:
@@ -546,14 +665,26 @@ class DeepSpeedEngine:
         sd = self.checkpoint_engine.load(
             checkpoint_meta_path(load_dir, tag, "model"))
         module_sd = {k: torch.as_tensor(v) for k, v in sd["module"].items()}
-        self.module.load_state_dict(module_sd, strict=load_module_strict)
+        if self._param_offload is not None:
+            self._param_offload.load_params(module_sd,
+                                            strict=load_module_strict)
+        else:
+            self.module.load_state_dict(module_sd, strict=load_module_strict)
         master = None if load_module_only else sd.get("master")
-        if self._keep_master:
+        if self.master is not None:
             self._copy_named(self.master, master if master is not None
                              else module_sd)
+        offload = sd.get("offload_optimizer")
+        if self._offload_opt is not None:
+            if load_module_only or not load_optimizer_states or \
+                    offload is None:
+                self._offload_opt.sync_master_from(module_sd)
+            else:
+                self._offload_opt.load_state_dict(offload)
         if not load_module_only:
             opt = sd.get("optimizer")
-            if load_optimizer_states and opt is not None:
+            if load_optimizer_states and opt is not None and \
+                    self.opt_state is not None:
                 for field in self.opt_state._fields:
                     self._copy_named(getattr(self.opt_state, field),
                                      opt[field])
@@ -573,23 +704,31 @@ class DeepSpeedEngine:
     def load_universal_checkpoint(self, load_dir: str,
                                   tag: Optional[str] = None):
         """Load ``checkpoint.ds_to_universal``'s layout: the fp32 weights
-        into the master (or the parameters, in fp32), the parameters recast
-        from them, each optimizer field it holds, the counters and the
-        schedule. Returns ``(load_dir, {})``."""
+        into the master (on the device, or the offload engine's host master,
+        or the parameters in fp32), the parameters recast from them, each
+        optimizer field it holds (the host moments of an offload engine),
+        the counters and the schedule. Returns ``(load_dir, {})``."""
         from ..checkpoint.universal_checkpoint import (load_universal,
                                                        universal_dir)
 
         if tag is None:
             tag = read_latest(load_dir)
         univ = load_universal(universal_dir(load_dir, tag))
-        if self._keep_master:
-            self._copy_named(self.master, univ["fp32"])
-            self._recast_params()
+        fp32 = univ["fp32"]
+        if self._offload_opt is not None:
+            self._offload_opt.load_universal(fp32, univ["opt"])
+        if self._param_offload is not None:
+            self._param_offload.load_params(
+                {k: torch.as_tensor(v) for k, v in fp32.items()})
+        elif self.master is not None:
+            self._copy_named(self.master, fp32)
+            self._copy_named(self._params, fp32)
         else:
-            self._copy_named(self._params, univ["fp32"])
-        for field, tree in univ["opt"].items():
-            if field in self.opt_state._fields:
-                self._copy_named(getattr(self.opt_state, field), tree)
+            self._copy_named(self._params, fp32)
+        if self.opt_state is not None:
+            for field, tree in univ["opt"].items():
+                if field in self.opt_state._fields:
+                    self._copy_named(getattr(self.opt_state, field), tree)
         meta = univ["meta"]
         self._restore_counters(meta)
         self._clear_accumulation()

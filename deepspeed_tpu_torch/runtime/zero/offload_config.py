@@ -1,7 +1,15 @@
 """Offload configuration: the port's own copy of ``deepspeed_tpu/runtime/
-zero/offload_config.py``. The blocks parse; the engine raises
-``NotImplementedError`` for any device other than ``none`` (ZeRO-Offload is
-not ported yet)."""
+zero/offload_config.py``.
+
+Devices: ``none`` (the card's memory), ``cpu`` (host memory) and ``nvme``
+(files under ``nvme_path``, moved by the async I/O op ``ops/aio``).
+``offload_optimizer`` keeps the fp32 master weights and Adam moments off the
+card and steps them with the host Adam (``runtime/zero/offload.py``);
+``offload_param`` streams the blocks' weights through the card a layer at a
+time for training (``runtime/zero/param_offload.py``), which takes the
+optimizer offload with it. ``swap_master: false`` (with ``device: nvme``)
+keeps the master in host memory and swaps only the moments to disk.
+"""
 
 from __future__ import annotations
 

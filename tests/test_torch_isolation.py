@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch/CUDA port that hold without a card: it never
 imports JAX or the JAX package, it refuses to fall back to the CPU
-silently, CPU tensors never reach the kernel builder, and the builder
-targets Hopper and writes into the ignored build directory."""
+silently, CPU tensors never reach the kernel builder (the offload paths'
+host ops build with the C++ compiler instead), and the builder targets
+Hopper and writes into the ignored build directory."""
 
 import ast
 import subprocess
@@ -143,3 +144,37 @@ def test_builder_targets_sm90a_in_the_ignored_build_dir(monkeypatch,
         assert op_builder.sources_hash() in path.name
     # a second build finds every library and starts no compiler
     assert op_builder.build() == paths and len(calls) == len(paths)
+
+
+def test_offload_paths_use_host_ops_only(monkeypatch, tmp_path):
+    """The offload engines on the CPU: the host ops (``cpu_adam``, ``aio``)
+    from ``build/host/``, never ``nvcc`` or a CUDA library."""
+    from deepspeed_tpu_torch.runtime.zero import offload, param_offload
+
+    assert offload.OffloadedOptimizer and param_offload.ParamOffloadRunner
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert "build/" in ignored
+    assert op_builder.HOST_BUILD_DIR == REPO / "build" / "host"
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("CUDA op builder called on the CPU route")
+
+    for name in ("build", "load", "launch", "find_nvcc"):
+        monkeypatch.setattr(op_builder, name, refuse)
+    cfg = transformer_config("llama", vocab_size=32, max_seq_len=8,
+                             n_embd=16, n_layer=2, n_head=2,
+                             dtype=torch.float32)
+    config = {"train_micro_batch_size_per_gpu": 2,
+              "optimizer": {"type": "AdamW", "params": {"lr": 1e-3}}}
+    batch = {"input_ids": torch.randint(0, 32, (2, 8))}
+    for zero in ({"offload_optimizer": {"device": "nvme",
+                                        "nvme_path": str(tmp_path / "o")}},
+                 {"offload_param": {"device": "nvme",
+                                    "nvme_path": str(tmp_path / "p")}}):
+        engine, *_ = dst.initialize(model=TransformerLM(cfg), device="cpu",
+                                    config=dict(config,
+                                                zero_optimization=zero))
+        assert torch.isfinite(engine.train_batch(batch=batch))
+    assert {p.name.split("-")[0] for p in
+            op_builder.HOST_BUILD_DIR.glob("lib*.so")} >= \
+        {"libaio", "libcpu_adam"}

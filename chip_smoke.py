@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py [--seed N] [--decode-only | --resilience-only |
-                           --offload-only]
+                           --offload-only | --fleet-only]
 
 ``--decode-only`` runs the build and the decode and paged kernels' rows
 alone (phase 2's decode and paged rows, phase 5's two int8 decode rows and
@@ -307,6 +307,41 @@ non-zero:
             prints. Printed: tokens/s, the stream's and host step's seconds
             a step, the stream's GB/s and the peak beside train_llama's.
             ``--offload-only`` runs the build, train_llama and 18-20.
+
+21. serve_disagg  (after 4h) the serving fleet: GPT-2 small on 3b's
+            traffic, every replica with 3b's settings (8 slots, chunk 64,
+            ``PAGED_KV``, ``strict_recompile``) on ONE captured engine, the
+            first built by ``init_serving(..., role="prefill")``, behind a
+            ``ReplicaRouter``. Arms: a prefill and a decode replica (every
+            request's pages copied across pools by
+            ``PagedKVPool.import_pages``); two colocated replicas (prefix
+            affinity); a prefill and two decode replicas, one killed at its
+            60th step by a ``FaultInjector`` (``step_host_error``) and a
+            warmed decode replica joined by ``add_replica`` at router step
+            90. Held: every request's greedy tokens equal 3b's captured
+            run's (a request a failover re-homed re-prefills its tokens and
+            may part only at a near-tie, as in 4g); the destination pages
+            equal the source's, every leaf, for the first transfer and the
+            first prefix-affine one; the paged kernel at least 12 times a
+            decode step, the flash kernel in admissions, none on a prefill
+            replica; 0 recompiles after warmup on every replica, the added
+            one included; no transfer in flight at a step boundary;
+            trie-hit pages skipped; no slot or page leak after the drain.
+            Printed beside 3b's captured row: tokens/s, TTFT and step gap
+            p50/p99 at the router; transfers, pages moved and skipped,
+            bytes, a transfer's host and device ms, GB/s; a 12-page
+            transfer alone beside its bound.
+22. serve_http  ``ServingFrontend`` on 127.0.0.1:0 over an
+            ``AsyncEngineBridge`` over arm 1's router: 16 SSE clients
+            (stdlib asyncio, on a thread that makes no CUDA call) send the
+            traffic, one cancelled by ``DELETE /v1/requests/{id}``
+            mid-stream; then ``GET /healthz`` and ``GET /metrics``. Held:
+            the streamed tokens equal arm 1's, one terminal ``cancelled``
+            event and the slot and pages freed, the ``fleet`` object, the
+            ``replica=/role=`` labelled series, 0 recompiles, no leak after
+            ``stop(drain=True)``. Printed: the client-side TTFT, gap and
+            tokens/s beside arm 1's. ``--fleet-only`` runs the build, 3b's
+            captured arm alone and 21-22.
 
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
@@ -4980,6 +5015,591 @@ def offload_phases(seed: int, llama: dict, device: str = "cuda",
     return [offload["launches"], streamed["launches"]]
 
 
+# ---------------------------------------------------------------------------
+# phases 21-22: the serving fleet
+# ---------------------------------------------------------------------------
+# a disaggregated arm's decode replica dies at this step of its own
+FLEET_KILL_STEP = 60
+# the router step of arm 3 at which the warmed decode replica joins
+FLEET_ADD_STEP = 90
+# requests the HTTP phase cancels by DELETE, after this many streamed tokens
+HTTP_CANCEL_AFTER = 8
+
+
+def serve_paged_traffic(seed: int, vocab: int):
+    """``phase_serve_paged``'s traffic, drawn from the same generator after
+    the same two warm-up prompts, for a run that skips that phase."""
+    rng = np.random.default_rng(seed + 1)
+    for n in (1000, 40):
+        rng.integers(0, vocab, n)
+    return shared_prefix_traffic(rng, vocab)
+
+
+def fleet_replica(engine, role: str, seed: int):
+    """A fleet replica on the shared engine, with ``serve_paged``'s
+    settings (8 slots, chunk 64, ``PAGED_KV``) and a strict watchdog."""
+    import deepspeed_tpu_torch as dst
+
+    return dst.ServingEngine(engine, num_slots=8, prefill_chunk=64,
+                             paged_kv=dict(PAGED_KV), seed=seed,
+                             strict_recompile=True, role=role)
+
+
+def colocated_arm(engine, seed: int, warm, prompts, budgets,
+                  device: str = "cuda") -> dict:
+    """``serve_paged`` captured (phase 3b's captured arm), for a run that
+    skips it: one replica of the fleet's settings, warmed, then the traffic
+    with the first request alone until it runs."""
+    from deepspeed_tpu_torch.serving.metrics import ServingMetrics
+
+    srv = fleet_replica(engine, "both", seed)
+    warm_up(srv, warm)
+    srv.end_warmup()
+    srv.metrics = ServingMetrics(step_fn=lambda: srv.step_id)
+    sync(device)
+    reqs = drive(srv, prompts, budgets, first_alone=True)
+    sync(device)
+    assert srv.watchdog.recompiles == 0
+    st = srv.stats()
+    log(f"[serve_disagg] colocated reference (serve_paged captured, one "
+        f"replica): {serve_line(st)}; TTFT p99 {st['ttft_p99_ms']:.2f} ms")
+    return dict(reqs=reqs, stats=st)
+
+
+def fleet_warm(router, warm) -> None:
+    """Warm every replica: a colocated one serves the waves alone, a split
+    fleet serves them through the router (its decode replicas capture
+    their steps on the handoffs); then every trie is emptied, so the
+    measured pass starts from the pools a fresh server has, and the
+    watchdogs are armed."""
+    if all(role == "both" for role in router.roles):
+        for rep in router.replicas:
+            warm_up(rep, warm)
+    else:
+        for wave in warm:
+            for p in wave:
+                router.submit(p, max_new_tokens=4)
+            router.run_until_drained()
+        for rep in router.replicas:
+            warm_up(rep, [])
+    router.end_warmup()
+
+
+class TransferWatch:
+    """Wraps each decode-capable replica's ``adopt`` for the measured pass:
+    records every transfer's stats and its device time (CUDA events around
+    it, read after the pass), and holds the destination pages equal to the
+    source pages, every leaf, for the first transfer and the first
+    prefix-affine one (before ``finish_handoff`` releases the source)."""
+
+    def __init__(self, device: str):
+        self.device = device
+        self.stats, self.events, self.held = [], [], []
+
+    def attach(self, rep) -> None:
+        real = rep.adopt
+
+        def adopt(req, src):
+            spool, pool = src.pool, rep.pool
+            n = -(-int(spool.starts[req.slot]) // spool.page_size)
+            src_pages = [int(p) for p in spool.table[req.slot, :n]]
+            ev = None
+            if self.device == "cuda":
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+            st = real(req, src)
+            if ev is not None:
+                ev[1].record()
+                self.events.append(ev)
+            self.stats.append(st)
+            kind = ("first" if not self.held else
+                    "prefix-affine" if st["hit_pages"] and
+                    all(k != "prefix-affine" for k, _ in self.held) else None)
+            if kind is not None:
+                dst_pages = [int(p) for p in pool.table[req.slot, :n]]
+                for name, leaf in spool.cache.items():
+                    assert torch.equal(leaf[:, src_pages],
+                                       pool.cache[name][:, dst_pages]), \
+                        f"{kind} transfer: destination {name} pages differ " \
+                        f"from the source's"
+                self.held.append((kind, n))
+            return st
+
+        rep.adopt = adopt
+
+    def device_ms(self) -> list:
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def prefill_decode_launches(rep, counter: dict):
+    """Wrap a prefill replica's ``step`` to add the paged decode kernel's
+    launches made inside it to ``counter["n"]``."""
+    from deepspeed_tpu_torch.ops.attention.paged_attention import \
+        paged_decode_attention
+
+    real = rep.step
+
+    def step():
+        before = paged_decode_attention.launches
+        try:
+            return real()
+        finally:
+            counter["n"] += paged_decode_attention.launches - before
+
+    rep.step = step
+
+
+def pct(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, np.float64), q)) \
+        if len(values) else float("nan")
+
+
+def hold_fleet_tokens(label: str, reqs, colocated, touched, engine,
+                      ref) -> dict:
+    """Every request's greedy tokens against the colocated captured run's:
+    identical, except that a request a failover re-homed (``touched``)
+    re-prefilled its generated tokens through the chunked path, whose
+    other products round otherwise in bf16, so it may part at a near-tie
+    (``divergences``, as ``serve_resilience`` holds its preempted
+    requests)."""
+    differ = [i for i, (r, c) in enumerate(zip(reqs, colocated))
+              if not np.array_equal(r.tokens(), c.tokens())]
+    wrong = [reqs[i].request_id for i in differ if i not in touched]
+    assert not wrong, f"{label}: tokens differ from the colocated captured " \
+        f"run's for requests {wrong} (none of them re-homed by a failover)"
+    if differ:
+        return divergences(label, [reqs[i] for i in differ],
+                           [colocated[i] for i in differ], engine, ref,
+                           against="the colocated captured run")
+    return dict(same=len(reqs), n=len(reqs), worst=0.0, rows=[])
+
+
+def fleet_arm(label: str, router, prompts, budgets, colocated_reqs,
+              engine, ref, seed: int, device: str = "cuda",
+              kill: int = None, spare=None) -> dict:
+    """Serve the traffic through ``router`` (warmed) with the first request
+    alone until it runs; ``kill``: a decode replica whose step raises (the
+    ported ``FaultInjector``, ``step_host_error``) at its
+    ``FLEET_KILL_STEP``-th step; ``spare``: a warmed decode replica joined
+    with ``add_replica`` at router step ``FLEET_ADD_STEP``. Holds tokens,
+    launches, page bits, recompiles, in-flight transfers and leaks;
+    returns the arm's numbers."""
+    from deepspeed_tpu_torch.serving import FaultInjector, ServingMetrics
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    for rep in router.replicas + ([spare] if spare is not None else []):
+        rep.metrics = ServingMetrics(registry=rep.registry,
+                                     step_fn=lambda rep=rep: rep.step_id)
+    if kill is not None:
+        router.replicas[kill].faults = FaultInjector(
+            seed=seed, schedule={"step_host_error": [FLEET_KILL_STEP]})
+    watch = TransferWatch(device)
+    for i in router.decode_capable:
+        watch.attach(router.replicas[i])
+    if spare is not None:
+        watch.attach(spare)
+    prefill_launches = {"n": 0}
+    for i in router.alive_replicas:
+        if router.roles[i] == "prefill":
+            prefill_decode_launches(router.replicas[i], prefill_launches)
+    gaps, steps = [], 0
+
+    def step():
+        nonlocal steps
+        running = any(router.replicas[i]._running_count()
+                      for i in router.decode_capable)
+        t0 = time.perf_counter()
+        router.step()
+        wall = time.perf_counter() - t0
+        steps += 1
+        if running:
+            gaps.append(wall)
+        assert router.fleet_topology()["transfers_in_flight"] == 0, \
+            f"{label}: a transfer in flight at a step boundary"
+        if spare is not None and steps == FLEET_ADD_STEP:
+            router.add_replica(spare, "decode")
+
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [router.submit(prompts[0], max_new_tokens=int(budgets[0]))]
+    while reqs[0].state in (RequestState.QUEUED, RequestState.PREFILLING):
+        step()
+    reqs += [router.submit(p, max_new_tokens=int(n))
+             for p, n in zip(prompts[1:], budgets[1:])]
+    while router.has_work():
+        step()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    bad = [(r.request_id, r.state.value, len(r.output_tokens), int(n))
+           for r, n in zip(reqs, budgets)
+           if r.state is not RequestState.FINISHED
+           or len(r.output_tokens) != n]
+    assert not bad, f"{label}: requests not FINISHED with their budget: {bad}"
+    router.check_invariants()
+    touched = {i for i, r in enumerate(reqs)
+               if any(h["kind"] == "failover"
+                      for h in router.journey(r.journey_id)["hops"])}
+    if kill is None:
+        assert router.alive_replicas == list(range(router.num_replicas)), \
+            f"{label}: replicas died: {router.stats()['alive']}"
+    else:
+        assert router.alive_replicas == [i for i in range(router.num_replicas)
+                                         if i != kill], \
+            f"{label}: alive {router.alive_replicas}, want all but {kill}"
+        assert router.replicas[kill].faults.fired.get("step_host_error") \
+            == 1 and router.failovers > 0 and touched
+    if spare is not None:
+        assert spare in router.replicas, f"{label}: the spare never joined"
+    # zero recompiles on every replica, the dead and the added included
+    recompiles = {i: rep.watchdog.recompiles
+                  for i, rep in enumerate(router.replicas)}
+    assert not any(recompiles.values()), \
+        f"{label}: recompiles after warmup {recompiles}: " \
+        f"{[e for rep in router.replicas for e in rep.watchdog.events if not e['warmup']][:3]}"
+    for i in router.alive_replicas:
+        rep = router.replicas[i]
+        pool = rep.pool
+        held = len(pool.prefix.page_counts())
+        assert (pool.table == pool.num_pages).all() and \
+            pool.free_page_count + held == pool.num_pages and \
+            pool.free_count == pool.num_slots, \
+            f"{label}: replica {i} leaked: {pool.free_page_count} free + " \
+            f"{held} cached != {pool.num_pages}, {pool.free_count} free slots"
+    L = engine.module.config.n_layer
+    dsteps = sum(router.replicas[i].stats()["decode_steps"]
+                 for i in range(router.num_replicas)
+                 if router.roles[i] != "prefill")
+    assert launches["paged_decode_attention"] >= L * dsteps, \
+        f"{label}: paged kernel ran {launches['paged_decode_attention']} " \
+        f"times in {dsteps} decode steps with live rows"
+    assert launches["flash_attention_fwd"] > 0, \
+        f"{label}: no whole-prompt admission ran the flash kernel"
+    assert prefill_launches["n"] == 0, \
+        f"{label}: {prefill_launches['n']} paged decode launches on a " \
+        f"prefill replica"
+    split = any(role == "prefill" for role in router.roles)
+    if split:
+        assert router.transfers >= len(reqs) and \
+            router.transfer_pages_saved > 0, \
+            f"{label}: {router.transfers} transfers, " \
+            f"{router.transfer_pages_saved} trie-hit pages skipped"
+        assert [k for k, _ in watch.held] == ["first", "prefix-affine"], \
+            f"{label}: page bits held for {watch.held}"
+    tokens = hold_fleet_tokens(label, reqs, colocated_reqs, touched,
+                               engine, ref)
+    new = sum(len(r.output_tokens) for r in reqs)
+    ttft = [r.ttft * 1e3 for r in reqs]
+    out = dict(label=label, router=router, reqs=reqs, launches=launches,
+               wall=wall, tokens_per_s=new / wall, new_tokens=new,
+               ttft_p50_ms=pct(ttft, 50), ttft_p99_ms=pct(ttft, 99),
+               gap_p50_ms=pct(gaps, 50) * 1e3,
+               gap_p99_ms=pct(gaps, 99) * 1e3, steps=steps,
+               decode_steps=dsteps, touched=len(touched), tokens=tokens)
+    if split:
+        host_ms = [st["seconds"] * 1e3 for st in watch.stats]
+        dev_ms = watch.device_ms() if device == "cuda" else []
+        moved = sum(st["pages"] for st in watch.stats)
+        nbytes = sum(st["bytes"] for st in watch.stats)
+        out.update(transfers=len(watch.stats), pages_moved=moved,
+                   pages_skipped=router.transfer_pages_saved,
+                   bytes=nbytes, page_bytes=router.replicas[0].pool.page_nbytes,
+                   host_ms_p50=pct(host_ms, 50), host_ms_p99=pct(host_ms, 99),
+                   device_ms_p50=pct(dev_ms, 50),
+                   device_ms_p99=pct(dev_ms, 99), bits_held=watch.held)
+    return out
+
+
+def fleet_line(arm: dict) -> str:
+    line = (f"tokens/s {arm['tokens_per_s']:.1f}; TTFT p50 "
+            f"{arm['ttft_p50_ms']:.2f} ms p99 {arm['ttft_p99_ms']:.2f} ms; "
+            f"step gap p50 {arm['gap_p50_ms']:.2f} ms p99 "
+            f"{arm['gap_p99_ms']:.2f} ms ({arm['new_tokens']} tokens, "
+            f"{arm['steps']} router steps, {arm['decode_steps']} decode "
+            f"steps)")
+    if "transfers" in arm:
+        line += (f"; {arm['transfers']} transfers, {arm['pages_moved']} "
+                 f"pages moved, {arm['pages_skipped']} trie-hit pages "
+                 f"skipped, {arm['bytes']} bytes ({arm['page_bytes']} a "
+                 f"page); a transfer {arm['host_ms_p50']:.3f} / "
+                 f"{arm['host_ms_p99']:.3f} ms host (p50 / p99), "
+                 f"{arm['device_ms_p50']:.4f} / {arm['device_ms_p99']:.4f} "
+                 f"ms on the stream between events around adopt (the card "
+                 f"waits there on the host's work too); page bits held on "
+                 f"{arm['bits_held']}")
+    return line
+
+
+def transfer_probe(src, dst, pages: int, reps: int = 20) -> dict:
+    """One ``pages``-page cross-pool transfer on the card, by CUDA events
+    (gather, scatter and the index uploads), beside its bound: the pages
+    read and written by the gather and again by the scatter."""
+    ids = [src.pool.alloc_page() for _ in range(pages)]
+    out = []
+    for _ in range(reps + 2):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        got = dst.pool.import_pages(src.pool, ids)
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+        dst.pool.unref_pages(got)
+    src.pool.unref_pages(ids)
+    ms = float(np.median(out[2:]))
+    nbytes = pages * src.pool.page_nbytes
+    b = bound(4 * nbytes, 0.0)
+    return dict(ms=ms, bytes=nbytes, gbps=nbytes / (ms / 1e3) / 1e9, **b)
+
+
+def phase_serve_disagg(model, seed: int, warm, prompts, budgets,
+                       colocated: dict, eager_engine, ref,
+                       device: str = "cuda") -> dict:
+    """Phase 21: GPT-2 small served by a fleet whose replicas share one
+    captured engine (``init_serving(..., role=...)`` for the first, the
+    rest ``ServingEngine``s on its engine) behind a ``ReplicaRouter``, each
+    replica with ``serve_paged``'s settings: (1) a prefill and a decode
+    replica, (2) two colocated replicas (prefix affinity), (3) a prefill
+    and two decode replicas, one killed mid-run by a ``FaultInjector``
+    and a warmed decode replica added with ``add_replica``. The traffic
+    and the reference tokens are ``serve_paged``'s captured run's."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.serving import ReplicaRouter
+
+    first = dst.init_serving(model, config={"dtype": "bfloat16",
+                                            "enable_cuda_graph": True},
+                             num_slots=8, prefill_chunk=64,
+                             paged_kv=dict(PAGED_KV), seed=seed,
+                             strict_recompile=True, role="prefill",
+                             device=device)
+    engine = first.engine
+    col = colocated["reqs"]
+    arms = {}
+
+    def run(label, roles, **kw):
+        t_arm = time.perf_counter()
+        reps = [first if (i == 0 and label == "disaggregated")
+                else fleet_replica(engine, role, seed)
+                for i, role in enumerate(roles)]
+        router = ReplicaRouter(reps)
+        fleet_warm(router, warm)
+        spare = None
+        if kw.pop("spare", False):
+            spare = fleet_replica(engine, "decode", seed)
+            warm_up(spare, warm)
+        arm = fleet_arm(f"serve_disagg {label}", router, prompts, budgets,
+                        col, eager_engine, ref, seed, device, spare=spare,
+                        **kw)
+        log(f"[serve_disagg] {label} ({'/'.join(roles)}"
+            f"{' + a decode replica added' if spare is not None else ''}): "
+            f"{fleet_line(arm)}; tokens identical to the colocated captured "
+            f"run's for {arm['tokens']['same']} of {arm['tokens']['n']} "
+            f"requests ({arm['touched']} re-homed by a failover); 0 "
+            f"recompiles after warmup on {router.num_replicas} replicas; "
+            f"no leak; launches {arm['launches']}; the arm took "
+            f"{time.perf_counter() - t_arm:.1f} s")
+        arms[label] = arm
+        return router
+
+    pair = run("disaggregated", ["prefill", "decode"])
+    run("two colocated", ["both", "both"])
+    run("failover + elastic", ["prefill", "decode", "decode"], kill=2,
+        spare=True)
+    st = colocated["stats"]
+    log(f"[serve_disagg] beside serve_paged captured (one replica): "
+        f"{serve_line(st)}, TTFT p99 {st['ttft_p99_ms']:.2f} ms")
+    probe = transfer_probe(pair.replicas[0], pair.replicas[1], 12) \
+        if device == "cuda" else None
+    if probe is not None:
+        log(f"[serve_disagg] a 12-page transfer (a cold 768-token prompt) "
+            f"alone: {probe['ms']:.4f} ms device, {probe['bytes']} bytes "
+            f"at {probe['gbps']:.1f} GB/s; bound {probe['bound_ms']:.4f} ms "
+            f"({probe['bound_by']}: gather and scatter each read and write "
+            f"the pages)")
+    return dict(arms=arms, router=pair, probe=probe)
+
+
+async def sse_client(port: int, prompt, budget: int, t_zero: float,
+                     cancel_after=None) -> dict:
+    """One ``POST /v1/generate`` over stdlib asyncio streams: the streamed
+    tokens with their arrival times; with ``cancel_after``, a ``DELETE
+    /v1/requests/{id}`` on a second connection once that many tokens
+    arrived."""
+    import asyncio
+
+    body = json.dumps({"prompt": [int(t) for t in prompt],
+                       "max_new_tokens": int(budget)}).encode()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    sent = time.perf_counter()
+    writer.write(b"POST /v1/generate HTTP/1.1\r\nHost: smoke\r\n"
+                 + f"Content-Length: {len(body)}\r\n\r\n".encode() + body)
+    await writer.drain()
+    head = await reader.readuntil(b"\r\n\r\n")
+    assert head.startswith(b"HTTP/1.1 200"), head[:80]
+    out = dict(tokens=[], times=[], terminal=[], sent=sent - t_zero)
+    while True:
+        try:
+            block = await reader.readuntil(b"\n\n")
+        except asyncio.IncompleteReadError:
+            break
+        event, data = None, None
+        for line in block.decode().strip().split("\n"):
+            if line.startswith("event: "):
+                event = line[7:]
+            elif line.startswith("data: "):
+                data = json.loads(line[6:])
+        if event == "start":
+            out["request_id"] = data["request_id"]
+        elif event == "token":
+            out["tokens"].append(data["token"])
+            out["times"].append(time.perf_counter() - t_zero)
+            if cancel_after is not None and \
+                    len(out["tokens"]) == cancel_after:
+                r2, w2 = await asyncio.open_connection("127.0.0.1", port)
+                w2.write(f"DELETE /v1/requests/{out['request_id']} "
+                         f"HTTP/1.1\r\nHost: smoke\r\nContent-Length: 0"
+                         f"\r\n\r\n".encode())
+                await w2.drain()
+                out["delete"] = (await r2.read()).split(b" ")[1]
+                w2.close()
+                await w2.wait_closed()
+        else:
+            out["terminal"].append(data)
+    writer.close()
+    await writer.wait_closed()
+    return out
+
+
+async def http_get(port: int, path: str) -> tuple:
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: smoke\r\n\r\n".encode())
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    await writer.wait_closed()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ")[1]), body.decode()
+
+
+def phase_serve_http(fleet: dict, prompts, budgets,
+                     device: str = "cuda") -> dict:
+    """Phase 22: ``ServingFrontend`` on 127.0.0.1:0 over an
+    ``AsyncEngineBridge`` over phase 21's disaggregated router (warmed).
+    16 SSE clients on stdlib asyncio streams (the event loop's thread makes
+    no CUDA call: the bridge's step thread alone touches the card) send
+    the traffic, the first alone until its first token; one is cancelled
+    by DELETE mid-stream; then ``/healthz`` and ``/metrics``, and
+    ``stop(drain=True)``."""
+    import asyncio
+
+    from deepspeed_tpu_torch.serving import ServingFrontend
+
+    arm = fleet["arms"]["disaggregated"]
+    router = arm["router"]
+    want = {i: r.output_tokens for i, r in enumerate(arm["reqs"])}
+    cancel = int(np.argmax(budgets[1:])) + 1     # the longest stream
+    for rep in router.replicas:
+        warm_up(rep, [])          # arm 1's pages out of the tries
+    fe = ServingFrontend(router, host="127.0.0.1", port=0,
+                         idle_poll_s=0.002)
+
+    async def main():
+        await fe.start()
+        try:
+            t_zero = time.perf_counter()
+            first = asyncio.ensure_future(sse_client(
+                fe.port, prompts[0], budgets[0], t_zero))
+            await fe.bridge.call(lambda r: None)
+            # the first stream runs alone until its first token
+            while True:
+                got = await fe.bridge.call(
+                    lambda r: len(router._tracked) and
+                    next(iter(router._tracked.values())).output_tokens)
+                if got:
+                    break
+            rest = [sse_client(fe.port, p, n, t_zero,
+                               HTTP_CANCEL_AFTER if i == cancel else None)
+                    for i, (p, n) in enumerate(zip(prompts, budgets))
+                    if i > 0]
+            results = [await first] + list(await asyncio.gather(*rest))
+            wall = time.perf_counter() - t_zero
+            health = await http_get(fe.port, "/healthz")
+            metrics = await http_get(fe.port, "/metrics")
+            recompiles = await fe.bridge.call(
+                lambda r: {i: rep.watchdog.recompiles
+                           for i, rep in enumerate(r.replicas)})
+        finally:
+            await fe.stop(drain=True)
+        return results, wall, health, metrics, recompiles
+
+    results, wall, health, metrics, recompiles = asyncio.run(
+        asyncio.wait_for(main(), 600))
+    for i, res in enumerate(results):
+        assert len(res["terminal"]) == 1, \
+            f"serve_http: stream {i} ended with {res['terminal']}"
+        term = res["terminal"][0]
+        if i == cancel:
+            assert res["delete"] == b"200" and term["event"] == "done" \
+                and term["reason"] == "cancelled", \
+                f"serve_http: the cancelled stream ended with {term}"
+            assert res["tokens"] == want[i][:len(res["tokens"])]
+        else:
+            assert term["reason"] == "length" and res["tokens"] == want[i], \
+                f"serve_http: stream {i} differs from serve_disagg's " \
+                f"disaggregated arm ({term})"
+    hstatus, hbody = health
+    info = json.loads(hbody)
+    assert hstatus == 200 and info["fleet"]["counts"] == {
+        "prefill": 1, "decode": 1, "both": 0} and \
+        info["fleet"]["transfers_in_flight"] == 0, info.get("fleet")
+    mstatus, mtext = metrics
+    assert mstatus == 200 and 'replica="0",role="prefill"' in mtext and \
+        'replica="1",role="decode"' in mtext, "serve_http: /metrics labels"
+    assert not any(recompiles.values()), f"serve_http: {recompiles}"
+    rid = results[cancel]["request_id"]
+    for rep in router.replicas:
+        assert all(r.request_id != rid for r in rep._slot_req.values())
+        pool = rep.pool
+        held = len(pool.prefix.page_counts())
+        assert (pool.table == pool.num_pages).all() and \
+            pool.free_page_count + held == pool.num_pages and \
+            pool.free_count == pool.num_slots, "serve_http: a leak"
+    router.check_invariants()
+    ttft = [(r["times"][0] - r["sent"]) * 1e3 for r in results]
+    gaps = [(b - a) * 1e3 for r in results
+            for a, b in zip(r["times"], r["times"][1:])]
+    new = sum(len(r["tokens"]) for r in results)
+    out = dict(tokens_per_s=new / wall, ttft_p50_ms=pct(ttft, 50),
+               ttft_p99_ms=pct(ttft, 99), gap_p50_ms=pct(gaps, 50),
+               gap_p99_ms=pct(gaps, 99), new_tokens=new)
+    log(f"[serve_http] 16 SSE clients over the disaggregated fleet: "
+        f"tokens/s {out['tokens_per_s']:.1f}; client TTFT p50 "
+        f"{out['ttft_p50_ms']:.2f} ms p99 {out['ttft_p99_ms']:.2f} ms; "
+        f"inter-token gap p50 {out['gap_p50_ms']:.2f} ms p99 "
+        f"{out['gap_p99_ms']:.2f} ms ({new} tokens in {wall:.2f} s); in "
+        f"process (serve_disagg disaggregated): {fleet_line(arm)}; streamed "
+        f"tokens equal serve_disagg's; stream {cancel} cancelled after "
+        f"{HTTP_CANCEL_AFTER} tokens with one terminal 'cancelled' event, "
+        f"its slot and pages free; /healthz fleet {info['fleet']['counts']}, "
+        f"/metrics labelled; 0 recompiles; no leak after stop(drain=True)")
+    return out
+
+
+def fleet_phases(model, seed: int, warm, prompts, budgets, colocated,
+                 eager_engine, ref, device: str = "cuda") -> list:
+    """Phases 21-22; returns the launches of the fleet's arms."""
+    t0 = time.perf_counter()
+    fleet = phase_serve_disagg(model, seed, warm, prompts, budgets,
+                               colocated, eager_engine, ref, device)
+    phase_serve_http(fleet, prompts, budgets, device)
+    log(f"[serve_disagg] phases 21-22 took {time.perf_counter() - t0:.1f} s")
+    return [arm["launches"] for arm in fleet["arms"].values()]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4989,6 +5609,9 @@ def main(argv=None) -> int:
     ap.add_argument("--offload-only", action="store_true",
                     help="build, then run train_llama and the offload "
                     "phases (18-20) alone")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build, then run the serving fleet's phases "
+                    "(21-22) alone, on serve_paged's traffic")
     ap.add_argument("--resilience-only", action="store_true",
                     help="build, then run the serve_resilience phase alone "
                     "(with the spec phases it compares against)")
@@ -5012,6 +5635,21 @@ def main(argv=None) -> int:
     if args.offload_only:
         llama = phase_train_llama(args.seed, LLAMA_TIMED_STEPS)
         offload_phases(args.seed, llama)
+        log(card)
+        return 0
+    if args.fleet_only:
+        import deepspeed_tpu_torch as dst
+
+        model = gpt2_small(args.seed)
+        vocab = model.config.vocab_size
+        prompts, budgets = serve_paged_traffic(args.seed, vocab)
+        warm = paged_warmup(np.random.default_rng(args.seed + 10), vocab)
+        eager = dst.init_inference(model, config={"dtype": "bfloat16"})
+        ref = fp32_reference(model, eager)
+        colocated = colocated_arm(graph_engine(model), args.seed, warm,
+                                  prompts, budgets)
+        fleet_phases(model, args.seed, warm, prompts, budgets, colocated,
+                     eager, ref)
         log(card)
         return 0
     if args.resilience_only:
@@ -5073,6 +5711,8 @@ def main(argv=None) -> int:
     phase_overlap_captured("serve_paged", graph_engine(model), preqs, pwarm,
                            *ptraffic, seed)
     runs += phase_cost_model(model, seed, pwarm, *ptraffic, preqs)
+    runs += fleet_phases(model, seed, pwarm, *ptraffic, pcap, psrv.engine,
+                         ref)
     del srv, ref, psrv, geng, pgeng, cap, pcap
     runs += phase_serve_storage(seed, results, pwarm)
     torch.cuda.empty_cache()

@@ -18,7 +18,7 @@ from .accelerator import get_accelerator  # noqa: F401
 from .inference.engine import InferenceEngine  # noqa: F401
 from .runtime.config import DeepSpeedConfig  # noqa: F401
 from .runtime.engine import DeepSpeedEngine
-from .serving.engine import NOT_PORTED, ServingEngine
+from .serving.engine import ServingEngine
 from .utils.logging import log_dist, logger  # noqa: F401
 
 
@@ -77,7 +77,7 @@ SERVE_KEYS = ("policy", "do_sample", "temperature", "top_k", "top_p", "seed",
               "degradation", "preempt_queue_threshold",
               "preempt_min_run_steps", "fault_injector", "slo",
               "cost_model", "flight_recorder", "dump_dir", "priority",
-              "clock") + tuple(NOT_PORTED)
+              "clock", "role")
 
 
 def init_serving(model: Any = None, config: Union[Dict, None] = None,
@@ -125,9 +125,10 @@ def init_serving(model: Any = None, config: Union[Dict, None] = None,
     ``cost_model`` (False by default; True, a ``telemetry.
     ProgramCostModel`` kwargs dict or an instance): analytic flops and
     bytes per program call, read back as MFU and bandwidth utilization
-    through ``srv.efficiency_snapshot()``. The JAX key ``role`` is not
-    ported yet and raises ``NotImplementedError`` unless off (None,
-    ``"both"``).
+    through ``srv.efficiency_snapshot()``. ``role`` (``"both"`` by
+    default; ``"prefill"`` or ``"decode"`` with ``paged_kv``): the
+    disaggregated replica roles a ``serving.ReplicaRouter`` moves requests
+    between, their KV pages copied across pools.
 
     Per-request ``max_new_tokens``, ``eos_token_id``, ``deadline_ms``,
     ``priority`` and ``tenant`` ride on ``submit()``. Everything else

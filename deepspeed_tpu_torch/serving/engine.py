@@ -115,8 +115,18 @@ utilization and tokens per GFLOP against its wall time, and every
 instrumentation's own overhead up; :meth:`reset_efficiency_window` starts
 a measured window after warmup.
 
-The JAX engine's ``role`` (disaggregated prefill/decode) is a later slice;
-passing it raises ``NotImplementedError`` unless off.
+Disaggregated prefill/decode (``role``, the DistServe/Splitwise split):
+``"both"`` is the colocated engine; ``"prefill"`` admits and prefills
+only, and parks each request once its pages are full and its first token
+sampled (:meth:`pending_handoffs`); ``"decode"`` also takes requests whose
+prefill ran on another replica (:meth:`adopt`: their live pages copied
+across pools by :meth:`PagedKVPool.import_pages`, trie-hit pages mapped
+instead, the decode resumed at the source's position), after which the
+source releases its seat (:meth:`finish_handoff`). Roles other than
+``"both"`` need ``paged_kv``: pages are the unit a handoff moves. A role
+changes no shape and no captured step; a prefill replica never runs the
+decode. :class:`~.router.ReplicaRouter` drives the handoffs and stamps
+:attr:`replica_id` (every timeline event then carries it).
 """
 
 from __future__ import annotations
@@ -146,9 +156,7 @@ from .spec_decode import SpecDecodeConfig, make_drafter
 
 _MIN_PREFILL_BUCKET = 16
 
-# serving keys of the JAX engine that this port does not have yet, each
-# with its "off" value; None or that value is accepted, any other raises
-NOT_PORTED = {"role": "both"}
+ROLES = ("both", "prefill", "decode")
 
 # the port's counterparts of the entry points the JAX watchdog wraps
 # (_WATCHED_ENGINE_JITS, _WATCHED_POOL_JITS); the paged ones exist only
@@ -211,14 +219,7 @@ class ServingEngine:
                  priority: Any = None,
                  clock: Optional[Callable[[], float]] = None,
                  overlap: bool = False,
-                 **not_ported: Any):
-        for key, val in not_ported.items():
-            if key not in NOT_PORTED:
-                raise TypeError(f"unexpected ServingEngine argument {key!r}")
-            if val is not None and val != NOT_PORTED[key]:
-                raise NotImplementedError(
-                    f"serving key {key!r} is not ported to the PyTorch/CUDA "
-                    f"package yet")
+                 role: str = "both"):
         if prefill_chunk < 0:
             raise ValueError(f"prefill_chunk must be >= 0, got "
                              f"{prefill_chunk}")
@@ -349,6 +350,9 @@ class ServingEngine:
         self._tokens_emitted = 0        # lifetime tokens (all paths)
         self._tokens_prev = 0           # snapshot for per-step deltas
         self._telemetry_ns = 0          # step-boundary instrumentation
+        # fleet identity: set by ReplicaRouter when the replica joins, and
+        # stamped on every timeline event so journeys stitch across homes
+        self.replica_id: Optional[int] = None
         # accumulated step wall: the overhead_pct denominator when no cost
         # model is attached
         self.step_wall_s = 0.0
@@ -403,6 +407,19 @@ class ServingEngine:
         # seated PREFILLING requests, in order; step() advances the head
         self._prefill_queue: List[Request] = []
         self._overlap = bool(overlap)
+        # -- disaggregated prefill/decode role ---------------------------
+        if role not in ROLES:
+            raise ValueError(f"role must be both|prefill|decode, "
+                             f"got {role!r}")
+        if role != "both" and not self._paged:
+            raise ValueError("prefill/decode roles require paged_kv: "
+                             "pages are the cross-replica handoff unit")
+        self.role = role
+        # prefill role: seated RUNNING requests whose prompt is paged in
+        # and first token sampled, waiting for a decode replica (they
+        # hold their slot and pages until adopted)
+        self._handoff_ready: Optional[List[Request]] = \
+            [] if role == "prefill" else None
         self.watchdog = RecompileWatchdog(
             registry=self.registry, tracer=self.tracer, monitor=monitor,
             strict=bool(strict_recompile), step_fn=lambda: self.step_id,
@@ -415,9 +432,12 @@ class ServingEngine:
         for attr in _WATCHED_SERVING:
             self.watchdog.attach(self, attr, name=f"ServingEngine.{attr}")
         if graphs is not None:
+            # the graphs are the engine's, shared by every server on it;
+            # a capture counts against the server whose pool it was
+            # recorded on, as a JAX server's compiles are its own
             self.watchdog.attach(graphs, "capture",
                                  name="DecodeGraphs.capture",
-                                 every_call=True)
+                                 every_call=True, only=self._owns_capture)
         draft_engine = getattr(drafter, "engine", None)
         if draft_engine is not None:
             for attr in _WATCHED_DRAFTER:
@@ -457,7 +477,8 @@ class ServingEngine:
                    f"prefix_cache={self.pool.prefix is not None} "
                    f"kernel={self.pool.kernel}" if self._paged
                    else "contiguous")
-        log_dist(f"ServingEngine: slots={num_slots} policy={policy} "
+        log_dist(f"ServingEngine: role={role} slots={num_slots} "
+                 f"policy={policy} "
                  f"capacity={self.pool.capacity} "
                  f"max_queue_depth={max_queue_depth} admission={admission} "
                  f"kv={storage} cuda_graph={graphs is not None} "
@@ -473,6 +494,14 @@ class ServingEngine:
     @property
     def pending(self) -> int:
         return self.scheduler.pending
+
+    def _owns_capture(self, args, kwargs) -> bool:
+        """Whether a ``DecodeGraphs.capture(signature, graph, cache)`` call
+        recorded its graph on this server's cache (the filter of its
+        watchdog's capture proxy)."""
+        cache = args[2] if len(args) > 2 else kwargs.get("cache")
+        return any(cache.get(name) is leaf
+                   for name, leaf in self.pool.cache.items())
 
     def end_warmup(self) -> None:
         """Declare warmup traffic over: from here on a new signature or
@@ -572,7 +601,7 @@ class ServingEngine:
             "t_unix": time.time(),
             # the injected clock, the axis every time decision reads
             "t": self._now(),
-            "replica": None,
+            "replica": self.replica_id,
             "wall_ms": wall * 1e3,
             "live": len(self._slot_req),
             "pending": self.scheduler.pending,
@@ -1298,6 +1327,18 @@ class ServingEngine:
                 int(self.pool.starts[req.slot]) >= self.pool.capacity:
             req.finish_reason = FinishReason.LENGTH_CAP
         else:
+            if self._handoff_ready is not None and \
+                    req.state is RequestState.RUNNING:
+                # prefill role: pages full, first token sampled; the
+                # request now belongs to a decode replica. It stays seated
+                # (slot and page references held) until the router moves
+                # it or a rollback path retires it
+                self._handoff_ready.append(req)
+                # parked: the journey probe must not count the prefill
+                # side as done although its timeline is still open
+                self.timelines.record(req.request_id, "handoff_ready",
+                                      parked=True, slot=req.slot,
+                                      journey=req.journey_id)
             # a request preempted in the step that sampled this token
             # waits in the queue; the token is now part of its seed
             return
@@ -1343,6 +1384,117 @@ class ServingEngine:
                               spec_drafted=req.spec_drafted,
                               spec_accepted=req.spec_accepted)
 
+    # -- disaggregated prefill/decode handoff --------------------------
+    def pending_handoffs(self) -> List[Request]:
+        """Prefill role: the seated RUNNING requests whose prefill is done
+        and first token sampled, ready for a decode replica. Reading it
+        changes nothing: a successful :meth:`adopt` on the destination and
+        :meth:`finish_handoff` here remove an entry, so a request the
+        router cannot place this step is retried at the next."""
+        return list(self._handoff_ready or ())
+
+    def adopt(self, req: Request, src: "ServingEngine") -> dict:
+        """Seat a request whose prefill ran on ANOTHER replica: copy its
+        live pages across pools (:meth:`PagedKVPool.import_pages`), seat
+        them, and resume the decode at the source's position. Pages this
+        pool's prefix trie already holds for the written part of the
+        request's tokens are mapped instead (a refcount bump) and only the
+        tail is moved. The moved pages are the bits the source wrote, and
+        the first token was sampled from them, so greedy output is the
+        colocated engine's.
+
+        On any failure nothing stays seated here (the imported pages and
+        the slot are handed back) and the exception propagates; the
+        request is still seated on the source. Returns ``{"pages",
+        "hit_pages", "bytes", "seconds"}`` (host seconds: the copies are
+        issued, not waited for)."""
+        if self.role == "prefill":
+            raise ValueError("adopt() needs a decode-capable replica "
+                             "(role 'decode' or 'both')")
+        if not self._paged or not getattr(src, "_paged", False):
+            raise ValueError("adopt() requires paged KV on both replicas")
+        if req.state is not RequestState.RUNNING or req.slot is None:
+            raise ValueError(f"adopt() needs a seated RUNNING request; "
+                             f"req {req.request_id} is {req.state.value}")
+        pool, spool = self.pool, src.pool
+        src_slot = req.slot
+        pos = int(spool.starts[src_slot])
+        # the tokens whose K/V the pages hold: the last sampled one is
+        # written by the next decode step, so its page is not a trie page
+        # yet (it would be published with that position unwritten)
+        written = req.seed_tokens[:pos]
+        n_live = -(-pos // spool.page_size)
+        src_pages = [int(p) for p in spool.table[src_slot, :n_live]]
+        t0 = self._now()
+        slot = pool.alloc()
+        hit_pages: List[int] = []
+        try:
+            pool.reset_row(slot)
+            if self._use_prefix:
+                hit_pages = pool.prefix.match(written)[:n_live]
+            if hit_pages:
+                pool.map_prefix(slot, hit_pages)
+            dst_pages = pool.import_pages(spool, src_pages[len(hit_pages):])
+        except Exception:
+            # import_pages unwound its own pages: only the slot (and any
+            # mapped prefix pages) is left to release
+            pool.release(slot)
+            raise
+        try:
+            pool.seat_pages(slot, dst_pages, pos, first_entry=len(hit_pages))
+        except Exception:
+            # seat_pages is atomic: it took none of the batch
+            pool.unref_pages(dst_pages)
+            pool.release(slot)
+            raise
+        now = self._now()
+        req.slot = slot
+        req.last_admit_step = self.step_id
+        if req.admit_time is None:
+            req.admit_time = now
+        self._slot_req[slot] = req
+        # the source's last sampled token resumes the decode here; in
+        # place, so a captured step keeps reading the same vector. A step
+        # ends with its fetch (overlap too), so no deferred sample of an
+        # earlier step can overwrite this row afterwards
+        self._cur[slot] = int(req.output_tokens[-1])
+        if self._use_prefix:
+            # publish the adopted prompt's full pages in THIS trie: the
+            # next same-prefix handoff routed here moves only its tail
+            pool.cache_prefix(slot, written)
+        self.timelines.record(req.request_id, "adopted", slot=slot,
+                              pages=len(dst_pages),
+                              hit_pages=len(hit_pages),
+                              src_replica=src.replica_id,
+                              dst_replica=self.replica_id,
+                              journey=req.journey_id)
+        self.tracer.flow("s", "req", req.request_id)
+        return {"pages": len(dst_pages), "hit_pages": len(hit_pages),
+                "bytes": len(dst_pages) * pool.page_nbytes,
+                "seconds": now - t0}
+
+    def finish_handoff(self, req: Request, slot: int,
+                       dst_replica: Optional[int] = None) -> None:
+        """Prefill role: release the source seat AFTER a decode replica
+        adopted the request. ``slot`` is the source slot (``req.slot``
+        already names the destination's). The slot and its page references
+        go back through the usual release (trie-cached prompt pages stay
+        warm for the next same-prefix prompt), and the request's timeline
+        here closes with a terminal ``handed_off`` event (it finishes on
+        the adopting replica's timeline)."""
+        if self._slot_req.get(slot) is not req:
+            raise ValueError(f"finish_handoff: slot {slot} does not seat "
+                             f"req {req.request_id}")
+        del self._slot_req[slot]
+        self.pool.release(slot)
+        if self._handoff_ready:
+            self._handoff_ready[:] = [r for r in self._handoff_ready
+                                      if r is not req]
+        self.timelines.record(req.request_id, "handed_off", terminal=True,
+                              slot=slot, src_replica=self.replica_id,
+                              dst_replica=dst_replica,
+                              journey=req.journey_id)
+
     # -- resilience: eviction, deadlines, preemption -------------------
     def _evict_slot(self, req: Request) -> None:
         """Reclaim a seated request's slot and pages: release the slot
@@ -1357,6 +1509,11 @@ class ServingEngine:
         # identity filter: value equality would compare numpy prompts
         self._prefill_queue[:] = [r for r in self._prefill_queue
                                   if r is not req]
+        if self._handoff_ready:
+            # a parked handoff that retires (deadline, cancel, preemption)
+            # before a decode replica adopts it leaves the launchpad
+            self._handoff_ready[:] = [r for r in self._handoff_ready
+                                      if r is not req]
 
     def _expire_deadlines(self, finished: List[Request]) -> None:
         """Retire every request whose deadline has passed: queued ones
@@ -1599,7 +1756,10 @@ class ServingEngine:
                 decode = (self._spec_decode_step if self._spec is not None
                           else self._decode_step)
                 decoded = False
-                if self._overlap and self._running_count():
+                # a prefill replica never decodes: its finished prefills
+                # wait, seated, for the router's handoff
+                decodes = self.role != "prefill"
+                if self._overlap and decodes and self._running_count():
                     # pipelined order: the running slots' decode (or draft
                     # + verify) is issued first, so admission's host work
                     # overlaps it on the card
@@ -1620,7 +1780,7 @@ class ServingEngine:
                     # has moved yet
                     self.faults.maybe_sleep("slow_dispatch")
                     self.faults.check("step_host_error")
-                if not decoded and self._running_count():
+                if not decoded and decodes and self._running_count():
                     decode(finished, self._now())
                 # the step's ONE fetch: every deferred token and flag at
                 # once, then the host bookkeeping in dispatch order
@@ -1699,6 +1859,8 @@ class ServingEngine:
             self.timelines.record(req.request_id, "failed", terminal=True,
                                   reason=FinishReason.ERROR.value)
         self._slot_req.clear()
+        if self._handoff_ready:
+            self._handoff_ready.clear()   # every member was seated: FAILED
         self._deferred.clear()
         self._cur.zero_()
         self.pool.reset()
@@ -1769,6 +1931,11 @@ class ServingEngine:
         both = seated & free
         if both:
             errors.append(f"slots both seated and free: {sorted(both)}")
+        bad = sorted(s for s in seated if not 0 <= s < self.pool.num_slots)
+        if bad:
+            errors.append(f"seated slots out of range [0, "
+                          f"{self.pool.num_slots}): {bad}")
+            seated -= set(bad)
         missing = set(range(self.pool.num_slots)) - seated - free
         if missing:
             errors.append(f"slots leaked (neither seated nor free): "
@@ -1799,6 +1966,14 @@ class ServingEngine:
                 np.any(self.pool.starts[sorted(seated)] > self.pool.capacity):
             errors.append(f"cache lengths out of [0, {self.pool.capacity}]: "
                           f"{self.pool.starts.tolist()}")
+        for r in (self._handoff_ready or ()):
+            # a parked handoff must still be a live seat here: anything
+            # else means a retire or transfer path forgot to drop it
+            if r.state is not RequestState.RUNNING or r.slot is None \
+                    or self._slot_req.get(r.slot) is not r:
+                errors.append(f"handoff-ready req {r.request_id} not "
+                              f"seated RUNNING (state={r.state.value}, "
+                              f"slot={r.slot})")
         if errors:
             err = InvariantViolation(errors)
             self._post_mortem("invariant_violation", err,
@@ -1812,6 +1987,7 @@ class ServingEngine:
         counters (``PagedKVPool.page_stats``)."""
         snap = self.metrics.snapshot()
         snap["spec_k"] = int(self._spec.k) if self._spec is not None else 0
+        snap["role"] = self.role
         if self._paged:
             snap["paging"] = self.pool.page_stats()
         return snap

@@ -41,8 +41,12 @@ through ``decode_paged`` and the paged kernel for K+1 <= ``MAX_QUERY_ROWS``
 on a kernel pool, else through the dense composition (the JAX package's
 choice too), its K+1 columns written back through the table.
 
-Not in this slice (each raises ``NotImplementedError``): the cross-pool
-page transfer of disaggregated serving (``import_pages``, ``seat_pages``).
+Cross-pool page transfer (the disaggregated prefill -> decode handoff):
+:meth:`import_pages` gathers a request's live pages out of another pool's
+storage, every leaf (an int8 cache's scale pages too), lands the block on
+this pool's device and scatters it into freshly allocated pages here;
+:meth:`seat_pages` maps them into a slot. Index vectors are exact-length
+(the transfer is not captured), so no padding entry touches a page.
 """
 
 from __future__ import annotations
@@ -329,11 +333,135 @@ class PagedKVPool(SlotPool):
                                f"not fully mapped: {pages}")
         return self.prefix.insert(tokens, pages, self)
 
-    def import_pages(self, *args, **kwargs):
-        raise NotImplementedError("cross-pool page transfer (disaggregated "
-                                  "prefill/decode) is a later slice")
+    # ------------------------------------------------------------------
+    # cross-pool page transfer (disaggregated prefill -> decode handoff)
+    # ------------------------------------------------------------------
+    def import_pages(self, src_pool: "PagedKVPool",
+                     src_page_ids: Sequence[int]) -> List[int]:
+        """Copy ``src_page_ids`` out of ANOTHER pool's storage into freshly
+        allocated pages here: the device half of a disaggregated handoff,
+        one gather on the source pool's device, the block moved to this
+        pool's device, one scatter here.
 
-    seat_pages = import_pages
+        Ownership: the returned pages carry refcount 1 OWNED BY THE CALLER
+        until :meth:`seat_pages` maps them into a slot. The source pool's
+        references are untouched (the source slot's ``release()`` drops
+        them once, after the copy). On ANY failure (allocation or copy)
+        every page allocated here so far is unreferenced before the
+        exception propagates, so a transfer that dies leaks nothing on
+        either pool."""
+        ids = [int(p) for p in src_page_ids]
+        if len(ids) > self.pages_per_slot:
+            raise ValueError(
+                f"import_pages: {len(ids)} pages exceed pages_per_slot "
+                f"({self.pages_per_slot}): a transfer moves at most one "
+                f"slot's table per call")
+        if (src_pool.page_size != self.page_size
+                or src_pool.pages_per_slot != self.pages_per_slot
+                or set(src_pool.cache) != set(self.cache)):
+            raise ValueError(
+                f"import_pages needs the same page geometry and cache "
+                f"leaves on both pools; got src page_size "
+                f"{src_pool.page_size} x {src_pool.pages_per_slot} "
+                f"{sorted(src_pool.cache)} vs dst {self.page_size} x "
+                f"{self.pages_per_slot} {sorted(self.cache)}")
+        for pid in ids:
+            if not 0 <= pid < src_pool.num_pages \
+                    or pid in src_pool._free_page_set \
+                    or src_pool.page_refs[pid] <= 0:
+                raise ValueError(f"import_pages: source page {pid} is "
+                                 f"free (nothing to copy)")
+        dst: List[int] = []
+        try:
+            for _ in ids:
+                dst.append(self.alloc_page())
+            if ids:
+                self._dispatch_transfer(src_pool, ids, dst)
+        except Exception:
+            # the pages of a transfer that never landed go straight back
+            # to the free list (a fresh page's refcount is 1)
+            self.unref_pages(dst)
+            raise
+        self._inc("paging/pages_imported", len(dst))
+        return dst
+
+    def unref_pages(self, page_ids: Sequence[int]) -> None:
+        """Drop one reference on each page: the unwind of an
+        :meth:`import_pages` batch whose seating failed (the caller still
+        owns every page of it; :meth:`seat_pages` is atomic)."""
+        for pid in page_ids:
+            self.unref_page(int(pid))
+
+    def _land_block(self, block: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """Move a gathered page block onto THIS pool's device: the wire
+        hop of a transfer between replicas on different cards (on one
+        card, nothing moves). The block is the gather's own new tensor,
+        never a view of the source pool, and the scatter writes it into
+        this pool's storage in place."""
+        dev = self._dev()
+        return {k: v.to(dev) for k, v in block.items()}
+
+    def _dev(self) -> torch.device:
+        return next(iter(self.cache.values())).device
+
+    def _dispatch_transfer(self, src_pool: "PagedKVPool",
+                           src_ids: Sequence[int],
+                           dst_ids: Sequence[int]) -> None:
+        """One cross-pool transfer: the source pool's gather, the block's
+        hop to this pool's device, and this pool's in-place scatter."""
+        block = src_pool._gather_pages(src_ids)
+        self._scatter_pages(self._land_block(block), dst_ids)
+
+    def _gather_pages(self, page_ids: Sequence[int]
+                      ) -> Dict[str, torch.Tensor]:
+        """Source half of a transfer: the pages' rows of every leaf, one
+        (L, n, ...) block a leaf (the transfer's wire format)."""
+        idx = torch.as_tensor(list(page_ids), dtype=torch.long,
+                              device=self._dev())
+        return {k: leaf.index_select(1, idx) for k, leaf in self.cache.items()}
+
+    def _scatter_pages(self, block: Dict[str, torch.Tensor],
+                       page_ids: Sequence[int]) -> None:
+        """Destination half: write the block into ``page_ids`` of every
+        leaf, in place (the storage a captured step reads)."""
+        idx = torch.as_tensor(list(page_ids), dtype=torch.long,
+                              device=self._dev())
+        for k, leaf in self.cache.items():
+            leaf.index_copy_(1, idx, block[k].to(leaf.dtype))
+
+    def seat_pages(self, slot: int, page_ids: Sequence[int],
+                   prefill_pos: int, first_entry: int = 0) -> None:
+        """Seat imported pages into ``slot`` at ``prefill_pos``: the slot's
+        table TAKES the caller's :meth:`import_pages` references (no
+        refcount bump: ownership moves to the table). ``first_entry``
+        offsets the table entries: a prefix-affine adopt maps trie-hit
+        pages at ``[0, first_entry)`` with :meth:`map_prefix` and seats
+        only the moved tail here. Atomic: everything is checked before the
+        first table write, so a failure took none of the pages. The decode
+        resumes exactly where the source replica's prefill stopped."""
+        ids = [int(p) for p in page_ids]
+        need = -(-int(prefill_pos) // self.page_size)
+        if first_entry + len(ids) < need:
+            raise ValueError(
+                f"seat_pages: {first_entry}+{len(ids)} pages cannot back "
+                f"prefill_pos={prefill_pos} (live region needs {need})")
+        if first_entry + len(ids) > self.pages_per_slot:
+            raise ValueError(
+                f"seat_pages: {first_entry}+{len(ids)} entries exceed "
+                f"pages_per_slot ({self.pages_per_slot})")
+        for i, pid in enumerate(ids):
+            if self.table[slot, first_entry + i] != self.num_pages:
+                raise RuntimeError(f"seat_pages over occupied entry "
+                                   f"({slot}, {first_entry + i})")
+            if not 0 <= pid < self.num_pages \
+                    or pid in self._free_page_set or self.page_refs[pid] <= 0:
+                raise RuntimeError(f"seat_pages: page {pid} is free "
+                                   f"(import its data first)")
+        for i, pid in enumerate(ids):
+            self.table[slot, first_entry + i] = pid
+        self.starts[slot] = int(prefill_pos)
+        self._sync_table()
 
     # ------------------------------------------------------------------
     # model steps over pages

@@ -1,6 +1,6 @@
 """Request model for the serving subsystem (the port's copy of
-``deepspeed_tpu/serving/request.py``; the router's ``journey_id`` and
-``hop`` come with the router).
+``deepspeed_tpu/serving/request.py``, the fleet trace context included:
+``journey_id`` and ``hop``, which :class:`~.router.ReplicaRouter` stamps).
 
 A :class:`Request` is one user generation job moving through the
 lifecycle ``QUEUED -> [PREFILLING ->] RUNNING -> FINISHED`` (or
@@ -129,6 +129,13 @@ class Request:
     spec_drafted: int = 0                   # draft tokens proposed for this
     #                                         request's slot
     spec_accepted: int = 0                  # draft tokens accepted
+
+    # -- fleet trace context --------------------------------------------
+    # minted by ReplicaRouter.submit and carried across every replica
+    # boundary (handoff, page transfer, failover), so each home's tracer
+    # and timeline store stamp the same journey; None on a bare engine
+    journey_id: Optional[int] = None
+    hop: int = 0                            # replica-boundary crossings
 
     submit_time: Optional[float] = None
     admit_time: Optional[float] = None      # prefill issued (slot granted)

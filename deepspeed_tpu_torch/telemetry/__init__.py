@@ -26,7 +26,10 @@ and the crash flight recorder.
   reconciled against the pool (:func:`kv_hbm_report`,
   :func:`device_memory_report`).
 
-The JAX package's fleet aggregation (``fleet.py``) comes in a later slice.
+* :class:`FleetTelemetry` — the fleet edition: every replica's registry
+  merged into one Prometheus exposition with ``replica=``/``role=``
+  labels, digests merged bucketwise, goodput over summed windows, and ONE
+  fleet post-mortem when a replica dies (``ReplicaRouter.fleet``).
 
 Serving integration (all knobs on ``deepspeed_tpu_torch.init_serving``)::
 
@@ -49,6 +52,8 @@ from .slo import (QuantileDigest, SLOConfig, SLOTargets, SLOTracker,
 from .flight_recorder import FlightRecorder, POST_MORTEM_KEYS
 from .costs import (ProgramCostModel, device_memory_report, kv_hbm_report,
                     resolve_peaks)
+from .fleet import (FleetTelemetry, FLEET_POST_MORTEM_KEYS,
+                    FLEET_SCHEMA_VERSION)
 
 __all__ = [
     "Tracer",
@@ -72,6 +77,9 @@ __all__ = [
     "SLOTracker",
     "FlightRecorder",
     "POST_MORTEM_KEYS",
+    "FleetTelemetry",
+    "FLEET_POST_MORTEM_KEYS",
+    "FLEET_SCHEMA_VERSION",
     "ProgramCostModel",
     "resolve_peaks",
     "kv_hbm_report",

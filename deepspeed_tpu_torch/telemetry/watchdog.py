@@ -25,7 +25,10 @@ failing in-flight requests.
 Proxies are shared: attaching a second watchdog to an entry point another
 one already wraps adds it to that proxy's watchers, and the signatures the
 proxy has seen stay seen, as a jitted function's compile cache is shared
-by every server over one engine.
+by every server over one engine. A capture is not shared that way: each
+server's pool gets graphs of its own, so a watchdog attaches a capture
+proxy with ``only=`` (a predicate on the call's arguments) and records
+only the captures made on its own server's cache.
 
 Each detection is emitted into the sinks the JAX watchdog feeds: the
 registry counter ``telemetry/recompiles`` (``telemetry/recompiles_warmup``
@@ -217,7 +220,8 @@ class _Watched:
             self._seen.add(key)
             sig = manifest_signature(args, kwargs)
             for w in list(self._watchers):
-                w.record(self._name, sig)
+                if w.watches(self, args, kwargs):
+                    w.record(self._name, sig)
         return out
 
     def __getattr__(self, item):
@@ -255,12 +259,19 @@ class RecompileWatchdog:
         self._raised_at = 0
         self.events: List[Dict[str, Any]] = []
         self._proxies: "weakref.WeakSet[_Watched]" = weakref.WeakSet()
+        # proxy -> predicate on a call's (args, kwargs): the calls of that
+        # proxy this watchdog records (attach's ``only``)
+        self._only: "weakref.WeakKeyDictionary[_Watched, Any]" = \
+            weakref.WeakKeyDictionary()
 
     # -- wiring --------------------------------------------------------
     def attach(self, owner: Any, attr: str, name: Optional[str] = None,
-               every_call: bool = False) -> Optional[_Watched]:
+               every_call: bool = False,
+               only: Optional[Any] = None) -> Optional[_Watched]:
         """Wrap ``owner.attr`` (idempotent: an entry point another
-        watchdog wraps keeps its proxy, which gains this watcher)."""
+        watchdog wraps keeps its proxy, which gains this watcher). With
+        ``only``, a predicate ``only(args, kwargs)``, this watchdog records
+        only the calls it accepts (a capture on its own server's cache)."""
         fn = getattr(owner, attr, None)
         if fn is None:
             return None
@@ -272,11 +283,19 @@ class RecompileWatchdog:
             setattr(owner, attr, proxy)
         proxy._watchers.add(self)
         self._proxies.add(proxy)
+        if only is not None:
+            self._only[proxy] = only
         if self.cost_model is not None and not every_call:
             proxy._cost_models.add(self.cost_model)
         return proxy
 
     # -- recording -----------------------------------------------------
+    def watches(self, proxy: _Watched, args, kwargs) -> bool:
+        """Whether a call of ``proxy`` with these arguments is this
+        watchdog's to record."""
+        only = self._only.get(proxy)
+        return only is None or bool(only(args, kwargs))
+
     def record(self, program: str, signature: str) -> None:
         warmup = not self._warmed
         self.events.append({"program": program, "signature": signature,

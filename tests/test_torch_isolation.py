@@ -47,6 +47,11 @@ def _imported_roots(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    # the serving fleet's modules are scanned like every other
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {f"deepspeed_tpu_torch/{m}.py" for m in (
+        "serving/router", "telemetry/fleet", "serving/frontend/bridge",
+        "serving/frontend/server")} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                             & FORBIDDEN)
            for f in files}

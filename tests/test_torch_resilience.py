@@ -715,8 +715,8 @@ class TestReasonEnums:
         import dataclasses
         port = {f.name for f in dataclasses.fields(Request)}
         jax_ = {f.name for f in dataclasses.fields(js.Request)}
-        assert jax_ - port == {"journey_id", "hop"}     # the router's
-        assert port <= jax_
+        # the router's journey_id and hop included
+        assert port == jax_
         r = Request(0, np.arange(4, dtype=np.int32), 4)
         assert (r.priority_class, r.tenant, r.deadline_ms) == \
             ("default", "default", None)

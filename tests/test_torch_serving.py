@@ -221,8 +221,11 @@ def test_unported_serving_keys_raise(stack):
     assert srv.costs is cm and srv.watchdog.cost_model is cm
     assert dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
                             cost_model={"kv_every": 4}).costs.kv_every == 4
-    # only the disaggregated roles are still to come
-    with pytest.raises(NotImplementedError, match="role"):
+    # the disaggregated roles build over the page pool, as in JAX
+    srv = dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
+                           role="prefill", paged_kv=True)
+    assert srv.role == "prefill" and srv.pending_handoffs() == []
+    with pytest.raises(ValueError, match="paged_kv"):
         dst.init_serving(model, config={"dtype": "float32"}, device="cpu",
                          role="prefill")
     with pytest.raises(ValueError, match="paged_kv keys"):

@@ -809,8 +809,9 @@ def test_small_model_drafter_self_speculation(stack):
         s = srv.stats()
         assert s["spec_acceptance_rate"] > 0.8
         assert s["tokens_per_decode_step"] > 2.0
-        assert "Drafter.prefill_at" in {e["program"]
-                                        for e in srv.watchdog.events}
+        programs = {e["program"] for e in srv.watchdog.events}
+        # the draft engine's captures stay watched (every one counts)
+        assert {"Drafter.prefill_at", "Drafter.capture"} <= programs
         assert draft_eng.decode_graphs.captures == n + 1
 
 

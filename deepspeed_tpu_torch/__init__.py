@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Union
 __version__ = "0.1.0"
 
 from .accelerator import get_accelerator  # noqa: F401
+from .comm import init_distributed  # noqa: F401
 from .inference.engine import InferenceEngine  # noqa: F401
 from .runtime.config import DeepSpeedConfig  # noqa: F401
 from .runtime.engine import DeepSpeedEngine
@@ -35,7 +36,18 @@ def initialize(args=None, model: Any = None, optimizer=None,
     (``GPT2LMHeadModel``); the optimizer comes from the config's
     ``optimizer`` block (the returned optimizer is its ``OptimizerDef``).
     ``device`` defaults to ``cuda``. A client optimizer object, a pipeline
-    module and the hybrid engine are not ported and raise."""
+    module and the hybrid engine are not ported and raise.
+
+    Data parallelism: when ``WORLD_SIZE`` is above 1 and no process group
+    exists, the engine joins one through :func:`init_distributed` (env://),
+    over ``nccl`` for a CUDA device and ``gloo`` for ``device="cpu"``;
+    ``dist_init_required`` (the JAX argument) forces the choice: False
+    joins none, True joins even a world of one. Call
+    :func:`init_distributed` yourself for another backend or an
+    ``init_method`` such as a ``file://`` store. ``mesh`` (a
+    ``parallel.ProcessMesh``) fixes the mesh; by default it is built from
+    the config's ``mesh`` block and ``zero_optimization.mics_shard_size``
+    over the world."""
     if config is None and config_params is not None:
         config = config_params
     if config is None and args is not None:
@@ -53,7 +65,7 @@ def initialize(args=None, model: Any = None, optimizer=None,
                              training_data=training_data,
                              lr_scheduler=lr_scheduler, collate_fn=collate_fn,
                              device=device, sharding_rules=sharding_rules,
-                             mesh=mesh)
+                             mesh=mesh, dist_init_required=dist_init_required)
     return (engine, engine.optimizer_def, engine.training_dataloader,
             engine.lr_scheduler)
 

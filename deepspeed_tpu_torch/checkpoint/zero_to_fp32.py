@@ -1,8 +1,9 @@
 """ZeRO-checkpoint → consolidated fp32 state dict: the port of
 ``deepspeed_tpu/checkpoint/zero_to_fp32.py``.
 
-The port's checkpoints store whole tensors, so consolidation is a read and
-an upcast: the fp32 master weights where the engine kept them, else the
+The port's checkpoints store whole tensors (over a data-parallel world
+the engine gathers every slice and rank 0 writes), so consolidation is a
+read and an upcast: the fp32 master weights where the engine kept them, else the
 module's parameters in fp32, keyed by the module's dotted parameter names.
 The result loads into the model with ``load_state_dict`` after a cast to
 the model's dtype. The function and the CLI are the JAX package's::

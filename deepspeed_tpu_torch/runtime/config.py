@@ -354,7 +354,7 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
         if self.pipeline.stages not in ("auto", 1):
             out.append("pipeline.stages")
         for key in ("hybrid_engine", "curriculum_learning", "flops_profiler",
-                    "eigenvalue", "nebula", "autotuning", "comms_logger"):
+                    "eigenvalue", "nebula", "autotuning"):
             if getattr(self, key).enabled:
                 out.append(key)
         if "data_efficiency" in self.extra and \
@@ -364,7 +364,8 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
             out.append("monitor_config")
         if self.compression_training:
             out.append("compression_training")
-        for axis in ("data", "model", "pipe", "expert", "seq"):
+        # data parallelism is ported (the mesh's data axis, MiCS)
+        for axis in ("model", "pipe", "expert", "seq"):
             if getattr(self.mesh, axis) > 1:
                 out.append(f"mesh.{axis}")
         return out

@@ -3,8 +3,13 @@
 
 Batches are numpy arrays (or dicts and tuples of them), as in the JAX
 package; the engine moves each micro-batch to its device. Each process
-strides the dataset by (world size, rank), DistributedSampler's split;
-the world comes from ``torch.distributed`` when a process group exists.
+strides the dataset by (world size, rank), DistributedSampler's split and
+the JAX loader's across processes; the world comes from
+``torch.distributed`` when a process group exists, or from the engine
+(``deepspeed_io``: the data-parallel world and rank). So the ranks' k-th
+micro-batches together hold the same samples at every world size: those
+at positions k·micro·world … (k+1)·micro·world − 1 of the (shuffled)
+order, rank r taking every world-th from r.
 """
 
 from __future__ import annotations

@@ -1,19 +1,20 @@
-"""The training engine: the port of ``deepspeed_tpu/runtime/engine.py``
-for one device.
+"""The training engine: the port of ``deepspeed_tpu/runtime/engine.py``.
 
 ``train_batch`` runs one global step as the JAX engine's compiled program
 does, in eager PyTorch:
 
-* the global batch is split into ``gradient_accumulation_steps``
+* the rank's batch is split into ``gradient_accumulation_steps``
   micro-batches in the order of the JAX ``_stack_micro_batches`` (micro i
   is rows ``i·micro … (i+1)·micro − 1``), or ``gas`` batches are drawn from
   an iterator;
 * each micro-batch's loss (times the loss scale) is differentiated and its
   gradients, in the parameters' dtype, are summed into fp32 buffers; the
-  reported loss is the mean of the micro losses;
-* the sum is divided by ``scale × gas`` (or ``scale × predivide`` with
-  ``prescale_gradients``), checked for overflow (fp16 only), its global
-  norm taken and clipped to ``gradient_clipping``;
+  reported loss is the mean of the micro losses (over the data-parallel
+  world, the mean of every rank's);
+* the sum is reduced over the world and divided by ``world × scale × gas``
+  (or ``world × scale × predivide`` with ``prescale_gradients``), checked
+  for overflow (fp16 only), its global norm taken and clipped to
+  ``gradient_clipping``;
 * the optimizer steps at the learning rate of the step counter before its
   increment; an fp16 overflow skips the update and does not advance the
   optimizer's step (``skipped_steps`` counts it), and the dynamic loss
@@ -26,22 +27,45 @@ after every update (the JAX ``_keep_master``). This is not
 ``torch.autocast`` over fp32 parameters, which computes and stores
 differently. In fp32 the optimizer updates the parameters themselves.
 
-ZeRO stages 0-3 on one device give the same numbers (``zero/policy.py``).
-The eager ``forward``/``backward``/``step`` triple accumulates the same
-way.
+Data parallelism and ZeRO (``zero/policy.py``, ``zero/partition.py``).
+The process mesh (``parallel.mesh``; the ``mesh`` argument, or one built
+from the config's ``mesh`` block and ``zero_optimization.mics_shard_size``
+over the ``torch.distributed`` world) gives the data-parallel world, and
+each rank passes its own rows to ``train_batch`` (``train_batch_size`` =
+micro × gas × world). The JAX engine's global micro-batch k is the ranks'
+k-th micro-batches laid end to end in rank order. By stage:
 
-Offload (``zero/offload.py``, ``zero/param_offload.py``). With
-``zero_optimization.offload_optimizer.device`` ``cpu`` or ``nvme`` (Adam,
-AdamW or CPUAdam only) the fp32 master weights and moments live in the host
-optimizer, not on the device: after the device's unscale, overflow check,
-norm and clip the fp32 gradients go to the host, the host Adam steps at the
-1-indexed step of the updates so far plus this one (an fp16 overflow skips
-it and counts it), and the new compute-dtype parameters come back; the
-eager triple works the same way. With ``offload_param.device`` ``cpu`` or
-``nvme`` the blocks stream through the device a layer at a time and
-``train_batch`` runs the parameter-offload runner, which takes the
-optimizer offload with it (its clip is taken on the host, as in JAX); the
-eager triple raises there.
+* 0: every tensor whole; the fp32 gradient sums are all-reduced at the
+  boundary;
+* 1: each rank holds its slice of the fp32 masters and moments, reduces
+  the summed gradients into its slice at the boundary, updates its slice
+  and all-gathers the compute parameters;
+* 2: each micro-batch's gradients are reduce-scattered into the rank's
+  slice of the fp32 accumulators;
+* 3: the compute parameters are sharded at rest too and gathered a block
+  at a time (``zero/partition.Zero3Params``).
+
+A tensor whose dimensions the ZeRO world divides none of stays whole
+everywhere (the JAX ``zero_shard_spec``). Gradient norms sum the shards'
+squares over the ZeRO group, the fp16 overflow flag is all-reduced, so
+every rank clips alike and skips the same steps. Under MiCS the state
+shards within groups of ``mics_shard_size`` ranks and the gradients are
+also summed across the groups. A world of one rank with a process group
+calls every collective on it and computes what the engine without one
+does, bit for bit.
+
+Offload (``zero/offload.py``, ``zero/param_offload.py``; one rank only).
+With ``zero_optimization.offload_optimizer.device`` ``cpu`` or ``nvme``
+(Adam, AdamW or CPUAdam only) the fp32 master weights and moments live in
+the host optimizer, not on the device: after the device's unscale,
+overflow check, norm and clip the fp32 gradients go to the host, the host
+Adam steps at the 1-indexed step of the updates so far plus this one (an
+fp16 overflow skips it and counts it), and the new compute-dtype
+parameters come back; the eager triple works the same way. With
+``offload_param.device`` ``cpu`` or ``nvme`` the blocks stream through the
+device a layer at a time and ``train_batch`` runs the parameter-offload
+runner, which takes the optimizer offload with it (its clip is taken on
+the host, as in JAX); the eager triple raises there.
 
 Checkpoints are the JAX engine's single-host files
 (``runtime/checkpoint_engine``): ``save_checkpoint`` writes
@@ -53,10 +77,12 @@ under parameter offload; ``master`` and each optimizer field, e.g.
 ``offload_optimizer``: the host optimizer's ``state_dict``),
 ``step``/``opt_step``, the loss ``scale``, ``rng`` (the model's dropout
 generator state), the four counters, the world sizes, ``lr_scheduler`` and
-``client_state``. ``load_checkpoint`` restores all of it bit for bit;
-``load_universal_checkpoint`` reads ``checkpoint.universal_checkpoint``'s
-layout (the ``checkpoint.load_universal`` switch routes there). The
-multi-process orbax layout is not ported (world size 1 only).
+``client_state``. Over a world every tensor is gathered whole and rank 0
+writes the same layout; every rank loads the whole file and keeps its
+slices, at any world size. ``load_checkpoint`` restores all of it bit for
+bit; ``load_universal_checkpoint`` reads ``checkpoint.
+universal_checkpoint``'s layout (the ``checkpoint.load_universal`` switch
+routes there). The multi-process orbax layout is not ported.
 """
 
 from __future__ import annotations
@@ -69,8 +95,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import comm
 from ..accelerator.real_accelerator import resolve_device
 from ..ops.optimizers import OptimizerDef, get_optimizer
+from ..parallel import mesh as mesh_mod
 from ..utils.logging import log_dist
 from ..utils.timer import (BACKWARD_GLOBAL_TIMER, FORWARD_GLOBAL_TIMER,
                            STEP_GLOBAL_TIMER, TRAIN_BATCH_TIMER,
@@ -81,20 +109,39 @@ from .checkpoint_engine.checkpoint_engine import (ArrayCheckpointEngine,
 from .config import DeepSpeedConfig
 from .dataloader import DeepSpeedDataLoader, RepeatingLoader
 from .fp16.loss_scaler import (LossScaleState, has_inf_or_nan,
-                               make_loss_scale_state, update_scale)
+                               make_loss_scale_state, overflow_across_ranks,
+                               update_scale)
 from .lr_schedules import get_lr_schedule
 from .utils import clip_grads_by_global_norm, count_parameters, global_grad_norm
 from .zero.offload import ADAM_TYPES, HostStepStaging, OffloadedOptimizer
 from .zero.offload_config import OffloadDeviceEnum
+from .zero.partition import Zero3Params, ZeroPartition
 from .zero.policy import ZeroShardingPolicy
 
+OFFLOAD_WORLD_MSG = (
+    "ZeRO offload (offload_optimizer / offload_param) over a data-parallel "
+    "world of more than one rank is not ported to the PyTorch/CUDA package "
+    "yet: it follows the tensor-parallel slice (the JAX package has it, "
+    "runtime/zero/offload.py:85); offload runs on one rank")
 
-def _world_size() -> int:
-    import torch.distributed as dist
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+def _mesh_probe(config) -> tuple:
+    """(mesh block, mics_shard_size) of a raw config before it is parsed
+    (its batch sizes need the world, which the mesh gives)."""
+    if isinstance(config, DeepSpeedConfig):
+        m = config.mesh
+        return ({"data": m.data, "model": m.model, "pipe": m.pipe,
+                 "expert": m.expert, "seq": m.seq},
+                int(config.zero_optimization.mics_shard_size))
+    if isinstance(config, str):
+        import json
+
+        with open(config) as fh:
+            config = json.load(fh)
+    config = config if isinstance(config, dict) else {}
+    return (dict(config.get("mesh") or {}),
+            int((config.get("zero_optimization") or {}).get(
+                "mics_shard_size", -1)))
 
 
 def _to_device(batch, device):
@@ -148,21 +195,39 @@ class DeepSpeedEngine:
                  model_parameters: Optional[Dict[str, Any]] = None,
                  config: Union[str, Dict, DeepSpeedConfig, None] = None,
                  training_data=None, lr_scheduler=None, collate_fn=None,
-                 device=None, sharding_rules=None, mesh=None):
+                 device=None, sharding_rules=None, mesh=None,
+                 dist_init_required=None):
         self.device = resolve_device(device)
-        if sharding_rules is not None or mesh is not None:
-            raise NotImplementedError("sharding rules and device meshes are "
-                                      "not ported to the PyTorch/CUDA "
-                                      "package yet")
-        self.dp_world_size = _world_size()
+        if sharding_rules is not None:
+            raise NotImplementedError(
+                "tensor-parallel sharding rules are not ported to the "
+                "PyTorch/CUDA package yet (the next slice)")
+        comm.init_distributed(verbose=False, device=self.device,
+                              dist_init_required=dist_init_required)
+        if mesh is not None:
+            mesh_mod.set_mesh(mesh)
+        elif not mesh_mod.has_mesh() or \
+                mesh_mod.get_mesh().size != comm.get_world_size():
+            dims, mics = _mesh_probe(config)
+            mesh_mod.initialize_mesh(
+                data=dims.get("data", -1), model=dims.get("model", 1),
+                pipe=dims.get("pipe", 1), expert=dims.get("expert", 1),
+                seq=dims.get("seq", 1), mics_shard_size=max(mics, 0))
+        self.mesh = mesh_mod.get_mesh()
+        self.dp_world_size = mesh_mod.get_data_parallel_world_size()
+        self.dp_rank = mesh_mod.get_data_parallel_rank()
         self._config = DeepSpeedConfig.load(config,
                                             world_size=self.dp_world_size)
         bad = self._config.not_ported()
         if bad:
             raise NotImplementedError(f"config keys {bad} are not ported to "
                                       f"the PyTorch/CUDA package yet")
+        cl = self._config.comms_logger
+        comm.configure(enabled=cl.enabled, prof_all=cl.prof_all,
+                       prof_ops=cl.prof_ops, verbose=cl.verbose,
+                       debug=cl.debug)
         self.zero_config = self._config.zero_optimization
-        self.policy = ZeroShardingPolicy(self.zero_config, self.dp_world_size)
+        self.policy = ZeroShardingPolicy(self.zero_config, self.mesh)
         if model is None:
             raise ValueError("initialize() needs a model (an nn.Module)")
 
@@ -177,6 +242,8 @@ class DeepSpeedEngine:
         opt_cfg = self._config.optimizer
         opt_params = dict(opt_cfg.params) if opt_cfg else {}
         opt_type = (opt_cfg.type if opt_cfg else "adam").lower()
+        if (offload or param_offload) and self.dp_world_size > 1:
+            raise NotImplementedError(OFFLOAD_WORLD_MSG)
         if offload and opt_type not in ADAM_TYPES:
             raise ValueError(f"offload_optimizer requires Adam/AdamW (got "
                              f"{opt_type!r}); the host step runs "
@@ -198,6 +265,8 @@ class DeepSpeedEngine:
         self.module = model
         self._loss_fn = loss_fn
         self.master = None
+        self._zero3: Optional[Zero3Params] = None
+        own_master = []
         if param_offload:
             from .zero.param_offload import ParamOffloadRunner, \
                 check_supported
@@ -211,27 +280,50 @@ class DeepSpeedEngine:
             model = model.to(self.device)
             trainable = [(n, p) for n, p in model.named_parameters()
                          if p.requires_grad]
-            # the fp32 master copies come from the parameters as given,
-            # before every floating parameter is cast to the compute dtype
-            # (the JAX engine casts its parameter tree the same way); with
-            # offload they live on the host
+            self._part = ZeroPartition(self.policy, self.mesh, [
+                (n, tuple(p.shape)) for n, p in trainable])
+            # the fp32 master copies (this rank's slices) come from the
+            # parameters as given, before every floating parameter is cast
+            # to the compute dtype (the JAX engine casts its parameter tree
+            # the same way); with offload they live on the host. In fp32 a
+            # stage that shards the state but not the parameter keeps an
+            # fp32 slice beside it (the reference's fp32 partition).
             if offload:
                 self._offload_opt = OffloadedOptimizer(
                     dict(trainable), opt_params, oo,
                     aio_config=self._config.aio)
-            elif self._keep_master:
-                self.master = [p.detach().float().clone()
-                               for _, p in trainable]
+            else:
+                own_master = [
+                    lay.local(p.detach().float()).clone()
+                    if self._keep_master or (lay.state_sharded
+                                             and not lay.param_sharded)
+                    else None
+                    for lay, (_, p) in zip(self._part.layouts, trainable)]
+                if self._keep_master:
+                    self.master = own_master
             self.module = model.to(self.compute_dtype)
         named = [(n, p) for n, p in self.module.named_parameters()
                  if p.requires_grad]
         self._param_names = [n for n, _ in named]
         self._params = [p for _, p in named]
+        if param_offload:
+            self._part = ZeroPartition(self.policy, self.mesh, [
+                (n, tuple(p.shape)) for n, p in named])
         self.checkpoint_engine = ArrayCheckpointEngine()
         if hasattr(self.module, "seed_dropout"):
             self.module.seed_dropout(self._config.seed + 1)
         self._grad_acc = [] if param_offload else \
-            [torch.zeros_like(p, dtype=torch.float32) for p in self._params]
+            [torch.zeros(lay.local_shape() if lay.grad_sharded else lay.shape,
+                         dtype=torch.float32, device=self.device)
+             for lay in self._part.layouts]
+        if self._part.stage3 and not param_offload:
+            self._zero3 = Zero3Params(self.module, self._part, self._params,
+                                      self._grad_acc)
+        # what the optimizer updates: the fp32 master (slices), else the
+        # parameters themselves
+        self._targets = [m if m is not None else p for m, p in
+                         zip(own_master or [None] * len(self._params),
+                             self._params)]
         if offload:
             self._staging = HostStepStaging(self._params, self.compute_dtype,
                                             self.device)
@@ -239,6 +331,11 @@ class DeepSpeedEngine:
         # --- optimizer, schedule, loss scale -----------------------------
         self.optimizer_def: OptimizerDef = get_optimizer(opt_type,
                                                          opt_params)
+        if self.optimizer_def.name == "FusedLamb" and \
+                self._part.any_sharded:
+            raise NotImplementedError(
+                "LAMB's per-tensor trust ratio over ZeRO slices (stage >= 1 "
+                "over a world above one rank) is not ported; use stage 0")
         self.opt_state = None if self._offload_opt is not None else \
             self.optimizer_def.init(self._opt_targets())
         sched_cfg = self._config.scheduler
@@ -319,9 +416,14 @@ class DeepSpeedEngine:
 
     # --- data --------------------------------------------------------------
     def deepspeed_io(self, dataset, collate_fn=None):
+        """This rank's loader: micro-batches of the samples at positions
+        ``dp_rank, dp_rank + world, ...`` (the JAX loader's process
+        stride), so the ranks' k-th micro-batches together hold the
+        same samples at every world size."""
         return DeepSpeedDataLoader(
             dataset, batch_size=self.train_micro_batch_size_per_gpu(),
-            collate_fn=collate_fn)
+            collate_fn=collate_fn, num_shards=self.dp_world_size,
+            shard_index=self.dp_rank)
 
     def _micro_batches(self, source):
         gas = self.gradient_accumulation_steps()
@@ -336,15 +438,27 @@ class DeepSpeedEngine:
 
     # --- the step ----------------------------------------------------------
     def _opt_targets(self):
-        return self.master if self._keep_master else self._params
+        return self._targets
 
     def _scale(self) -> float:
         return self.loss_scale_state.loss_scale if self.fp16_enabled else 1.0
 
+    def _call(self, batch):
+        if self._loss_fn is not None:
+            return self._loss_fn(self.module, batch)
+        return self.module(batch)
+
     def _loss(self, batch):
         batch = _to_device(batch, self.device)
-        out = self._loss_fn(self.module, batch) if self._loss_fn is not None \
-            else self.module(batch)
+        if self._zero3 is None:
+            out = self._call(batch)
+        else:
+            self._zero3.in_forward = True
+            try:
+                with self._zero3.saving():
+                    out = self._call(batch)
+            finally:
+                self._zero3.in_forward = False
         if isinstance(out, tuple):
             loss = out[0]
             if len(out) > 1 and out[1] is not None:
@@ -358,27 +472,41 @@ class DeepSpeedEngine:
     def _backward_into_acc(self, loss) -> None:
         """d(loss · scale)/dθ summed into the fp32 buffers; grads freed."""
         (loss.float() * self._scale()).backward()
+        if self._zero3 is not None:
+            self._zero3.after_backward()
         grads, accs = [], []
-        for p, acc in zip(self._params, self._grad_acc):
-            if p.grad is not None:
-                grads.append(p.grad)
+        for p, acc, lay in zip(self._params, self._grad_acc,
+                               self._part.layouts):
+            if p.grad is None:
+                continue
+            g, p.grad = p.grad, None
+            if lay.grad_sharded:
+                # stage >= 2: into this rank's slice, summed in fp32
+                acc.add_(self._part.scatter(lay, g.float()))
+            else:
+                grads.append(g)
                 accs.append(acc)
-                p.grad = None
         if grads:
             torch._foreach_add_(accs, grads)
 
     @torch.no_grad()
     def _apply(self, denom: float) -> Dict[str, Any]:
-        """Unscale, overflow check, norm, clip, optimizer step, recast."""
+        """Reduce over the world, unscale, overflow check, norm, clip,
+        optimizer step, recast (and gather)."""
         cfg = self._config
-        grads = self._grad_acc
+        # the world's sums, in each parameter's state layout
+        grads = self._part.reduce_boundary(self._grad_acc)
         scale = self._scale()
         d = scale * denom
         if cfg.prescale_gradients and cfg.gradient_predivide_factor != 1.0:
             d = scale * cfg.gradient_predivide_factor
-        torch._foreach_div_(grads, d)
-        overflow = bool(has_inf_or_nan(grads)) if self.fp16_enabled else False
-        norm = global_grad_norm(grads)
+        # the JAX grads are the global batch's mean: the world's sum over
+        # the world
+        torch._foreach_div_(grads, d * self.dp_world_size)
+        overflow = bool(overflow_across_ranks(has_inf_or_nan(grads))) \
+            if self.fp16_enabled else False
+        norm = global_grad_norm(grads, sharded=self._part.sharded_mask(),
+                                group=mesh_mod.ZERO_AXES)
         if cfg.gradient_clipping > 0:
             clip_grads_by_global_norm(grads, cfg.gradient_clipping, norm)
         lr = self._lr_at(self.global_steps)
@@ -389,9 +517,7 @@ class DeepSpeedEngine:
                 targets = self._opt_targets()
                 self.optimizer_def.update(grads, self.opt_state, targets, lr,
                                           self._opt_step)
-                if self._keep_master:
-                    for p, m in zip(self._params, self.master):
-                        p.copy_(m)
+                self._publish()
             self._opt_step += 1
         else:
             self.skipped_steps += 1
@@ -401,9 +527,43 @@ class DeepSpeedEngine:
                 self.loss_scale_state, overflow,
                 scale_window=fc.loss_scale_window,
                 min_scale=fc.min_loss_scale, delayed_shift=fc.hysteresis)
-        torch._foreach_zero_(grads)
+        torch._foreach_zero_(self._grad_acc)
         return {"overflow": overflow, "grad_norm": norm, "lr": lr,
                 "loss_scale": scale}
+
+    def _publish(self) -> None:
+        """The compute parameters from the updated targets: recast, and
+        all-gathered where the rank updated a slice of a whole parameter
+        (stages 1-2); a stage-3 shard is recast in place."""
+        for p, t, lay in zip(self._params, self._targets,
+                             self._part.layouts):
+            if t is p:
+                continue
+            if lay.state_sharded and not lay.param_sharded:
+                p.copy_(self._part.gather(lay, t.to(p.dtype)))
+            else:
+                p.copy_(t)
+
+    def _world_mean(self, loss: torch.Tensor) -> torch.Tensor:
+        """The mean of every data-parallel rank's loss."""
+        return comm.all_reduce(loss, op=comm.ReduceOp.AVG)
+
+    def bytes_at_rest(self) -> Dict[str, int]:
+        """The bytes this rank holds between steps: the module's
+        parameters (shards under stage 3), the fp32 master weights (or
+        fp32 slices), the optimizer's fields and the fp32 gradient
+        accumulators; compare ``policy.bytes_at_rest``."""
+        def size(ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+
+        params = {id(p): p for p in self.module.parameters()}
+        own = [t for t, p in zip(self._targets, self._params) if t is not p]
+        opt = self.opt_state
+        return dict(
+            params=size(params.values()), master=size(own),
+            moments=size(t for field in opt for t in field)
+            if opt is not None else 0,
+            accumulators=size(self._grad_acc))
 
     def _host_step(self, lr: float) -> None:
         """The optimizer-offload update (the JAX ``_host_optimizer_step``):
@@ -463,7 +623,7 @@ class DeepSpeedEngine:
                 loss_sum += loss.detach().float()
             metrics = self._apply(float(gas))
             self._t_step = None
-            loss = loss_sum / gas
+            loss = self._world_mean(loss_sum / gas)
             metrics["loss"] = loss
         self.global_steps += 1
         self.global_samples += self.train_batch_size()
@@ -536,7 +696,7 @@ class DeepSpeedEngine:
         if self.lr_scheduler is not None and \
                 hasattr(self.lr_scheduler, "step"):
             self.lr_scheduler.step()
-        metrics["loss"] = self._loss_acc / gas
+        metrics["loss"] = self._world_mean(self._loss_acc / gas)
         self._loss_acc = None
         self.timers(STEP_GLOBAL_TIMER).stop()
         self._after_step(metrics)
@@ -556,14 +716,42 @@ class DeepSpeedEngine:
 
     # --- checkpoints ---------------------------------------------------------
     def _named(self, tensors) -> Dict[str, torch.Tensor]:
-        return dict(zip(self._param_names, tensors))
+        """{parameter name: the whole tensor}: slices are all-gathered
+        (collective: every rank calls it)."""
+        return {name: self._part.gather(lay, t) if tuple(t.shape) !=
+                lay.shape else t for name, t, lay in
+                zip(self._param_names, tensors, self._part.layouts)}
 
     @torch.no_grad()
     def _copy_named(self, targets, saved: Dict[str, Any]) -> None:
-        """Copy ``saved[name]`` (arrays or tensors) into each target tensor,
-        aligned with the trainable parameters' names."""
-        for name, t in zip(self._param_names, targets):
-            t.copy_(torch.as_tensor(saved[name]))
+        """Copy ``saved[name]`` (whole arrays or tensors) into each target
+        tensor, aligned with the trainable parameters' names: a target that
+        is this rank's slice takes its slice."""
+        for name, t, lay in zip(self._param_names, targets,
+                                self._part.layouts):
+            t.copy_(self._part.take(lay, saved[name], t))
+
+    def _module_state_dict(self) -> Dict[str, Any]:
+        """The module's state dict with every stage-3 shard gathered whole
+        (collective)."""
+        sd = self.module.state_dict()
+        if self._zero3 is None:
+            return sd
+        full = self._zero3.full_state()
+        for i, t in full.items():
+            sd[self._param_names[i]] = t
+        return sd
+
+    def _load_module(self, module_sd: Dict[str, torch.Tensor],
+                     strict: bool = True) -> None:
+        """Load a whole state dict; a stage-3 shard takes its slice."""
+        if self._zero3 is not None:
+            module_sd = dict(module_sd)
+            for i in self._zero3.index:
+                lay = self._part.layouts[i]
+                if lay.name in module_sd:
+                    module_sd[lay.name] = lay.local(module_sd[lay.name])
+        self.module.load_state_dict(module_sd, strict=strict)
 
 
     def _state_dict(self) -> Dict[str, Any]:
@@ -575,7 +763,7 @@ class DeepSpeedEngine:
         offload = self._offload_opt
         return {
             "module": self._param_offload.full_state_dict()
-            if self._param_offload is not None else self.module.state_dict(),
+            if self._param_offload is not None else self._module_state_dict(),
             "master": self._named(self.master) if self.master is not None
             else None,
             "optimizer": {field: self._named(getattr(opt, field))
@@ -604,18 +792,21 @@ class DeepSpeedEngine:
                         save_latest: bool = True) -> None:
         """Write the state to ``<save_dir>/<tag>/`` (tag default
         ``global_step{N}``) and, with ``save_latest``, ``tag`` to
-        ``<save_dir>/latest``."""
+        ``<save_dir>/latest``. Over a world every rank gathers and rank 0
+        writes; every rank returns after the files are complete."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
-        self.checkpoint_engine.create(tag)
         sd = self._state_dict()
-        if client_state:
-            sd["client_state"] = client_state
-        self.checkpoint_engine.save(
-            sd, checkpoint_meta_path(save_dir, tag, "model"))
-        self.checkpoint_engine.commit(tag)
-        if save_latest:
-            write_latest(save_dir, tag)
+        if comm.get_rank() == 0:
+            self.checkpoint_engine.create(tag)
+            if client_state:
+                sd["client_state"] = client_state
+            self.checkpoint_engine.save(
+                sd, checkpoint_meta_path(save_dir, tag, "model"))
+            self.checkpoint_engine.commit(tag)
+            if save_latest:
+                write_latest(save_dir, tag)
+        comm.barrier()
         log_dist(f"saved checkpoint {save_dir}/{tag}", ranks=[0])
 
     def _restore_counters(self, saved: Dict[str, Any],
@@ -669,11 +860,14 @@ class DeepSpeedEngine:
             self._param_offload.load_params(module_sd,
                                             strict=load_module_strict)
         else:
-            self.module.load_state_dict(module_sd, strict=load_module_strict)
+            self._load_module(module_sd, strict=load_module_strict)
         master = None if load_module_only else sd.get("master")
         if self.master is not None:
             self._copy_named(self.master, master if master is not None
                              else module_sd)
+        elif self._offload_opt is None and self._param_offload is None:
+            # fp32: the parameters, or the fp32 slices a stage keeps
+            self._copy_named(self._targets, module_sd)
         offload = sd.get("offload_optimizer")
         if self._offload_opt is not None:
             if load_module_only or not load_optimizer_states or \
@@ -720,10 +914,8 @@ class DeepSpeedEngine:
         if self._param_offload is not None:
             self._param_offload.load_params(
                 {k: torch.as_tensor(v) for k, v in fp32.items()})
-        elif self.master is not None:
-            self._copy_named(self.master, fp32)
-            self._copy_named(self._params, fp32)
         else:
+            self._copy_named(self._targets, fp32)
             self._copy_named(self._params, fp32)
         if self.opt_state is not None:
             for field, tree in univ["opt"].items():

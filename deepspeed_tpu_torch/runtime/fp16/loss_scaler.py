@@ -5,7 +5,9 @@ The dynamic scale's state is a small host-side tuple: the engine reads the
 step's overflow flag once per optimizer step (one device sync, fp16 only)
 and calls :func:`update_scale`, where the JAX package keeps the state on
 the device and selects with ``jnp.where``. The arithmetic, hysteresis
-(``delayed_shift``) included, is the same.
+(``delayed_shift``) included, is the same. Over a data-parallel world the
+flag is all-reduced first (:func:`overflow_across_ranks`), so every rank
+skips the same steps and keeps the same scale.
 """
 
 from __future__ import annotations
@@ -32,6 +34,16 @@ def has_inf_or_nan(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
         return torch.tensor(False)
     flags = [~torch.isfinite(t.float()).all() for t in tensors]
     return torch.stack(flags).any()
+
+
+def overflow_across_ranks(flag: torch.Tensor, group=None) -> torch.Tensor:
+    """A device bool: whether ``flag`` holds on any rank of ``group`` (the
+    data-parallel world by default; one all-reduce of the flag)."""
+    from ... import comm
+
+    f = flag.to(torch.float32).reshape(1)
+    comm.all_reduce(f, op=comm.ReduceOp.MAX, group=group)
+    return f[0] > 0
 
 
 def update_scale(state: LossScaleState, overflow: bool, *,

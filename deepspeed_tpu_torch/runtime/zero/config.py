@@ -1,7 +1,10 @@
 """ZeRO configuration: the port's own copy of ``deepspeed_tpu/runtime/zero/
 config.py``, with the JSON names of the reference so unmodified configs
-parse. On one device the stage is recorded and validated only
-(``zero/policy.py``); the bucket and stage-3 knobs have nothing to steer.
+parse. The stage, ``stage3_param_persistence_threshold`` and
+``mics_shard_size`` steer the partition over a data-parallel world
+(``zero/policy.py``, ``zero/partition.py``); the bucket, prefetch and
+overlap knobs parse and steer nothing (one collective a tensor, no
+prefetch).
 """
 
 from __future__ import annotations

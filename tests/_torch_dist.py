@@ -1,0 +1,347 @@
+"""Multi-rank runs of the port on the CPU, for its data-parallel tests.
+
+``spawn(scenario, world, tmp_path, timeout, **kwargs)`` starts ``world``
+processes of this file, each joining one gloo process group through a
+``file://`` store under ``tmp_path`` (no fixed port: several test workers
+spawn at once) with one intra-op thread, and running
+``SCENARIOS[scenario](rank, world, **kwargs)``; the arguments travel in a
+``torch.save`` file and each rank's result comes back in one. The workers
+import the port and never JAX. A rank that exits non-zero, or a spawn
+that outlives ``timeout`` seconds (every rank is then killed), raises.
+
+``train_run(run, rank, world)`` is the training scenario's body: one
+engine from a model spec, a config and global batches, run in the calling
+process too (no process group: world 1) for the single-rank references.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def spawn(scenario: str, world: int, tmp_path, timeout: float = 120.0,
+          **kwargs) -> list:
+    tmp = str(tmp_path)
+    os.makedirs(tmp, exist_ok=True)
+    torch.save(kwargs, os.path.join(tmp, "args.pt"))
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), scenario, str(rank),
+             str(world), tmp], stdout=log, stderr=subprocess.STDOUT,
+            env=env, cwd=REPO), log))
+    deadline = time.monotonic() + timeout
+    try:
+        for rank, (proc, log) in enumerate(procs):
+            left = deadline - time.monotonic()
+            try:
+                rc = proc.wait(timeout=max(left, 0.1))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"{scenario}: rank {rank} of {world} still "
+                                   f"running after {timeout} s")
+            if rc != 0:
+                raise RuntimeError(f"{scenario}: rank {rank} of {world} exited "
+                                   f"{rc}:\n{_tail(tmp, rank)}")
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return [torch.load(os.path.join(tmp, f"result{rank}.pt"),
+                       weights_only=False) for rank in range(world)]
+
+
+def _tail(tmp: str, rank: int) -> str:
+    with open(os.path.join(tmp, f"rank{rank}.log")) as fh:
+        return "".join(fh.readlines()[-30:])
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+def rank_rows(batch, rank: int, world: int, gas: int):
+    """Rank ``rank``'s rows of a global batch: its contiguous block of each
+    of the ``gas`` global micro-batches (the JAX engine's split)."""
+    n = len(next(iter(batch.values())))
+    m = n // (gas * world)
+    idx = np.concatenate([np.arange(k * world * m + rank * m,
+                                    k * world * m + (rank + 1) * m)
+                          for k in range(gas)])
+    return {k: np.asarray(v)[idx] for k, v in batch.items()}
+
+
+class Squares(torch.nn.Module):
+    """``mean(sum((x · w)², -1))`` in the parameter's dtype: each element of
+    ``w`` has its own gradient, so an inf in one column of ``x`` makes only
+    that element's gradient overflow."""
+
+    def __init__(self, n: int = 8):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.full((n,), 0.5))
+
+    def forward(self, batch):
+        x = batch["x"].to(self.w.dtype)
+        return ((x * self.w) ** 2).sum(-1).float().mean()
+
+
+def build_model(spec):
+    """A model from ``(fp32 config, fp32 state dict, compute dtype)``
+    (GPT-2 or ``TransformerLM``: built in fp32, loaded, then switched to
+    the compute dtype, so the engine's masters are the fp32 weights), or
+    ``("squares", n)``."""
+    from deepspeed_tpu_torch.models import gpt2, transformer_lm
+
+    if spec[0] == "squares":
+        return Squares(spec[1])
+    cfg, state, dtype = spec
+    if isinstance(cfg, gpt2.GPT2Config):
+        model = gpt2.GPT2LMHeadModel(cfg)
+    else:
+        model = transformer_lm.TransformerLM(cfg)
+    model.load_state_dict(state)
+    if dtype != cfg.dtype:
+        model.replace_config(dtype=dtype)
+    return model
+
+
+def train_run(run: dict, rank: int = 0, world: int = 1) -> dict:
+    """One engine: ``run["model"]`` (config, state dict), ``run["config"]``,
+    ``run["batches"]`` (global batches, one a step); optional ``mics``
+    (the shard size), ``load`` (a checkpoint dir to resume first), ``save``
+    (a dir to save to after the steps, followed by the ``next`` batches'
+    steps). Returns the losses, the gathered fp32 targets and module state,
+    bytes at rest and counters."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+    from deepspeed_tpu_torch.utils import tensor_fragment as tf
+
+    mesh_mod.reset_mesh()
+    if run.get("mics"):
+        from deepspeed_tpu_torch.runtime.zero.mics import MiCS_Init
+
+        MiCS_Init(run["mics"])
+    config = run["config"]
+    gas = config["gradient_accumulation_steps"]
+    model = run["model"] if isinstance(run["model"], torch.nn.Module) \
+        else build_model(run["model"])
+    engine, *_ = dst.initialize(model=model, config=config, device="cpu")
+    out = {"bytes": engine.bytes_at_rest()}
+    if run.get("load"):
+        engine.load_checkpoint(run["load"])
+    comm.comms_logger.reset()
+    losses, norms = [], []
+    for batch in run["batches"]:
+        mine = rank_rows(batch, rank, world, gas)
+        losses.append(float(engine.train_batch(batch=mine)))
+        norms.append(float(engine.get_global_grad_norm()))
+    out["comms"] = comm.comms_logger.totals()
+    out["losses"] = losses
+    out["norms"] = norms
+    out["targets"] = {k: v.detach().float().clone() for k, v in
+                      engine._named(engine._targets).items()}
+    out["module"] = {k: v.detach().float().clone() for k, v in
+                     engine._module_state_dict().items()}
+    out["fp32_param"] = {n: tf.safe_get_full_fp32_param(engine, n)
+                         for n in engine._param_names}
+    out["skipped"] = engine.skipped_steps
+    out["scale"] = engine.loss_scale_state
+    out["max_live_blocks"] = engine._zero3.max_live_blocks \
+        if engine._zero3 is not None else None
+    if run.get("fragment"):
+        out["fragment"] = _fragment(engine, tf)
+    if run.get("save"):
+        engine.save_checkpoint(run["save"])
+        out["next_losses"] = [
+            float(engine.train_batch(batch=rank_rows(b, rank, world, gas)))
+            for b in run["next"]]
+    return out
+
+
+def _fragment(engine, tf) -> dict:
+    """``tensor_fragment`` on a stage-3 engine's first sharded parameter
+    and first whole one: the shapes of the whole master, moment and
+    gradient read back, then a write of master + 1 read back (and the
+    module's gathered copy following it)."""
+    lays = engine._part.layouts
+    names = [next(lay.name for lay in lays if lay.param_sharded),
+             next(lay.name for lay in lays if not lay.param_sharded)]
+    out = {}
+    for name in names:
+        master = tf.safe_get_full_fp32_param(engine, name)
+        moment = tf.safe_get_full_optimizer_state(engine, name, "exp_avg")
+        grad = tf.safe_get_full_grad(engine, name)
+        tf.safe_set_full_fp32_param(engine, name, master + 1.0)
+        back = tf.safe_get_full_fp32_param(engine, name)
+        module = engine._module_state_dict()[name].float().numpy()
+        out[name] = {
+            "shapes": [m.shape for m in (master, moment, grad)],
+            "set_reads_back": bool(np.array_equal(back, master + 1.0)),
+            "module_follows": bool(np.array_equal(module, master + 1.0))}
+    return out
+
+
+def _train(rank: int, world: int, runs: dict, refuse=None) -> dict:
+    """``train_run`` for each of ``runs`` (rank 0 carries the tensors
+    back), then each ``refuse`` (model spec, config)'s refusal message at
+    this world (None: the engine was built)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+
+    results = {}
+    for key, run in runs.items():
+        res = train_run(run, rank, world)
+        if rank != 0:
+            res = {k: v for k, v in res.items()
+                   if k not in ("targets", "module", "fp32_param")}
+        results[key] = res
+    refusals = []
+    for spec, config in refuse or []:
+        mesh_mod.reset_mesh()
+        try:
+            dst.initialize(model=build_model(spec), config=config,
+                           device="cpu")
+            refusals.append(None)
+        except NotImplementedError as exc:
+            refusals.append(str(exc))
+    results["refusals"] = refusals
+    return results
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+def _comm(rank: int, world: int) -> dict:
+    """Every collective over the world (again under the comms logger) and
+    over the MiCS mesh's two axes, on inputs each rank derives from its
+    rank."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+
+    def x(shape, dtype=torch.float32):
+        n = int(np.prod(shape))
+        return (torch.arange(n, dtype=torch.float64).reshape(shape)
+                * (rank + 1) + 0.25 * rank).to(dtype)
+
+    def ops() -> dict:
+        r = {}
+        for op in ("sum", "avg", "max", "min"):
+            r[f"all_reduce_{op}"] = comm.all_reduce(x((3, 4)), op=op)
+        r["all_reduce_bf16"] = comm.all_reduce(x((2, 4), torch.bfloat16))
+        r["gather0"] = comm.all_gather_into_tensor(x((2, 3)))
+        r["gather1"] = comm.all_gather_into_tensor(x((2, 3)), axis=1)
+        r["gather_stack"] = comm.all_gather_into_tensor(x((2, 3)), axis=1,
+                                                        tiled=False)
+        r["gather_bf16"] = comm.all_gather_into_tensor(
+            x((5,), torch.bfloat16))
+        r["scatter0"] = comm.reduce_scatter_tensor(x((8, 3)))
+        r["scatter1"] = comm.reduce_scatter_tensor(x((3, 8)),
+                                                   scatter_dimension=1)
+        r["scatter_avg"] = comm.reduce_scatter_tensor(x((8, 3)), op="avg")
+        r["a2a"] = comm.all_to_all_single(x((8, 2)))
+        r["a2a_01"] = comm.all_to_all_single(x((4, 8)), split_axis=1,
+                                             concat_axis=0)
+        r["broadcast"] = comm.broadcast(x((4,)), src=world - 1)
+        return r
+
+    out = {"world": ops()}
+    comm.configure(enabled=True)
+    comm.comms_logger.reset()
+    out["logged"] = ops()
+    out["comms"] = comm.comms_logger.totals()
+    comm.configure(enabled=False)
+    out["host_sum"] = comm.all_reduce_host(np.array([rank, 1.0]))
+    out["host_max"] = comm.all_reduce_host(np.array([rank, -rank]), op="max")
+    out["host_gather"] = comm.all_gather_host(np.array([rank * 10, rank]))
+    out["host_bcast"] = comm.broadcast_host(np.array([rank + 5]), src=1)
+    comm.assert_same_across_ranks({"step": 3, "shape": (2, 4)})
+    try:
+        comm.assert_same_across_ranks({"step": rank})
+        out["mismatch"] = None
+    except RuntimeError as exc:
+        out["mismatch"] = str(exc)
+    for name, fn in (("ppermute", lambda: comm.ppermute(x((2,)), [])),
+                     ("axis_index", comm.axis_index)):
+        try:
+            fn()
+        except NotImplementedError as exc:
+            out[name] = str(exc)
+    comm.barrier()
+    # the MiCS mesh: data_outer = world / 2 replica groups of data = 2
+    mesh_mod.reset_mesh()
+    mesh = mesh_mod.initialize_mesh(mics_shard_size=2)
+    out["mics_shape"] = mesh.shape
+    out["mics_ranks"] = {a: mesh.ranks(a) for a in ("data", "data_outer")}
+    out["data_sum"] = comm.all_reduce(x((3,)), group="data")
+    out["outer_sum"] = comm.all_reduce(x((3,)), group="data_outer")
+    out["dp_sum"] = comm.all_reduce(x((3,)))
+    out["data_gather"] = comm.all_gather_into_tensor(x((2,)), group="data")
+    out["data_scatter"] = comm.reduce_scatter_tensor(x((4,)), group="data")
+    out["sizes"] = {a: comm.get_world_size(a)
+                    for a in ("data", "data_outer", "model")}
+    out["dp_world"] = mesh_mod.get_data_parallel_world_size()
+    out["dp_rank"] = mesh_mod.get_data_parallel_rank()
+    return out
+
+
+def _gloo_cuda(rank: int, world: int) -> dict:
+    """On a card: the comm layer's all_gather, reduce_scatter and
+    all_to_all over gloo with CUDA tensors against the exact results, fp32
+    and bf16, dims 0 and 1."""
+    from deepspeed_tpu_torch import comm
+
+    out = {"backend": comm.get_backend()}
+    for dtype in (torch.float32, torch.bfloat16):
+        for dim in (0, 1):
+            parts = [(torch.arange(48, device="cuda").reshape(8, 6)
+                      * (r + 1)).to(dtype) for r in range(world)]
+            whole = torch.cat(parts, dim)
+            got = comm.all_gather_into_tensor(parts[rank], axis=dim)
+            out[f"all_gather {dtype} {dim}"] = torch.equal(got, whole)
+            k = whole.shape[dim] // world
+            got = comm.reduce_scatter_tensor(whole.float(),
+                                             scatter_dimension=dim)
+            want = (whole.float() * world).narrow(dim, rank * k, k)
+            out[f"reduce_scatter {dtype} {dim}"] = \
+                torch.equal(got, want)
+        got = comm.all_to_all_single(parts[rank])
+        want = torch.cat([p.chunk(world)[rank] for p in parts])
+        out[f"all_to_all {dtype}"] = torch.equal(got, want)
+    return out
+
+
+SCENARIOS = {"train": _train, "comm": _comm, "gloo_cuda": _gloo_cuda}
+
+
+def main(argv) -> int:
+    scenario, rank, world, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    torch.set_num_threads(1)
+    from deepspeed_tpu_torch import comm
+
+    comm.init_distributed(dist_backend="gloo", rank=rank, world_size=world,
+                          init_method=f"file://{os.path.join(tmp, 'store')}",
+                          timeout=90, verbose=False)
+    kwargs = torch.load(os.path.join(tmp, "args.pt"), weights_only=False)
+    result = SCENARIOS[scenario](rank, world, **kwargs)
+    torch.save(result, os.path.join(tmp, f"result{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py [--seed N] [--decode-only | --resilience-only |
-                           --offload-only | --fleet-only | --zero-dp-only]
+                           --offload-only | --fleet-only | --zero-dp-only |
+                           --tp-only]
 
 ``--decode-only`` runs the build and the decode and paged kernels' rows
 alone (phase 2's decode and paged rows, phase 5's two int8 decode rows and
@@ -343,7 +344,7 @@ non-zero:
             tokens/s beside arm 1's. ``--fleet-only`` runs the build, 3b's
             captured arm alone and 21-22.
 
-23. train_zero_dp  (last) ZeRO over a data-parallel world, GPT-2 medium at
+23. train_zero_dp  ZeRO over a data-parallel world, GPT-2 medium at
             the flagship config (bf16, fp32 masters, Adam 3e-4 wd 0.1,
             clip 1.0, micro 10, remat "dots"), 4 steps of 20 rows: the
             first untimed, two timed with the comms logger off, the last
@@ -374,6 +375,39 @@ non-zero:
             beside the card's name and power limit. A rank that exits
             non-zero or outlives the timeout fails the run.
             ``--zero-dp-only`` runs the build and this.
+24. serve_tp  (last) tensor-parallel serving: TinyLlama-1.1B widths (22
+            layers, GQA 32/4, vocab 32000), bf16 weights, int8 KV, random
+            from the seed, served by ``init_serving`` with the default call
+            (8 slots, chunk 64, ``PAGED_KV``): 8 requests, 4 on a 512-token
+            prefix, budgets 16-32. Arm (a): one rank, ``tp_size`` 1, a
+            ``model=1`` mesh over a NCCL world of one (at one rank no layer
+            is swapped and no collective runs: the plain one-rank path).
+            Arm (b): ``tp_size`` 2, two gloo ranks on
+            ``cuda:0`` (NCCL refuses two ranks a device) that this script
+            starts as ``--tp-worker RANK WORLD DIR --tp-spec JSON``, each
+            memory-mapping the weights phase 24 wrote and keeping its slice
+            (a meta model: no rank holds the whole model). Held: budgets,
+            invariants, no leak on every rank; both ranks' tokens
+            identical; (b)'s tokens equal (a)'s or part only at a near-tie
+            (``divergences``: both tokens within ``TIE_FACTOR`` rounding
+            errors of the fp32 copy's top logit at the first parted
+            position); an fp32 arm at 2 layers identical at ``tp_size`` 2
+            and 1; (b)'s own logits, teacher-forced in its pool, within
+            ``LOGITS_REL_TOL`` of the fp32 one-rank copy: the prefill and
+            first decode of two requests (a prefix hit, the longest cold
+            prompt) and every request that parts from (a) through its first
+            parted position, where (b)'s token also lies within
+            ``TIE_FACTOR`` of (b)'s own error below the top logit; each rank's
+            parameter bytes as predicted (every projection, the embedding
+            and the head halved, the norms whole) and half the KV pool; the
+            flash, paged and decode kernels on every rank; a decode step's
+            collectives 2 all-reduces a layer + 1 (the embedding) and 1
+            all-gather (the head). Printed: tokens/s, step gap and TTFT of
+            each arm, a decode step's collectives and their mean time, all
+            marked gloo through the host on one card. The kernel rows run
+            again at a rank's shapes (16 query heads over 2 KV heads, D 64,
+            bf16 and int8 caches; under ``tp_rank`` in their JSON rows).
+            ``--tp-only`` runs the build, those rows and this.
 
 The last two lines are a ``{"kernels": [...]}`` object and
 ``{"ok": true, "device": {...}}``.
@@ -1237,11 +1271,13 @@ def fp32_reference(model, eng, device: str = "cuda"):
     ref_cfg = dataclasses.replace(model.config, dtype=torch.float32,
                                   use_flash_attention=False,
                                   decode_kernel="off")
-    ref = TransformerLM(ref_cfg)
+    # built on the device: its random initial weights are overwritten at
+    # once, and drawing them on the host takes seconds at 1.1B parameters
+    ref = TransformerLM(ref_cfg, device=device)
     with torch.no_grad():
         ref.load_state_dict({k: served_weight(eng.module, k).float()
                              for k in ref.state_dict()})
-    return ref.to(device).eval()
+    return ref.eval()
 
 
 def phase_reference(ref, reqs, served_fn, label: str,
@@ -6015,6 +6051,580 @@ def fleet_phases(model, seed: int, warm, prompts, budgets, colocated,
     return [arm["launches"] for arm in fleet["arms"].values()]
 
 
+# ---------------------------------------------------------------------------
+# phase 24: tensor-parallel serving
+# ---------------------------------------------------------------------------
+TP_WORLD = 2
+TP_TIMEOUT = 600                  # seconds for arm (b)'s two ranks
+TP_FP32_LAYERS = 2
+TP_FP32_BUDGET = 8
+# the projections every rank holds a slice of; every other leaf (the norms)
+# is whole on every rank
+TP_SHARDED = ("embed_tokens", "q_proj", "k_proj", "v_proj", "o_proj",
+              "gate_proj", "up_proj", "down_proj", "lm_head")
+
+
+def tp_traffic(seed: int, vocab: int):
+    """Phase 24's 8 requests: 4 on one 512-token prefix (16-64 more
+    tokens each), 4 cold (two of 32-64 tokens, admitted whole through the
+    flash kernel, two of 65-256), budgets 16-32; the first is a shared
+    one (it runs before the rest arrive)."""
+    rng = np.random.default_rng(seed + 24)
+    prefix = rng.integers(0, vocab, 512)
+    shared = [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
+              for n in rng.integers(16, 65, 4)]
+    cold = [rng.integers(0, vocab, int(n)) for n in
+            list(rng.integers(32, 65, 2)) + list(rng.integers(65, 257, 2))]
+    rest = shared[1:] + cold
+    prompts = [shared[0]] + [rest[i] for i in rng.permutation(len(rest))]
+    budgets = rng.integers(16, 33, len(prompts))
+    return [p.astype(np.int32) for p in prompts], [int(b) for b in budgets]
+
+
+def first_difference(a, b):
+    """The first position where token lists ``a`` and ``b`` differ, else
+    None."""
+    return next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def tp_teacher(prompts, tokens, against) -> dict:
+    """{request: the continuation to teacher-force}: the last shared
+    prompt (served on the prefix cache) and the longest cold one through
+    their first decode, and every request whose ``tokens`` part from
+    ``against`` (the other arm's) through its first parted position."""
+    shared = [i for i, p in enumerate(prompts) if len(p) > 512]
+    cold = [i for i, p in enumerate(prompts) if len(p) <= 512]
+    picks = {i: 1 for i in (shared[-1],
+                            max(cold, key=lambda i: len(prompts[i])))}
+    for i, (mine, other) in enumerate(zip(tokens, against or [])):
+        d = first_difference(mine, other)
+        if d is not None:
+            picks[i] = max(picks.get(i, 0), d, 1)
+    return {i: tokens[i][:n] for i, n in sorted(picks.items())}
+
+
+def tinyllama_fp32(seed: int, device: str = "cuda", **overrides):
+    """TinyLlama's widths at ``TP_FP32_LAYERS`` layers in fp32 with a
+    full-precision cache, random from ``seed``."""
+    from deepspeed_tpu_torch.models.transformer_lm import (
+        TransformerLM, transformer_config)
+
+    cfg = transformer_config("llama", **{**TINYLLAMA, **overrides,
+                                         "n_layer": TP_FP32_LAYERS},
+                             dtype=torch.float32)
+    model = TransformerLM(cfg, device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def tp_arm(model, state, tp: int, seed: int, prompts, budgets,
+           device: str = "cuda", probes: bool = True, mesh=None,
+           against=None) -> tuple:
+    """One arm of phase 24: ``init_serving`` at ``tensor_parallel.tp_size``
+    ``tp`` (``state``: the full weights on the host, sliced for this rank;
+    None: the model's own), the default call (8 slots, chunk 64,
+    ``PAGED_KV``), a throwaway server on the same engine to warm the
+    shapes, then the traffic with the first request alone until it runs.
+    Holds budgets, invariants and no leak. With ``probes``: the decode
+    step's collectives (comms logger on, over one contiguous decode step),
+    ``generate()`` through the decode kernel, and the teacher-forced
+    logits of ``tp_teacher`` (``against``: the other arm's tokens).
+    ``mesh`` is passed to ``init_serving``. Returns (a JSON-able dict, the
+    server, the teacher-forced logits)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    dtype = str(model.config.dtype).split(".")[-1]
+    srv = dst.init_serving(
+        model, config={"dtype": dtype, "tensor_parallel": {"tp_size": tp}},
+        model_parameters=state, num_slots=8, prefill_chunk=64,
+        paged_kv=dict(PAGED_KV), seed=seed, device=device, mesh=mesh)
+    eng = srv.engine
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(seed + 25)
+    warm = dst.ServingEngine(eng, num_slots=8, prefill_chunk=64,
+                             paged_kv=dict(PAGED_KV), seed=seed)
+    for n in (200, 40):
+        warm.submit(rng.integers(0, vocab, n), max_new_tokens=2)
+    warm.run_until_drained()
+    del warm
+    sync(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    reqs = [srv.submit(prompts[0], max_new_tokens=budgets[0])]
+    while reqs[0].state is not RequestState.RUNNING:
+        srv.step()
+    reqs += [srv.submit(p, max_new_tokens=n)
+             for p, n in zip(prompts[1:], budgets[1:])]
+    srv.run_until_drained()
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    bad = [(r.request_id, r.state.value, len(r.output_tokens), n)
+           for r, n in zip(reqs, budgets)
+           if r.state is not RequestState.FINISHED
+           or len(r.output_tokens) != n]
+    assert not bad, f"requests not FINISHED with their budget: {bad}"
+    srv.check_invariants()
+    pool = srv.pool
+    held = len(pool.prefix.page_counts())
+    assert (pool.table == pool.num_pages).all() and \
+        pool.free_page_count + held == pool.num_pages, \
+        f"pages leaked: {pool.free_page_count} free + {held} cached != " \
+        f"{pool.num_pages}"
+    st = srv.stats()
+    out = dict(tokens=[list(map(int, r.output_tokens)) for r in reqs],
+               wall=wall, new_tokens=st["new_tokens"],
+               tokens_per_s=st["tokens_per_s"],
+               gap_p50=st["step_gap_p50_ms"], gap_p99=st["step_gap_p99_ms"],
+               ttft_p50=st["ttft_p50_ms"], decode_steps=st["decode_steps"],
+               hit_tokens=st["prefix_hit_tokens"], launches=launches,
+               param_bytes={k: t.numel() * t.element_size() for k, t in
+                            eng.module.state_dict().items()},
+               pool_bytes=sum(t.numel() * t.element_size()
+                              for t in pool.cache.values()),
+               kv_heads=int(pool.cache["k"].shape[2]), mp=eng.mp_world_size)
+    teacher = None
+    if probes:
+        # one contiguous decode step under the comms logger (it syncs the
+        # device after every collective)
+        ids = np.stack([p[:32] for p in prompts[-2:]])
+        logits, cache = eng.prefill_at(ids)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        sync(device)
+        comm.configure(enabled=True, prof_all=True)
+        comm.comms_logger.reset()
+        t0 = time.perf_counter()
+        eng.decode(cache, tok, 32)
+        sync(device)
+        out["decode_step_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["decode_comms"] = {name: {"count": v["count"],
+                                      "bytes": v["bytes"],
+                                      "ms": 1e3 * v["latency_s"]}
+                               for name, v in
+                               comm.comms_logger.totals().items()}
+        comm.configure(enabled=False)
+        comm.comms_logger.reset()
+        del cache
+        reset_launches()
+        out["generate"] = eng.generate(ids, max_new_tokens=8).tolist()
+        out["generate_launches"] = read_launches()
+        teacher = {i: served_paged_logits(srv, prompts[i], cont).float().cpu()
+                   for i, cont in tp_teacher(prompts, out["tokens"],
+                                             against).items()}
+    return out, srv, teacher
+
+
+def tp_worker(rank: int, world: int, tmp: str, seed: int,
+              spec: dict) -> int:
+    """Arm (b)'s rank: gloo over ``cuda:0`` (every rank on the one card),
+    the weights memory-mapped from the files phase 24 wrote (a meta model:
+    no rank ever holds the whole model, on the host or the card), the bf16
+    arm with its probes (teacher-forced where it parts from arm (a)'s
+    tokens), then the fp32 two-layer arm; writes
+    ``rank<r>.json`` (and rank 0 ``teacher.pt``) to ``tmp``."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    device = spec["device"]
+    comm.init_distributed(dist_backend="gloo", rank=rank, world_size=world,
+                          init_method=f"file://{os.path.join(tmp, 'store')}",
+                          timeout=TP_TIMEOUT, verbose=False)
+    with open(os.path.join(tmp, "traffic.json")) as fh:
+        traffic = json.load(fh)
+    prompts = [np.asarray(p, np.int32) for p in traffic["prompts"]]
+    out = {}
+    for label, cfg_key, budgets, probes in (
+            ("bf16", "bf16", traffic["budgets"], True),
+            ("fp32", "fp32", [TP_FP32_BUDGET] * len(prompts), False)):
+        cfg = torch.load(os.path.join(tmp, f"{cfg_key}_config.pt"),
+                         weights_only=False)
+        state = torch.load(os.path.join(tmp, f"{cfg_key}.pt"), mmap=True,
+                           weights_only=True)
+        model = TransformerLM(cfg, device="meta")
+        arm, srv, teacher = tp_arm(model, state, world, seed, prompts,
+                                   budgets, device, probes,
+                                   against=traffic["a_tokens"])
+        out[label] = arm
+        if teacher is not None and rank == 0:
+            torch.save(teacher, os.path.join(tmp, "teacher.pt"))
+        del srv, model, state
+        fresh_device(device)
+    with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_kernel_rows(gen: torch.Generator) -> dict:
+    """The flash, decode and paged kernels at a rank's shapes of TinyLlama
+    over a model group of two (16 query heads over 2 KV heads, D 64),
+    bf16 and int8 caches: held against their plain versions, timed beside
+    them, a library call where one exists and the card's bound. Flash: the
+    whole-prompt admissions (B=1, T=64) and a long prompt (T=512); decode:
+    8 slots of 2048 positions at ragged lengths over 22 layers' caches;
+    paged: 8 slots of 32 64-position pages, T=1 (and T=5 checked) over 22
+    layers' pools."""
+    from deepspeed_tpu_torch.ops.attention.decode_attention import (
+        decode_attention, decode_attention_reference, quantize_kv_rows)
+    from deepspeed_tpu_torch.ops.attention.flash_attention import (
+        flash_attention, mha_reference)
+    from deepspeed_tpu_torch.ops.attention.paged_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+
+    dev, bf16 = "cuda", torch.bfloat16
+    L, B, H, KV, D = TINYLLAMA["n_layer"], 8, 16, 2, 64
+    scale = 1.0 / math.sqrt(D)
+    rows = {}
+    # -- flash forward --------------------------------------------------
+    for T in (64, 512):
+        q = torch.randn(1, T, H, D, generator=gen, device=dev).to(bf16)
+        k, v = (torch.randn(1, T, KV, D, generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+        got, _ = flash_attention(q, k, v, causal=True)
+        want, _ = mha_reference(q, k, v, causal=True)
+        err, rel = compare(got, want, f"flash kernel vs plain at the TP "
+                           f"rank's shapes, T={T}")
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=True), reps=20)
+        plain_ms = cuda_ms(lambda: mha_reference(q, k, v, causal=True),
+                           reps=4)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=20)
+        pairs = T * (T + 1) // 2
+        rows[f"flash_attention_fwd T={T}"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            **bound(2 * (2 * T * H * D + 2 * T * KV * D) + 4 * H * T,
+                    4 * H * pairs * D))
+    # -- decode, contiguous -----------------------------------------------
+    S = TINYLLAMA["max_seq_len"]
+    lengths = torch.tensor([1, 2048, 1100, 517, 64, 1999, 700, 1500],
+                           dtype=torch.int32, device=dev)
+    live = int(lengths.sum())
+    q = torch.randn(B, H, D, generator=gen, device=dev).to(bf16)
+    pos = torch.arange(S, device=dev)
+    mask = (pos[None, :] < lengths[:, None].long())[:, None, None, :]
+    for int8 in (False, True):
+        raw = [torch.randn(L, B, KV, S, D, generator=gen, device=dev)
+               for _ in range(2)]
+        if int8:
+            (k, ks), (v, vs) = (quantize_kv_rows(x) for x in raw)
+            sc = [dict(k_scale=ks[i], v_scale=vs[i]) for i in range(L)]
+            kd, vd = ((x.float() * s[..., None]).to(bf16)
+                      for x, s in ((k, ks), (v, vs)))
+        else:
+            k, v = (x.to(bf16) for x in raw)
+            sc = [{}] * L
+            kd, vd = k, v
+        del raw
+        err = rel = 0.0
+        for i in (0, L - 1):
+            e, r = compare(
+                decode_attention(q, k[i], v[i], lengths, **sc[i]),
+                decode_attention_reference(q, k[i], v[i], lengths, scale,
+                                           None, sc[i].get("k_scale"),
+                                           sc[i].get("v_scale")),
+                f"decode kernel (int8={int8}) vs plain at the TP rank's "
+                f"shapes")
+            err, rel = max(err, e), max(rel, r)
+        ms = cuda_ms(lambda: [decode_attention(q, k[i], v[i], lengths,
+                                               **sc[i]) for i in range(L)],
+                     reps=4) / L
+        plain_ms = cuda_ms(lambda: [decode_attention_reference(
+            q, k[i], v[i], lengths, scale, None, sc[i].get("k_scale"),
+            sc[i].get("v_scale")) for i in range(L)], reps=1) / L
+        lib_ms = cuda_ms(lambda: [F.scaled_dot_product_attention(
+            q[:, :, None, :], kd[i], vd[i], attn_mask=mask, enable_gqa=True)
+            for i in range(L)], reps=4) / L
+        esize = D + 4 if int8 else 2 * D
+        name = "decode_attention_int8" if int8 else "decode_attention"
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms,
+                          **bound(2 * KV * live * esize + 2 * B * H * D * 2
+                                  + 4 * B, 4 * H * live * D))
+        del k, v, kd, vd, sc
+    # -- decode, paged ----------------------------------------------------
+    ps, per_slot = PAGED_KV["page_size"], S // PAGED_KV["page_size"]
+    P = B * per_slot + 4
+    for int8 in (False, True):
+        raw = [torch.randn(L, P, KV, ps, D, generator=gen, device=dev)
+               for _ in range(2)]
+        if int8:
+            (k, ks), (v, vs) = (quantize_kv_rows(x) for x in raw)
+            sc = [dict(k_scale_pages=ks[i], v_scale_pages=vs[i])
+                  for i in range(L)]
+        else:
+            k, v = (x.to(bf16) for x in raw)
+            sc = [{}] * L
+        del raw
+        err = rel = 0.0
+        for T in (1, 5):
+            qp = torch.randn(B, T, H, D, generator=gen, device=dev).to(bf16)
+            table, starts = slot_tables(gen, T, P, ps, per_slot)
+            for i in (0, L - 1):
+                e, r = compare(
+                    paged_decode_attention(qp, k[i], v[i], table, starts,
+                                           **sc[i]),
+                    paged_decode_attention_reference(
+                        qp, k[i], v[i], table, starts, scale, None,
+                        sc[i].get("k_scale_pages"),
+                        sc[i].get("v_scale_pages")),
+                    f"paged kernel (int8={int8}, T={T}) vs plain at the TP "
+                    f"rank's shapes")
+                err, rel = max(err, e), max(rel, r)
+        qp = torch.randn(B, 1, H, D, generator=gen, device=dev).to(bf16)
+        table, starts = slot_tables(gen, 1, P, ps, per_slot)
+        ms = cuda_ms(lambda: [paged_decode_attention(
+            qp, k[i], v[i], table, starts, **sc[i]) for i in range(L)],
+            reps=4) / L
+        plain_ms = eager_ms(lambda: [paged_decode_attention_reference(
+            qp, k[i], v[i], table, starts, scale, None,
+            sc[i].get("k_scale_pages"), sc[i].get("v_scale_pages"))
+            for i in range(L)], reps=2) / L
+        live = int((starts.long() + 1).sum())
+        pages_read = int(((starts.long() + ps) // ps).sum())
+        esize = D + 4 if int8 else 2 * D
+        name = ("paged_decode_attention_int8" if int8
+                else "paged_decode_attention")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          library_ms=None,
+                          **bound(2 * KV * live * esize + 2 * B * H * D * 2
+                                  + 4 * (pages_read + B),
+                                  4 * H * live * D))
+        del k, v, sc
+    for name, row in rows.items():
+        log(f"[serve_tp kernels] {name} at a rank's shapes (H=16, KV=2, "
+            f"D=64): max|err| {row['max_abs_err']:.3g}; kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+            + (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
+               else "none (none reads a page table)")
+            + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def predicted_rank_bytes(full: dict, world: int) -> int:
+    """A rank's parameter bytes predicted from the one-rank model's
+    (``full``: name -> bytes): every projection, the embedding and the head
+    split evenly, the norms whole."""
+    return sum(n // world if any(s in k for s in TP_SHARDED) else n
+               for k, n in full.items())
+
+
+def phase_serve_tp(seed: int, device: str = "cuda", **overrides) -> list:
+    """Phase 24 (module docstring). Returns the kernels' launches over its
+    runs (arm (a), and each of arm (b)'s ranks). Its scratch directory
+    (the weights, the ranks' logs and results) goes however it ends."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="serve_tp_")
+    try:
+        return serve_tp(tmp, seed, device, **overrides)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def serve_tp(tmp: str, seed: int, device: str, **overrides) -> list:
+    """Phase 24's body, its files in ``tmp``."""
+    import types
+
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.comm import comm as comm_mod
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+
+    card = card_line() if device == "cuda" else "cpu"
+    model = tinyllama(seed, device, **overrides)
+    f32 = tinyllama_fp32(seed + 1, device, **overrides)
+    for key, m in (("bf16", model), ("fp32", f32)):
+        torch.save(m.config, os.path.join(tmp, f"{key}_config.pt"))
+        torch.save({k: v.cpu() for k, v in m.state_dict().items()},
+                   os.path.join(tmp, f"{key}.pt"))
+    prompts, budgets = tp_traffic(seed, model.config.vocab_size)
+    L = model.config.n_layer
+
+    # arm (a): one rank, a mesh of model=1 over a NCCL world of one; at one
+    # rank no layer is swapped, so it issues no collective and computes
+    # what the plain one-rank path does
+    comm.init_distributed(init_method=f"file://{os.path.join(tmp, 'nccl')}",
+                          rank=0, world_size=1, device=device,
+                          verbose=False)
+    backend = dist.get_backend()
+    try:
+        mesh = mesh_mod.build_mesh(model=1)
+        a, a_srv, _ = tp_arm(model, None, 1, seed, prompts, budgets, device,
+                             mesh=mesh)
+        a32, a32_srv, _ = tp_arm(f32, None, 1, seed, prompts,
+                                 [TP_FP32_BUDGET] * len(prompts), device,
+                                 probes=False, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+        comm_mod._initialized = False
+        mesh_mod.reset_mesh()
+    del a32_srv, f32
+    with open(os.path.join(tmp, "traffic.json"), "w") as fh:
+        json.dump({"prompts": [p.tolist() for p in prompts],
+                   "budgets": budgets, "a_tokens": a["tokens"]}, fh)
+    ref = fp32_reference(model, a_srv.engine, device)
+    fresh_device(device)
+
+    # arm (b): two gloo ranks on the same card, in processes of their own
+    spec = json.dumps({"device": device})
+    procs = []
+    for rank in range(TP_WORLD):
+        logf = open(os.path.join(tmp, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-worker",
+             str(rank), str(TP_WORLD), tmp, "--seed", str(seed),
+             "--tp-spec", spec], stdout=logf, stderr=subprocess.STDOUT),
+            logf))
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        for rank, (proc, logf) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"serve_tp: rank {rank} still running "
+                                   f"after {TP_TIMEOUT} s")
+            if rc != 0:
+                with open(os.path.join(tmp, f"rank{rank}.log")) as fh:
+                    tail = "".join(fh.readlines()[-40:])
+                raise RuntimeError(f"serve_tp: rank {rank} exited {rc}:\n"
+                                   f"{tail}")
+    finally:
+        for proc, logf in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    wall = time.perf_counter() - t0
+    ranks = []
+    for rank in range(TP_WORLD):
+        with open(os.path.join(tmp, f"rank{rank}.json")) as fh:
+            ranks.append(json.load(fh))
+    teacher = torch.load(os.path.join(tmp, "teacher.pt"))
+    b, b32 = [r["bf16"] for r in ranks], [r["fp32"] for r in ranks]
+    note = (f"gloo through the host on one card ({card}; NCCL refuses two "
+            f"ranks a device): the placement, not tensor parallelism's "
+            f"speed")
+
+    # every rank alike; the fp32 arms equal; bf16 (b) against (a)
+    for key in ("tokens", "generate"):
+        assert all(r[key] == b[0][key] for r in b), f"ranks differ: {key}"
+    assert all(r["tokens"] == b32[0]["tokens"] for r in b32)
+    assert b32[0]["tokens"] == a32["tokens"], \
+        f"fp32 at tp_size {TP_WORLD} differs from tp_size 1: " \
+        f"{b32[0]['tokens']} vs {a32['tokens']}"
+
+    def reqs(arm):
+        return [types.SimpleNamespace(request_id=i, prompt=p,
+                                      output_tokens=t)
+                for i, (p, t) in enumerate(zip(prompts, arm["tokens"]))]
+
+    ties = divergences("serve_tp", reqs(b[0]), reqs(a), a_srv.engine, ref,
+                       against=f"arm (a), one rank over {backend}")
+    # arm (b)'s own logits, teacher-forced on its own tokens: the prefill
+    # and first decode of two requests, and every parted request through
+    # its first parted position, where (b)'s token must also lie within
+    # TIE_FACTOR of (b)'s own largest |served - fp32| below the top logit
+    worst, parted = 0.0, []
+    for i, got in teacher.items():
+        toks = b[0]["tokens"][i]
+        full = np.concatenate([prompts[i], toks[:len(got) - 1]])[None]
+        with torch.no_grad():
+            want = ref.logits(torch.as_tensor(full, device=device))[0]
+        want = want[len(prompts[i]) - 1:].float()
+        got = got.to(device)
+        rel = rel_err(got, want)
+        assert math.isfinite(rel) and rel <= LOGITS_REL_TOL, \
+            f"serve_tp: request {i}'s arm (b) logits vs the fp32 copy: " \
+            f"rel err {rel} > {LOGITS_REL_TOL}"
+        worst = max(worst, rel)
+        d = first_difference(toks, a["tokens"][i])
+        if d is not None:
+            err = (got[d] - want[d]).abs().max().item()
+            gap = (want[d].max() - want[d, int(toks[d])]).item()
+            parted.append((i, d, round(gap, 5), round(err, 5), round(rel, 4)))
+            assert gap <= TIE_FACTOR * err, \
+                f"serve_tp: request {i}'s arm (b) token at {d} lies " \
+                f"{gap:.4g} below the fp32 copy's top logit, more than " \
+                f"{TIE_FACTOR} x its own error {err:.4g}"
+    del ref
+    # a rank holds half of every projection, the norms whole, half the KV
+    want_params = predicted_rank_bytes(a["param_bytes"], TP_WORLD)
+    for rank, r in enumerate(b):
+        got = sum(r["param_bytes"].values())
+        assert got == want_params, (rank, got, want_params)
+        assert r["pool_bytes"] * TP_WORLD == a["pool_bytes"], \
+            (rank, r["pool_bytes"], a["pool_bytes"])
+        assert r["kv_heads"] * TP_WORLD == a["kv_heads"]
+    # the kernels on every rank; the decode step's collectives
+    launches = [a["launches"], a["generate_launches"]]
+    for rank, r in enumerate([a] + b if device == "cuda" else []):
+        for name in ("flash_attention_fwd", "paged_decode_attention_int8"):
+            assert r["launches"][name] > 0, (rank, name, r["launches"])
+        assert r["generate_launches"]["decode_attention_int8"] > 0, rank
+    for r in b:
+        launches += [r["launches"], r["generate_launches"]]
+        comms = r["decode_comms"]
+        got = {k: v["count"] for k, v in comms.items()}
+        assert got == {"all_reduce": 2 * L + 1,
+                       "all_gather_into_tensor": 1}, got
+    comms = b[0]["decode_comms"]
+    n_ops = sum(v["count"] for v in comms.values())
+    log(f"[serve_tp] tinyllama-1.1B widths ({L} layers, GQA "
+        f"{model.config.n_head}/{model.config.kv_heads}), bf16, int8 KV, "
+        f"8 slots, prefill_chunk=64, paged_kv={PAGED_KV}; 8 requests (4 "
+        f"share a 512-token prefix; prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))}, new {min(budgets)}-{max(budgets)})")
+    for label, arm in (("(a) one rank (no collective)", a),
+                       (f"(b) {TP_WORLD} ranks", b[0])):
+        log(f"[serve_tp] {label}: {arm['new_tokens']} tokens in "
+            f"{arm['wall']:.2f} s, tokens/s {arm['tokens_per_s']:.1f}, step "
+            f"gap p50 {arm['gap_p50']:.2f} ms p99 {arm['gap_p99']:.2f} ms, "
+            f"TTFT p50 {arm['ttft_p50']:.2f} ms, {arm['decode_steps']} "
+            f"decode steps, prefix-hit tokens {arm['hit_tokens']}; a "
+            f"contiguous decode step with the comms logger on "
+            f"{arm['decode_step_ms']:.2f} ms"
+            + ("" if arm is a else f" ({note})"))
+    log(f"[serve_tp] (b) a decode step's collectives (rank 0): "
+        + ", ".join(f"{k} {v['count']} ops {v['bytes'] / 1e6:.3f} MB, mean "
+                    f"{v['ms'] / v['count']:.3f} ms" for k, v in
+                    sorted(comms.items()))
+        + f" ({n_ops} ops, expected {2 * L} + 1 all-reduces (2 a layer and "
+        f"the embedding) + 1 all-gather (the head); {note})")
+    log(f"[serve_tp] tokens: both ranks identical; (b) vs (a): "
+        f"{ties['same']} of {ties['n']} requests identical, worst gap / "
+        f"error at a parting {ties['worst']:.3g} (limit {TIE_FACTOR}); fp32 "
+        f"at {TP_FP32_LAYERS} layers, tp_size {TP_WORLD} vs 1: identical "
+        f"({sum(map(len, a32['tokens']))} tokens); (b)'s logits teacher-"
+        f"forced (requests {sorted(teacher)}, {sum(map(len, teacher.values()))}"
+        f" positions) vs the fp32 one-rank copy: max rel err {worst:.4g} "
+        f"(tol {LOGITS_REL_TOL}); at (b)'s partings from (a) (request, "
+        f"position, gap below the top logit, (b)'s max |served - fp32|, "
+        f"the request's rel err): {parted}")
+    log(f"[serve_tp] bytes a rank: parameters "
+        f"{[sum(r['param_bytes'].values()) for r in b]} (predicted "
+        f"{want_params}) vs one rank {sum(a['param_bytes'].values())}; KV "
+        f"pool {[r['pool_bytes'] for r in b]} vs {a['pool_bytes']} "
+        f"({b[0]['kv_heads']} of {a['kv_heads']} KV heads)")
+    log(f"[serve_tp] launches: (a) {a['launches']}; (b) rank 0 "
+        f"{b[0]['launches']}, rank 1 {b[1]['launches']}; generate() "
+        f"{[r['generate_launches']['decode_attention_int8'] for r in b]} "
+        f"int8 decode launches; the two ranks took {wall:.1f} s (process "
+        f"start and weight loads included)")
+    del a_srv, model
+    fresh_device(device)
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6036,11 +6646,22 @@ def main(argv=None) -> int:
     ap.add_argument("--zero-dp-worker", nargs=3,
                     metavar=("RANK", "WORLD", "DIR"), help=argparse.SUPPRESS)
     ap.add_argument("--zero-dp-spec", default="{}", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-only", action="store_true",
+                    help="build, then run serve_tp (24) and its kernel rows "
+                    "alone")
+    # serve_tp's arm (b) starts this file once a rank with these
+    ap.add_argument("--tp-worker", nargs=3, metavar=("RANK", "WORLD", "DIR"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-spec", default="{}", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.zero_dp_worker:
         rank, world, tmp = args.zero_dp_worker
         return zero_dp_worker(int(rank), int(world), tmp, args.seed,
                               json.loads(args.zero_dp_spec))
+    if args.tp_worker:
+        rank, world, tmp = args.tp_worker
+        return tp_worker(int(rank), int(world), tmp, args.seed,
+                         json.loads(args.tp_spec))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -6060,6 +6681,12 @@ def main(argv=None) -> int:
     if args.zero_dp_only:
         phase_train_zero_dp(args.seed)
         log(card)
+        return 0
+    if args.tp_only:
+        rows = tp_kernel_rows(gen)
+        phase_serve_tp(args.seed)
+        log(card)
+        print(json.dumps({"tp_rank_rows": rows}), flush=True)
         return 0
     if args.offload_only:
         llama = phase_train_llama(args.seed, LLAMA_TIMED_STEPS)
@@ -6091,6 +6718,9 @@ def main(argv=None) -> int:
                                spaged["no drafts"]["reqs"])
         log(card)
         return 0
+    def lap(what: str) -> None:
+        log(f"[smoke] {what} done at {time.perf_counter() - t_start:.1f} s")
+
     results = phase_kernels(gen)
     log("[kernels] bf16 times beside PERF.md's (H100 80GB HBM3, 700 W): "
         + ", ".join(f"{name} {results[name]['ms']:.4f} ms (recorded {ms})"
@@ -6098,6 +6728,11 @@ def main(argv=None) -> int:
     results.update(phase_int8_kernels(gen))
     phase_train_kernels(gen, results)
     results.update(phase_sparse_kernels(gen))
+    # the serving kernels again at a rank's shapes under tensor parallelism
+    tp_rows = tp_kernel_rows(gen)
+    for name, row in tp_rows.items():
+        results[name.split(" ")[0]].setdefault("tp_rank", {})[name] = row
+    lap("kernel rows")
     import deepspeed_tpu_torch as dst
 
     seed = args.seed
@@ -6139,10 +6774,12 @@ def main(argv=None) -> int:
     runs += [paged_launches, pcap["launches"]]
     phase_overlap_captured("serve_paged", graph_engine(model), preqs, pwarm,
                            *ptraffic, seed)
+    lap("serve, serve_paged and their captured arms")
     runs += phase_cost_model(model, seed, pwarm, *ptraffic, preqs)
     runs += fleet_phases(model, seed, pwarm, *ptraffic, pcap, psrv.engine,
                          ref)
     del srv, ref, psrv, geng, pgeng, cap, pcap
+    lap("cost_model, serve_disagg, serve_http")
     runs += phase_serve_storage(seed, results, pwarm)
     torch.cuda.empty_cache()
     spec = phase_serve_spec(model, seed)
@@ -6157,6 +6794,7 @@ def main(argv=None) -> int:
     res = phase_serve_resilience(model, seed, *straffic,
                                  spaged["no drafts"]["reqs"])
     runs += [res["launches"], res["contiguous_launches"]]
+    lap("serve_storage, the spec phases, serve_resilience")
     del model, spec, spaged, smodel, res
     torch.cuda.empty_cache()
 
@@ -6217,6 +6855,7 @@ def main(argv=None) -> int:
     del llama, bf16_ref, qsrv
     torch.cuda.empty_cache()
     runs += phase_zero_inference(seed)
+    lap("the int8 serving phases, zero_inference")
 
     _, _, train_launches, _ = phase_train(
         gpt2_medium(args.seed), args.seed, flagship_config(GAS), 3, "train")
@@ -6230,13 +6869,19 @@ def main(argv=None) -> int:
     phase_reference_train(args.seed)
     runs.extend(phase_train_sparse(args.seed, 3))
     phase_reference_sparse(args.seed)
+    lap("train, train_fused, the sparse phases")
     llama = phase_train_llama(args.seed, LLAMA_TIMED_STEPS)
     runs.append(llama["launches"])
     phase_reference_llama(args.seed)
+    lap("train_llama, reference_llama")
     runs.append(phase_checkpoint(args.seed))
+    lap("checkpoint")
     runs.extend(offload_phases(args.seed, llama))
+    lap("the offload phases")
     del llama
     runs.append(phase_train_zero_dp(args.seed))
+    lap("train_zero_dp")
+    runs.extend(phase_serve_tp(args.seed))
     # each kernel's launches over the serving and training runs (each
     # counted from 0 just before its run and read just after)
     kernels = [dict(name=name, route="cuda", **KERNELS[name],

@@ -73,10 +73,13 @@ def initialize(args=None, model: Any = None, optimizer=None,
 def init_inference(model: Any = None, config: Union[Dict, None] = None,
                    **kwargs) -> InferenceEngine:
     """Build the inference engine: ``model`` is the port's
-    ``TransformerLM``; ``model_parameters=`` (a state dict) and
-    ``device=`` are optional; other keys configure the engine
-    (``enable_cuda_graph=True``: decode steps replay captured CUDA
-    graphs)."""
+    ``TransformerLM``; ``model_parameters=`` (a state dict), ``device=``
+    and ``mesh=`` (a ``parallel.ProcessMesh``) are optional; other keys
+    configure the engine (``enable_cuda_graph=True``: decode steps replay
+    captured CUDA graphs; ``mp_size=N`` or ``tensor_parallel={"tp_size":
+    N}``: serve over a model group of N ranks, each rank calling this with
+    the same arguments, its card holding 1/N of the sharded weights and KV
+    heads)."""
     return InferenceEngine(model=model, config=config, **kwargs)
 
 

@@ -32,13 +32,15 @@ loss scale and schedule carry over.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..models.transformer_lm import TransformerConfig
 from ..ops.quantization.convert import DENSE_KEYS
+from ..ops.quantization.linear import QuantDense
 from ..runtime.checkpoint_engine.checkpoint_engine import as_numpy
 
 
@@ -144,6 +146,39 @@ def gpt2_state_dict_from_flax(cfg, params: Mapping[str, Any]
             sd[f"{prefix}{'.'.join(mods)}.{suffix}"] = torch.from_numpy(
                 np.array(val, dtype=np.float32))
     return sd
+
+
+def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
+    """The bridge's naming read backwards: each parameter of a port
+    ``TransformerLM`` or ``GPT2LMHeadModel`` (its state-dict key) -> (the
+    JAX parameter path it comes from, the JAX leaf's shape). A block's
+    parameter maps to the scanned stack's leaf (``blocks/block/...``), whose
+    shape leads with the layer count; a linear weight (out, in) to its
+    ``kernel`` (in, out), an embedding's weight to its ``embedding``, a
+    norm's weight to its ``scale``, a bias to its ``bias``. The sharding
+    rules of ``module_inject`` are written over these paths."""
+    blocks = getattr(module, "blocks", None)
+    n_layer = len(blocks) if isinstance(blocks, nn.ModuleList) else 0
+    out = {}
+    for mod_name, mod in module.named_modules():
+        for name, p in mod.named_parameters(recurse=False):
+            parts = mod_name.split(".") if mod_name else []
+            stacked = len(parts) > 1 and parts[0] == "blocks" and \
+                parts[1].isdigit()
+            shape = tuple(p.shape)
+            if name == "weight" and isinstance(mod, (nn.Linear, QuantDense)):
+                leaf, shape = "kernel", shape[::-1]
+            elif name == "weight" and isinstance(mod, nn.Embedding):
+                leaf = "embedding"
+            elif name in ("weight", "scale"):
+                leaf = "scale"
+            else:
+                leaf = name
+            mods = ["blocks", "block"] + parts[2:] if stacked else parts
+            out[".".join(parts + [name])] = (
+                "/".join(mods + [leaf]),
+                (n_layer,) + shape if stacked else shape)
+    return out
 
 
 def _fp32_state_dict(cfg, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -308,10 +308,12 @@ def all_gather_into_tensor(tensor: torch.Tensor, group: Group = None,
                            axis: int = 0, tiled: bool = True
                            ) -> torch.Tensor:
     """The group's tensors concatenated along ``axis`` (``tiled``), or
-    stacked along a new ``axis`` (the JAX ``lax.all_gather``)."""
+    stacked along a new ``axis`` (the JAX ``lax.all_gather``); a negative
+    ``axis`` counts from the end of the result."""
     pg, n, _ = _resolve(group)
     if pg is None:
         return tensor if tiled else tensor.unsqueeze(axis)
+    axis %= tensor.dim() + (0 if tiled else 1)
     buf = _gather_stacked(tensor, pg, n)
     if not tiled:
         return buf.movedim(0, axis)
@@ -448,11 +450,13 @@ def broadcast_host(tensor, src: int = 0):
 
 
 @timed_op
-def all_gather_host(tensor):
-    """(world, *shape): every rank's host value."""
-    pg, n, _ = _world_group()
+def all_gather_host(tensor, group: Group = None):
+    """(n, *shape): every rank's host value, over the world (``group``
+    None, as every host collective) or the group along the named mesh
+    axes."""
+    pg, n, _ = _world_group() if group is None else _resolve(group)
     arr = np.asarray(tensor)
-    if pg is None:
+    if pg is None or n == 1:
         return arr[None]
     t = torch.as_tensor(arr).to(_host_device())
     return _gather_stacked(t, pg, n).cpu().numpy()

@@ -1,10 +1,11 @@
 """Inference config (port of ``deepspeed_tpu/inference/config.py``): the same
 JSON surface as a plain dataclass.
 
-Keys for features this port does not have yet raise instead of being
-ignored: tensor parallelism above 1 and a truthy injection policy (the JAX
-engine reads ``injection_policy`` only when it is truthy, so None and ``{}``
-parse). ``checkpoint`` (a path, a dict or None) and ``zero`` (a dict) parse
+``tensor_parallel.tp_size`` (or ``mp_size``) above 1 serves over a model
+group of that many ranks, and a truthy ``injection_policy`` (JAX parameter
+path pattern -> spec entries) replaces the family's sharding rules, as in
+the JAX engine, which reads the key only when it is truthy
+(``inference/engine.py``, ``module_inject``). ``checkpoint`` (a path, a dict or None) and ``zero`` (a dict) parse
 and are recorded, as in the JAX package, where no code reads them either:
 ZeRO-Inference there and here is its own engine,
 ``inference.zero_inference.ZeroInferenceEngine``.
@@ -40,7 +41,7 @@ _DTYPES = {"float32": torch.float32, "fp32": torch.float32,
 _QUANT_DEFAULTS = {"enabled": False, "bits": 8, "group_size": 64}
 
 # keys accepted only when falsy (None, {}): a truthy value raises
-_NOT_PORTED = ("injection_policy",)
+_NOT_PORTED = ()
 
 
 @dataclasses.dataclass
@@ -90,8 +91,9 @@ class DeepSpeedInferenceConfig:
         if unknown:
             raise ValueError(f"unknown inference config keys {unknown}")
         out = cls(**cfg)
-        if int(out.tensor_parallel.get("tp_size", 1)) != 1:
-            raise NotImplementedError("tensor parallelism is not ported yet")
+        if out.mp_size < 1:
+            raise ValueError(f"tensor_parallel.tp_size must be >= 1, got "
+                             f"{out.mp_size}")
         unknown = sorted(set(out.quant) - set(_QUANT_DEFAULTS))
         if unknown:
             raise ValueError(f"unknown quant keys {unknown}; expected "

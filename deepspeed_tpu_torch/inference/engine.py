@@ -59,6 +59,26 @@ quantized.
 
 A module with no ``logits`` method runs through :meth:`InferenceEngine.
 forward` as a plain call (the JAX ``_generic_forward``).
+
+Tensor parallelism (``tensor_parallel.tp_size`` / ``mp_size`` N > 1, or a
+``mesh`` whose ``model`` axis is N): the engine runs on every rank of a
+model group of N ranks, each with the same inputs (SPMD). The sharding
+rules come from ``module_inject.replace_module`` (the caller's
+``injection_policy``, the family's rules, or AutoTP), as in the JAX engine
+(``engine.py:84-90,127-150``), and ``module_inject.apply_tensor_parallel``
+carries them out before the model reaches the card: the layers are
+swapped for column-, row- and vocab-parallel ones and the full weights
+(``model_parameters``, or the model's own, on the host) are sliced for
+this rank, so each rank's card holds 1/N of every sharded weight and of
+the KV heads (``kv_cache_spec``). The head gathers the whole vocabulary on
+every rank, so sampling, ``generate()`` and a server's decisions are the
+same on every rank. Above one rank these raise ``NotImplementedError``:
+``data`` > 1 beside ``model`` > 1 (slots sharded over data ranks), the int8
+tiers (group scales cut by the shard boundaries), ``enable_cuda_graph``
+(gloo's collectives run on the host and cannot be captured; NCCL capture
+needs a card per rank), a truthy ``zero`` config (ZeRO-Inference), and
+any module but a ``TransformerLM`` (GPT-2's fused qkv waits for the
+training slice).
 """
 
 from __future__ import annotations
@@ -71,8 +91,11 @@ import torch
 from torch import nn
 from torch.nn.utils import parametrize
 
+from .. import comm
 from ..accelerator import resolve_device
+from ..module_inject import TPPlan, apply_tensor_parallel, replace_module
 from ..ops.quantization.convert import DENSE_KEYS, quantize_lm_params
+from ..parallel import mesh as mesh_mod
 from ..runtime.weight_quantizer import WeightQuantization
 from ..utils.logging import log_dist
 from .config import DeepSpeedInferenceConfig
@@ -161,13 +184,16 @@ class InferenceEngine:
     ``prefill_last``/``decode``/``logits``/``kv_cache_spec`` surface);
     ``model_parameters`` an optional state dict to load into it (for example
     from ``checkpoint.flax_import.state_dict_from_flax``). ``device``
-    defaults to ``cuda``; the CPU runs only when asked for.
+    defaults to ``cuda``; the CPU runs only when asked for. ``mesh`` (a
+    ``parallel.ProcessMesh``) fixes the mesh; else a ``tp_size`` N > 1
+    builds one with ``model`` N over the world (module docstring).
     """
 
     def __init__(self, model: nn.Module = None,
                  config: Union[Dict, DeepSpeedInferenceConfig, None] = None,
                  model_parameters: Optional[Dict[str, torch.Tensor]] = None,
-                 device: Union[str, torch.device, None] = None, **kwargs):
+                 device: Union[str, torch.device, None] = None, mesh=None,
+                 **kwargs):
         if isinstance(config, DeepSpeedInferenceConfig):
             if kwargs:
                 raise ValueError(f"pass either a config object or keys, not "
@@ -187,8 +213,19 @@ class InferenceEngine:
                 f"config dtype {self.dtype} differs from the model config's "
                 f"{model_dtype}: the port computes in the parameters' dtype, "
                 f"so build the model with dtype={self.dtype}")
-        if model_parameters is not None:
-            model.load_state_dict(model_parameters)
+        self._init_mesh(mesh)
+        if self.mp_world_size > 1:
+            rules = replace_module(
+                model, tp_size=self.mp_world_size,
+                injection_policy=self._config.injection_policy)
+            self._refuse_above_one_rank(model)
+            # swapped and sliced on the host, before the card sees it
+            self.tp_plan = apply_tensor_parallel(model, rules, self.mesh,
+                                                 model_parameters)
+        else:
+            self.tp_plan = TPPlan(1, 0)
+            if model_parameters is not None:
+                model.load_state_dict(model_parameters)
         # a TransformerLM's parameters are in its config dtype already; a
         # cast would also reach an int8 model's fp32 scales
         self.module = (model.to(device=self.device) if model_dtype is not None
@@ -203,8 +240,51 @@ class InferenceEngine:
         self.decode_graphs = (DecodeGraphs(self.module, self.device)
                               if self._config.enable_cuda_graph else None)
         log_dist(f"InferenceEngine: device={self.device} "
-                 f"dtype={self._config.dtype} "
+                 f"dtype={self._config.dtype} tp={self.mp_world_size} "
                  f"cuda_graph={self.decode_graphs is not None}", ranks=[0])
+
+    def _init_mesh(self, mesh) -> None:
+        """The mesh and ``mp_world_size`` (the JAX engine's rule: a given
+        mesh is installed; else a ``tp_size`` above 1 builds one with that
+        ``model`` axis over the world; else an installed mesh is read). A
+        one-rank engine with neither touches no global state."""
+        mp = self._config.mp_size
+        if mesh is not None or mp > 1:
+            comm.init_distributed(verbose=False, device=self.device)
+        if mesh is not None:
+            mesh_mod.set_mesh(mesh)
+        elif mp > 1 and (not mesh_mod.has_mesh() or
+                         mesh_mod.get_model_parallel_world_size() != mp or
+                         mesh_mod.get_mesh().size != comm.get_world_size()):
+            mesh_mod.initialize_mesh(model=mp)
+        self.mesh = mesh_mod.get_mesh() if mesh_mod.has_mesh() else None
+        self.mp_world_size = mesh_mod.get_model_parallel_world_size() \
+            if self.mesh is not None else 1
+
+    def _refuse_above_one_rank(self, model) -> None:
+        """What a model group above one rank does not run yet (module
+        docstring)."""
+        n = self.mp_world_size
+        if mesh_mod.get_data_parallel_world_size() > 1:
+            raise NotImplementedError(
+                f"an inference mesh with data > 1 beside model = {n} is not "
+                f"ported yet: the serving slots are not sharded over data "
+                f"ranks (run one engine per model group)")
+        if self._config.quant_enabled or getattr(
+                getattr(model, "config", None), "int8_weights", False):
+            raise NotImplementedError(
+                f"int8 weights over a model group of {n} ranks are not "
+                f"ported yet: their group and channel scales would be cut "
+                f"by the shard boundaries")
+        if self._config.enable_cuda_graph:
+            raise NotImplementedError(
+                f"enable_cuda_graph over a model group of {n} ranks: gloo's "
+                f"collectives run on the host and cannot be captured in a "
+                f"CUDA graph, and NCCL capture needs a card per rank")
+        if self._config.zero:
+            raise NotImplementedError(
+                f"ZeRO-Inference over a model group of {n} ranks is not "
+                f"ported yet")
 
     # ------------------------------------------------------------------
     # int8 compute tier (JAX engine.py:189-219)

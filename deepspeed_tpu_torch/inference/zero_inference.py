@@ -56,6 +56,7 @@ from ..models.transformer_lm import (KVCacheSpec, TransformerBlock,
                                      alibi_slopes)
 from ..ops.quantization.convert import DENSE_KEYS, quantize_lm_state_dict
 from ..ops.quantization.linear import QuantDense
+from ..parallel import mesh as mesh_mod
 from ..utils.logging import log_dist
 from ..utils.streaming import LayerWireFormat, host_tensor
 
@@ -71,6 +72,11 @@ class ZeroInferenceEngine:
                  dtype: Optional[torch.dtype] = None, prefetch: int = 1,
                  pack: bool = True, int8: bool = False,
                  device: Any = None):
+        if mesh_mod.has_mesh() and \
+                mesh_mod.get_model_parallel_world_size() > 1:
+            raise NotImplementedError(
+                "ZeRO-Inference over a model group above one rank is not "
+                "ported yet: it streams whole layers to one card")
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         host = {k: host_tensor(v) for k, v in params_host.items()}

@@ -72,6 +72,7 @@ from ..ops.sparse_attention.block_sparse_kernel import (
 from ..ops.sparse_attention.sparse_self_attention import \
     block_sparse_attention
 from ..ops.transformer.ln_linear import LN_LINEAR_OP, ln_linear
+from ..parallel.mesh import MODEL_AXIS
 from .transformer_lm import CausalLMTraining, _dropout, to_torch_dtype
 
 __all__ = ["GPT2Config", "GPT2_SIZES", "gpt2_config", "GPT2LMHeadModel",
@@ -163,6 +164,26 @@ def _layer_norm(mod: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 def _ln_linear(ln: nn.LayerNorm, dense: nn.Linear, x: torch.Tensor):
     return ln_linear(x, ln.weight, ln.bias, dense.weight, dense.bias,
                      eps=ln.eps)
+
+
+def gpt2_sharding_rules():
+    """Megatron-style tensor-parallel rules for GPT-2's JAX parameter paths
+    (the JAX function), as ``(pattern, mesh-axis entries)``: column-
+    parallel qkv and MLP-in, row-parallel attention-out and MLP-out, the
+    vocab-parallel embedding; a block leaf's leading dim is the layer
+    stack's. The port serves GPT-2 on one rank only: its fused qkv must be
+    split per head first (``module_inject.get_policy_rules``)."""
+    M = MODEL_AXIS
+    return [
+        (r"wte/embedding", (M, None)),
+        (r"wpe/embedding", (None, None)),
+        (r"attn/qkv/kernel", (None, None, M)),
+        (r"attn/proj/kernel", (None, M, None)),
+        (r"mlp/fc/kernel", (None, None, M)),
+        (r"mlp/proj/kernel", (None, M, None)),
+        (r"attn/qkv/bias", (None, M)),
+        (r"mlp/fc/bias", (None, M)),
+    ]
 
 
 class CausalSelfAttention(nn.Module):

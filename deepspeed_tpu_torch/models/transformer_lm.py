@@ -86,6 +86,7 @@ from ..ops.quantization.linear import QuantDense
 from ..ops.transformer.chunked_xent import chunked_softmax_xent
 
 __all__ = ["TransformerConfig", "FAMILY_PRESETS", "transformer_config",
+           "transformer_logical_axes", "transformer_sharding_rules",
            "apply_rotary", "alibi_slopes", "CachedAttention",
            "TransformerMLP", "TransformerBlock", "KVCacheSpec",
            "TransformerLM"]
@@ -186,6 +187,39 @@ def transformer_config(family: str, **overrides) -> TransformerConfig:
         raise ValueError(f"unknown family {family!r}; know "
                          f"{sorted(FAMILY_PRESETS)}")
     return TransformerConfig(**{**FAMILY_PRESETS[family], **overrides})
+
+
+def transformer_logical_axes():
+    """Logical axis names of the parameters, by JAX parameter path pattern
+    (the JAX function): a block's leaf carries the leading ``layers`` dim
+    of the scanned stack, ``heads`` is the fused heads * head_dim width and
+    ``ffn`` the MLP's hidden width. ``checkpoint.flax_import.flax_paths``
+    names the port's parameters by these paths."""
+    return [
+        (r"embed_tokens/embedding", ("vocab", "embed")),
+        (r"embed_pos/embedding", ("positions", "embed")),
+        (r"attn/(q_proj|k_proj|v_proj)/kernel", ("layers", "embed", "heads")),
+        (r"attn/o_proj/kernel", ("layers", "heads", "embed")),
+        (r"attn/(q_proj|k_proj|v_proj)/bias", ("layers", "heads")),
+        (r"mlp/(up_proj|gate_proj)/kernel", ("layers", "embed", "ffn")),
+        (r"mlp/(up_proj|gate_proj)/bias", ("layers", "ffn")),
+        (r"mlp/down_proj/kernel", ("layers", "ffn", "embed")),
+        (r"lm_head/kernel", ("embed", "vocab")),
+    ]
+
+
+def transformer_sharding_rules(rules=None):
+    """Megatron-style tensor-parallel rules for these paths (the JAX
+    function): :func:`transformer_logical_axes` resolved through the
+    axis-rules table (``rules``, a ``LogicalAxisRules``; default the
+    default table), as ``(pattern, mesh-axis entries)`` pairs: column-
+    parallel q/k/v and up/gate projections, row-parallel o and down
+    projections, the vocab-parallel embedding and head."""
+    from ..parallel.axis_rules import default_axis_rules
+
+    rules = rules if rules is not None else default_axis_rules()
+    return [(pat, rules.spec_entries(axes))
+            for pat, axes in transformer_logical_axes()]
 
 
 def _rotate_half(x):
@@ -394,12 +428,17 @@ class CachedAttention(nn.Module):
     :func:`_row_writes` or ``page_writes``, computed once per forward for
     every layer: the flattened token rows ``sel`` that land in the cache
     (None: all), where (``buf[a, :, b]``), and ``keep`` (None, or the
-    tokens whose rows are stored; the others write back what is there)."""
+    tokens whose rows are stored; the others write back what is there).
+
+    ``heads`` and ``kv_heads`` are the query and KV heads this module
+    computes: the config's, or under tensor parallelism this rank's share
+    (``module_inject`` sets them with the projections it swaps in)."""
 
     def __init__(self, cfg: TransformerConfig, **fk):
         super().__init__()
         self.config = cfg
         H, KV, D, C = cfg.n_head, cfg.kv_heads, cfg.head_dim, cfg.n_embd
+        self.heads, self.kv_heads = H, KV
         self.q_proj = _dense(cfg, C, H * D, cfg.qkv_bias, **fk)
         self.k_proj = _dense(cfg, C, KV * D, cfg.qkv_bias, **fk)
         self.v_proj = _dense(cfg, C, KV * D, cfg.qkv_bias, **fk)
@@ -448,7 +487,7 @@ class CachedAttention(nn.Module):
         """``gen`` (fresh mode, training): the block's dropout generator."""
         cfg = self.config
         B, T, _ = x.shape
-        H, KV, D = cfg.n_head, cfg.kv_heads, cfg.head_dim
+        H, KV, D = self.heads, self.kv_heads, cfg.head_dim
         q = self.q_proj(x).view(B, T, H, D)
         k = self.k_proj(x).view(B, T, KV, D)
         v = self.v_proj(x).view(B, T, KV, D)
@@ -666,8 +705,12 @@ class TransformerLM(CausalLMTraining, nn.Module):
         return cfg
 
     def kv_cache_spec(self) -> KVCacheSpec:
+        """The cache contract; under tensor parallelism its KV heads are
+        this rank's share."""
         cfg = self.config
-        return KVCacheSpec(n_layer=cfg.n_layer, kv_heads=cfg.kv_heads,
+        kv = self.blocks[0].attn.kv_heads if len(self.blocks) \
+            else cfg.kv_heads
+        return KVCacheSpec(n_layer=cfg.n_layer, kv_heads=kv,
                            head_dim=cfg.head_dim, dtype=cfg.dtype,
                            max_seq_len=cfg.max_seq_len,
                            quant=cfg.kv_cache_quant)
@@ -737,7 +780,12 @@ class TransformerLM(CausalLMTraining, nn.Module):
         """Vocabulary projection, fp32 logits. Tied: in ``dtype`` (flax
         ``Embed.attend`` promotes both operands to it); untied: in fp32, or
         through the int8 kernel with bf16 inputs when the head is a
-        QuantDense (``int8_head``)."""
+        QuantDense (``int8_head``). A vocab-parallel head
+        (``module_inject.layers.VocabParallelHead``) projects this rank's
+        slice by the same rule and gathers the whole vocabulary."""
+        head = getattr(self, "lm_head", None)
+        if getattr(head, "vocab_parallel", False):
+            return head(x)
         if self.config.tie_word_embeddings:
             w = self.embed_tokens.weight
             return F.linear(x.to(w.dtype), w).float()

@@ -1,7 +1,17 @@
 """``deepspeed_tpu_torch.parallel``: the process mesh over the
-``torch.distributed`` world (``mesh.py``) and its topology
-(``topology.py``). Tensor-parallel axis rules are not ported yet."""
+``torch.distributed`` world (``mesh.py``), its topology (``topology.py``)
+and the logical axis rules that place tensors on it (``axis_rules.py``)."""
 
+from .axis_rules import (  # noqa: F401
+    DEFAULT_AXIS_RULES,
+    PAGED_CACHE_AXES,
+    STACKED_CACHE_AXES,
+    LogicalAxisRules,
+    cache_leaf_sharding,
+    default_axis_rules,
+    physical_spec,
+    validate_axis_rules,
+)
 from .mesh import (  # noqa: F401
     BATCH_AXES,
     DATA_AXIS,

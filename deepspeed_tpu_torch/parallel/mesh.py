@@ -12,8 +12,12 @@ tuple of axes, as in the JAX package.
 Axis layout (major → minor): ``pipe, data, expert, seq, model``; with
 MiCS, ``pipe, data_outer, data, expert, seq, model``, where ``data`` is
 the shard group of ``mics_shard_size`` ranks and ``data_outer`` the
-replica groups. This slice runs the data-parallel axes: ``model``,
-``pipe``, ``expert`` and ``seq`` above 1 raise ``NotImplementedError``.
+replica groups. ``data`` and ``model`` run above 1 (``model`` is the
+minor axis, so a model group is a block of consecutive ranks, as in the
+JAX mesh); ``pipe``, ``expert`` and ``seq`` above 1 raise
+``NotImplementedError``. The entry points decide what they serve or train
+over: ``init_inference`` takes ``model`` above 1 with ``data`` 1, the
+training engine ``data`` above 1 with ``model`` 1.
 
 Without a process group the mesh is one rank: every axis has size 1 and
 every group is that rank alone.
@@ -46,8 +50,7 @@ ZERO_AXES = (DATA_AXIS, EXPERT_AXIS, SEQ_AXIS)
 BATCH_AXES = (DATA_AXIS, EXPERT_AXIS)
 
 # what each axis above 1 still needs
-_NOT_PORTED = {MODEL_AXIS: "tensor parallelism",
-               PIPE_AXIS: "pipeline parallelism",
+_NOT_PORTED = {PIPE_AXIS: "pipeline parallelism",
                EXPERT_AXIS: "expert parallelism (MoE)",
                SEQ_AXIS: "sequence parallelism"}
 
@@ -213,7 +216,8 @@ def build_mesh(config: Optional[MeshConfig] = None,
         if getattr(config, axis) > 1:
             raise NotImplementedError(
                 f"mesh.{axis}={getattr(config, axis)}: {what} is not ported "
-                f"to the PyTorch/CUDA package yet (data parallelism is)")
+                f"to the PyTorch/CUDA package yet (data and tensor "
+                f"parallelism are)")
     world, rank = _dist_world()
     if devices is not None and len(devices) != world:
         raise ValueError(f"{len(devices)} devices given for a world of "

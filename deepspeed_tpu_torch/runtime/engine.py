@@ -124,6 +124,13 @@ OFFLOAD_WORLD_MSG = (
     "yet: it follows the tensor-parallel slice (the JAX package has it, "
     "runtime/zero/offload.py:85); offload runs on one rank")
 
+TP_TRAINING_MSG = (
+    "tensor-parallel training (a mesh with model > 1, or sharding_rules) is "
+    "not ported to the PyTorch/CUDA package yet: the next slice brings the "
+    "engine's sharding_rules, GPT-2's per-head qkv split and the autograd "
+    "of the parallel layers (tensor-parallel serving is ported: "
+    "init_inference / init_serving with tensor_parallel.tp_size > 1)")
+
 
 def _mesh_probe(config) -> tuple:
     """(mesh block, mics_shard_size) of a raw config before it is parsed
@@ -199,16 +206,19 @@ class DeepSpeedEngine:
                  dist_init_required=None):
         self.device = resolve_device(device)
         if sharding_rules is not None:
-            raise NotImplementedError(
-                "tensor-parallel sharding rules are not ported to the "
-                "PyTorch/CUDA package yet (the next slice)")
+            raise NotImplementedError(TP_TRAINING_MSG)
         comm.init_distributed(verbose=False, device=self.device,
                               dist_init_required=dist_init_required)
         if mesh is not None:
+            if mesh.shape.get(mesh_mod.MODEL_AXIS, 1) > 1:
+                raise NotImplementedError(TP_TRAINING_MSG)
             mesh_mod.set_mesh(mesh)
         elif not mesh_mod.has_mesh() or \
-                mesh_mod.get_mesh().size != comm.get_world_size():
+                mesh_mod.get_mesh().size != comm.get_world_size() or \
+                mesh_mod.get_model_parallel_world_size() > 1:
             dims, mics = _mesh_probe(config)
+            if int(dims.get("model", 1)) > 1:
+                raise NotImplementedError(TP_TRAINING_MSG)
             mesh_mod.initialize_mesh(
                 data=dims.get("data", -1), model=dims.get("model", 1),
                 pipe=dims.get("pipe", 1), expert=dims.get("expert", 1),

@@ -21,6 +21,7 @@ dimension, ``None`` or the axis name it shards over.
 from __future__ import annotations
 
 import math
+import re
 from typing import Dict, Optional, Sequence, Tuple
 
 from ...parallel.mesh import ZERO_AXES
@@ -118,18 +119,24 @@ def shard_dim(spec: Sequence) -> Optional[int]:
 
 
 class ShardingRules:
-    """Regex path → spec rules for tensor-parallel parameters: not ported
-    yet (an empty rule set is accepted)."""
+    """Regex path -> spec rules for tensor-parallel parameters (the JAX
+    class): ``rules`` is a list of ``(pattern, entries)``, ``entries`` one
+    mesh axis or None a dimension of the parameter's JAX leaf; the first
+    pattern that ``re.search``-es the path wins. Paths are the JAX
+    parameter paths (``blocks/block/attn/q_proj/kernel``), which
+    ``checkpoint.flax_import.flax_paths`` gives for a port module's
+    parameters; ``module_inject`` turns the rules into module swaps."""
 
-    def __init__(self, rules=None):
-        if rules:
-            raise NotImplementedError(
-                "tensor-parallel sharding rules are not ported to the "
-                "PyTorch/CUDA package yet (the next slice: parallel/"
-                "axis_rules, module_inject)")
-        self.raw_rules = []
+    def __init__(self, rules: Optional[Sequence[Tuple[str, Sequence]]]
+                 = None):
+        self.raw_rules = list(rules or [])
+        self.rules = [(re.compile(pat), PartitionSpec(*spec))
+                      for pat, spec in self.raw_rules]
 
-    def spec_for(self, path: str):
+    def spec_for(self, path: str) -> Optional[PartitionSpec]:
+        for pat, spec in self.rules:
+            if pat.search(path):
+                return spec
         return None
 
 

@@ -115,6 +115,26 @@ utilization and tokens per GFLOP against its wall time, and every
 instrumentation's own overhead up; :meth:`reset_efficiency_window` starts
 a measured window after warmup.
 
+Tensor parallelism. Over an engine whose model group has N > 1 ranks
+(``InferenceEngine.mp_world_size``), every rank runs its own server over
+its shard, fed the same submissions in the same order (SPMD): its pools
+hold the rank's KV heads (the engine's ``kv_cache_spec``), the page table,
+free list and prefix trie are host state and stay whole on every rank,
+and sampling reads the whole gathered logits with a generator seeded the
+same on every rank, so every decision is the same on every rank. Twice a
+step the ranks compare a digest of the step's decisions over the model
+group (after the grant: the granted request ids and the queue; at the
+step boundary: the retired ids and reasons, every seated request's token
+count and last sampled token); a mismatch raises
+:class:`RankDivergenceError` on every rank at that point, before a
+diverged step could issue a collective the other ranks do not. Above one
+rank these raise ``NotImplementedError``: the keys whose decisions read a
+rank's own clock (``deadline_default_ms``, ``step_wall_budget_ms``,
+``degradation``, ``fault_injector``, ``priority`` and a submission's
+``deadline_ms``) unless ``clock`` is given (one clock every rank reads
+alike, such as a step count), and ``overlap``, ``spec_decode``, a ``role``
+other than ``"both"`` and ``cost_model``.
+
 Disaggregated prefill/decode (``role``, the DistServe/Splitwise split):
 ``"both"`` is the colocated engine; ``"prefill"`` admits and prefills
 only, and parks each request once its pages are full and its first token
@@ -137,6 +157,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import comm
 from ..accelerator import copy_from_host
 from ..ops.attention.paged_attention import MAX_QUERY_ROWS
 from ..telemetry import (FlightRecorder, MetricsRegistry,
@@ -173,6 +194,26 @@ _WATCHED_SERVING = ("_finite",)
 _WATCHED_DRAFTER = ("prefill_at", "decode")
 
 PAGED_KV_KEYS = ("num_pages", "page_size", "prefix_cache", "kernel")
+
+
+# keys whose decisions read the server's clock: above one rank only with a
+# clock every rank reads alike
+CLOCKED_KEYS = ("deadline_default_ms", "step_wall_budget_ms", "degradation",
+                "fault_injector", "priority")
+# keys with no model-group port yet, and why
+TP_REFUSED = {
+    "overlap": "the pipelined step issues the decode before admission, "
+               "which a model group has not been run in lockstep with",
+    "spec_decode": "the verify forward and the drafters are not run over "
+                   "a model group yet",
+    "role": "disaggregated replicas move KV pages between pools, which "
+            "would move every rank's shard",
+    "cost_model": "the analytic costs count the whole model, not a "
+                  "rank's share"}
+
+
+class RankDivergenceError(RuntimeError):
+    """The ranks of a model group disagreed on a step's decisions."""
 
 
 def _finite_rows(logits: torch.Tensor) -> torch.Tensor:
@@ -224,6 +265,15 @@ class ServingEngine:
             raise ValueError(f"prefill_chunk must be >= 0, got "
                              f"{prefill_chunk}")
         self.engine = engine
+        self.mp_world_size = int(getattr(engine, "mp_world_size", 1))
+        if self.mp_world_size > 1:
+            given = dict(deadline_default_ms=deadline_default_ms,
+                         step_wall_budget_ms=step_wall_budget_ms,
+                         degradation=degradation,
+                         fault_injector=fault_injector, priority=priority,
+                         overlap=overlap, spec_decode=spec_decode,
+                         role=role != "both", cost_model=cost_model)
+            self._refuse_above_one_rank(given, clock)
         # ONE monotonic clock for every time-dependent decision: deadline
         # stamps, queue expiry, SLO latencies, degradation windows and the
         # priority scheduler's rate buckets. Injectable, so tests drive a
@@ -486,6 +536,60 @@ class ServingEngine:
                  f"{self._spec.k if self._spec is not None else 0}",
                  ranks=[0])
 
+    def _refuse_above_one_rank(self, given: dict, clock) -> None:
+        n = self.mp_world_size
+        for key in CLOCKED_KEYS:
+            if given[key] is not None and given[key] is not False \
+                    and clock is None:
+                raise NotImplementedError(
+                    f"{key} over a model group of {n} ranks needs clock=: its "
+                    f"decisions read the server's clock, and each rank's own "
+                    f"clock would part the ranks (pass one clock every rank "
+                    f"reads alike, such as a step count)")
+        for key, why in TP_REFUSED.items():
+            if given[key]:
+                raise NotImplementedError(
+                    f"{key} over a model group of {n} ranks is not ported "
+                    f"yet: {why}")
+
+    def _digest(self, phase: str, granted: Sequence[Request],
+                finished: Sequence[Request]) -> int:
+        """A 62-bit digest of this step's decisions so far: the granted
+        request ids and the queue after the grant, or at the boundary the
+        retired requests (id, reason, tokens) and every seated request's
+        slot, token count and last sampled token."""
+        if phase == "grant":
+            value = [self.step_id, [r.request_id for r in granted],
+                     self.scheduler.pending, sorted(self._slot_req)]
+        else:
+            value = [self.step_id,
+                     [(r.request_id, getattr(r.finish_reason, "value", None),
+                       len(r.output_tokens),
+                       r.output_tokens[-1] if r.output_tokens else -1)
+                      for r in finished],
+                     sorted((slot, r.request_id, len(r.output_tokens),
+                             r.output_tokens[-1] if r.output_tokens else -1)
+                            for slot, r in self._slot_req.items())]
+        return comm.stable_hash(value) % (2 ** 62)
+
+    def _check_lockstep(self, phase: str, granted: Sequence[Request] = (),
+                        finished: Sequence[Request] = ()) -> None:
+        """Compare this step's digest across the model group (no-op on one
+        rank); a mismatch raises :class:`RankDivergenceError` on every
+        rank."""
+        if self.mp_world_size == 1:
+            return
+        mine = self._digest(phase, granted, finished)
+        seen = comm.all_gather_host(np.array([mine], np.int64),
+                                    group="model").reshape(-1)
+        if (seen != seen[0]).any():
+            err = RankDivergenceError(
+                f"the model group's ranks parted at step {self.step_id} "
+                f"({phase}): digests {seen.tolist()}; every rank must be "
+                f"fed the same submissions in the same order")
+            self._post_mortem("rank_divergence", err)
+            raise err
+
     # ------------------------------------------------------------------
     @property
     def live_count(self) -> int:
@@ -739,6 +843,11 @@ class ServingEngine:
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{max_new_tokens}")
+        if deadline_ms is not None and self.mp_world_size > 1 and \
+                self._now is time.perf_counter:
+            raise NotImplementedError(
+                "deadline_ms over a model group of ranks needs the server's "
+                "clock= (one clock every rank reads alike)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         req = Request(self._next_id, prompt, max_new_tokens, eos_token_id)
         self._next_id += 1
@@ -1753,6 +1862,7 @@ class ServingEngine:
                         self.pool.free_count, self.live_count,
                         page_budget=page_budget, page_cost=page_cost)
             try:
+                self._check_lockstep("grant", granted)
                 decode = (self._spec_decode_step if self._spec is not None
                           else self._decode_step)
                 decoded = False
@@ -1802,6 +1912,7 @@ class ServingEngine:
             # chaos: corrupt our own slot bookkeeping at the boundary so
             # check_invariants and the flight recorder face REAL damage
             self._chaos_corrupt_state()
+        self._check_lockstep("step", finished=finished)
         wall = self._now() - t_step
         self.step_wall_s += wall
         self._telemetry_step(wall, running_at_entry, granted, finished)

@@ -94,6 +94,12 @@ class AsyncEngineBridge:
         if stream_buffer < 2:
             raise ValueError(f"stream_buffer must be >= 2 (token + "
                              f"terminal event), got {stream_buffer}")
+        n = getattr(srv, "mp_world_size", 1)
+        if n > 1:
+            raise NotImplementedError(
+                f"the HTTP front end over a model group of {n} ranks is not "
+                f"ported yet: every rank's server would need the same "
+                f"submissions, in the same order, from one front end")
         self.srv = srv
         self.stream_buffer = int(stream_buffer)
         self.idle_poll_s = float(idle_poll_s)

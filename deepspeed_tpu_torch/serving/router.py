@@ -94,6 +94,16 @@ class NoLiveReplicaError(RuntimeError):
     """Every replica has failed; the router can no longer make progress."""
 
 
+def _refuse_model_group(replica) -> None:
+    """A replica over a model group above one rank is not routed yet."""
+    n = getattr(replica, "mp_world_size", 1)
+    if n > 1:
+        raise NotImplementedError(
+            f"ReplicaRouter over replicas of {n}-rank model groups is not "
+            f"ported yet: every rank would have to route alike and move its "
+            f"own KV shard")
+
+
 class ReplicaRouter:
     """Route requests across data-parallel :class:`ServingEngine` replicas.
 
@@ -114,6 +124,8 @@ class ReplicaRouter:
                  journey_capacity: int = 4096):
         if not replicas:
             raise ValueError("ReplicaRouter needs at least one replica")
+        for rep in replicas:
+            _refuse_model_group(rep)
         self.replicas: List[ServingEngine] = list(replicas)
         self.affinity = bool(affinity)
         self._alive: List[bool] = [True] * len(self.replicas)
@@ -776,6 +788,7 @@ class ReplicaRouter:
         fleet is already past warmup the newcomer's watchdog arms
         immediately, so a scale event records no new signature or capture
         after warmup (pinned by test). Returns the new replica index."""
+        _refuse_model_group(replica)
         role = role if role is not None else getattr(replica, "role", "both")
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"unknown replica role {role!r}")

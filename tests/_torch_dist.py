@@ -1,7 +1,8 @@
-"""Multi-rank runs of the port on the CPU, for its data-parallel tests.
+"""Multi-rank runs of the port on the CPU, for its data- and
+tensor-parallel tests.
 
 ``spawn(scenario, world, tmp_path, timeout, **kwargs)`` starts ``world``
-processes of this file, each joining one gloo process group through a
+processes of this file (``start`` returns at once, its ``join()`` waits), each joining one gloo process group through a
 ``file://`` store under ``tmp_path`` (no fixed port: several test workers
 spawn at once) with one intra-op thread, and running
 ``SCENARIOS[scenario](rank, world, **kwargs)``; the arguments travel in a
@@ -27,8 +28,43 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def spawn(scenario: str, world: int, tmp_path, timeout: float = 120.0,
-          **kwargs) -> list:
+class Spawned:
+    """The ranks of one :func:`start`: ``join()`` waits for them (all killed
+    past the timeout) and returns each rank's result."""
+
+    def __init__(self, scenario: str, world: int, tmp: str, timeout: float,
+                 procs: list):
+        self.scenario, self.world, self.tmp = scenario, world, tmp
+        self.deadline = time.monotonic() + timeout
+        self.timeout, self.procs = timeout, procs
+
+    def join(self) -> list:
+        try:
+            for rank, (proc, log) in enumerate(self.procs):
+                left = self.deadline - time.monotonic()
+                try:
+                    rc = proc.wait(timeout=max(left, 0.1))
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError(
+                        f"{self.scenario}: rank {rank} of {self.world} still "
+                        f"running after {self.timeout} s")
+                if rc != 0:
+                    raise RuntimeError(
+                        f"{self.scenario}: rank {rank} of {self.world} "
+                        f"exited {rc}:\n{_tail(self.tmp, rank)}")
+        finally:
+            for proc, log in self.procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        return [torch.load(os.path.join(self.tmp, f"result{rank}.pt"),
+                           weights_only=False) for rank in range(self.world)]
+
+
+def start(scenario: str, world: int, tmp_path, timeout: float = 120.0,
+          **kwargs) -> Spawned:
+    """Start ``world`` ranks of ``scenario`` and return at once."""
     tmp = str(tmp_path)
     os.makedirs(tmp, exist_ok=True)
     torch.save(kwargs, os.path.join(tmp, "args.pt"))
@@ -42,26 +78,12 @@ def spawn(scenario: str, world: int, tmp_path, timeout: float = 120.0,
             [sys.executable, os.path.abspath(__file__), scenario, str(rank),
              str(world), tmp], stdout=log, stderr=subprocess.STDOUT,
             env=env, cwd=REPO), log))
-    deadline = time.monotonic() + timeout
-    try:
-        for rank, (proc, log) in enumerate(procs):
-            left = deadline - time.monotonic()
-            try:
-                rc = proc.wait(timeout=max(left, 0.1))
-            except subprocess.TimeoutExpired:
-                raise RuntimeError(f"{scenario}: rank {rank} of {world} still "
-                                   f"running after {timeout} s")
-            if rc != 0:
-                raise RuntimeError(f"{scenario}: rank {rank} of {world} exited "
-                                   f"{rc}:\n{_tail(tmp, rank)}")
-    finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    return [torch.load(os.path.join(tmp, f"result{rank}.pt"),
-                       weights_only=False) for rank in range(world)]
+    return Spawned(scenario, world, tmp, timeout, procs)
+
+
+def spawn(scenario: str, world: int, tmp_path, timeout: float = 120.0,
+          **kwargs) -> list:
+    return start(scenario, world, tmp_path, timeout, **kwargs).join()
 
 
 def _tail(tmp: str, rank: int) -> str:
@@ -323,7 +345,149 @@ def _gloo_cuda(rank: int, world: int) -> dict:
     return out
 
 
-SCENARIOS = {"train": _train, "comm": _comm, "gloo_cuda": _gloo_cuda}
+# ---------------------------------------------------------------------------
+# tensor-parallel serving
+# ---------------------------------------------------------------------------
+def tp_engine(model, world: int, **config):
+    """An fp32 CPU ``InferenceEngine`` over a model group of ``world``
+    ranks from ``model`` = (``TransformerConfig``, full state dict): every
+    rank builds the whole model on the host, the engine keeps its slice."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
+
+    cfg, state = model
+    return dst.init_inference(TransformerLM(cfg), model_parameters=state,
+                              config={"dtype": "float32", "mp_size": world,
+                                      **config}, device="cpu")
+
+
+def serve(srv, prompts, budgets) -> dict:
+    """Submit every prompt, drain, audit; the tokens, the prefix-hit
+    tokens and whether every slot and page came back."""
+    from deepspeed_tpu_torch.serving import RequestState
+
+    reqs = [srv.submit(p, max_new_tokens=int(n))
+            for p, n in zip(prompts, budgets)]
+    srv.run_until_drained(max_steps=500)
+    srv.check_invariants()
+    pool = srv.pool
+    held = len(pool.prefix.page_counts()) if getattr(pool, "prefix", None) \
+        else 0
+    free = pool.free_page_count + held == pool.num_pages \
+        if hasattr(pool, "free_page_count") else True
+    return {"tokens": [list(r.output_tokens) for r in reqs],
+            "finished": all(r.state is RequestState.FINISHED for r in reqs),
+            "hit_tokens": srv.stats().get("prefix_hit_tokens", 0),
+            "no_leak": free and pool.free_count == pool.num_slots,
+            "kv_heads": pool.cache["k"].shape[2]}
+
+
+def _refusals(world: int, model, eng) -> dict:
+    """Every key that raises NotImplementedError over a model group: each
+    entry the message, or None where nothing was raised."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.inference.zero_inference import \
+        ZeroInferenceEngine
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.serving import (AsyncEngineBridge,
+                                             FaultInjector, ReplicaRouter)
+
+    def msg(fn):
+        try:
+            fn()
+        except NotImplementedError as exc:
+            return str(exc)
+        return None
+
+    srv = dst.ServingEngine(eng, num_slots=2)
+    cases = {key: (lambda key=key, v=v: dst.ServingEngine(
+        eng, num_slots=2, **{key: v})) for key, v in (
+        ("deadline_default_ms", 1e3), ("step_wall_budget_ms", 1e3),
+        ("degradation", True), ("fault_injector", FaultInjector(seed=0)),
+        ("priority", True), ("overlap", True),
+        ("spec_decode", {"drafter": "ngram", "k": 2}),
+        ("role", "prefill"), ("cost_model", True))}
+    cases.update({
+        "deadline_ms": lambda: srv.submit([1, 2, 3], deadline_ms=1e3),
+        "enable_cuda_graph": lambda: tp_engine(model, world,
+                                               enable_cuda_graph=True),
+        "int8": lambda: tp_engine(model, world, quant={"enabled": True}),
+        "zero": lambda: tp_engine(model, world, zero={"stage": 3}),
+        "router": lambda: ReplicaRouter([srv]),
+        "http": lambda: AsyncEngineBridge(srv),
+        "zero_inference": lambda: ZeroInferenceEngine(*model,
+                                                      device="cpu"),
+        "gpt2": lambda: dst.init_inference(
+            gpt2.GPT2LMHeadModel(gpt2.GPT2Config(
+                vocab_size=64, n_positions=32, n_embd=32, n_layer=1,
+                n_head=4, dtype=torch.float32)),
+            config={"dtype": "float32", "mp_size": world}, device="cpu"),
+        "training": lambda: dst.initialize(
+            model=gpt2.GPT2LMHeadModel(gpt2.GPT2Config(
+                vocab_size=64, n_positions=32, n_embd=32, n_layer=1,
+                n_head=4, dtype=torch.float32)),
+            config={"train_micro_batch_size_per_gpu": 1,
+                    "mesh": {"model": world}}, device="cpu")})
+    out = {key: msg(fn) for key, fn in cases.items()}
+    # with one clock every rank reads alike, the clocked keys are taken
+    ticks = iter(range(10 ** 6))
+    out["with_clock"] = msg(lambda: dst.ServingEngine(
+        eng, num_slots=2, deadline_default_ms=1e3, step_wall_budget_ms=1e3,
+        degradation=True, clock=lambda: float(next(ticks))))
+    return out
+
+
+def _tp(rank: int, world: int, model, ids, new: int, servers: dict,
+        prompts, budgets, refuse: bool = False) -> dict:
+    """``generate()`` and the forward's logits of ``ids`` over a model group
+    of the world's ranks, then each of ``servers`` (label -> ServingEngine
+    keys) over the traffic; with ``refuse`` the refusals and a forced
+    digest mismatch (rank 1 reports another digest: every rank must
+    raise)."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+    from deepspeed_tpu_torch.serving.engine import RankDivergenceError
+
+    mesh_mod.reset_mesh()
+    eng = tp_engine(model, world)
+    logits = eng.forward(ids).numpy()       # a collective: every rank
+    out = {"generate": eng.generate(ids, max_new_tokens=new).tolist(),
+           "logits": logits if rank == 0 else None,
+           "kv_heads": eng.kv_cache_spec().kv_heads,
+           "plan": eng.tp_plan, "mp": eng.mp_world_size,
+           "params": {k: tuple(v.shape)
+                      for k, v in eng.module.state_dict().items()}}
+    out["servers"] = {
+        label: serve(dst.ServingEngine(eng, **kw), prompts, budgets)
+        for label, kw in servers.items()}
+    if world == 4:
+        # data 2 beside model 2: not served yet
+        try:
+            dst.init_inference(TransformerLM(model[0]),
+                               model_parameters=model[1],
+                               config={"dtype": "float32"}, device="cpu",
+                               mesh=mesh_mod.build_mesh(data=2, model=2))
+            out["data_and_model"] = None
+        except NotImplementedError as exc:
+            out["data_and_model"] = str(exc)
+    if refuse:
+        out["refusals"] = _refusals(world, model, eng)
+        srv = dst.ServingEngine(eng, num_slots=2)
+        if rank == 1:
+            srv._digest = lambda *args: 7
+        srv.submit(prompts[0], max_new_tokens=2)
+        try:
+            srv.run_until_drained(max_steps=4)
+            out["diverge"] = None
+        except RankDivergenceError as exc:
+            out["diverge"] = str(exc)
+            out["diverge_leak"] = srv.pool.free_count == srv.pool.num_slots
+    return out
+
+
+SCENARIOS = {"train": _train, "comm": _comm, "gloo_cuda": _gloo_cuda,
+             "tp": _tp}
 
 
 def main(argv) -> int:

@@ -112,8 +112,11 @@ def test_one_rank_without_a_group():
     assert PM.get_data_parallel_world_size() == 1
     with pytest.raises(NotImplementedError, match="pipeline"):
         comm.ppermute(t, [])
-    with pytest.raises(NotImplementedError, match="model=2"):
+    # tensor parallelism is ported: a model axis of 2 needs a world of 2
+    with pytest.raises(ValueError, match="not divisible"):
         PM.build_mesh(model=2)
+    with pytest.raises(NotImplementedError, match="pipe=2"):
+        PM.build_mesh(pipe=2)
 
 
 @pytest.fixture(scope="module")

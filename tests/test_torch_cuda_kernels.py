@@ -1678,3 +1678,82 @@ def test_zero_inference_streams_as_the_resident_model_computes(gen, int8):
         toks = zi.generate(ids[:, :16], max_new_tokens=5)
         assert decode_attention.launches - before == 3 * 4
         np.testing.assert_array_equal(toks, expect)
+
+
+# A rank's share of TinyLlama (32 query heads over 4 KV heads, D 64) served
+# by a model group of two: 16 query heads over 2 KV heads, the shapes the
+# tensor-parallel serving path hands the three attention kernels.
+TP_RANK_H, TP_RANK_KV = 16, 2
+
+
+@pytest.mark.parametrize("T,S", [(16, 16), (64, 64), (600, 600)])
+def test_flash_kernel_at_the_tp_rank_shapes(gen, T, S):
+    H, KV, D = TP_RANK_H, TP_RANK_KV, 64
+    q = torch.randn(1, T, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    k = torch.randn(1, S, KV, D, generator=gen, device="cuda").to(q.dtype)
+    v = torch.randn(1, S, KV, D, generator=gen, device="cuda").to(q.dtype)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, causal=True)
+    want, want_lse = mha_reference(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(out.float(), want.float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_kernel_at_the_tp_rank_shapes(gen, int8):
+    B, S, D = 8, 2048, 64
+    H, KV = TP_RANK_H, TP_RANK_KV
+    q = torch.randn(B, H, D, generator=gen, device="cuda").to(torch.bfloat16)
+    if int8:
+        (k, ks), (v, vs) = (_int8_rows(gen, B, KV, S, D) for _ in range(2))
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (torch.randn(B, KV, S, D, generator=gen, device="cuda").to(
+            q.dtype) for _ in range(2))
+        ks = vs = None
+        scales = {}
+    lengths = _decode_lengths(B, H, KV, S, D)
+    counter = "int8_launches" if int8 else "launches"
+    before = getattr(decode_attention, counter)
+    got = decode_attention(q, k, v, lengths, **scales)
+    want = decode_attention_reference(q, k, v, lengths, 1 / math.sqrt(D),
+                                      None, ks, vs)
+    torch.cuda.synchronize()
+    assert getattr(decode_attention, counter) == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16], rtol=0)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("T", [1, 2, 5, 8])
+@pytest.mark.parametrize("ps,splits", [(64, None), (16, None), (24, 2)])
+def test_paged_kernel_at_the_tp_rank_shapes(gen, monkeypatch, int8, T, ps,
+                                            splits):
+    D, H, KV = 64, TP_RANK_H, TP_RANK_KV
+    table, starts, P = _paged_case(gen, T, ps, splits, monkeypatch)
+    B = starts.shape[0]
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    if int8:
+        (k, ks), (v, vs) = (_int8_rows(gen, P, KV, ps, D) for _ in range(2))
+        scales = dict(k_scale_pages=ks, v_scale_pages=vs)
+    else:
+        k, v = (torch.randn(P, KV, ps, D, generator=gen, device="cuda").to(
+            q.dtype) for _ in range(2))
+        ks = vs = None
+        scales = {}
+    counter = "int8_launches" if int8 else "launches"
+    before = getattr(paged_decode_attention, counter)
+    got = paged_decode_attention(q, k, v, table, starts, **scales)
+    want = paged_decode_attention_reference(q, k, v, table, starts,
+                                            1 / math.sqrt(D), None, ks, vs)
+    torch.cuda.synchronize()
+    assert getattr(paged_decode_attention, counter) == before + 1
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16], rtol=0)

@@ -3,8 +3,8 @@
 ``enable_cuda_graph``, ``use_triton`` and ``triton_autotune`` are accepted
 by the JAX ``DeepSpeedInferenceConfig`` as no-ops; the port accepts and
 records them the same way, and ``checkpoint`` too (a path, a dict or None,
-which no code of either package reads). The keys it has no feature for
-yet still raise.
+which no code of either package reads). Every key parses: tensor
+parallelism and a truthy injection policy too (tensor-parallel serving).
 """
 
 import pytest
@@ -33,16 +33,21 @@ def test_all_switches_together_and_unported_keys_still_raise():
     cfg = DeepSpeedInferenceConfig.from_dict(dict.fromkeys(SWITCHES, True))
     assert all(getattr(cfg, k) for k in SWITCHES)
     assert not set(SWITCHES) & set(_NOT_PORTED)
-    # a truthy injection policy still raises; None and {} parse, as the JAX
-    # engine reads the key only when it is truthy
-    assert _NOT_PORTED == ("injection_policy",)
-    for off in (None, {}):
+    # every key parses now: a truthy injection policy is recorded as in the
+    # JAX config (the engines read it only when truthy), and so is a
+    # tensor-parallel degree above one, under either spelling
+    assert _NOT_PORTED == ()
+    for policy in (None, {}, {"Block": ("attn",)}):
         assert DeepSpeedInferenceConfig.from_dict(
-            {"injection_policy": off}).injection_policy == \
-            JaxInferenceConfig(injection_policy=off).injection_policy == off
-    with pytest.raises(NotImplementedError, match="injection_policy"):
-        DeepSpeedInferenceConfig.from_dict(
-            {"injection_policy": {"Block": ("attn",)}})
+            {"injection_policy": policy}).injection_policy == \
+            JaxInferenceConfig(injection_policy=policy).injection_policy \
+            == policy
+    for tp in ({"mp_size": 2}, {"tensor_parallel": {"tp_size": 4}}):
+        cfg = DeepSpeedInferenceConfig.from_dict(tp)
+        assert cfg.mp_size == JaxInferenceConfig(
+            tensor_parallel=cfg.tensor_parallel).mp_size in (2, 4)
+    with pytest.raises(ValueError, match="tp_size"):
+        DeepSpeedInferenceConfig.from_dict({"mp_size": 0})
     # the checkpoint and zero keys parse and are recorded, as in the JAX
     # package
     for value in ("ckpt.json", {"type": "Megatron", "checkpoints": []}, None):

@@ -52,6 +52,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {f"deepspeed_tpu_torch/{m}.py" for m in (
         "serving/router", "telemetry/fleet", "serving/frontend/bridge",
         "serving/frontend/server")} <= names
+    # and the tensor-parallel serving modules
+    assert {f"deepspeed_tpu_torch/{m}.py" for m in (
+        "parallel/axis_rules", "module_inject/__init__",
+        "module_inject/layers", "runtime/state_dict_factory")} <= names
     bad = {str(f.relative_to(REPO)): sorted(set(_imported_roots(f))
                                             & FORBIDDEN)
            for f in files}

@@ -262,7 +262,8 @@ non-zero:
             same weights in fp32, einsum attention, dense loss), and of the
             streamed loss against the dense one, held as in 11; the peak
             memory of the dense and streamed loss arms printed.
-17. checkpoint  GPT-2 medium under phase 9's configuration: 2 steps,
+17. checkpoint  GPT-2 medium under phase 9's configuration at gas
+            ``CHECKPOINT_GAS`` (4: the state saved is the same): 2 steps,
             ``save_checkpoint`` into a temporary directory, a fresh engine
             from other weights ``load_checkpoint``s it (parameters, master
             weights and Adam moments bit-equal to the saver's), then 2 more
@@ -346,22 +347,22 @@ non-zero:
 
 23. train_zero_dp  ZeRO over a data-parallel world, GPT-2 medium at
             the flagship config (bf16, fp32 masters, Adam 3e-4 wd 0.1,
-            clip 1.0, micro 10, remat "dots"), 4 steps of 20 rows: the
-            first untimed, two timed with the comms logger off, the last
+            clip 1.0, micro 10, remat "dots"), 3 steps of 20 rows: the
+            first untimed, one timed with the comms logger off, the last
             timed with it on (it syncs the device after every collective)
             for the op table. Arm (a): one rank at gas 2 without a process
-            group, then over a NCCL group of one rank at ZeRO stages 0-3:
-            step 1's loss equal, later losses within 1e-5 relative and the
-            final masters within 1e-5 of the run without a group; the
-            flash forward, dq and dk/dv kernels a layer a micro-batch. A
-            world of one shards nothing, so stages 1-3 there run stage 0's
-            code, a one-rank all_reduce a tensor (the op table per stage
-            shows it); the partitions run in arm (b): two ranks over gloo
+            group, then over a NCCL group of one rank at ZeRO stage 0
+            (``ZERO_DP_NCCL_STAGES``): step 1's loss equal, later losses
+            within 1e-5 relative and the final masters within 1e-5 of the
+            run without a group; the flash forward, dq and dk/dv kernels a
+            layer a micro-batch. A world of one shards nothing, so stages
+            1-3 there would run stage 0's code again, a one-rank all_reduce
+            a tensor; the partitions run in arm (b): two ranks over gloo
             on the same card (NCCL refuses two ranks a device), processes
             this script starts with a ``file://`` store and a timeout, gas 1
-            (the same micro-batches), stages 1, 2 and 3: every loss and
-            every step's pre-clip gradient norm within 1e-4 relative of arm
-            (a)'s, the gathered final masters' distance from arm (a)'s
+            (the same micro-batches), stages 1-3 (``ZERO_DP_STAGES``):
+            every loss and every step's pre-clip gradient norm within 1e-4
+            relative of arm (a)'s, the gathered final masters' distance from arm (a)'s
             within 1% of arm (a)'s update (final - initial), each rank's
             bytes at rest (parameters, masters, moments, accumulators)
             within 1% of the stage's partition
@@ -373,8 +374,24 @@ non-zero:
             norms, master gaps, bytes, the last step's collectives (comms
             logger: ops and bytes) and step ms with the logger off and on
             beside the card's name and power limit. A rank that exits
-            non-zero or outlives the timeout fails the run.
-            ``--zero-dp-only`` runs the build and this.
+            non-zero or outlives the timeout fails the run. Arm (c), in the
+            same two processes after arm (b): tensor-parallel training at
+            ``(data, model)`` = (1, 2), GPT-2 medium at the flagship
+            settings (ZeRO 2, which shards nothing at ``data`` 1) on arm
+            (a)'s batches (micro ``MICRO_BS`` x gas 2): both ranks' losses
+            and pre-clip gradient norms equal, within ``TP_LOSS_RTOL`` and
+            ``TP_NORM_RTOL`` of arm (a)'s; a rank's parameters exactly the
+            count computed from the widths (``tp_rank_params``: half of
+            every block projection, the embeddings, norms and the row
+            projections' biases whole) and its bytes at rest exactly the
+            policy's prediction over its shapes; one eager micro-batch's
+            collectives, counted by the comms logger, exactly
+            ``tp_micro_collectives`` (remat's recomputation included); the
+            flash kernels at the rank's 8 heads. The flash forward, dq and
+            dk/dv run first at that shape (B=``MICRO_BS``, H=8, D=64,
+            T=1024), held against their plain versions (``tp_rank`` in
+            their JSON rows). ``--zero-dp-only`` runs the build, those rows
+            and this.
 24. serve_tp  (last) tensor-parallel serving: TinyLlama-1.1B widths (22
             layers, GQA 32/4, vocab 32000), bf16 weights, int8 KV, random
             from the seed, served by ``init_serving`` with the default call
@@ -407,6 +424,15 @@ non-zero:
             marked gloo through the host on one card. The kernel rows run
             again at a rank's shapes (16 query heads over 2 KV heads, D 64,
             bf16 and int8 caches; under ``tp_rank`` in their JSON rows).
+            Then GPT-2 small (``GPT2LMHeadModel`` at its published
+            widths, bf16, its fused qkv split per head, vocab 50257 whole
+            on every rank) serves ``forward`` of 4 prompts of 64 tokens
+            (it has no KV cache, so no ``generate()``) at ``tp_size`` 1
+            (arm (a)) and 2 (the same workers): both ranks' argmax
+            identical, each arm's logits within ``LOGITS_REL_TOL`` of the
+            fp32 copy, and where (b)'s argmax parts from (a)'s, (b)'s token
+            within ``TIE_FACTOR`` of its own error below the copy's top
+            logit.
             ``--tp-only`` runs the build, those rows and this.
 
 The last two lines are a ``{"kernels": [...]}`` object and
@@ -3491,6 +3517,10 @@ def phase_zero_inference(seed: int, device: str = "cuda",
 GPT2_MEDIUM = dict(vocab_size=50257, n_positions=1024, n_embd=1024,
                    n_layer=24, n_head=16)
 MICRO_BS, GAS, SEQ = 10, 16, 1024
+# the checkpoint phase's accumulation: its checks (bit-equal state and
+# resumed losses) and its files do not depend on it, its steps' time does
+# (16 until arm (c) of train_zero_dp came; cut to keep the smoke in time)
+CHECKPOINT_GAS = 4
 # train_llama: TinyLlama-1.1B at its published widths (TINYLLAMA) and its
 # 2048 positions, micro-batch 4 x gas 4, the streaming loss 512 positions a
 # chunk
@@ -5091,8 +5121,13 @@ def offload_phases(seed: int, llama: dict, device: str = "cuda",
 ZERO_DP_GAS = 1
 # steps a run: the first untimed, then timed with the comms logger off,
 # the last timed with it on (a device sync after every collective) for
-# the op table
-ZERO_DP_STEPS = 4
+# the op table (4 until arm (c) came; cut to keep the smoke in its time)
+ZERO_DP_STEPS = 3
+# arm (a)'s stages over a NCCL world of one (which shards nothing: every
+# stage runs stage 0's code there, so it was cut from 0-3 to 0 when arm
+# (c) came) and arm (b)'s over two ranks, each partitioning its own way
+ZERO_DP_NCCL_STAGES = (0,)
+ZERO_DP_STAGES = (1, 2, 3)
 ZERO_DP_TIMEOUT = 600             # seconds for arm (b)'s two ranks
 ZERO_DP_NCCL_RTOL = 1e-5          # arm (a) after step 1 (step 1: equal)
 ZERO_DP_MASTER_ATOL = 1e-5        # arm (a)'s final masters
@@ -5109,11 +5144,55 @@ ZERO_DP_LOSS_RTOL = 1e-4
 ZERO_DP_NORM_RTOL = 1e-4
 ZERO_DP_UPDATE_RTOL = 1e-2
 ZERO_DP_BYTES_RTOL = 0.01
+# Arm (c) against arm (a), written before the first run on the card: the
+# same micro-batches, but every row-parallel product is two bf16 partial
+# sums, each rounded to bf16, added in bf16 by the all-reduce (arm (a)
+# rounds one fp32-accumulated sum once), so a row-parallel output carries
+# about one more bf16 rounding (2^-9 relative) at 48 products a forward;
+# the fp32 CPU tests hold the same paths to 1e-5. Losses within 2e-3
+# relative and pre-clip gradient norms within 3e-2 (the norm sums squares
+# of gradients whose bf16 noise the extra roundings move; Adam then
+# compounds the parting over four steps).
+TP_LOSS_RTOL = 2e-3
+TP_NORM_RTOL = 3e-2
+
+
+def tp_rank_params(cfg, m: int) -> int:
+    """A rank's parameter count of GPT-2 (``cfg``) over a model group of
+    ``m`` ranks, from the widths: the embeddings (a vocabulary ``m`` does
+    not divide stays whole), the norms and the row-parallel projections'
+    biases whole; qkv (weight and bias), ``attn.proj``'s weight, ``mlp.fc``
+    (weight and bias) and ``mlp.proj``'s weight in ``m`` parts."""
+    C, V, P, L = cfg.n_embd, cfg.vocab_size, cfg.n_positions, cfg.n_layer
+    embed = (V // m if V % m == 0 else V) * C + P * C
+    whole = 2 * C + 2 * C + C + C                 # ln_1, ln_2, two biases
+    split = 3 * C * C + 3 * C + C * C + 4 * C * C + 4 * C + 4 * C * C
+    return embed + L * (whole + split // m) + 2 * C
+
+
+def tp_micro_collectives(cfg, m: int = 2) -> dict:
+    """The collectives one micro-batch of GPT-2 (``cfg``) issues over a
+    model group, from the code: a layer's forward all-reduces the
+    row-parallel ``attn.proj`` and ``mlp.proj`` outputs (2), its backward
+    the column-parallel qkv's and ``mlp.fc``'s input gradients
+    (``copy_to_group``, 2); under remat the checkpointed block's
+    recomputation runs the forward again only as far as its last saved
+    tensor (``mlp.proj``'s input: torch.utils.checkpoint stops there), so
+    it issues ``attn.proj``'s all-reduce and not ``mlp.proj``'s (1). A
+    vocabulary the group divides adds the embedding's all-reduce and the
+    tied head's all-gather forward and its input gradient's all-reduce
+    backward; GPT-2's 50257 stays whole and adds none."""
+    per_layer = 4 + (1 if cfg.remat else 0)
+    out = {"all_reduce": cfg.n_layer * per_layer}
+    if cfg.vocab_size % m == 0:
+        out["all_reduce"] += 2
+        out["all_gather_into_tensor"] = 1
+    return out
 
 
 def zero_dp_run(seed: int, stage: int, gas: int, rank: int, world: int,
-                device: str, overrides: dict, keep_init: bool = False
-                ) -> dict:
+                device: str, overrides: dict, keep_init: bool = False,
+                model: int = 1) -> dict:
     """GPT-2 medium from ``seed`` through ``initialize`` at ``stage``, this
     rank's rows of ``ZERO_DP_STEPS`` global batches (rank r's micro-batch
     k is the global micro-batch k·world + r, as ``train_batch`` splits a
@@ -5121,17 +5200,21 @@ def zero_dp_run(seed: int, stage: int, gas: int, rank: int, world: int,
     with the comms logger off (the mean over steps 1 to n-2) and on (the
     last step), the engine, bytes at rest beside the policy's prediction,
     the comms logger's totals over the last step and, with ``keep_init``,
-    a copy of the initial masters."""
+    a copy of the initial masters. ``model`` above 1 trains over a model
+    group of that many ranks (``mesh`` ``{"data": 1, "model": model}``;
+    ``rank`` and ``world`` are then the data-parallel ones, 0 and 1)."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.parallel import mesh as mesh_mod
 
     mesh_mod.reset_mesh()
-    model = gpt2_medium(seed, device, **overrides)
-    cfg = model.config
+    model_ = gpt2_medium(seed, device, **overrides)
+    cfg = model_.config
     config = flagship_config(gas)
     config["zero_optimization"] = {"stage": stage}
-    engine, *_ = dst.initialize(model=model, config=config, device=device)
+    if model > 1:
+        config["mesh"] = {"data": 1, "model": model}
+    engine, *_ = dst.initialize(model=model_, config=config, device=device)
     init = [t.detach().clone() for t in engine._targets] if keep_init \
         else None
     shapes = {lay.name: lay.shape for lay in engine._part.layouts}
@@ -5175,9 +5258,10 @@ def zero_dp_worker(rank: int, world: int, tmp: str, seed: int,
                    spec: dict) -> int:
     """Arm (b)'s rank: gloo over ``spec["device"]`` (cuda:0 for every rank
     on the card), the table of what gloo takes for CUDA tensors and the
-    comm layer's collectives against exact results, then ZeRO stages 1, 2
-    and 3, each run's gathered final masters held against arm (a)'s
-    (``ref_master.pt`` in ``tmp``); writes ``rank<r>.json`` to ``tmp``."""
+    comm layer's collectives against exact results, then the ZeRO stages
+    of ``ZERO_DP_STAGES``, each run's gathered final masters held against
+    arm (a)'s (``ref_master.pt`` in ``tmp``), then arm (c)
+    (:func:`tp_train_arm`); writes ``rank<r>.json`` to ``tmp``."""
     from deepspeed_tpu_torch import comm
 
     torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets them
@@ -5189,7 +5273,7 @@ def zero_dp_worker(rank: int, world: int, tmp: str, seed: int,
     out = {"table": gloo_cuda_table() if device == "cuda" else {},
            "exact": exact_collectives(device), "stages": {}}
     ref = torch.load(os.path.join(tmp, "ref_master.pt"), mmap=True)
-    for stage in (1, 2, 3):
+    for stage in ZERO_DP_STAGES:
         reset_launches()
         run = zero_dp_run(seed, stage, ZERO_DP_GAS, rank, world, device,
                           overrides)
@@ -5212,12 +5296,58 @@ def zero_dp_worker(rank: int, world: int, tmp: str, seed: int,
             max_live_blocks=getattr(engine._zero3, "max_live_blocks", None))
         del run, engine
         fresh_device(device)
+    out["tp"] = tp_train_arm(seed, world, device, overrides)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     import torch.distributed as dist
 
     dist.destroy_process_group()
     return 0
+
+
+def tp_train_arm(seed: int, world: int, device: str,
+                 overrides: dict) -> dict:
+    """Arm (c) on one rank of a model group of ``world``: arm (a)'s
+    training (micro ``MICRO_BS`` x gas 2, ``ZERO_DP_STEPS`` steps) at
+    ``(data, model)`` = (1, ``world``), ZeRO 2; then one more micro-batch
+    through the eager API with the comms logger on, whose collectives are
+    one micro-batch's (nothing else runs in it: at ``data`` 1 no gradient
+    is reduced), its gradients dropped after."""
+    from deepspeed_tpu_torch import comm
+
+    gas = 2 * ZERO_DP_GAS
+    reset_launches()
+    run = zero_dp_run(seed, 2, gas, 0, 1, device, overrides, model=world)
+    engine, cfg = run["engine"], run["cfg"]
+    micro = {"input_ids": token_batches(
+        seed, MICRO_BS * gas, cfg.vocab_size,
+        train_seq(cfg))[0]["input_ids"][:MICRO_BS]}
+    sync(device)
+    comm.comms_logger.reset()
+    comm.configure(enabled=True, prof_all=True)
+    engine.backward(engine.forward(micro))
+    sync(device)
+    comm.configure(enabled=False)
+    micro_comms = {name: v["count"]
+                   for name, v in comm.comms_logger.totals().items()}
+    comm.comms_logger.reset()
+    engine._clear_accumulation()
+    launches = read_launches()
+    micros = ZERO_DP_STEPS * gas + 1
+    want = {k: n * micros for k, n in micro_batch_launches(cfg).items()}
+    out = dict(losses=run["losses"], norms=run["norms"],
+               step_ms=run["step_ms"], logged_ms=run["logged_ms"],
+               bytes=run["bytes"], predicted=run["predicted"],
+               comms=run["comms"], micro_comms=micro_comms,
+               micro_want=tp_micro_collectives(cfg, world),
+               params=sum(p.numel() for p in engine.module.parameters()),
+               params_want=tp_rank_params(cfg, world),
+               launches={k: launches[k] for k in want}, want=want,
+               mp=engine.mp_world_size, heads=engine.module.blocks[0]
+               .attn.heads)
+    del run, engine
+    fresh_device(device)
+    return out
 
 
 def gloo_cuda_table() -> dict:
@@ -5340,7 +5470,7 @@ def phase_train_zero_dp(seed: int, device: str = "cuda",
     backend = dist.get_backend()
     reset_launches()
     try:
-        for stage in range(4):
+        for stage in ZERO_DP_NCCL_STAGES:
             run = zero_dp_run(seed, stage, gas, 0, 1, device, overrides)
             losses = run["losses"]
             gap = max(abs(a - b) / abs(b) for a, b in
@@ -5371,7 +5501,7 @@ def phase_train_zero_dp(seed: int, device: str = "cuda",
         mesh_mod.reset_mesh()
     del ref_master
     fresh_device(device)
-    micros = 4 * gas * ZERO_DP_STEPS
+    micros = len(ZERO_DP_NCCL_STAGES) * gas * ZERO_DP_STEPS
     want = {k: n * micros for k, n in micro_batch_launches(cfg).items()}
     if device == "cuda":
         assert {k: launches[k] for k in want} == want, (launches, want)
@@ -5421,7 +5551,7 @@ def phase_train_zero_dp(seed: int, device: str = "cuda",
     total = dict.fromkeys(want, 0)
     for k in want:
         total[k] += launches[k]
-    for stage in (1, 2, 3):
+    for stage in ZERO_DP_STAGES:
         per = [r["stages"][str(stage)] for r in results]
         losses, norms = per[0]["losses"], per[0]["norms"]
         assert all(p["losses"] == losses and p["norms"] == norms
@@ -5462,6 +5592,46 @@ def phase_train_zero_dp(seed: int, device: str = "cuda",
         live = per[0]["max_live_blocks"]
         if stage == 3 and (device == "cuda" or live is not None):
             assert live is not None and 1 <= live <= 2, per[0]
+    # arm (c): tensor-parallel training in the same two processes
+    per = [r["tp"] for r in results]
+    c = per[0]
+    assert all(p["losses"] == c["losses"] and p["norms"] == c["norms"]
+               for p in per), [p["losses"] for p in per]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(c["losses"], ref_losses))
+    norm_gap = max(abs(a - b) / abs(b) for a, b in zip(c["norms"],
+                                                        ref_norms))
+    for rank, p in enumerate(per):
+        assert p["mp"] == world and p["params"] == p["params_want"], \
+            (rank, p["mp"], p["params"], p["params_want"])
+        assert p["bytes"] == p["predicted"], (rank, p["bytes"],
+                                              p["predicted"])
+        assert p["micro_comms"] == p["micro_want"], \
+            (rank, p["micro_comms"], p["micro_want"])
+        if device == "cuda":
+            assert p["launches"] == p["want"], (rank, p["launches"],
+                                                p["want"])
+        for k in want:
+            total[k] += p["launches"][k]
+    log(f"[train_zero_dp] (c) tensor parallel, (data, model) = (1, {world}), "
+        f"two gloo ranks on one {device}, ZeRO 2 (at data 1 it shards "
+        f"nothing), micro {MICRO_BS} x gas {gas}, {c['heads']} heads a "
+        f"rank: losses {c['losses']} vs (a) {ref_losses}: rel gap "
+        f"{gap:.3g} (tol {TP_LOSS_RTOL}); pre-clip grad norms "
+        f"{c['norms']}: rel gap {norm_gap:.3g} (tol {TP_NORM_RTOL}); both "
+        f"ranks alike; a rank's parameters {c['params']} (computed from the "
+        f"widths {c['params_want']}; the whole model "
+        f"{tp_rank_params(cfg, 1)}); bytes at rest {c['bytes']} (predicted "
+        f"{c['predicted']}); one micro-batch's collectives "
+        f"{c['micro_comms']} (predicted {c['micro_want']}: 4 a layer and "
+        f"1 recomputed); the last step's collectives (rank 0): "
+        f"{comms_table(c['comms'])}; a step with the comms logger off "
+        f"{per[0]['step_ms']:.1f} / {per[1]['step_ms']:.1f} ms, on "
+        f"{per[0]['logged_ms']:.1f} / {per[1]['logged_ms']:.1f} ms (ranks "
+        f"0 / 1) on {card}: gloo through the host on one card, the "
+        f"placement and equality, not tensor parallelism's speed; flash "
+        f"launches {c['launches']}")
+    assert gap <= TP_LOSS_RTOL, (c["losses"], ref_losses)
+    assert norm_gap <= TP_NORM_RTOL, (c["norms"], ref_norms)
     launches.update(total)
     return launches
 
@@ -6216,6 +6386,62 @@ def tp_arm(model, state, tp: int, seed: int, prompts, budgets,
     return out, srv, teacher
 
 
+def tp_gpt2_model(seed: int, device: str = "cuda",
+                  dtype=torch.bfloat16, **overrides):
+    """GPT-2 small at its published widths (openai-community/gpt2
+    config.json) as the port's ``GPT2LMHeadModel``: the fused qkv that a
+    model group splits per head, the tied head over the whole 50257-token
+    vocabulary (which 2 does not divide), flash attention; random weights
+    from ``seed``, ``overrides`` narrowing it for a CPU rehearsal."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2LMHeadModel
+
+    cfg = GPT2Config(**{**dict(vocab_size=50257, n_positions=1024,
+                               n_embd=768, n_layer=12, n_head=12,
+                               dtype=dtype, use_flash_attention=True),
+                        **overrides})
+    model = GPT2LMHeadModel(cfg, device=device)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def tp_gpt2_prompts(seed: int, vocab: int) -> np.ndarray:
+    """4 prompts of 64 tokens for GPT-2 small's ``forward``."""
+    rng = np.random.default_rng(seed + 26)
+    return rng.integers(0, vocab, (4, 64)).astype(np.int32)
+
+
+def tp_gpt2_arm(model, state, tp: int, ids, device: str = "cuda",
+                mesh=None) -> tuple:
+    """GPT-2 small (``model``: :func:`tp_gpt2_model`'s; ``state`` its full
+    weights on the host, None: its own) through ``init_inference`` at
+    ``tensor_parallel.tp_size`` ``tp``: the (B, T, V) fp32 logits of
+    ``forward(ids)`` on the host (GPT-2 has no KV cache, so no
+    ``generate()``, in either package: ``forward`` is its serving call),
+    the kernels' launches in it, and the engine."""
+    import deepspeed_tpu_torch as dst
+
+    eng = dst.init_inference(
+        model, config={"dtype": "bfloat16",
+                       "tensor_parallel": {"tp_size": tp}},
+        model_parameters=state, device=device, mesh=mesh)
+    reset_launches()
+    logits = eng.forward(ids).float().cpu()
+    return logits, read_launches(), eng
+
+
+def gpt2_fp32_copy(model, device: str = "cuda"):
+    """An fp32 copy of ``model``'s GPT-2 weights with plain attention."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
+
+    ref = GPT2LMHeadModel(dataclasses.replace(
+        model.config, dtype=torch.float32, use_flash_attention=False),
+        device=device)
+    with torch.no_grad():
+        ref.load_state_dict({k: v.float()
+                             for k, v in model.state_dict().items()})
+    return ref.eval()
+
+
 def tp_worker(rank: int, world: int, tmp: str, seed: int,
               spec: dict) -> int:
     """Arm (b)'s rank: gloo over ``cuda:0`` (every rank on the one card),
@@ -6225,6 +6451,7 @@ def tp_worker(rank: int, world: int, tmp: str, seed: int,
     tokens), then the fp32 two-layer arm; writes
     ``rank<r>.json`` (and rank 0 ``teacher.pt``) to ``tmp``."""
     from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
     from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
 
     torch.backends.cuda.matmul.allow_tf32 = False   # as main() sets them
@@ -6253,6 +6480,19 @@ def tp_worker(rank: int, world: int, tmp: str, seed: int,
             torch.save(teacher, os.path.join(tmp, "teacher.pt"))
         del srv, model, state
         fresh_device(device)
+    # GPT-2 small's forward over the same model group, its qkv per head
+    cfg = torch.load(os.path.join(tmp, "gpt2_config.pt"), weights_only=False)
+    state = torch.load(os.path.join(tmp, "gpt2.pt"), mmap=True,
+                       weights_only=True)
+    logits, launches, eng = tp_gpt2_arm(
+        GPT2LMHeadModel(cfg, device="meta"), state, world,
+        np.asarray(traffic["gpt2_ids"], np.int32), device)
+    out["gpt2"] = dict(tokens=logits.argmax(-1).tolist(), launches=launches,
+                       mp=eng.mp_world_size)
+    if rank == 0:
+        torch.save(logits, os.path.join(tmp, "gpt2_logits.pt"))
+    del eng, state
+    fresh_device(device)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     import torch.distributed as dist
@@ -6407,6 +6647,59 @@ def tp_kernel_rows(gen: torch.Generator) -> dict:
     return rows
 
 
+def tp_train_kernel_rows(gen: torch.Generator) -> dict:
+    """The flash forward, dq and dk/dv kernels at a tensor-parallel
+    training rank's shape (GPT-2 medium over two ranks: B=``MICRO_BS``,
+    H=8, D=64, T=``SEQ``, causal, bf16): each held against its plain
+    version, timed beside it, the library call and the card's bound."""
+    from deepspeed_tpu_torch.ops.attention.flash_attention import (
+        attention_delta, flash_attention, flash_attention_dkv,
+        flash_attention_dq, flash_dkv_reference, flash_dq_reference,
+        mha_reference)
+
+    B, T, H, D = MICRO_BS, SEQ, GPT2_MEDIUM["n_head"] // TP_WORLD, 64
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 1.0 / math.sqrt(D)
+    out, lse = flash_attention(q, k, v, causal=True)
+    ref_out, ref_lse = mha_reference(q, k, v, causal=True)
+    errs = {"fwd": compare_rows(out, ref_out, "flash forward kernel vs "
+                                "plain at the TP training rank's shape")[0]}
+    le = (lse - ref_lse).abs().max().item()
+    assert math.isfinite(le) and le <= LSE_ATOL, \
+        f"flash lse vs plain at the TP training rank's shape: {le}"
+    del ref_out, ref_lse
+    args = (q, k, v, do, lse, attention_delta(out, do), True, scale)
+    errs["dq"] = compare_rows(flash_attention_dq(*args),
+                              flash_dq_reference(*args),
+                              "flash dq kernel vs plain at the TP training "
+                              "rank's shape")[0]
+    errs["dkv"] = max(compare_rows(g, w, "flash dk/dv kernel vs plain at the "
+                                   "TP training rank's shape")[0]
+                      for g, w in zip(flash_attention_dkv(*args),
+                                      flash_dkv_reference(*args)))
+    plain = {"fwd": cuda_ms(lambda: mha_reference(q, k, v, causal=True),
+                            reps=1),
+             "dq": cuda_ms(lambda: flash_dq_reference(*args), reps=1),
+             "dkv": cuda_ms(lambda: flash_dkv_reference(*args), reps=1)}
+    times = flash_times(q, k, v, do, "TP training rank", reps=3,
+                        other=False)
+    label = f"TP train B={B} H={H} D={D} T={T}"
+    rows = {}
+    for name, lib in (("fwd", "sdpa_fwd"), ("dq", "sdpa_bwd"),
+                      ("dkv", "sdpa_bwd")):
+        rows[f"flash_attention_{name} {label}"] = dict(
+            max_abs_err=errs[name], ms=times[name], plain_ms=plain[name],
+            library_ms=times[lib], **times[f"{name}_bound"])
+    for name, row in rows.items():
+        log(f"[train_zero_dp kernels] {name}: max|err| "
+            f"{row['max_abs_err']:.3g}; kernel {row['ms']:.4f} ms, plain "
+            f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms "
+            f"(SDPA{' backward: dq, dk, dv' if 'fwd' not in name else ''}), "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
 def predicted_rank_bytes(full: dict, world: int) -> int:
     """A rank's parameter bytes predicted from the one-rank model's
     (``full``: name -> bytes): every projection, the embedding and the head
@@ -6429,8 +6722,10 @@ def phase_serve_tp(seed: int, device: str = "cuda", **overrides) -> list:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def serve_tp(tmp: str, seed: int, device: str, **overrides) -> list:
-    """Phase 24's body, its files in ``tmp``."""
+def serve_tp(tmp: str, seed: int, device: str, gpt2_overrides=None,
+             **overrides) -> list:
+    """Phase 24's body, its files in ``tmp`` (``overrides`` narrow
+    TinyLlama, ``gpt2_overrides`` GPT-2, for a CPU rehearsal)."""
     import types
 
     import torch.distributed as dist
@@ -6448,6 +6743,11 @@ def serve_tp(tmp: str, seed: int, device: str, **overrides) -> list:
                    os.path.join(tmp, f"{key}.pt"))
     prompts, budgets = tp_traffic(seed, model.config.vocab_size)
     L = model.config.n_layer
+    gpt2 = tp_gpt2_model(seed, device, **(gpt2_overrides or {}))
+    torch.save(gpt2.config, os.path.join(tmp, "gpt2_config.pt"))
+    torch.save({k: v.cpu() for k, v in gpt2.state_dict().items()},
+               os.path.join(tmp, "gpt2.pt"))
+    gids = tp_gpt2_prompts(seed, gpt2.config.vocab_size)
 
     # arm (a): one rank, a mesh of model=1 over a NCCL world of one; at one
     # rank no layer is swapped, so it issues no collective and computes
@@ -6463,6 +6763,8 @@ def serve_tp(tmp: str, seed: int, device: str, **overrides) -> list:
         a32, a32_srv, _ = tp_arm(f32, None, 1, seed, prompts,
                                  [TP_FP32_BUDGET] * len(prompts), device,
                                  probes=False, mesh=mesh)
+        ga_logits, ga_launches, ga_eng = tp_gpt2_arm(gpt2, None, 1, gids,
+                                                     device, mesh=mesh)
     finally:
         dist.destroy_process_group()
         comm_mod._initialized = False
@@ -6470,8 +6772,11 @@ def serve_tp(tmp: str, seed: int, device: str, **overrides) -> list:
     del a32_srv, f32
     with open(os.path.join(tmp, "traffic.json"), "w") as fh:
         json.dump({"prompts": [p.tolist() for p in prompts],
-                   "budgets": budgets, "a_tokens": a["tokens"]}, fh)
+                   "budgets": budgets, "a_tokens": a["tokens"],
+                   "gpt2_ids": gids.tolist()}, fh)
     ref = fp32_reference(model, a_srv.engine, device)
+    gref = gpt2_fp32_copy(gpt2, device)
+    del ga_eng, gpt2
     fresh_device(device)
 
     # arm (b): two gloo ranks on the same card, in processes of their own
@@ -6620,7 +6925,48 @@ def serve_tp(tmp: str, seed: int, device: str, **overrides) -> list:
         f"{[r['generate_launches']['decode_attention_int8'] for r in b]} "
         f"int8 decode launches; the two ranks took {wall:.1f} s (process "
         f"start and weight loads included)")
-    del a_srv, model
+    # GPT-2 small's forward at tp_size 2 against one rank
+    gb = [r["gpt2"] for r in ranks]
+    assert all(g["tokens"] == gb[0]["tokens"] and g["mp"] == TP_WORLD
+               for g in gb), "GPT-2 small: the ranks' argmax tokens differ"
+    glogits = torch.load(os.path.join(tmp, "gpt2_logits.pt")).to(device)
+    with torch.no_grad():
+        gwant = gref.logits(torch.as_tensor(gids, device=device)).float()
+    grel = rel_err(glogits, gwant)
+    garel = rel_err(ga_logits.to(device), gwant)
+    for label, err in (("tp_size 2", grel), ("tp_size 1", garel)):
+        assert math.isfinite(err) and err <= LOGITS_REL_TOL, \
+            f"serve_tp: GPT-2 small at {label}: logits vs the fp32 copy: " \
+            f"rel err {err}"
+    # where (b)'s argmax parts from (a)'s, a near-tie of the fp32 copy
+    btok = glogits.argmax(-1)
+    parted = (btok != ga_logits.to(device).argmax(-1)).nonzero().tolist()
+    gworst = 0.0
+    for i, t in parted:
+        err = (glogits[i, t] - gwant[i, t]).abs().max().item()
+        gap = (gwant[i, t].max() - gwant[i, t, btok[i, t]]).item()
+        gworst = max(gworst, gap / max(err, 1e-30))
+        assert gap <= TIE_FACTOR * err, \
+            f"serve_tp: GPT-2 small row {i} position {t}: (b)'s argmax " \
+            f"lies {gap:.4g} below the fp32 copy's top logit, more than " \
+            f"{TIE_FACTOR} x its own error {err:.4g}"
+    for g in gb:
+        launches.append(g["launches"])
+    launches.append(ga_launches)
+    if device == "cuda":
+        for g in gb + [{"launches": ga_launches}]:
+            assert g["launches"]["flash_attention_fwd"] > 0, g["launches"]
+    log(f"[serve_tp] GPT-2 small (GPT2LMHeadModel, 768/12/12, fused qkv "
+        f"split per head, vocab 50257 whole on every rank, bf16) forward "
+        f"of 4 x 64 tokens at tp_size {TP_WORLD} vs 1: logits vs the fp32 "
+        f"copy max rel err {grel:.4g} (tp_size 1: {garel:.4g}; tol "
+        f"{LOGITS_REL_TOL}); argmax parts from tp_size 1 at "
+        f"{len(parted)} of {btok.numel()} positions, each a near-tie "
+        f"(worst gap {gworst:.3g} x (b)'s own error, limit {TIE_FACTOR}); "
+        f"both ranks identical; flash launches "
+        f"{[g['launches']['flash_attention_fwd'] for g in gb]} (ranks), "
+        f"{ga_launches['flash_attention_fwd']} (one rank)")
+    del a_srv, model, gref
     fresh_device(device)
     return launches
 
@@ -6679,8 +7025,10 @@ def main(argv=None) -> int:
         print(json.dumps({"decode_rows": rows}), flush=True)
         return 0
     if args.zero_dp_only:
+        rows = tp_train_kernel_rows(gen)
         phase_train_zero_dp(args.seed)
         log(card)
+        print(json.dumps({"tp_train_rows": rows}), flush=True)
         return 0
     if args.tp_only:
         rows = tp_kernel_rows(gen)
@@ -6728,8 +7076,10 @@ def main(argv=None) -> int:
     results.update(phase_int8_kernels(gen))
     phase_train_kernels(gen, results)
     results.update(phase_sparse_kernels(gen))
-    # the serving kernels again at a rank's shapes under tensor parallelism
+    # the serving and training kernels again at a rank's shapes under
+    # tensor parallelism
     tp_rows = tp_kernel_rows(gen)
+    tp_rows.update(tp_train_kernel_rows(gen))
     for name, row in tp_rows.items():
         results[name.split(" ")[0]].setdefault("tp_rank", {})[name] = row
     lap("kernel rows")
@@ -6874,7 +7224,7 @@ def main(argv=None) -> int:
     runs.append(llama["launches"])
     phase_reference_llama(args.seed)
     lap("train_llama, reference_llama")
-    runs.append(phase_checkpoint(args.seed))
+    runs.append(phase_checkpoint(args.seed, CHECKPOINT_GAS))
     lap("checkpoint")
     runs.extend(offload_phases(args.seed, llama))
     lap("the offload phases")

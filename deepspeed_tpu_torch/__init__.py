@@ -17,6 +17,7 @@ __version__ = "0.1.0"
 from .accelerator import get_accelerator  # noqa: F401
 from .comm import init_distributed  # noqa: F401
 from .inference.engine import InferenceEngine  # noqa: F401
+from .runtime.activation_checkpointing import checkpointing  # noqa: F401
 from .runtime.config import DeepSpeedConfig  # noqa: F401
 from .runtime.engine import DeepSpeedEngine
 from .serving.engine import ServingEngine
@@ -47,7 +48,8 @@ def initialize(args=None, model: Any = None, optimizer=None,
     ``init_method`` such as a ``file://`` store. ``mesh`` (a
     ``parallel.ProcessMesh``) fixes the mesh; by default it is built from
     the config's ``mesh`` block and ``zero_optimization.mics_shard_size``
-    over the world."""
+    over the world; ``model`` above 1 (or ``sharding_rules``) trains over
+    a model group of that many consecutive ranks (tensor parallelism)."""
     if config is None and config_params is not None:
         config = config_params
     if config is None and args is not None:

@@ -13,7 +13,10 @@ concatenated along ``concat_axis``; ``all_reduce`` and ``broadcast``
 work in place and return their tensor. Over a group of one rank every op
 returns its input, so code written for a world runs unchanged without a
 process group; a world of one rank WITH a process group still calls the
-backend (the same code path as a larger world).
+backend (the same code path as a larger world). A collective never
+returns its input in place of a result: one over a group that the
+installed mesh makes larger than one rank, without a process group,
+raises, and the backend's errors propagate.
 
 Backends. ``init_distributed`` picks ``nccl`` for a CUDA device and
 ``gloo`` for ``device="cpu"``; ``dist_backend="gloo"`` over CUDA tensors
@@ -209,8 +212,22 @@ def _axes(group: Group) -> tuple:
     return tuple(group)
 
 
+def _no_group(group: Group) -> None:
+    """Without a process group every group is one rank, unless an
+    installed mesh says otherwise: then a collective cannot run, and it
+    raises rather than return its input."""
+    if mesh_mod.has_mesh():
+        n = mesh_mod.get_mesh().axis_size(_axes(group))
+        if n > 1:
+            raise RuntimeError(
+                f"a collective over {_axes(group)} ({n} ranks by the "
+                f"installed mesh) without a process group: call "
+                f"init_distributed first")
+
+
 def _axes_size(group: Group) -> int:
     if not _dist_on():
+        _no_group(group)
         return 1
     return mesh_mod.get_mesh().axis_size(_axes(group))
 
@@ -218,8 +235,10 @@ def _axes_size(group: Group) -> int:
 def _resolve(group: Group):
     """(process group or None, size, this rank's index in it). ``None``
     with size 1 means: no call. A world of one rank with a process group
-    calls the backend on the default group."""
+    calls the backend on the default group; a group the installed mesh
+    makes larger than one rank, without a process group, raises."""
     if not _dist_on():
+        _no_group(group)
         return None, 1, 0
     mesh = mesh_mod.get_mesh()
     axes = _axes(group)

@@ -77,8 +77,9 @@ same on every rank. Above one rank these raise ``NotImplementedError``:
 tiers (group scales cut by the shard boundaries), ``enable_cuda_graph``
 (gloo's collectives run on the host and cannot be captured; NCCL capture
 needs a card per rank), a truthy ``zero`` config (ZeRO-Inference), and
-any module but a ``TransformerLM`` (GPT-2's fused qkv waits for the
-training slice).
+any module but a ``TransformerLM`` or a ``GPT2LMHeadModel`` (whose fused
+qkv splits per head; it has ``logits``, so ``forward``, and no cache, in
+both packages).
 """
 
 from __future__ import annotations

@@ -71,7 +71,10 @@ from ..ops.sparse_attention.block_sparse_kernel import (
     SPARSE_OP, block_sparse_flash_attention, supports_pallas)
 from ..ops.sparse_attention.sparse_self_attention import \
     block_sparse_attention
+from ..module_inject.mappings import (copy_to_group, gather_from_group,
+                                      model_parallel_generator)
 from ..ops.transformer.ln_linear import LN_LINEAR_OP, ln_linear
+from ..parallel import mesh as mesh_mod
 from ..parallel.mesh import MODEL_AXIS
 from .transformer_lm import CausalLMTraining, _dropout, to_torch_dtype
 
@@ -153,6 +156,8 @@ def _cast(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def _linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    if getattr(mod, "group", None) is not None:     # row-parallel
+        return mod(x)
     return F.linear(x, _cast(mod.weight, x.dtype), _cast(mod.bias, x.dtype))
 
 
@@ -171,8 +176,8 @@ def gpt2_sharding_rules():
     (the JAX function), as ``(pattern, mesh-axis entries)``: column-
     parallel qkv and MLP-in, row-parallel attention-out and MLP-out, the
     vocab-parallel embedding; a block leaf's leading dim is the layer
-    stack's. The port serves GPT-2 on one rank only: its fused qkv must be
-    split per head first (``module_inject.get_policy_rules``)."""
+    stack's. ``module_inject`` carries them out with the fused qkv split
+    per head (``TPPlan.pieces``)."""
     M = MODEL_AXIS
     return [
         (r"wte/embedding", (M, None)),
@@ -193,6 +198,10 @@ class CausalSelfAttention(nn.Module):
         C = cfg.n_embd
         self.qkv = nn.Linear(C, 3 * C, **fk)
         self.proj = nn.Linear(C, C, **fk)
+        # this module's heads, and the model group: the config's and None,
+        # or a rank's share under tensor parallelism (module_inject)
+        self.heads = cfg.n_head
+        self.group = None
 
     def _use_flash(self, x) -> bool:
         use = self.config.use_flash_attention
@@ -220,12 +229,16 @@ class CausalSelfAttention(nn.Module):
         ln_linear kernel."""
         cfg = self.config
         B, T, C = x.shape
-        H, D = cfg.n_head, C // cfg.n_head
+        H, D = self.heads, C // cfg.n_head
+        pgen = gen
+        if self.group is not None:
+            x = copy_to_group(x, self.group)
+            pgen = model_parallel_generator(gen, self.group)
         qkv = _ln_linear(ln, self.qkv, x) if ln is not None \
             else _linear(self.qkv, x)
-        q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(C, dim=-1))
+        q, k, v = (t.reshape(B, T, H, D) for t in qkv.split(H * D, dim=-1))
         if cfg.sparse_attention is not None:
-            y = self._sparse(q, k, v, gen)
+            y = self._sparse(q, k, v, pgen)
         elif self._use_flash(x):
             # the split leaves strided views; the kernels take contiguous
             y, _ = flash_attention(q.contiguous(), k.contiguous(),
@@ -240,9 +253,9 @@ class CausalSelfAttention(nn.Module):
             mask = torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
             att = att.masked_fill(~mask, torch.finfo(dt).min)
             att = torch.softmax(att.float(), dim=-1).to(dt)
-            att = _dropout(att, cfg.dropout, gen)
+            att = _dropout(att, cfg.dropout, pgen)
             y = torch.einsum("bhts,bshd->bthd", att, v)
-        y = _linear(self.proj, y.reshape(B, T, C))
+        y = _linear(self.proj, y.reshape(B, T, H * D))
         return _dropout(y, cfg.dropout, gen)
 
 
@@ -252,8 +265,12 @@ class MLP(nn.Module):
         self.config = cfg
         self.fc = nn.Linear(cfg.n_embd, 4 * cfg.n_embd, **fk)
         self.proj = nn.Linear(4 * cfg.n_embd, cfg.n_embd, **fk)
+        # the model group when the hidden units are split (module_inject)
+        self.group = None
 
     def forward(self, x, gen=None, ln: Optional[nn.LayerNorm] = None):
+        if self.group is not None:
+            x = copy_to_group(x, self.group)
         h = _ln_linear(ln, self.fc, x) if ln is not None \
             else _linear(self.fc, x)
         h = _linear(self.proj, F.gelu(h, approximate="tanh"))
@@ -276,10 +293,25 @@ class Block(nn.Module):
         if seed is not None:
             gen = torch.Generator(device=x.device).manual_seed(seed)
         if self.config.fused:
+            refuse_fused_under_model_parallelism()
             x = x + self.attn(x, gen, ln=self.ln_1)
             return x + self.mlp(x, gen, ln=self.ln_2)
         x = x + self.attn(_layer_norm(self.ln_1, x), gen)
         return x + self.mlp(_layer_norm(self.ln_2, x), gen)
+
+
+def refuse_fused_under_model_parallelism() -> None:
+    """``fused_ln_linear=True`` demands the kernel, and over a model group
+    above one rank it raises as the JAX model does (``_use_fused_ln``: the
+    fused call is not partitioned), with no quiet fallback to the plain
+    composition."""
+    if mesh_mod.has_mesh() and \
+            mesh_mod.get_model_parallel_world_size() > 1:
+        raise ValueError(
+            "fused_ln_linear=True does not compose with model parallelism "
+            "(the fused kernel's call is not partitioned over the model "
+            "group); use fused_ln_linear='auto' to run the plain "
+            "composition")
 
 
 def _policy(saved):
@@ -340,11 +372,14 @@ class GPT2LMHeadModel(CausalLMTraining, nn.Module):
         return self.wte.weight.device
 
     def embed(self, ids):
-        """Token plus position embeddings of (B, T) ids, in ``dtype``."""
+        """Token plus position embeddings of (B, T) ids, in ``dtype`` (a
+        vocab-parallel ``wte`` sums the group's rows)."""
         cfg = self.config
         pos = torch.arange(ids.shape[1], device=ids.device)
-        return _cast(self.wte.weight, cfg.dtype)[ids] + \
-            _cast(self.wpe.weight, cfg.dtype)[pos][None]
+        tok = self.wte(ids, dtype=cfg.dtype) \
+            if self._loss_group() is not None \
+            else _cast(self.wte.weight, cfg.dtype)[ids]
+        return tok + _cast(self.wpe.weight, cfg.dtype)[pos][None]
 
     def final_norm(self, x):
         return _layer_norm(self.ln_f, x)
@@ -371,8 +406,13 @@ class GPT2LMHeadModel(CausalLMTraining, nn.Module):
         return _layer_norm(self.ln_f, x)
 
     def _attend(self, x):
-        """The tied head in ``dtype``."""
-        return x @ _cast(self.wte.weight, x.dtype).t()
+        """The tied head in ``dtype``; over a vocab-parallel ``wte``, this
+        rank's block of the vocabulary, gathered whole."""
+        group = self._loss_group()
+        if group is None:
+            return x @ _cast(self.wte.weight, x.dtype).t()
+        part = copy_to_group(x, group) @ _cast(self.wte.weight, x.dtype).t()
+        return gather_from_group(part, group)
 
     def logits(self, input_ids, deterministic: bool = True):
         return self._attend(self.hidden(input_ids, deterministic))
@@ -380,5 +420,9 @@ class GPT2LMHeadModel(CausalLMTraining, nn.Module):
     _dense_logits = _attend
 
     def _loss_head(self):
-        """The streamed loss's projection: the tied table in ``dtype``."""
+        """The streamed loss's projection: the tied table in ``dtype``
+        (this rank's block of it when ``wte`` is vocab-parallel)."""
         return self.wte.weight, self.config.dtype
+
+    def _vocab_layer(self):
+        return self.wte

@@ -84,6 +84,7 @@ from ..ops.attention.paged_attention import (page_writes,
                                              paged_decode_attention)
 from ..ops.quantization.linear import QuantDense
 from ..ops.transformer.chunked_xent import chunked_softmax_xent
+from ..module_inject.mappings import copy_to_group, model_parallel_generator
 
 __all__ = ["TransformerConfig", "FAMILY_PRESETS", "transformer_config",
            "transformer_logical_axes", "transformer_sharding_rules",
@@ -310,7 +311,14 @@ class CausalLMTraining:
     gives ``config`` (``n_layer``, ``dropout``, ``loss_chunk``),
     ``dropout_generator``, ``device``, ``hidden(ids, deterministic)``,
     ``_loss_head()`` (the (V, C) projection and its dtype for the streamed
-    loss) and ``_dense_logits(x)``."""
+    loss), ``_dense_logits(x)`` and ``_vocab_layer()`` (the module whose
+    vocabulary a model group may split)."""
+
+    def _loss_group(self):
+        """The model group the vocabulary layer (``_vocab_layer()``) is
+        split over, or None when it is whole: a vocab-parallel layer of
+        ``module_inject.layers`` carries its ``group``, a plain one none."""
+        return getattr(self._vocab_layer(), "group", None)
 
     def seed_dropout(self, seed: int) -> None:
         self.dropout_generator.manual_seed(seed)
@@ -352,7 +360,8 @@ class CausalLMTraining:
         x = h[:, :-1]
         if chunk:
             nll_sum = chunked_softmax_xent(x, w, targets, mask, chunk,
-                                           compute_dtype=cd)
+                                           compute_dtype=cd,
+                                           group=self._loss_group())
         else:
             logp = F.log_softmax(self._dense_logits(x), dim=-1)
             nll = -logp.gather(-1, targets[..., None])[..., 0]
@@ -432,13 +441,18 @@ class CachedAttention(nn.Module):
 
     ``heads`` and ``kv_heads`` are the query and KV heads this module
     computes: the config's, or under tensor parallelism this rank's share
-    (``module_inject`` sets them with the projections it swaps in)."""
+    (``module_inject`` sets them with the projections it swaps in, and
+    ``group``, the model group: the input then passes ``copy_to_group``,
+    whose backward sums the input gradient over the group, and training's
+    probability dropout draws its masks per rank, from a generator folded
+    with the rank, so the heads of two ranks drop independently)."""
 
     def __init__(self, cfg: TransformerConfig, **fk):
         super().__init__()
         self.config = cfg
         H, KV, D, C = cfg.n_head, cfg.kv_heads, cfg.head_dim, cfg.n_embd
         self.heads, self.kv_heads = H, KV
+        self.group = None
         self.q_proj = _dense(cfg, C, H * D, cfg.qkv_bias, **fk)
         self.k_proj = _dense(cfg, C, KV * D, cfg.qkv_bias, **fk)
         self.v_proj = _dense(cfg, C, KV * D, cfg.qkv_bias, **fk)
@@ -488,6 +502,9 @@ class CachedAttention(nn.Module):
         cfg = self.config
         B, T, _ = x.shape
         H, KV, D = self.heads, self.kv_heads, cfg.head_dim
+        if self.group is not None:
+            x = copy_to_group(x, self.group)
+            gen = model_parallel_generator(gen, self.group)
         q = self.q_proj(x).view(B, T, H, D)
         k = self.k_proj(x).view(B, T, KV, D)
         v = self.v_proj(x).view(B, T, KV, D)
@@ -550,9 +567,13 @@ class TransformerMLP(nn.Module):
                                     **fk)
         self.up_proj = _dense(cfg, cfg.n_embd, hidden, cfg.mlp_bias, **fk)
         self.down_proj = _dense(cfg, hidden, cfg.n_embd, cfg.mlp_bias, **fk)
+        # the model group when the hidden units are split (module_inject)
+        self.group = None
 
     def forward(self, x, gen=None):
         act = self.config.activation
+        if self.group is not None:
+            x = copy_to_group(x, self.group)
         if act == "swiglu":
             h = F.silu(self.gate_proj(x)) * self.up_proj(x)
         elif act == "gelu":
@@ -746,8 +767,12 @@ class TransformerLM(CausalLMTraining, nn.Module):
 
     def _loss_head(self):
         """The streamed loss's projection: a tied head in ``dtype``, an
-        untied one in fp32 (the JAX head's ``cd``)."""
+        untied one in fp32 (the JAX head's ``cd``); over a vocab-parallel
+        head, this rank's block of it."""
         cfg = self.config
+        if self._loss_group() is not None:
+            return self.lm_head.local_weight(), \
+                cfg.dtype if cfg.tie_word_embeddings else torch.float32
         if cfg.tie_word_embeddings:
             return self.embed_tokens.weight, cfg.dtype
         if cfg.int8_weights and cfg.int8_head:
@@ -783,9 +808,8 @@ class TransformerLM(CausalLMTraining, nn.Module):
         QuantDense (``int8_head``). A vocab-parallel head
         (``module_inject.layers.VocabParallelHead``) projects this rank's
         slice by the same rule and gathers the whole vocabulary."""
-        head = getattr(self, "lm_head", None)
-        if getattr(head, "vocab_parallel", False):
-            return head(x)
+        if self._loss_group() is not None:
+            return self.lm_head(x)
         if self.config.tie_word_embeddings:
             w = self.embed_tokens.weight
             return F.linear(x.to(w.dtype), w).float()
@@ -794,6 +818,9 @@ class TransformerLM(CausalLMTraining, nn.Module):
         return F.linear(x.float(), self.lm_head.weight.float())
 
     _dense_logits = _project_head
+
+    def _vocab_layer(self):
+        return getattr(self, "lm_head", None)
 
     def _positions(self, B: int, T: int, offset=None):
         pos = torch.arange(T, device=self.device)[None].expand(B, T)

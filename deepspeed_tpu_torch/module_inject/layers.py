@@ -3,22 +3,28 @@ JAX package, written out for one rank of a model group (the reference
 DeepSpeed's ``LinearLayer`` / ``LinearAllreduce`` idiom).
 
 * a column-parallel projection is a plain ``nn.Linear`` over a slice of
-  the output features (and its bias slice): it communicates nothing, so it
-  needs no class of its own;
+  the output features (and its bias slice) behind ``copy_to_group`` (in
+  the attention and MLP modules, once for all the projections that read
+  one input): it communicates nothing forward, so it needs no class of
+  its own;
 * :class:`RowParallelLinear` holds a slice of the input features, sums the
-  partial products over the group with one ``all_reduce``, then adds the
-  whole bias once, after the sum;
+  partial products over the group (``reduce_from_group``: one
+  ``all_reduce`` forward, none backward), then adds the whole bias once,
+  after the sum;
 * :class:`VocabParallelEmbedding` holds a block of vocabulary rows: an id
-  outside the block gives a zero row, and one ``all_reduce`` sums the
+  outside the block gives a zero row, and ``reduce_from_group`` sums the
   group's rows (exactly: every position has one nonzero term);
-* :class:`VocabParallelHead` projects onto this rank's block of the
-  vocabulary, in fp32 as ``TransformerLM._project_head`` does, and
-  gathers the whole vocabulary on every rank with one
-  ``all_gather_into_tensor``; a tied head reads the embedding's block.
+* :class:`VocabParallelHead` projects its input (behind
+  ``copy_to_group``) onto this rank's block of the vocabulary, in fp32 as
+  ``TransformerLM._project_head`` does, and gathers the whole vocabulary
+  on every rank (``gather_from_group``: one ``all_gather_into_tensor``
+  forward, this rank's slice of the gradient backward); a tied head reads
+  the embedding's block.
 
 Every collective goes through the port's ``comm`` over the model group
-(``parallel.mesh``'s ``model`` axis). A group of one rank calls nothing,
-so these layers at one rank compute what the plain ones do.
+(``parallel.mesh``'s ``model`` axis) and carries its gradient
+(``mappings``). A group of one rank calls nothing, so these layers at one
+rank compute what the plain ones do.
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import comm
 from ..parallel.mesh import MODEL_AXIS
+from .mappings import (copy_to_group, gather_from_group, reduce_from_group,
+                       sum_grad_over_group)
 
 
 class RowParallelLinear(nn.Linear):
@@ -44,8 +51,37 @@ class RowParallelLinear(nn.Linear):
         self.group = group
 
     def forward(self, x):
-        y = comm.all_reduce(F.linear(x, self.weight), group=self.group)
-        return y if self.bias is None else y + self.bias
+        w = self.weight if self.weight.dtype == x.dtype \
+            else self.weight.to(x.dtype)
+        y = reduce_from_group(F.linear(x, w), self.group)
+        if self.bias is None:
+            return y
+        return y + (self.bias if self.bias.dtype == y.dtype
+                    else self.bias.to(y.dtype))
+
+
+class SharedHeadsLinear(nn.Linear):
+    """A column-parallel projection onto KV heads that other ranks of the
+    group hold too (their query heads read the same KV head): rows
+    ``span`` of the (``total``, in) projection. In training its weight's
+    and bias's gradients are summed over the ranks that hold them
+    (``sum_grad_over_group``), so every copy takes the same update."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 span, total: int, group: str = MODEL_AXIS, device=None,
+                 dtype=None):
+        super().__init__(in_features, out_features, bias=bias,
+                         device=device, dtype=dtype)
+        self.span, self.total, self.group = tuple(span), int(total), group
+
+    def forward(self, x):
+        if not torch.is_grad_enabled():
+            return super().forward(x)
+        w = sum_grad_over_group(self.weight, self.span, self.total,
+                                self.group)
+        b = None if self.bias is None else sum_grad_over_group(
+            self.bias, self.span, self.total, self.group)
+        return F.linear(x, w, b)
 
 
 class VocabParallelEmbedding(nn.Embedding):
@@ -57,12 +93,16 @@ class VocabParallelEmbedding(nn.Embedding):
                          dtype=dtype)
         self.lo, self.group = lo, group
 
-    def forward(self, ids):
+    def forward(self, ids, dtype=None):
+        """The group's rows of ``ids``, in ``dtype`` (default: the
+        weight's)."""
         local = ids - self.lo
         outside = (local < 0) | (local >= self.num_embeddings)
-        rows = F.embedding(local.masked_fill(outside, 0), self.weight)
+        w = self.weight if dtype is None or dtype == self.weight.dtype \
+            else self.weight.to(dtype)
+        rows = F.embedding(local.masked_fill(outside, 0), w)
         rows = rows.masked_fill(outside[..., None], 0)
-        return comm.all_reduce(rows, group=self.group)
+        return reduce_from_group(rows, self.group)
 
 
 class VocabParallelHead(nn.Module):
@@ -72,8 +112,6 @@ class VocabParallelHead(nn.Module):
     projected in its dtype (flax ``Embed.attend``'s promotion), the logits
     in fp32. Either way the group's slices are gathered along the last
     dimension, so every rank holds the whole (..., V) logits."""
-
-    vocab_parallel = True
 
     def __init__(self, n: int, embed_dim: int,
                  tied: Optional[VocabParallelEmbedding] = None,
@@ -88,12 +126,17 @@ class VocabParallelHead(nn.Module):
                                                    device=device,
                                                    dtype=dtype))
 
-    def forward(self, x):
-        if self.tied is not None:
-            w = self.tied.weight
-            part = F.linear(x.to(w.dtype), w).float()
-        else:
-            part = F.linear(x.float(), self.weight.float())
-        return comm.all_gather_into_tensor(part.contiguous(),
-                                           group=self.group,
-                                           axis=part.dim() - 1)
+    def forward(self, x, dtype=None):
+        """Whole (..., V) fp32 logits of ``x``; ``dtype`` (a tied head's
+        default: the embedding's dtype, an untied head's: fp32) is the
+        dtype the projection runs in."""
+        x = copy_to_group(x, self.group)
+        w = self.tied.weight if self.tied is not None else self.weight
+        if dtype is None:
+            dtype = w.dtype if self.tied is not None else torch.float32
+        part = F.linear(x.to(dtype), w.to(dtype)).float()
+        return gather_from_group(part, self.group)
+
+    def local_weight(self) -> torch.Tensor:
+        """This rank's (n, C) block of the vocabulary projection."""
+        return self.tied.weight if self.tied is not None else self.weight

@@ -14,10 +14,13 @@ MiCS, ``pipe, data_outer, data, expert, seq, model``, where ``data`` is
 the shard group of ``mics_shard_size`` ranks and ``data_outer`` the
 replica groups. ``data`` and ``model`` run above 1 (``model`` is the
 minor axis, so a model group is a block of consecutive ranks, as in the
-JAX mesh); ``pipe``, ``expert`` and ``seq`` above 1 raise
+JAX mesh, whose device list reshapes data-major with the model axis
+innermost); ``pipe``, ``expert`` and ``seq`` above 1 raise
 ``NotImplementedError``. The entry points decide what they serve or train
 over: ``init_inference`` takes ``model`` above 1 with ``data`` 1, the
-training engine ``data`` above 1 with ``model`` 1.
+training engine ``data`` ≥ 1 beside ``model`` ≥ 1 (the ZeRO axes stay
+``data``, ``expert``, ``seq``: a model group's ranks reduce nothing of
+ZeRO's together).
 
 Without a process group the mesh is one rank: every axis has size 1 and
 every group is that rank alone.

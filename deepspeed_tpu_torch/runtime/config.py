@@ -364,8 +364,9 @@ class DeepSpeedConfig(DeepSpeedConfigModel):
             out.append("monitor_config")
         if self.compression_training:
             out.append("compression_training")
-        # data parallelism is ported (the mesh's data axis, MiCS)
-        for axis in ("model", "pipe", "expert", "seq"):
+        # data and tensor parallelism are ported (the mesh's data and
+        # model axes, MiCS)
+        for axis in ("pipe", "expert", "seq"):
             if getattr(self.mesh, axis) > 1:
                 out.append(f"mesh.{axis}")
         return out

@@ -47,12 +47,35 @@ k-th micro-batches laid end to end in rank order. By stage:
 
 A tensor whose dimensions the ZeRO world divides none of stays whole
 everywhere (the JAX ``zero_shard_spec``). Gradient norms sum the shards'
-squares over the ZeRO group, the fp16 overflow flag is all-reduced, so
-every rank clips alike and skips the same steps. Under MiCS the state
-shards within groups of ``mics_shard_size`` ranks and the gradients are
-also summed across the groups. A world of one rank with a process group
-calls every collective on it and computes what the engine without one
-does, bit for bit.
+squares over the ZeRO group, the fp16 overflow flag is all-reduced over
+the whole world, so every rank clips alike and skips the same steps.
+Under MiCS the state shards within groups of ``mics_shard_size`` ranks
+and the gradients are also summed across the groups. A world of one rank
+with a process group calls every collective on it and computes what the
+engine without one does, bit for bit.
+
+Tensor parallelism (``sharding_rules``, or a mesh or config ``mesh``
+block with ``model`` M > 1, beside ``data`` D ≥ 1; the ranks of a model
+group are consecutive, the model axis innermost, as in the JAX mesh).
+The rules (the caller's ``sharding_rules``, else the family's policy
+rules, ``module_inject.replace_module``) are carried out on the module
+before ZeRO, the optimizer and the masters see it
+(``module_inject.apply_tensor_parallel``): each rank holds 1/M of every
+column- and row-parallel projection (GPT-2's fused qkv split per head),
+and the parallel layers' collectives run over the model group and carry
+their gradients. ZeRO then partitions each rank-local tensor over the
+data group only: the gradient reductions and stage 3's gathers never
+cross the model axis. Every model rank computes the same loss; the
+global gradient norm sums a sharded tensor's squares over the model group
+and counts a tensor the group holds copies of once. Checkpoints hold the
+whole tensors (the model group gathers, then the data group), so a
+checkpoint saved at ``model`` 2 loads at ``model`` 1 and its names and
+shapes are the one-rank model's.
+
+The ``activation_checkpointing`` block configures
+``runtime.activation_checkpointing.checkpointing`` as the JAX engine does
+(an engine's non-default block, or the defaults when nothing configured
+it yet).
 
 Offload (``zero/offload.py``, ``zero/param_offload.py``; one rank only).
 With ``zero_optimization.offload_optimizer.device`` ``cpu`` or ``nvme``
@@ -97,6 +120,9 @@ from torch import nn
 
 from .. import comm
 from ..accelerator.real_accelerator import resolve_device
+from ..module_inject import (TPPlan, apply_tensor_parallel, gather_tensor,
+                             head_dim_of, replace_module, shard_tensor,
+                             tp_copies, tp_plans)
 from ..ops.optimizers import OptimizerDef, get_optimizer
 from ..parallel import mesh as mesh_mod
 from ..utils.logging import log_dist
@@ -119,17 +145,15 @@ from .zero.partition import Zero3Params, ZeroPartition
 from .zero.policy import ZeroShardingPolicy
 
 OFFLOAD_WORLD_MSG = (
-    "ZeRO offload (offload_optimizer / offload_param) over a data-parallel "
-    "world of more than one rank is not ported to the PyTorch/CUDA package "
-    "yet: it follows the tensor-parallel slice (the JAX package has it, "
+    "ZeRO offload (offload_optimizer / offload_param) over a world of more "
+    "than one rank (data or model) is not ported to the PyTorch/CUDA "
+    "package yet (ROADMAP.md queue 1 item 3; the JAX package has it, "
     "runtime/zero/offload.py:85); offload runs on one rank")
 
-TP_TRAINING_MSG = (
-    "tensor-parallel training (a mesh with model > 1, or sharding_rules) is "
-    "not ported to the PyTorch/CUDA package yet: the next slice brings the "
-    "engine's sharding_rules, GPT-2's per-head qkv split and the autograd "
-    "of the parallel layers (tensor-parallel serving is ported: "
-    "init_inference / init_serving with tensor_parallel.tp_size > 1)")
+LAMB_SLICES_MSG = (
+    "LAMB's per-tensor trust ratio over ZeRO slices or tensor-parallel "
+    "shards (stage >= 1 over a data-parallel world, or model > 1) is not "
+    "ported (ROADMAP.md queue 1 item 4); use stage 0 on one model rank")
 
 
 def _mesh_probe(config) -> tuple:
@@ -205,20 +229,15 @@ class DeepSpeedEngine:
                  device=None, sharding_rules=None, mesh=None,
                  dist_init_required=None):
         self.device = resolve_device(device)
-        if sharding_rules is not None:
-            raise NotImplementedError(TP_TRAINING_MSG)
         comm.init_distributed(verbose=False, device=self.device,
                               dist_init_required=dist_init_required)
+        dims, mics = _mesh_probe(config)
         if mesh is not None:
-            if mesh.shape.get(mesh_mod.MODEL_AXIS, 1) > 1:
-                raise NotImplementedError(TP_TRAINING_MSG)
             mesh_mod.set_mesh(mesh)
         elif not mesh_mod.has_mesh() or \
                 mesh_mod.get_mesh().size != comm.get_world_size() or \
-                mesh_mod.get_model_parallel_world_size() > 1:
-            dims, mics = _mesh_probe(config)
-            if int(dims.get("model", 1)) > 1:
-                raise NotImplementedError(TP_TRAINING_MSG)
+                mesh_mod.get_model_parallel_world_size() != \
+                int(dims.get("model", 1)):
             mesh_mod.initialize_mesh(
                 data=dims.get("data", -1), model=dims.get("model", 1),
                 pipe=dims.get("pipe", 1), expert=dims.get("expert", 1),
@@ -226,6 +245,7 @@ class DeepSpeedEngine:
         self.mesh = mesh_mod.get_mesh()
         self.dp_world_size = mesh_mod.get_data_parallel_world_size()
         self.dp_rank = mesh_mod.get_data_parallel_rank()
+        self.mp_world_size = mesh_mod.get_model_parallel_world_size()
         self._config = DeepSpeedConfig.load(config,
                                             world_size=self.dp_world_size)
         bad = self._config.not_ported()
@@ -237,9 +257,11 @@ class DeepSpeedEngine:
                        prof_ops=cl.prof_ops, verbose=cl.verbose,
                        debug=cl.debug)
         self.zero_config = self._config.zero_optimization
-        self.policy = ZeroShardingPolicy(self.zero_config, self.mesh)
+        self.policy = ZeroShardingPolicy(self.zero_config, self.mesh,
+                                         sharding_rules)
         if model is None:
             raise ValueError("initialize() needs a model (an nn.Module)")
+        self._configure_checkpointing()
 
         # --- offload (module docstring) ----------------------------------
         zc = self.zero_config
@@ -252,7 +274,8 @@ class DeepSpeedEngine:
         opt_cfg = self._config.optimizer
         opt_params = dict(opt_cfg.params) if opt_cfg else {}
         opt_type = (opt_cfg.type if opt_cfg else "adam").lower()
-        if (offload or param_offload) and self.dp_world_size > 1:
+        if (offload or param_offload) and \
+                self.dp_world_size * self.mp_world_size > 1:
             raise NotImplementedError(OFFLOAD_WORLD_MSG)
         if offload and opt_type not in ADAM_TYPES:
             raise ValueError(f"offload_optimizer requires Adam/AdamW (got "
@@ -270,8 +293,24 @@ class DeepSpeedEngine:
         self.fp16_enabled = self._config.fp16.enabled
         self.bf16_enabled = self._config.bf16.enabled
         self._keep_master = self.compute_dtype != torch.float32
-        if model_parameters is not None:
+        # --- tensor parallelism (module docstring) -----------------------
+        self.tp_plans = [TPPlan(1, 0)]
+        self._head_dim = 0
+        if self.mp_world_size > 1:
+            rules = sharding_rules if sharding_rules is not None else \
+                replace_module(model, tp_size=self.mp_world_size)
+            self._head_dim = head_dim_of(model)
+            self.tp_plans = tp_plans(model, rules, self.mesh)
+            # swapped and sliced where the model lies, before the engine
+            # moves it to its device
+            apply_tensor_parallel(
+                model, rules, self.mesh, model_parameters,
+                plan=self.tp_plans[self.mesh.axis_rank(mesh_mod.MODEL_AXIS)])
+        elif model_parameters is not None:
             model.load_state_dict(model_parameters)
+        self.tp_plan = self.tp_plans[
+            self.mesh.axis_rank(mesh_mod.MODEL_AXIS)
+            if self.mp_world_size > 1 else 0]
         self.module = model
         self._loss_fn = loss_fn
         self.master = None
@@ -316,6 +355,11 @@ class DeepSpeedEngine:
                  if p.requires_grad]
         self._param_names = [n for n, _ in named]
         self._params = [p for _, p in named]
+        # how many model ranks hold each parameter's values (the norm
+        # counts them once): M for a whole tensor, 1 for a slice
+        self._tp_copies = [tp_copies(self.tp_plans, self.tp_plan.rank, n,
+                                     self._head_dim)
+                           for n in self._param_names]
         if param_offload:
             self._part = ZeroPartition(self.policy, self.mesh, [
                 (n, tuple(p.shape)) for n, p in named])
@@ -342,10 +386,9 @@ class DeepSpeedEngine:
         self.optimizer_def: OptimizerDef = get_optimizer(opt_type,
                                                          opt_params)
         if self.optimizer_def.name == "FusedLamb" and \
-                self._part.any_sharded:
-            raise NotImplementedError(
-                "LAMB's per-tensor trust ratio over ZeRO slices (stage >= 1 "
-                "over a world above one rank) is not ported; use stage 0")
+                (self._part.any_sharded or min(self._tp_copies, default=1)
+                 < self.mp_world_size):
+            raise NotImplementedError(LAMB_SLICES_MSG)
         self.opt_state = None if self._offload_opt is not None else \
             self.optimizer_def.init(self._opt_targets())
         sched_cfg = self._config.scheduler
@@ -513,10 +556,14 @@ class DeepSpeedEngine:
         # the JAX grads are the global batch's mean: the world's sum over
         # the world
         torch._foreach_div_(grads, d * self.dp_world_size)
-        overflow = bool(overflow_across_ranks(has_inf_or_nan(grads))) \
+        # over the whole world: one model rank's slice can overflow alone
+        overflow = bool(overflow_across_ranks(
+            has_inf_or_nan(grads), group=self.mesh.axis_names)) \
             if self.fp16_enabled else False
         norm = global_grad_norm(grads, sharded=self._part.sharded_mask(),
-                                group=mesh_mod.ZERO_AXES)
+                                group=mesh_mod.ZERO_AXES,
+                                copies=self._tp_copies,
+                                model_group=mesh_mod.MODEL_AXIS)
         if cfg.gradient_clipping > 0:
             clip_grads_by_global_norm(grads, cfg.gradient_clipping, norm)
         lr = self._lr_at(self.global_steps)
@@ -553,6 +600,18 @@ class DeepSpeedEngine:
                 p.copy_(self._part.gather(lay, t.to(p.dtype)))
             else:
                 p.copy_(t)
+
+    def _configure_checkpointing(self) -> None:
+        """The ``activation_checkpointing`` block into the activation
+        checkpointing module (the JAX engine's rule: a non-default block
+        applies; the defaults only when nothing configured it yet)."""
+        from .activation_checkpointing import checkpointing as act_ckpt
+        from .config import ActivationCheckpointingConfig
+
+        if (not act_ckpt.is_configured() or
+                self._config.activation_checkpointing !=
+                ActivationCheckpointingConfig()):
+            act_ckpt.configure(deepspeed_config=self._config)
 
     def _world_mean(self, loss: torch.Tensor) -> torch.Tensor:
         """The mean of every data-parallel rank's loss."""
@@ -725,11 +784,27 @@ class DeepSpeedEngine:
         return eval_loss
 
     # --- checkpoints ---------------------------------------------------------
+    def _tp_whole(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor ``name`` from this rank's tensor-parallel part
+        (collective over the model group)."""
+        if self.mp_world_size == 1:
+            return t
+        return gather_tensor(self.tp_plans, name, t, self._head_dim)
+
+    def _tp_part(self, name: str, full) -> torch.Tensor:
+        """This rank's tensor-parallel part of a whole saved tensor."""
+        full = torch.as_tensor(full)
+        if self.mp_world_size == 1:
+            return full
+        return shard_tensor(self.tp_plan, name, full, self._head_dim)
+
     def _named(self, tensors) -> Dict[str, torch.Tensor]:
-        """{parameter name: the whole tensor}: slices are all-gathered
-        (collective: every rank calls it)."""
-        return {name: self._part.gather(lay, t) if tuple(t.shape) !=
-                lay.shape else t for name, t, lay in
+        """{parameter name: the whole tensor}: ZeRO slices are all-gathered
+        over the data group, then tensor-parallel parts over the model
+        group (collective: every rank calls it)."""
+        return {name: self._tp_whole(name, self._part.gather(lay, t)
+                                     if tuple(t.shape) != lay.shape else t)
+                for name, t, lay in
                 zip(self._param_names, tensors, self._part.layouts)}
 
     @torch.no_grad()
@@ -739,22 +814,27 @@ class DeepSpeedEngine:
         is this rank's slice takes its slice."""
         for name, t, lay in zip(self._param_names, targets,
                                 self._part.layouts):
-            t.copy_(self._part.take(lay, saved[name], t))
+            t.copy_(self._part.take(lay, self._tp_part(name, saved[name]),
+                                    t))
 
     def _module_state_dict(self) -> Dict[str, Any]:
-        """The module's state dict with every stage-3 shard gathered whole
-        (collective)."""
+        """The module's state dict with every stage-3 shard and every
+        tensor-parallel part gathered whole (collective), in the one-rank
+        model's names and shapes."""
         sd = self.module.state_dict()
-        if self._zero3 is None:
-            return sd
-        full = self._zero3.full_state()
-        for i, t in full.items():
-            sd[self._param_names[i]] = t
-        return sd
+        if self._zero3 is not None:
+            full = self._zero3.full_state()
+            for i, t in full.items():
+                sd[self._param_names[i]] = t
+        return {k: self._tp_whole(k, t) for k, t in sd.items()}
 
     def _load_module(self, module_sd: Dict[str, torch.Tensor],
                      strict: bool = True) -> None:
-        """Load a whole state dict; a stage-3 shard takes its slice."""
+        """Load a whole state dict; a tensor-parallel part and a stage-3
+        shard take their slices."""
+        if self.mp_world_size > 1:
+            module_sd = {k: self._tp_part(k, v).contiguous()
+                         for k, v in module_sd.items()}
         if self._zero3 is not None:
             module_sd = dict(module_sd)
             for i in self._zero3.index:
@@ -792,7 +872,7 @@ class DeepSpeedEngine:
             "micro_steps": self.micro_steps,
             "skipped_steps": self.skipped_steps,
             "dp_world_size": self.dp_world_size,
-            "mp_world_size": 1,
+            "mp_world_size": self.mp_world_size,
             "lr_scheduler": sched.state_dict()
             if sched is not None and hasattr(sched, "state_dict") else None,
         }
@@ -802,8 +882,9 @@ class DeepSpeedEngine:
                         save_latest: bool = True) -> None:
         """Write the state to ``<save_dir>/<tag>/`` (tag default
         ``global_step{N}``) and, with ``save_latest``, ``tag`` to
-        ``<save_dir>/latest``. Over a world every rank gathers and rank 0
-        writes; every rank returns after the files are complete."""
+        ``<save_dir>/latest``. Over a world every rank gathers (the model
+        group, then the data group) and rank 0 writes the whole tensors;
+        every rank returns after the files are complete."""
         if tag is None:
             tag = f"global_step{self.global_steps}"
         sd = self._state_dict()
@@ -816,7 +897,7 @@ class DeepSpeedEngine:
             self.checkpoint_engine.commit(tag)
             if save_latest:
                 write_latest(save_dir, tag)
-        comm.barrier()
+        comm.barrier(group=self.mesh.axis_names)
         log_dist(f"saved checkpoint {save_dir}/{tag}", ranks=[0])
 
     def _restore_counters(self, saved: Dict[str, Any],

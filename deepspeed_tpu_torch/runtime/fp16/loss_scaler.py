@@ -6,8 +6,8 @@ step's overflow flag once per optimizer step (one device sync, fp16 only)
 and calls :func:`update_scale`, where the JAX package keeps the state on
 the device and selects with ``jnp.where``. The arithmetic, hysteresis
 (``delayed_shift``) included, is the same. Over a data-parallel world the
-flag is all-reduced first (:func:`overflow_across_ranks`), so every rank
-skips the same steps and keeps the same scale.
+flag is all-reduced first (:func:`overflow_across_ranks`, over data and
+model ranks), so every rank skips the same steps and keeps the same scale.
 """
 
 from __future__ import annotations
@@ -37,8 +37,10 @@ def has_inf_or_nan(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def overflow_across_ranks(flag: torch.Tensor, group=None) -> torch.Tensor:
-    """A device bool: whether ``flag`` holds on any rank of ``group`` (the
-    data-parallel world by default; one all-reduce of the flag)."""
+    """A device bool: whether ``flag`` holds on any rank of ``group`` (mesh
+    axis names; by default the data-parallel world; the engine passes
+    every axis of its mesh, since under tensor parallelism one model
+    rank's slice can overflow alone; one all-reduce of the flag)."""
     from ... import comm
 
     f = flag.to(torch.float32).reshape(1)

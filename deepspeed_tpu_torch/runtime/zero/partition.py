@@ -12,7 +12,9 @@ dimension the group divides stays whole on every rank. Gradients are
 summed in fp32: reduce-scattered over the ZeRO group (the ``data`` axis;
 under MiCS the shard group) and all-reduced over the MiCS replica groups
 (``data_outer``), or all-reduced over the whole data-parallel world where
-they stay whole.
+they stay whole. Under tensor parallelism the layouts are over each
+rank's tensor-parallel parts, and every reduction and gather here stays
+within the data axes: the ranks of a model group never meet here.
 
 :class:`Zero3Params` shards the compute parameters of a stage-3 model at
 rest: each sharded parameter is replaced in its module by a Parameter

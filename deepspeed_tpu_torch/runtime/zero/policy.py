@@ -120,7 +120,8 @@ def shard_dim(spec: Sequence) -> Optional[int]:
 
 class ShardingRules:
     """Regex path -> spec rules for tensor-parallel parameters (the JAX
-    class): ``rules`` is a list of ``(pattern, entries)``, ``entries`` one
+    class; the training engine takes them as ``sharding_rules``): ``rules``
+    is a list of ``(pattern, entries)``, ``entries`` one
     mesh axis or None a dimension of the parameter's JAX leaf; the first
     pattern that ``re.search``-es the path wins. Paths are the JAX
     parameter paths (``blocks/block/attn/q_proj/kernel``), which
@@ -201,7 +202,10 @@ class ZeroShardingPolicy:
         specs alone: the compute parameters (``param_itemsize`` bytes an
         element), the fp32 masters (with ``keep_master``, or where a stage
         keeps an fp32 shard beside a whole fp32 parameter), ``moments``
-        fp32 optimizer fields and the fp32 gradient accumulators."""
+        fp32 optimizer fields and the fp32 gradient accumulators. At a
+        ``(data, model)`` mesh ``shapes`` are the rank's tensor-parallel
+        parts (``module_inject.local_shapes``): ZeRO partitions each over
+        the data group as the rank-local tensor it is."""
         world = self.zero_world
 
         def local(spec, shape) -> int:

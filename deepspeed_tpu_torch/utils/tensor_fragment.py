@@ -5,9 +5,10 @@
 A parameter is addressed by its name in the port's state dict
 (``engine.module``'s dotted names, e.g. ``blocks.0.attn.qkv.weight``).
 Over a data-parallel world each rank holds slices
-(``runtime/zero/partition.py``): the getters all-gather them, so every rank
-of the ZeRO group calls them together; the setter writes each rank's slice
-of the value it is given (the same value on every rank). Under optimizer
+(``runtime/zero/partition.py``), and over a model group tensor-parallel
+parts: the getters all-gather them (the data group, then the model group),
+so every rank calls them together; the setter writes each rank's slice of
+the value it is given (the same value on every rank). Under optimizer
 offload the host optimizer's whole tensors are read and written.
 """
 
@@ -33,6 +34,7 @@ def _whole(engine, i: int, t: torch.Tensor) -> np.ndarray:
     lay = engine._part.layouts[i]
     if tuple(t.shape) != lay.shape:
         t = engine._part.gather(lay, t)
+    t = engine._tp_whole(engine._param_names[i], t)
     return t.detach().float().cpu().numpy().copy()
 
 
@@ -89,11 +91,12 @@ def safe_set_full_fp32_param(engine, param_path: str, value) -> bool:
     if i is None:
         return False
     lay = engine._part.layouts[i]
-    full = torch.as_tensor(np.asarray(value, np.float32))
+    whole = torch.as_tensor(np.asarray(value, np.float32))
+    full = engine._tp_part(engine._param_names[i], whole)
     for t in {id(x): x for x in (engine._targets[i],
                                  engine._params[i])}.values():
         t.copy_(engine._part.take(lay, full, t))
     if engine._offload_opt is not None:
         engine._offload_opt.write_leaf("master", engine._param_names[i],
-                                       full.numpy())
+                                       whole.numpy())
     return True

@@ -166,6 +166,9 @@ def train_run(run: dict, rank: int = 0, world: int = 1) -> dict:
         engine.load_checkpoint(run["load"])
     comm.comms_logger.reset()
     losses, norms = [], []
+    # a rank's rows are its data-parallel block (the ranks of a model
+    # group read the same rows)
+    rank, world = engine.dp_rank, engine.dp_world_size
     for batch in run["batches"]:
         mine = rank_rows(batch, rank, world, gas)
         losses.append(float(engine.train_batch(batch=mine)))
@@ -216,10 +219,12 @@ def _fragment(engine, tf) -> dict:
     return out
 
 
-def _train(rank: int, world: int, runs: dict, refuse=None) -> dict:
+def _train(rank: int, world: int, runs: dict, refuse=None,
+           probe=None) -> dict:
     """``train_run`` for each of ``runs`` (rank 0 carries the tensors
     back), then each ``refuse`` (model spec, config)'s refusal message at
-    this world (None: the engine was built)."""
+    this world (None: the engine was built), then with ``probe`` (keyword
+    arguments) the tensor-parallel probe :func:`tp_probe`."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.parallel import mesh as mesh_mod
 
@@ -240,7 +245,103 @@ def _train(rank: int, world: int, runs: dict, refuse=None) -> dict:
         except NotImplementedError as exc:
             refusals.append(str(exc))
     results["refusals"] = refusals
+    if probe is not None:
+        results["probe"] = tp_probe(rank, world, **probe)
     return results
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel training: the layers, dropout, refusals
+# ---------------------------------------------------------------------------
+def _layer_grads(rank: int, world: int) -> dict:
+    """Each parallel layer over the model group against the plain layer on
+    the whole weights (the same on every rank, from one seed): the largest
+    |difference| of its output, input gradient and weight gradients (this
+    rank's slice of the plain layer's)."""
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.module_inject import layers as ML
+    from deepspeed_tpu_torch.module_inject.mappings import copy_to_group
+
+    g = torch.Generator().manual_seed(11)
+    B, T, C, N, V = 2, 3, 8, 12, 10
+    n, v = N // world, V // world
+    sl, vs = slice(rank * n, (rank + 1) * n), slice(rank * v, (rank + 1) * v)
+    x = torch.randn(B, T, C, generator=g)
+    h = torch.randn(B, T, N, generator=g)
+    W1, b1 = torch.randn(N, C, generator=g), torch.randn(N, generator=g)
+    W2, b2 = torch.randn(C, N, generator=g), torch.randn(C, generator=g)
+    E = torch.randn(V, C, generator=g)
+    ids = torch.randint(0, V, (B, T), generator=g)
+    gy = {k: torch.randn(B, T, d, generator=g)
+          for k, d in (("col", N), ("row", C), ("emb", C), ("head", V))}
+    # every rank's upstream gradient for the shared KV heads (they differ)
+    gshared = torch.randn(world, B, T, n, generator=g)
+
+    def leaf(t):
+        return torch.nn.Parameter(t.detach().clone())
+
+    def plain(fn, up, *ts):
+        ts = [leaf(t) for t in ts]
+        y = fn(*ts)
+        (y * up).sum().backward()
+        return [y.detach()] + [t.grad for t in ts]
+
+    def err(*pairs):
+        return max(float((a - b).abs().max()) for a, b in pairs)
+
+    out = {}
+    # column-parallel: a plain Linear over a row slice behind copy_to_group
+    xx = leaf(x)
+    w, b = leaf(W1[sl]), leaf(b1[sl])
+    y = F.linear(copy_to_group(xx), w, b)
+    (y * gy["col"][..., sl]).sum().backward()
+    want = plain(F.linear, gy["col"], x, W1, b1)
+    out["column"] = err((y.detach(), want[0][..., sl]), (xx.grad, want[1]),
+                        (w.grad, want[2][sl]), (b.grad, want[3][sl]))
+    # row-parallel: a slice of the input features, the bias once
+    row = ML.RowParallelLinear(n, C, True)
+    row.weight, row.bias = leaf(W2[:, sl]), leaf(b2)
+    hh = leaf(h[..., sl])
+    y = row(hh)
+    (y * gy["row"]).sum().backward()
+    want = plain(F.linear, gy["row"], h, W2, b2)
+    out["row"] = err((y.detach(), want[0]), (hh.grad, want[1][..., sl]),
+                     (row.weight.grad, want[2][:, sl]),
+                     (row.bias.grad, want[3]))
+    # vocab-parallel embedding, an untied head and a tied head
+    emb = ML.VocabParallelEmbedding(v, C, rank * v)
+    emb.weight = leaf(E[vs])
+    y = emb(ids)
+    (y * gy["emb"]).sum().backward()
+    want = plain(lambda e: F.embedding(ids, e), gy["emb"], E)
+    out["embedding"] = err((y.detach(), want[0]),
+                           (emb.weight.grad, want[1][vs]))
+    want = plain(F.linear, gy["head"], x, E)
+    head = ML.VocabParallelHead(v, C)
+    head.weight = leaf(E[vs])
+    xx = leaf(x)
+    y = head(xx)
+    (y * gy["head"]).sum().backward()
+    out["head"] = err((y.detach(), want[0]), (xx.grad, want[1]),
+                      (head.weight.grad, want[2][vs]))
+    emb.weight.grad = None
+    tied = ML.VocabParallelHead(v, C, tied=emb)
+    xx = leaf(x)
+    y = tied(xx)
+    (y * gy["head"]).sum().backward()
+    out["tied_head"] = err((y.detach(), want[0]), (xx.grad, want[1]),
+                           (emb.weight.grad, want[2][vs]))
+    # a KV projection every rank holds whole: its gradient is the sum of
+    # the ranks' partial gradients
+    shared = ML.SharedHeadsLinear(C, n, True, span=(0, n), total=n)
+    shared.weight, shared.bias = leaf(W1[:n]), leaf(b1[:n])
+    (shared(x) * gshared[rank]).sum().backward()
+    want_w = torch.einsum("btn,btc->nc", gshared.sum(0), x)
+    want_b = gshared.sum((0, 1, 2))
+    out["shared_heads"] = err((shared.weight.grad, want_w),
+                              (shared.bias.grad, want_b))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -388,7 +489,6 @@ def _refusals(world: int, model, eng) -> dict:
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.inference.zero_inference import \
         ZeroInferenceEngine
-    from deepspeed_tpu_torch.models import gpt2
     from deepspeed_tpu_torch.serving import (AsyncEngineBridge,
                                              FaultInjector, ReplicaRouter)
 
@@ -416,18 +516,7 @@ def _refusals(world: int, model, eng) -> dict:
         "router": lambda: ReplicaRouter([srv]),
         "http": lambda: AsyncEngineBridge(srv),
         "zero_inference": lambda: ZeroInferenceEngine(*model,
-                                                      device="cpu"),
-        "gpt2": lambda: dst.init_inference(
-            gpt2.GPT2LMHeadModel(gpt2.GPT2Config(
-                vocab_size=64, n_positions=32, n_embd=32, n_layer=1,
-                n_head=4, dtype=torch.float32)),
-            config={"dtype": "float32", "mp_size": world}, device="cpu"),
-        "training": lambda: dst.initialize(
-            model=gpt2.GPT2LMHeadModel(gpt2.GPT2Config(
-                vocab_size=64, n_positions=32, n_embd=32, n_layer=1,
-                n_head=4, dtype=torch.float32)),
-            config={"train_micro_batch_size_per_gpu": 1,
-                    "mesh": {"model": world}}, device="cpu")})
+                                                      device="cpu")})
     out = {key: msg(fn) for key, fn in cases.items()}
     # with one clock every rank reads alike, the clocked keys are taken
     ticks = iter(range(10 ** 6))
@@ -437,13 +526,54 @@ def _refusals(world: int, model, eng) -> dict:
     return out
 
 
+def _gpt2_above_one_rank(world: int, ids) -> dict:
+    """``GPT2LMHeadModel`` over the model group (refused until its fused
+    qkv split per head): ``init_inference`` at ``mp_size`` = the world,
+    its logits' largest relative error against the one-rank model's; and
+    ``initialize`` with ``mesh.model`` = the world, two SGD steps, the
+    first loss beside the one-rank model's loss on the same rows."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+
+    def fresh():
+        m = gpt2.GPT2LMHeadModel(gpt2.GPT2Config(
+            vocab_size=64, n_positions=32, n_embd=32, n_layer=1, n_head=4,
+            dtype=torch.float32))
+        m.init_weights(torch.Generator().manual_seed(0))
+        return m
+
+    ids = torch.as_tensor(ids).long()
+    with torch.no_grad():
+        want = fresh().logits(ids)
+        loss = float(fresh()({"input_ids": ids[:1]}))
+    eng = dst.init_inference(fresh(), config={"dtype": "float32",
+                                              "mp_size": world},
+                             device="cpu")
+    got = eng.forward(ids)
+    mesh_mod.reset_mesh()
+    engine, *_ = dst.initialize(
+        model=fresh(), device="cpu",
+        config={"train_micro_batch_size_per_gpu": 1,
+                "mesh": {"model": world},
+                "optimizer": {"type": "SGD", "params": {"lr": 0.1}}})
+    losses = [float(engine.train_batch(batch={"input_ids": ids[:1]}))
+              for _ in range(2)]
+    return {"serve_rel": float(((got - want).norm(dim=-1)
+                                / want.norm(dim=-1)).max()),
+            "serve_mp": eng.mp_world_size,
+            "train_mp": engine.mp_world_size,
+            "train_losses": losses, "one_rank_loss": loss}
+
+
 def _tp(rank: int, world: int, model, ids, new: int, servers: dict,
-        prompts, budgets, refuse: bool = False) -> dict:
+        prompts, budgets, refuse: bool = False, gpt2_family=None) -> dict:
     """``generate()`` and the forward's logits of ``ids`` over a model group
     of the world's ranks, then each of ``servers`` (label -> ServingEngine
-    keys) over the traffic; with ``refuse`` the refusals and a forced
-    digest mismatch (rank 1 reports another digest: every rank must
-    raise)."""
+    keys) over the traffic, ``generate()`` of ``gpt2_family`` (a second
+    (config, state)); with ``refuse`` GPT-2 above one rank
+    (:func:`_gpt2_above_one_rank`), the refusals and a forced digest
+    mismatch (rank 1 reports another digest: every rank must raise)."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
     from deepspeed_tpu_torch.parallel import mesh as mesh_mod
@@ -471,7 +601,13 @@ def _tp(rank: int, world: int, model, ids, new: int, servers: dict,
             out["data_and_model"] = None
         except NotImplementedError as exc:
             out["data_and_model"] = str(exc)
+    if gpt2_family is not None:
+        out["gpt2_family"] = tp_engine(gpt2_family, world).generate(
+            ids, max_new_tokens=new).tolist()
     if refuse:
+        out["above_one_rank"] = _gpt2_above_one_rank(world, ids)
+        mesh_mod.reset_mesh()
+        eng = tp_engine(model, world)
         out["refusals"] = _refusals(world, model, eng)
         srv = dst.ServingEngine(eng, num_slots=2)
         if rank == 1:
@@ -486,8 +622,101 @@ def _tp(rank: int, world: int, model, ids, new: int, servers: dict,
     return out
 
 
-SCENARIOS = {"train": _train, "comm": _comm, "gloo_cuda": _gloo_cuda,
-             "tp": _tp}
+def tp_probe(rank: int, world: int, dropout_models=(), fused=None) -> dict:
+    """Over a model group of the world's ranks (data 1): the comm layer's
+    all-gather along the last axis, each parallel layer against the plain
+    one (``_layer_grads``), the final hidden states of each of
+    ``dropout_models`` (model specs, dropout on) after one training-mode
+    forward through an engine (every rank of the group must hold the same
+    residual stream), and ``fused`` (a GPT-2 spec with
+    ``fused_ln_linear=True``): the error its step raises."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+
+    mesh_mod.reset_mesh()
+    mesh_mod.initialize_mesh(model=world)
+    parts = [torch.arange(6.0).reshape(2, 3) * (r + 1) for r in range(world)]
+    out = {"gather_last": torch.equal(
+        comm.all_gather_into_tensor(parts[rank], group="model", axis=-1),
+        torch.cat(parts, -1))}
+    out["layers"] = _layer_grads(rank, world)
+    config = {"train_micro_batch_size_per_gpu": 2,
+              "mesh": {"model": world},
+              "optimizer": {"type": "SGD", "params": {"lr": 0.1}}}
+    ids = np.random.default_rng(3).integers(0, 60, (2, 8))
+    out["hidden"] = []
+    for spec in dropout_models:
+        mesh_mod.reset_mesh()
+        engine, *_ = dst.initialize(model=build_model(spec), config=config,
+                                    device="cpu")
+        module = engine.module
+        module.seed_dropout(5)
+        h = module.hidden(torch.as_tensor(ids), deterministic=False)
+        out["hidden"].append((h.detach(),
+                              module.hidden(torch.as_tensor(ids)).detach()))
+    if fused is not None:
+        mesh_mod.reset_mesh()
+        engine, *_ = dst.initialize(model=build_model(fused), config=config,
+                                    device="cpu")
+        try:
+            engine.train_batch(batch={"input_ids": ids})
+            out["fused"] = None
+        except ValueError as exc:
+            out["fused"] = str(exc)
+    return out
+
+
+def _act_ckpt(rank: int, world: int) -> dict:
+    """``checkpointing.checkpoint`` with ``partition_activations`` over a
+    model group of the world's ranks: the bytes its saved input takes (a
+    saved-tensor hook sees what the checkpoint keeps), the collectives
+    its backward issues, and the value and gradients against the
+    uncheckpointed function."""
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing as ckpt
+
+    mesh_mod.reset_mesh()
+    mesh_mod.initialize_mesh(model=world)
+    g = torch.Generator().manual_seed(0)
+    w = torch.nn.Parameter(torch.randn(16, 16, generator=g) / 4)
+    x0 = torch.randn(8, 16, generator=g)
+
+    def f(a):
+        h = torch.tanh(a @ w)
+        return (h * h).sum()
+
+    x = x0.clone().requires_grad_()
+    f(x).backward()
+    want = (x.grad.clone(), w.grad.clone())
+    w.grad = None
+    ckpt.reset()
+    ckpt.configure(partition_activations=True)
+    kept = []
+
+    def pack(t):
+        kept.append(t.numel() * t.element_size())
+        return t
+
+    x = x0.clone().requires_grad_()
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y = ckpt.checkpoint(f, x)
+    comm.configure(enabled=True, prof_all=True)
+    comm.comms_logger.reset()
+    y.backward()
+    comm.configure(enabled=False)
+    ops = {k: v["count"] for k, v in comm.comms_logger.totals().items()}
+    ckpt.reset()
+    return {"kept": sum(kept), "whole": x0.numel() * x0.element_size(),
+            "ops": ops, "value": float(y),
+            "grad_err": max(float((x.grad - want[0]).abs().max()),
+                            float((w.grad - want[1]).abs().max()))}
+
+
+SCENARIOS = {"act_ckpt": _act_ckpt, "train": _train, "comm": _comm,
+             "gloo_cuda": _gloo_cuda, "tp": _tp}
 
 
 def main(argv) -> int:

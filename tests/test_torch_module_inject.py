@@ -109,15 +109,46 @@ def test_policy_rules_and_injection_policy_match_jax(models, fam):
 
 
 def test_gpt2_rules_one_rank_only():
+    """GPT-2's policy rules are the JAX ones at every ``tp_size`` (they
+    were refused above one rank until the per-head qkv split was ported),
+    and at ``tp_size`` 2 a rank's plan splits whole heads: its slice of
+    the fused qkv is its heads' columns of each of the q, k and v blocks
+    (and of the bias), its slice of ``attn.proj`` those columns' rows, the
+    MLP and the even vocabulary split evenly, the norms and positions
+    whole."""
     model = PG.GPT2LMHeadModel(PG.GPT2Config(
         vocab_size=64, n_positions=32, n_embd=32, n_layer=1, n_head=4,
         dtype=torch.float32))
     from deepspeed_tpu.models.gpt2 import gpt2_sharding_rules
 
     assert MI.get_policy_rules(model).raw_rules == gpt2_sharding_rules()
-    with pytest.raises(NotImplementedError, match="qkv"):
-        MI.get_policy_rules(model, tp_size=2)
+    assert MI.get_policy_rules(model, tp_size=2).raw_rules == \
+        gpt2_sharding_rules()
     assert MI.get_policy_rules(torch.nn.Linear(2, 2)) is None
+    model.init_weights(torch.Generator().manual_seed(3))
+    full = model.state_dict()
+    C, D, w = 32, 8, 16
+    for rank in range(2):
+        plan = _plan(model, 2, rank)
+        assert (plan.q_heads, plan.vocab, plan.ffn) == (
+            (2 * rank, 2 * rank + 2), (32 * rank, 32 * rank + 32),
+            (64 * rank, 64 * rank + 64))
+        part = MI.shard_state_dict(plan, full, D)
+        cols = slice(w * rank, w * (rank + 1))
+        for leaf in ("weight", "bias"):
+            qkv = full[f"blocks.0.attn.qkv.{leaf}"]
+            want = torch.cat([qkv[j * C:(j + 1) * C][cols] for j in range(3)])
+            assert torch.equal(part[f"blocks.0.attn.qkv.{leaf}"], want)
+        assert torch.equal(part["blocks.0.attn.proj.weight"],
+                           full["blocks.0.attn.proj.weight"][:, cols])
+        assert torch.equal(part["wte.weight"],
+                           full["wte.weight"][32 * rank:32 * (rank + 1)])
+        for key in ("blocks.0.attn.proj.bias", "blocks.0.ln_1.weight",
+                    "wpe.weight"):
+            assert torch.equal(part[key], full[key])
+        # three pieces: this rank's heads in each of the q, k, v blocks
+        assert plan.pieces("blocks.0.attn.qkv.weight", D) == (0, tuple(
+            (j * C + w * rank, j * C + w * (rank + 1)) for j in range(3)))
 
 
 def test_parallel_layers_at_one_rank_are_the_plain_layers():
@@ -203,7 +234,7 @@ def test_shard_state_dict_tiles_the_full_tensors(fam, n):
     plans = [_plan(model, n, r) for r in range(n)]
     parts = [MI.shard_state_dict(plan, full, cfg.head_dim) for plan in plans]
     for key, t in full.items():
-        cuts = [plan.cut(key, cfg.head_dim) for plan in plans]
+        cuts = [plan.pieces(key, cfg.head_dim) for plan in plans]
         if cuts[0] is None:
             assert all(torch.equal(p[key], t) for p in parts), key
             continue

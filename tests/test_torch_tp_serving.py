@@ -24,10 +24,16 @@ the results may not).
 * every key that raises above one rank raises ``NotImplementedError``
   (and the clocked keys are taken with a shared clock), and a rank that
   reports another digest makes every rank raise ``RankDivergenceError``
-  at the step's grant, with its slot back.
+  at the step's grant, with its slot back;
+* GPT-2 above one rank (refused until tensor-parallel training brought
+  the per-head qkv split): ``GPT2LMHeadModel`` through ``init_inference``
+  at ``mp_size`` 2 gives the one-rank model's logits, and through
+  ``initialize`` with ``mesh.model`` 2 the one-rank loss; a gpt2-family
+  ``TransformerLM`` (vocab 64: vocab-parallel embedding and tied head)
+  ``generate()``s the JAX engine's tokens at ``(1, 2)``.
 
 Two spawns (worlds 2 and 4, about 7 s each, started together before the
-JAX side runs); JAX: two TP engines, two servers.
+JAX side runs); JAX: three TP engines, two servers.
 """
 
 import dataclasses
@@ -58,10 +64,12 @@ PAGED = dict(num_slots=4, prefill_chunk=8,
              paged_kv={"page_size": 8, "num_pages": 48,
                        "prefix_cache": True})
 SERVERS = {"contiguous": dict(num_slots=4), "paged": PAGED}
+GPT2_FAMILY = dict(vocab_size=64, max_seq_len=64, n_embd=32, n_layer=2,
+                   n_head=4)
 REFUSED = ("deadline_default_ms", "step_wall_budget_ms", "degradation",
            "fault_injector", "priority", "overlap", "spec_decode", "role",
            "cost_model", "deadline_ms", "enable_cuda_graph", "int8", "zero",
-           "router", "http", "zero_inference", "gpt2", "training")
+           "router", "http", "zero_inference")
 
 
 def _workload():
@@ -94,8 +102,22 @@ def side():
               for f in dataclasses.fields(jcfg)}
     pcfg = PL.TransformerConfig(**{**fields, "dtype": torch.float32})
     ids = np.random.default_rng(5).integers(0, 64, (2, 7)).astype(np.int32)
+    gcfg = JL.transformer_config("gpt2", **GPT2_FAMILY, dtype=jnp.float32)
+    gmodel = JL.TransformerLM(gcfg)
+    gshapes = jax.eval_shape(lambda: gmodel.init(
+        {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 8), jnp.int32),
+        method=gmodel.logits))["params"]
+    gparams = jax.tree_util.tree_map_with_path(
+        lambda path, s: rng.normal(1.0, 0.1, s.shape).astype(s.dtype)
+        if path[-1].key == "scale" else
+        rng.normal(0.0, 0.08, s.shape).astype(s.dtype), gshapes)
+    gfields = {f.name: getattr(gcfg, f.name)
+               for f in dataclasses.fields(gcfg)}
+    gpcfg = PL.TransformerConfig(**{**gfields, "dtype": torch.float32})
     return dict(jmodel=jmodel, params=params, pcfg=pcfg, ids=ids,
-                state=state_dict_from_flax(pcfg, params))
+                state=state_dict_from_flax(pcfg, params), gmodel=gmodel,
+                gparams=gparams, gpt2_family=(
+                    gpcfg, state_dict_from_flax(gpcfg, gparams)))
 
 
 def _jax_engine(side, n):
@@ -112,7 +134,8 @@ def started(side, tmp_path_factory):
     kw = dict(model=(side["pcfg"], side["state"]), ids=side["ids"], new=NEW,
               prompts=prompts, budgets=budgets)
     return {2: start("tp", 2, tmp_path_factory.mktemp("tp2"), timeout=150,
-                     servers=SERVERS, refuse=True, **kw),
+                     servers=SERVERS, refuse=True,
+                     gpt2_family=side["gpt2_family"], **kw),
             4: start("tp", 4, tmp_path_factory.mktemp("tp4"), timeout=150,
                      servers={"paged": PAGED}, **kw)}
 
@@ -140,6 +163,13 @@ def jax_side(side, started):
                 out["servers"][label] = [list(map(int, r.output_tokens))
                                          for r in reqs]
         jmesh.reset_mesh()
+    mesh = j_initialize_mesh(data=1, model=2, devices=jax.devices()[:2])
+    eng = ds.init_inference(side["gmodel"], model_parameters=side["gparams"],
+                            config={"dtype": "float32", "mp_size": 2},
+                            mesh=mesh)
+    out["gpt2_family"] = np.asarray(eng.generate(side["ids"],
+                                                 max_new_tokens=NEW))
+    jmesh.reset_mesh()
     return out
 
 
@@ -204,6 +234,23 @@ def test_servers_match_jax_tp_server(jax_side, port, label):
 def test_unported_keys_raise_above_one_rank(port, key):
     for r in port[2]:
         assert r["refusals"][key], key
+
+
+@pytest.mark.parametrize("entry", ["gpt2", "training"])
+def test_gpt2_runs_above_one_rank(jax_side, port, entry):
+    """The two GPT-2 cases this file refused until the per-head qkv split
+    (module docstring): each entry point now runs over the model group."""
+    for r in port[2]:
+        got = r["above_one_rank"]
+        if entry == "gpt2":
+            assert got["serve_mp"] == 2 and got["serve_rel"] <= LOGITS_RTOL
+            np.testing.assert_array_equal(np.asarray(r["gpt2_family"]),
+                                          jax_side["gpt2_family"])
+        else:
+            assert got["train_mp"] == 2
+            np.testing.assert_allclose(got["train_losses"][0],
+                                       got["one_rank_loss"], rtol=1e-6)
+            assert got["train_losses"][1] < got["train_losses"][0]
 
 
 def test_shared_clock_and_digest_mismatch(port):

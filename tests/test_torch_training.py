@@ -292,8 +292,19 @@ def test_unported_keys_raise(key, value, tmp_path):
     """Keys of features the port does not have raise. The two offload
     blocks were such keys until the offload tiers were ported
     (``tests/test_torch_offload.py``, ``test_torch_param_offload.py``):
-    they now build an engine that takes a step."""
+    they now build an engine that takes a step. ``mesh.model`` 2 was one
+    until tensor-parallel training was ported
+    (``tests/test_torch_tp_training.py`` trains over two ranks): it now
+    parses as ported, and one process, a world of one rank, cannot hold a
+    model group of two."""
     model = P.GPT2LMHeadModel(P.GPT2Config(**TINY, dtype=torch.float32))
+    if key == "mesh":
+        cfg = dst.DeepSpeedConfig.load(dict(CONFIG, **{key: value}))
+        assert cfg.not_ported() == [] and cfg.mesh.model == 2
+        with pytest.raises(ValueError, match="not divisible by model"):
+            dst.initialize(model=model, config=dict(CONFIG, **{key: value}),
+                           device="cpu")
+        return
     if key == "zero_optimization":
         value = {k: dict(v, nvme_path=str(tmp_path))
                  if isinstance(v, dict) else v for k, v in value.items()}

@@ -433,6 +433,26 @@ non-zero:
             fp32 copy, and where (b)'s argmax parts from (a)'s, (b)'s token
             within ``TIE_FACTOR`` of its own error below the copy's top
             logit.
+            The key arms, at TinyLlama's widths and ``TP_KEYS_LAYERS``
+            layers over ``serve_paged``'s prompts (budgets capped at
+            ``TP_KEYS_BUDGET``), every rank alike: (d) ``spec_decode``
+            n-gram k=4 on motif prompts at ``tp_size`` 2, its tokens
+            against one rank's spec server up to near-ties, acceptance the
+            same on both ranks; (e) ``dtype: "int8"`` (the storage tier
+            above one rank: under ``TP_STORAGE_REST`` of one rank's bytes,
+            logits within ``LOGITS_REL_TOL`` of the fp32 copy) and an
+            ``int8_weights`` model (``int8_matmul`` launched at both
+            regimes, logits against the dequantized fp32 copy); (f) a
+            prefill/decode pair behind ``ReplicaRouter`` (the colocated
+            tokens, half a page's bytes a rank); (g) ``serve_resilience``'s
+            keys with no ``clock=`` (every rank's decisions identical, and
+            one rank replaying rank 0's clock readings decides alike); (h)
+            ``overlap`` (the serial tokens) and ``cost_model`` (2 x a
+            rank's flops within 1% of one rank's); (i) ``(data, model)`` =
+            ``TP_DM`` over four more gloo ranks (``--tp-spec`` mode "dm"),
+            half the contiguous slots a data rank, the ``(1, 2)`` tokens up
+            to near-ties. ``int8_matmul`` at a rank's column and row shapes
+            and the paged kernel at T=5 join the kernel rows.
             ``--tp-only`` runs the build, those rows and this.
 
 The last two lines are a ``{"kernels": [...]}`` object and
@@ -6295,7 +6315,8 @@ def tp_arm(model, state, tp: int, seed: int, prompts, budgets,
     None: the model's own), the default call (8 slots, chunk 64,
     ``PAGED_KV``), a throwaway server on the same engine to warm the
     shapes, then the traffic with the first request alone until it runs.
-    Holds budgets, invariants and no leak. With ``probes``: the decode
+    Holds budgets, invariants and no leak; counts the group clock's reads
+    a step (none at one rank). With ``probes``: the decode
     step's collectives (comms logger on, over one contiguous decode step),
     ``generate()`` through the decode kernel, and the teacher-forced
     logits of ``tp_teacher`` (``against``: the other arm's tokens).
@@ -6322,12 +6343,21 @@ def tp_arm(model, state, tp: int, seed: int, prompts, budgets,
     sync(device)
     reset_launches()
     t0 = time.perf_counter()
+    reads = []      # the group clock's reads over the world, a step
+
+    def step():
+        r = getattr(srv._now, "reads", 0)
+        srv.step()
+        reads.append(getattr(srv._now, "reads", 0) - r)
+        assert len(reads) < 20000, "serve_tp: the traffic did not drain"
+
     reqs = [srv.submit(prompts[0], max_new_tokens=budgets[0])]
     while reqs[0].state is not RequestState.RUNNING:
-        srv.step()
+        step()
     reqs += [srv.submit(p, max_new_tokens=n)
              for p, n in zip(prompts[1:], budgets[1:])]
-    srv.run_until_drained()
+    while srv.scheduler.pending or srv._slot_req:
+        step()
     sync(device)
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -6354,7 +6384,11 @@ def tp_arm(model, state, tp: int, seed: int, prompts, budgets,
                             eng.module.state_dict().items()},
                pool_bytes=sum(t.numel() * t.element_size()
                               for t in pool.cache.values()),
-               kv_heads=int(pool.cache["k"].shape[2]), mp=eng.mp_world_size)
+               kv_heads=int(pool.cache["k"].shape[2]), mp=eng.mp_world_size,
+               clock_reads=dict(total=int(getattr(srv._now, "reads", 0)),
+                                steps=len(reads), step_min=min(reads),
+                                step_max=max(reads),
+                                step_median=float(np.median(reads))))
     teacher = None
     if probes:
         # one contiguous decode step under the comms logger (it syncs the
@@ -6442,14 +6476,384 @@ def gpt2_fp32_copy(model, device: str = "cuda"):
     return ref.eval()
 
 
+# serve_tp's key arms (d)-(i): every serving key above one rank of a model
+# group, at TinyLlama's widths and TP_KEYS_LAYERS layers (the depth keeps
+# the lap inside the smoke's limit: what they hold is placement and
+# equality, which the depth does not change)
+TP_KEYS_LAYERS = 2
+TP_KEYS_BUDGET = 24               # serve_paged's budgets, capped
+TP_KEYS_SPEC = {"drafter": "ngram", "k": 4}
+TP_DM = (2, 2)                    # arm (i)'s (data, model) mesh
+TP_STORAGE_REST = 0.6             # a rank's storage-tier bytes / one rank's
+TP_DEADLINE_MS = 400.0            # arm (g): every eighth request's deadline
+
+
+def tp_keys_traffic(seed: int, vocab: int):
+    """serve_paged's 16 prompts (8 on a 512-token prefix), budgets capped
+    at ``TP_KEYS_BUDGET``."""
+    prompts, budgets = serve_paged_traffic(seed, vocab)
+    return ([np.asarray(p, np.int32) for p in prompts],
+            [min(int(b), TP_KEYS_BUDGET) for b in budgets])
+
+
+def tp_spec_traffic(seed: int, vocab: int):
+    """Arm (d)'s 16 prompts: motif-tiled (``motif_traffic``, the spec
+    phases' traffic), so the n-gram drafter finds something to propose,
+    budgets capped at ``TP_KEYS_BUDGET``."""
+    prompts, budgets = motif_traffic(np.random.default_rng(seed + 28),
+                                     vocab, 16)
+    return prompts, [min(b, TP_KEYS_BUDGET) for b in budgets]
+
+
+def tp_keys_server(eng, seed: int, **kw):
+    """serve_paged's settings (8 slots, chunk 64, ``PAGED_KV``) on ``eng``,
+    with ``kw`` (``paged_kv=False``: the contiguous pool)."""
+    import deepspeed_tpu_torch as dst
+
+    return dst.ServingEngine(eng, **{**dict(
+        num_slots=8, prefill_chunk=64, paged_kv=dict(PAGED_KV), seed=seed,
+        max_queue_depth=64), **kw})
+
+
+def tp_keys_serve(srv, prompts, budgets) -> list:
+    """Every prompt submitted, drained and audited: each request finished
+    with its budget, the invariants hold, no slot or page leaked (over a
+    router, on every replica). Returns the requests."""
+    from deepspeed_tpu_torch.serving.request import RequestState
+
+    reqs = [srv.submit(p, max_new_tokens=n) for p, n in zip(prompts, budgets)]
+    srv.run_until_drained()
+    srv.check_invariants()
+    bad = [(r.request_id, r.state.value, len(r.output_tokens), n)
+           for r, n in zip(reqs, budgets)
+           if r.state is not RequestState.FINISHED
+           or len(r.output_tokens) != n]
+    assert not bad, f"requests not FINISHED with their budget: {bad}"
+    for s in getattr(srv, "replicas", [srv]):
+        pool = s.pool
+        held = len(pool.prefix.page_counts()) \
+            if getattr(pool, "prefix", None) else 0
+        pages = pool.free_page_count + held == pool.num_pages \
+            if hasattr(pool, "free_page_count") else True
+        assert pages and pool.free_count == pool.num_slots, "leaked"
+    return reqs
+
+
+def tokens_of(reqs) -> list:
+    return [list(map(int, r.output_tokens)) for r in reqs]
+
+
+def tp_clocked_traffic(prompts, budgets) -> list:
+    """Arm (g)'s arrivals, ``(step, prompt, submit keywords)``: one every
+    other step, the classes of ``PRIORITY`` in turns, every eighth on a
+    ``TP_DEADLINE_MS`` deadline."""
+    classes = PRIORITY["classes"]
+    return [(2 * i, p, dict(max_new_tokens=n, priority=classes[i % 2],
+                            **({"deadline_ms": TP_DEADLINE_MS}
+                               if i % 8 == 7 else {})))
+            for i, (p, n) in enumerate(zip(prompts, budgets))]
+
+
+def tp_clocked_arm(eng, seed: int, traffic, clock=None,
+                   record: bool = False) -> dict:
+    """Arm (g): serve_resilience's keys (the degradation ladder, pressure
+    preemption, priority classes, the SLO tracker, the numerics guard, a
+    step wall budget, deadlines, RESILIENCE_FAULTS from a seeded
+    injector, its slow dispatch a real sleep) over ``traffic``, with no
+    ``clock=`` (``clock``: the one-rank replay of rank 0's readings).
+    ``record``: the readings the server took, rank 0's own. Returns each
+    request's state, finish reason, token count, preemptions and class,
+    the faults raised, the steps and the overruns."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.serving.resilience import (FaultInjector,
+                                                        InjectedFault)
+
+    srv = dst.ServingEngine(
+        eng, num_slots=8, prefill_chunk=64,
+        prefill_token_budget=RESILIENCE_BUDGET, paged_kv=dict(PAGED_KV),
+        seed=seed, slo=RESILIENCE_SLO, guard_numerics=True,
+        degradation=RESILIENCE_LADDER,
+        preempt_queue_threshold=RESILIENCE_PREEMPT_QUEUE, priority=PRIORITY,
+        step_wall_budget_ms=RESILIENCE_WALL_BUDGET_MS, clock=clock,
+        fault_injector=FaultInjector(seed=seed, schedule=RESILIENCE_FAULTS,
+                                     slow_ms=RESILIENCE_SLOW_MS))
+    readings = None
+    if record:
+        # the server's one clock (model_group.GroupClock): rank 0's
+        # readings, recorded as it takes them
+        readings, inner = [], srv._now.clock
+
+        def recorded():
+            readings.append(inner())
+            return readings[-1]
+
+        srv._now.clock = recorded
+    reqs, errors, step = [], [], 0
+    while step <= traffic[-1][0] or srv.pending or srv.live_count:
+        reqs += [srv.submit(p, **kw) for s, p, kw in traffic if s == step]
+        try:
+            srv.step()
+        except InjectedFault as e:
+            errors.append(e.point)
+        step += 1
+        assert step < 2000, "serve_tp (g): the traffic never drained"
+    srv.check_invariants()
+    return dict(states=[(r.state.value, str(r.finish_reason),
+                         len(r.output_tokens), r.preemptions,
+                         r.priority_class) for r in reqs],
+                errors=errors, steps=step, readings=readings,
+                overruns=srv.metrics.step_overruns)
+
+
+def tp_keys_one_rank(small, seed: int, prompts, budgets, spec_traffic,
+                     ids, device: str, mesh) -> dict:
+    """Arm (a)'s one-rank runs of the key arms, on ``small`` (TinyLlama's
+    widths at ``TP_KEYS_LAYERS`` layers) over a ``model=1`` mesh: the
+    colocated and spec (over ``spec_traffic``) servers' requests, the
+    cost model's flops, a page's bytes, the storage tier (quantized on one
+    rank): its bytes at rest, the logits of ``ids`` and its engine, and
+    the bf16 and storage-tier decode step times (:func:`decode_step_ms`
+    after a prefill of ``ids``)."""
+    import deepspeed_tpu_torch as dst
+
+    eng = dst.init_inference(small, config={"dtype": "bfloat16"},
+                             device=device, mesh=mesh)
+    out = dict(engine=eng)
+    out["colocated"] = tp_keys_serve(tp_keys_server(eng, seed), prompts,
+                                     budgets)
+    out["spec"] = tp_keys_serve(tp_keys_server(
+        eng, seed, spec_decode=dict(TP_KEYS_SPEC)), *spec_traffic)
+    srv = tp_keys_server(eng, seed, cost_model=True)
+    tp_keys_serve(srv, prompts, budgets)
+    out["flops"], out["page_nbytes"] = srv.costs.flops_total, \
+        srv.pool.page_nbytes
+    storage = dst.init_inference(copy.deepcopy(small),
+                                 config={"dtype": "bfloat16"},
+                                 device=device, mesh=mesh)
+    storage._quantize_storage()     # the storage tier's quantization
+    out["storage"] = dict(engine=storage, bytes=module_bytes(storage.module),
+                          logits=storage.forward(ids).float().cpu())
+    out["decode_ms"] = dict(bf16=decode_step_ms(eng, ids, device),
+                            storage=decode_step_ms(storage, ids, device))
+    return out
+
+
+def tp_keys_ids(seed: int, vocab: int) -> np.ndarray:
+    """2 prompts of 64 tokens for the int8 arms' full-context logits."""
+    return np.random.default_rng(seed + 27).integers(
+        0, vocab, (2, 64)).astype(np.int32)
+
+
+def decode_step_ms(eng, ids, device: str, steps: int = 8) -> float:
+    """The mean wall time of a contiguous decode step of ``eng`` (greedy,
+    after a prefill of ``ids``): ``steps`` steps timed after one untimed
+    step. Over a model group every rank runs it; its collectives included."""
+    logits, cache = eng.prefill_at(ids)
+    tok = logits[:, -1].argmax(-1)[:, None]
+    for i in range(steps + 1):
+        if i == 1:
+            sync(device)
+            t0 = time.perf_counter()
+        tok = eng.decode(cache, tok, ids.shape[1] + i)[:, -1] \
+            .argmax(-1)[:, None]
+    sync(device)
+    return 1e3 * (time.perf_counter() - t0) / steps
+
+
+def tp_keys_arms(rank: int, world: int, tmp: str, seed: int,
+                 device: str) -> dict:
+    """Arms (d)-(h) on this rank of the model group, and the contiguous
+    server arm (i) is held against (module docstring, phase 24): the
+    weights phase 24 wrote at ``TP_KEYS_LAYERS`` layers, memory-mapped into
+    meta models. Rank 0 writes the int8 arms' logits and arm (g)'s clock
+    readings to ``tmp``."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
+    from deepspeed_tpu_torch.serving import ReplicaRouter
+
+    with open(os.path.join(tmp, "keys_traffic.json")) as fh:
+        traffic = json.load(fh)
+    prompts = [np.asarray(p, np.int32) for p in traffic["prompts"]]
+    budgets, ids = traffic["budgets"], np.asarray(traffic["ids"], np.int32)
+    spec_traffic = ([np.asarray(p, np.int32) for p in traffic["spec_prompts"]],
+                    traffic["spec_budgets"])
+    tp = {"dtype": "bfloat16", "tensor_parallel": {"tp_size": world}}
+
+    def load(key):
+        cfg = torch.load(os.path.join(tmp, f"{key}_config.pt"),
+                         weights_only=False)
+        state = torch.load(os.path.join(tmp, f"{key}.pt"), mmap=True,
+                           weights_only=True)
+        return TransformerLM(cfg, device="meta"), state
+
+    out, saved = {}, {}
+    model, state = load("keys")
+    eng = dst.init_inference(model, config=tp, model_parameters=state,
+                             device=device)
+    reset_launches()
+    col = tp_keys_serve(tp_keys_server(eng, seed), prompts, budgets)
+    out["colocated"] = dict(tokens=tokens_of(col), launches=read_launches())
+    out["decode_ms"] = decode_step_ms(eng, ids, device)
+    # (d) speculative decoding: the verify through the paged kernel at T=5
+    reset_launches()
+    spec = tp_keys_serve(tp_keys_server(
+        eng, seed, spec_decode=dict(TP_KEYS_SPEC)), *spec_traffic)
+    out["spec"] = dict(tokens=tokens_of(spec), launches=read_launches(),
+                       accepted=[r.spec_accepted for r in spec],
+                       drafted=[r.spec_drafted for r in spec])
+    # (f) a prefill/decode pair behind the router
+    pre = tp_keys_server(eng, seed, role="prefill")
+    dec = tp_keys_server(eng, seed, role="decode")
+    reset_launches()
+    pair = tp_keys_serve(ReplicaRouter([pre, dec]), prompts, budgets)
+    out["disagg"] = dict(
+        tokens=tokens_of(pair), launches=read_launches(),
+        page_nbytes=dec.pool.page_nbytes,
+        pages=int(dec.registry.counter("paging/pages_imported").value))
+    # (h) overlap, and the cost model's share
+    reset_launches()
+    over = tp_keys_serve(tp_keys_server(eng, seed, overlap=True), prompts,
+                         budgets)
+    srv = tp_keys_server(eng, seed, cost_model=True)
+    tp_keys_serve(srv, prompts, budgets)
+    out["overlap"] = dict(tokens=tokens_of(over), launches=read_launches(),
+                          flops=srv.costs.flops_total)
+    # (i)'s reference: the contiguous pool over the one data rank
+    reset_launches()
+    cont = tp_keys_serve(tp_keys_server(eng, seed, paged_kv=False), prompts,
+                         budgets)
+    out["contiguous"] = dict(tokens=tokens_of(cont),
+                             launches=read_launches())
+    # (g) the clocked keys with no clock=: rank 0's readings everywhere
+    reset_launches()
+    g = tp_clocked_arm(eng, seed, tp_clocked_traffic(prompts, budgets),
+                       record=rank == 0)
+    saved["readings"] = g.pop("readings")
+    out["clocked"] = dict(g, launches=read_launches())
+    del eng, srv, pre, dec
+    fresh_device(device)
+    # (e) the int8 tiers: the storage tier (dtype int8 above one rank) ...
+    model, state = load("keys")
+    seng = dst.init_inference(model, config={**tp, "dtype": "int8"},
+                              model_parameters=state, device=device)
+    saved["storage_logits"] = seng.forward(ids).float().cpu()
+    reset_launches()
+    stor = tp_keys_serve(tp_keys_server(seng, seed), prompts, budgets)
+    out["storage"] = dict(bytes=module_bytes(seng.module),
+                          tokens=tokens_of(stor), launches=read_launches(),
+                          decode_ms=decode_step_ms(seng, ids, device),
+                          dequant=sorted({
+                              type(m).__name__ for m in seng.module.modules()
+                              if type(m).__name__.endswith("Dequant")}))
+    del seng
+    fresh_device(device)
+    # ... and an int8_weights model through int8_matmul
+    model, state = load("keys_int8")
+    qeng = dst.init_inference(model, config=tp, model_parameters=state,
+                              device=device)
+    reset_launches()
+    saved["int8_logits"] = qeng.forward(ids).float().cpu()
+    q = tp_keys_serve(tp_keys_server(qeng, seed), prompts, budgets)
+    out["int8_weights"] = dict(
+        tokens=tokens_of(q), launches=read_launches(),
+        bytes=module_bytes(qeng.module),
+        kinds=sorted({type(m).__name__ for m in qeng.module.modules()
+                      if "Quant" in type(m).__name__}))
+    del qeng, model, state
+    fresh_device(device)
+    if rank == 0:
+        torch.save(saved, os.path.join(tmp, "keys_saved.pt"))
+    return out
+
+
+def tp_dm_worker(rank: int, world: int, tmp: str, seed: int,
+                 device: str) -> int:
+    """Arm (i)'s rank: the world of 4 as a ``(data, model)`` =
+    ``TP_DM`` mesh (rank order data-major, as the JAX mesh), the keys
+    model's contiguous server; writes ``dm<r>.json``."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch import comm
+    from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+
+    comm.init_distributed(dist_backend="gloo", rank=rank, world_size=world,
+                          init_method=f"file://{os.path.join(tmp, 'dm')}",
+                          timeout=TP_TIMEOUT, verbose=False)
+    with open(os.path.join(tmp, "keys_traffic.json")) as fh:
+        traffic = json.load(fh)
+    prompts = [np.asarray(p, np.int32) for p in traffic["prompts"]]
+    cfg = torch.load(os.path.join(tmp, "keys_config.pt"), weights_only=False)
+    state = torch.load(os.path.join(tmp, "keys.pt"), mmap=True,
+                       weights_only=True)
+    mesh = mesh_mod.build_mesh(data=TP_DM[0], model=TP_DM[1])
+    eng = dst.init_inference(TransformerLM(cfg, device="meta"),
+                             config={"dtype": "bfloat16"},
+                             model_parameters=state, device=device,
+                             mesh=mesh)
+    reset_launches()
+    srv = tp_keys_server(eng, seed, paged_kv=False)
+    reqs = tp_keys_serve(srv, prompts, traffic["budgets"])
+    out = dict(tokens=tokens_of(reqs), launches=read_launches(),
+               rows=int(srv.pool.cache["k"].shape[1]),
+               shard=list(srv.pool.shard), mp=eng.mp_world_size,
+               dp=eng.dp_world_size, dp_rank=eng.dp_rank)
+    with open(os.path.join(tmp, f"dm{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_workers(tmp: str, world: int, seed: int, spec: dict,
+                  label: str) -> float:
+    """Start ``world`` ranks of this file as ``--tp-worker`` processes with
+    ``spec``, wait for them (every one killed past ``TP_TIMEOUT``) and
+    return the seconds they took; a rank that fails raises with its log's
+    tail."""
+    procs = []
+    for rank in range(world):
+        logf = open(os.path.join(tmp, f"{label}{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-worker",
+             str(rank), str(world), tmp, "--seed", str(seed),
+             "--tp-spec", json.dumps(spec)], stdout=logf,
+            stderr=subprocess.STDOUT), logf))
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        for rank, (proc, logf) in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"serve_tp: {label} rank {rank} still "
+                                   f"running after {TP_TIMEOUT} s")
+            if rc != 0:
+                with open(os.path.join(tmp, f"{label}{rank}.log")) as fh:
+                    tail = "".join(fh.readlines()[-40:])
+                raise RuntimeError(f"serve_tp: {label} rank {rank} exited "
+                                   f"{rc}:\n{tail}")
+    finally:
+        for proc, logf in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    return time.perf_counter() - t0
+
+
 def tp_worker(rank: int, world: int, tmp: str, seed: int,
               spec: dict) -> int:
     """Arm (b)'s rank: gloo over ``cuda:0`` (every rank on the one card),
     the weights memory-mapped from the files phase 24 wrote (a meta model:
     no rank ever holds the whole model, on the host or the card), the bf16
     arm with its probes (teacher-forced where it parts from arm (a)'s
-    tokens), then the fp32 two-layer arm; writes
-    ``rank<r>.json`` (and rank 0 ``teacher.pt``) to ``tmp``."""
+    tokens), then the fp32 two-layer arm, GPT-2 small's forward and the key
+    arms (d)-(h) (:func:`tp_keys_arms`); writes ``rank<r>.json`` (and rank
+    0 ``teacher.pt``) to ``tmp``. ``spec["mode"]`` "dm": arm (i)'s rank
+    instead (:func:`tp_dm_worker`)."""
+    if spec.get("mode") == "dm":
+        return tp_dm_worker(rank, world, tmp, seed, spec["device"])
     from deepspeed_tpu_torch import comm
     from deepspeed_tpu_torch.models.gpt2 import GPT2LMHeadModel
     from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
@@ -6493,6 +6897,7 @@ def tp_worker(rank: int, world: int, tmp: str, seed: int,
         torch.save(logits, os.path.join(tmp, "gpt2_logits.pt"))
     del eng, state
     fresh_device(device)
+    out["keys"] = tp_keys_arms(rank, world, tmp, seed, device)
     with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
         json.dump(out, fh)
     import torch.distributed as dist
@@ -6636,14 +7041,99 @@ def tp_kernel_rows(gen: torch.Generator) -> dict:
                           **bound(2 * KV * live * esize + 2 * B * H * D * 2
                                   + 4 * (pages_read + B),
                                   4 * H * live * D))
+        if int8:
+            # the k=4 speculative verify's forward (serve_tp arm (d)): T=5
+            # query rows a slot, each masked at its own limit
+            qv = torch.randn(B, 5, H, D, generator=gen, device=dev).to(bf16)
+            table, starts = slot_tables(gen, 5, P, ps, per_slot)
+            e, _ = compare(paged_decode_attention(qv, k[0], v[0], table,
+                                                  starts, **sc[0]),
+                           paged_decode_attention_reference(
+                               qv, k[0], v[0], table, starts, scale, None,
+                               sc[0]["k_scale_pages"],
+                               sc[0]["v_scale_pages"]),
+                           "paged kernel (int8, T=5) vs plain at the TP "
+                           "rank's shapes")
+            ms = cuda_ms(lambda: [paged_decode_attention(
+                qv, k[i], v[i], table, starts, **sc[i]) for i in range(L)],
+                reps=4) / L
+            plain_ms = eager_ms(lambda: [paged_decode_attention_reference(
+                qv, k[i], v[i], table, starts, scale, None,
+                sc[i]["k_scale_pages"], sc[i]["v_scale_pages"])
+                for i in range(L)], reps=2) / L
+            # row t of a slot reads positions up to starts + t
+            live = int((5 * starts.long() + 15).sum())
+            pages_read = int(((starts.long() + 4 + ps) // ps).sum())
+            rows[name + " T=5"] = dict(
+                max_abs_err=e, ms=ms, plain_ms=plain_ms, library_ms=None,
+                **bound(2 * KV * int((starts.long() + 5).sum()) * esize
+                        + 2 * 5 * B * H * D * 2 + 4 * (pages_read + B),
+                        4 * H * live * D))
         del k, v, sc
+    rows.update(tp_int8_rows(gen))
     for name, row in rows.items():
         log(f"[serve_tp kernels] {name} at a rank's shapes (H=16, KV=2, "
-            f"D=64): max|err| {row['max_abs_err']:.3g}; kernel "
+            f"D=64; int8_matmul: one layer's calls of a kind, "
+            f"{TINYLLAMA['n_embd']} wide, half of 5632): max|err| "
+            f"{row['max_abs_err']:.3g}; kernel "
             f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
             + (f"{row['library_ms']:.4f} ms" if row["library_ms"] is not None
                else "none (none reads a page table)")
             + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def tp_int8_rows(gen: torch.Generator) -> dict:
+    """int8_matmul at a rank's shapes of TinyLlama over a model group of
+    two: a layer's column-parallel calls (q 2048 to 1024, k and v to 128,
+    gate and up to 2816) and row-parallel ones (o 1024 to 2048, down 2816
+    to 2048, their partial products summed across the ranks after), at
+    decode (M=8, the mma.sync tiles) and prefill (M=64, one chunk: the
+    wgmma tiles); each call held against its plain version, each group of
+    calls timed over enough weight copies to pass the 50 MB L2, beside the
+    plain version, bf16 ``F.linear`` on weights dequantized ahead of time,
+    and the card's bound."""
+    from deepspeed_tpu_torch.ops.quantization.int8_matmul import (
+        int8_matmul, int8_matmul_reference, quantize_columns)
+
+    dev, bf16 = "cuda", torch.bfloat16
+    groups = {"column": [(2048, 1024), (2048, 128), (2048, 128),
+                         (2048, 2816), (2048, 2816)],
+              "row": [(1024, 2048), (2816, 2048)]}
+    rows = {}
+    for M, regime in ((8, "decode"), (64, "prefill")):
+        for split, shapes in groups.items():
+            tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0,
+                       flops=0)
+            err = 0.0
+            for K, N in shapes:
+                wf = torch.randn(N, K, generator=gen, device=dev) * 0.02
+                q, sc = quantize_columns(wf.t())
+                w, sc = q.t().contiguous(), sc.reshape(-1).contiguous()
+                x = torch.randn(M, K, generator=gen, device=dev).to(bf16)
+                e, _ = compare(int8_matmul(x, w, sc),
+                               int8_matmul_reference(x, w, sc, torch.float32),
+                               f"int8_matmul at a TP rank's {split} shape "
+                               f"M={M} K={K} N={N}")
+                err = max(err, e)
+                copies = max(1, -(-200 * 2 ** 20 // (N * K)))
+                wc = w.expand(copies, N, K).contiguous()
+                tot["ms"] += cuda_ms(lambda: [int8_matmul(x, wc[i], sc)
+                                              for i in range(copies)],
+                                     reps=2) / copies
+                tot["plain_ms"] += cuda_ms(
+                    lambda: int8_matmul_reference(x, w, sc), reps=2)
+                wd = (wc.float() * sc[:, None]).to(bf16)
+                tot["library_ms"] += cuda_ms(
+                    lambda: [F.linear(x, wd[i]) for i in range(copies)],
+                    reps=2) / copies
+                del wc, wd
+                tot["nbytes"] += M * K * 2 + N * K + N * 4 + M * N * 2
+                tot["flops"] += 2 * M * N * K
+            rows[f"int8_matmul {regime} {split}"] = dict(
+                max_abs_err=err, ms=tot["ms"], plain_ms=tot["plain_ms"],
+                library_ms=tot["library_ms"], M=M, calls=len(shapes),
+                **bound(tot["nbytes"], tot["flops"]))
     return rows
 
 
@@ -6708,6 +7198,177 @@ def predicted_rank_bytes(full: dict, world: int) -> int:
                for k, n in full.items())
 
 
+def tp_keys_checks(keys, dms, a_keys, small, qstate, prompts, budgets,
+                   spec_traffic, ids, saved, seed: int, device: str,
+                   note: str, dm_wall: float) -> list:
+    """Phase 24's key arms (d)-(i) held (module docstring): ``keys`` each
+    rank's :func:`tp_keys_arms`, ``dms`` arm (i)'s ranks, ``a_keys`` arm
+    (a)'s one-rank runs, ``saved`` rank 0's logits and clock readings.
+    Returns the arms' kernel launches."""
+    import types
+
+    from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
+
+    k0, L = keys[0], small.config.n_layer
+    PAGED8, PREFILL8 = "paged_decode_attention_int8", "int8_matmul_prefill"
+    for arm in ("colocated", "spec", "disagg", "overlap", "contiguous",
+                "storage", "int8_weights"):
+        assert all(k[arm]["tokens"] == k0[arm]["tokens"] for k in keys), \
+            f"serve_tp ({arm}): the ranks' tokens differ"
+    ref = fp32_reference(small, a_keys["engine"], device)
+
+    def reqs(tokens, prompts=prompts):
+        return [types.SimpleNamespace(request_id=i, prompt=p,
+                                      output_tokens=t)
+                for i, (p, t) in enumerate(zip(prompts, tokens))]
+
+    # (d) spec_decode at tp 2 against the one-rank spec server
+    assert all(k["spec"]["accepted"] == k0["spec"]["accepted"]
+               for k in keys), "serve_tp (d): acceptance differs by rank"
+    sp = spec_traffic[0]
+    ties = divergences("serve_tp (d)", reqs(k0["spec"]["tokens"], sp),
+                       reqs(tokens_of(a_keys["spec"]), sp),
+                       a_keys["engine"], ref,
+                       against="arm (a)'s spec server, one rank")
+    drafted = sum(k0["spec"]["drafted"])
+    assert drafted > 0, "serve_tp (d): the drafter proposed nothing"
+    acc = sum(k0["spec"]["accepted"]) / drafted
+    # (f) the prefill/decode pair: the colocated tokens, half a page a rank
+    d = k0["disagg"]
+    assert d["tokens"] == k0["colocated"]["tokens"], \
+        "serve_tp (f): the pair's tokens differ from the colocated server's"
+    assert d["pages"] > 0 and 2 * d["page_nbytes"] == a_keys["page_nbytes"]
+    # (h) overlap's tokens are the serial step's; a rank's flops are half
+    o = k0["overlap"]
+    assert o["tokens"] == k0["colocated"]["tokens"], "serve_tp (h) overlap"
+    share = 2 * o["flops"] / a_keys["flops"]
+    assert abs(share - 1) <= 0.01, f"serve_tp (h): 2 x a rank's flops / " \
+        f"one rank's = {share}"
+    # (i) (data, model) = (2, 2): half the slots a data rank, every rank
+    # alike, (1, 2)'s tokens (a data rank's decode runs 4 rows where (1, 2)
+    # runs 8: other product shapes, so a parting must be a near-tie)
+    for rank, r in enumerate(dms):
+        assert (r["mp"], r["dp"], r["dp_rank"]) == (TP_DM[1], TP_DM[0],
+                                                    rank // TP_DM[1]), r
+        assert r["rows"] * TP_DM[0] == 8 and r["tokens"] == \
+            dms[0]["tokens"], f"serve_tp (i): rank {rank}"
+    dm_ties = divergences("serve_tp (i)", reqs(dms[0]["tokens"]),
+                          reqs(k0["contiguous"]["tokens"]),
+                          a_keys["engine"], ref,
+                          against=f"the (1, {TP_WORLD}) contiguous server")
+    # (e) the storage tier: about half the bytes, the one-rank tier's logits
+    st = [k["storage"]["bytes"] for k in keys]
+    rest = max(st) / a_keys["storage"]["bytes"]
+    assert rest < TP_STORAGE_REST, f"serve_tp (e): a rank stores {rest} of " \
+        f"one rank's storage-tier bytes"
+    sref = fp32_reference(small, a_keys["storage"]["engine"], device)
+    with torch.no_grad():
+        swant = sref.logits(torch.as_tensor(ids, device=device)).float()
+    srel = rel_err(saved["storage_logits"].to(device), swant)
+    srel1 = rel_err(a_keys["storage"]["logits"].to(device), swant)
+    assert srel <= LOGITS_REL_TOL and srel1 <= LOGITS_REL_TOL, (srel, srel1)
+    del sref
+    # ... and the int8_weights model through int8_matmul
+    q = k0["int8_weights"]
+    assert q["kinds"] == ["QuantDense", "RowParallelQuantDense"], q["kinds"]
+    qcfg = dataclasses.replace(small.config, dtype=torch.float32,
+                               use_flash_attention=False,
+                               decode_kernel="off")
+    qref = TransformerLM(qcfg, device=device)
+    deq = {k: (v.float() * qstate[k[:-len("weight")] + "scale"][:, None]
+               if v.dtype == torch.int8 else v.float())
+           for k, v in qstate.items() if not k.endswith(".scale")}
+    with torch.no_grad():
+        qref.load_state_dict(deq)
+        qwant = qref.logits(torch.as_tensor(ids, device=device)).float()
+    qrel = rel_err(saved["int8_logits"].to(device), qwant)
+    assert qrel <= LOGITS_REL_TOL, f"serve_tp (e): int8_weights logits vs " \
+        f"the fp32 copy: rel err {qrel}"
+    del qref, deq
+    # (g) the clocked keys: every rank alike, and one rank replaying rank
+    # 0's readings takes the same decisions
+    g = k0["clocked"]
+    assert all(k["clocked"]["states"] == g["states"]
+               and k["clocked"]["errors"] == g["errors"] for k in keys)
+    readings = list(saved["readings"])
+    it = iter(readings)
+    replay = tp_clocked_arm(a_keys["engine"], seed,
+                            tp_clocked_traffic(prompts, budgets),
+                            clock=lambda: next(it))
+    assert next(it, None) is None, "serve_tp (g): readings left unread"
+    # the ranks' states came through JSON: lists, not tuples
+    parted = [(i, x, y) for i, (x, y) in enumerate(zip(g["states"],
+                                                      replay["states"]))
+              if x != list(y)]
+    assert len(replay["states"]) == len(g["states"])
+    assert not parted and replay["errors"] == g["errors"], \
+        f"serve_tp (g): one rank on rank 0's readings decided otherwise: " \
+        f"(request, rank 0, one rank) {parted}; faults {g['errors']} vs " \
+        f"{replay['errors']}"
+    kinds = {}
+    for st_, reason, *_ in g["states"]:
+        kinds[f"{st_}/{reason}"] = kinds.get(f"{st_}/{reason}", 0) + 1
+    launches = [a for k in keys + dms for a in
+                ([r["launches"] for r in k.values()
+                  if isinstance(r, dict) and "launches" in r]
+                 if "rows" not in k else [k["launches"]])]
+    if device == "cuda":
+        for k in keys:
+            assert k["spec"]["launches"]["paged_decode_attention_int8"] > 0
+            assert k["int8_weights"]["launches"]["int8_matmul"] > \
+                k["int8_weights"]["launches"]["int8_matmul_prefill"] > 0
+        for r in dms:
+            assert r["launches"]["decode_attention_int8"] > 0
+    log(f"[serve_tp] key arms (d)-(i): TinyLlama widths at {L} layers, bf16, "
+        f"int8 KV; serve_paged's {len(prompts)} prompts, budgets capped at "
+        f"{TP_KEYS_BUDGET}; every rank's tokens identical ({note})")
+    log(f"[serve_tp] (d) spec_decode {TP_KEYS_SPEC} at tp_size {TP_WORLD}: "
+        f"{ties['same']} of {ties['n']} requests identical to one rank's "
+        f"spec server, worst gap / error at a parting {ties['worst']:.3g} "
+        f"(limit {TIE_FACTOR}); {len(sp)} motif prompts, {drafted} tokens "
+        f"drafted, acceptance {acc:.3f}, the same on both ranks; paged int8 "
+        f"launches (T=5 verify) "
+        f"{[k['spec']['launches'][PAGED8] for k in keys]}")
+    log(f"[serve_tp] (e) dtype int8 at tp_size {TP_WORLD} (the storage "
+        f"tier): bytes a rank {st} vs one rank's storage tier "
+        f"{a_keys['storage']['bytes']} ({rest:.4f}); logits of 2 x 64 "
+        f"tokens vs the fp32 copy of the one-rank tier's weights: rel "
+        f"{srel:.4g} (one rank {srel1:.4g}; tol {LOGITS_REL_TOL}); "
+        f"dequantized through {k0['storage']['dequant']}; decode step of "
+        f"2 rows, {L} layers: storage tier "
+        f"{[round(k['storage']['decode_ms'], 4) for k in keys]} ms a rank "
+        f"vs bf16 {[round(k['decode_ms'], 4) for k in keys]} ms (one rank: "
+        f"storage {a_keys['decode_ms']['storage']:.4f}, bf16 "
+        f"{a_keys['decode_ms']['bf16']:.4f} ms); "
+        f"int8_weights ({q['kinds']}): bytes a rank "
+        f"{[k['int8_weights']['bytes'] for k in keys]}, logits vs the fp32 "
+        f"dequantized copy rel {qrel:.4g}, int8_matmul launches "
+        f"{[k['int8_weights']['launches']['int8_matmul'] for k in keys]} "
+        f"(prefill tiles "
+        f"{[k['int8_weights']['launches'][PREFILL8] for k in keys]})")
+    log(f"[serve_tp] (f) prefill/decode pair behind ReplicaRouter: tokens "
+        f"equal the colocated server's; {d['pages']} pages moved a rank, "
+        f"{d['page_nbytes']} bytes a page a rank vs "
+        f"{a_keys['page_nbytes']} on one rank")
+    log(f"[serve_tp] (g) serve_resilience's keys, no clock=: every rank's "
+        f"states and faults identical over {g['steps']} steps (digests "
+        f"compared twice a step), {len(readings)} clock readings of rank 0 "
+        f"replayed on one rank give the same decisions; states {kinds}, "
+        f"faults {g['errors']}, overruns {g['overruns']}")
+    log(f"[serve_tp] (h) overlap: the serial step's tokens; cost model: 2 x "
+        f"a rank's flops {o['flops']:.6g} / one rank's "
+        f"{a_keys['flops']:.6g} = {share:.5f}")
+    log(f"[serve_tp] (i) (data, model) = {TP_DM} over {len(dms)} gloo ranks "
+        f"on one card: {dms[0]['rows']} of 8 contiguous slots a data rank "
+        f"(shards {[r['shard'] for r in dms]}), every rank alike, "
+        f"{dm_ties['same']} of {dm_ties['n']} requests the (1, {TP_WORLD}) "
+        f"server's tokens (worst gap / error at a parting "
+        f"{dm_ties['worst']:.3g}); the four ranks took {dm_wall:.1f} s "
+        f"(process start and weight loads included; {note})")
+    del ref
+    return launches
+
+
 def phase_serve_tp(seed: int, device: str = "cuda", **overrides) -> list:
     """Phase 24 (module docstring). Returns the kernels' launches over its
     runs (arm (a), and each of arm (b)'s ranks). Its scratch directory
@@ -6748,6 +7409,31 @@ def serve_tp(tmp: str, seed: int, device: str, gpt2_overrides=None,
     torch.save({k: v.cpu() for k, v in gpt2.state_dict().items()},
                os.path.join(tmp, "gpt2.pt"))
     gids = tp_gpt2_prompts(seed, gpt2.config.vocab_size)
+    # the key arms' model: TinyLlama's widths at TP_KEYS_LAYERS layers, and
+    # its int8_weights twin (every projection but the head quantized per
+    # channel on the card, as the int8 compute tier does)
+    from deepspeed_tpu_torch.ops.quantization.convert import (
+        DENSE_KEYS, quantize_lm_state_dict)
+
+    small = tinyllama(seed + 3, device, **{**overrides,
+                                           "n_layer": TP_KEYS_LAYERS})
+    qstate, _ = quantize_lm_state_dict(small.state_dict(),
+                                       DENSE_KEYS - {"lm_head"})
+    for key, cfg, sd in (
+            ("keys", small.config, small.state_dict()),
+            ("keys_int8", dataclasses.replace(small.config,
+                                              int8_weights=True), qstate)):
+        torch.save(cfg, os.path.join(tmp, f"{key}_config.pt"))
+        torch.save({k: v.cpu() for k, v in sd.items()},
+                   os.path.join(tmp, f"{key}.pt"))
+    kprompts, kbudgets = tp_keys_traffic(seed, small.config.vocab_size)
+    kspec = tp_spec_traffic(seed, small.config.vocab_size)
+    kids = tp_keys_ids(seed, small.config.vocab_size)
+    with open(os.path.join(tmp, "keys_traffic.json"), "w") as fh:
+        json.dump({"prompts": [p.tolist() for p in kprompts],
+                   "budgets": kbudgets, "ids": kids.tolist(),
+                   "spec_prompts": [p.tolist() for p in kspec[0]],
+                   "spec_budgets": kspec[1]}, fh)
 
     # arm (a): one rank, a mesh of model=1 over a NCCL world of one; at one
     # rank no layer is swapped, so it issues no collective and computes
@@ -6765,6 +7451,8 @@ def serve_tp(tmp: str, seed: int, device: str, gpt2_overrides=None,
                                  probes=False, mesh=mesh)
         ga_logits, ga_launches, ga_eng = tp_gpt2_arm(gpt2, None, 1, gids,
                                                      device, mesh=mesh)
+        a_keys = tp_keys_one_rank(small, seed, kprompts, kbudgets, kspec,
+                                  kids, device, mesh)
     finally:
         dist.destroy_process_group()
         comm_mod._initialized = False
@@ -6779,37 +7467,12 @@ def serve_tp(tmp: str, seed: int, device: str, gpt2_overrides=None,
     del ga_eng, gpt2
     fresh_device(device)
 
-    # arm (b): two gloo ranks on the same card, in processes of their own
-    spec = json.dumps({"device": device})
-    procs = []
-    for rank in range(TP_WORLD):
-        logf = open(os.path.join(tmp, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--tp-worker",
-             str(rank), str(TP_WORLD), tmp, "--seed", str(seed),
-             "--tp-spec", spec], stdout=logf, stderr=subprocess.STDOUT),
-            logf))
-    t0 = time.perf_counter()
-    deadline = time.monotonic() + TP_TIMEOUT
-    try:
-        for rank, (proc, logf) in enumerate(procs):
-            try:
-                rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
-            except subprocess.TimeoutExpired:
-                raise RuntimeError(f"serve_tp: rank {rank} still running "
-                                   f"after {TP_TIMEOUT} s")
-            if rc != 0:
-                with open(os.path.join(tmp, f"rank{rank}.log")) as fh:
-                    tail = "".join(fh.readlines()[-40:])
-                raise RuntimeError(f"serve_tp: rank {rank} exited {rc}:\n"
-                                   f"{tail}")
-    finally:
-        for proc, logf in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            logf.close()
-    wall = time.perf_counter() - t0
+    # arm (b): two gloo ranks on the same card, in processes of their own;
+    # then arm (i): four, as a (data, model) mesh
+    wall = spawn_workers(tmp, TP_WORLD, seed, {"device": device}, "rank")
+    dm_world = TP_DM[0] * TP_DM[1]
+    dm_wall = spawn_workers(tmp, dm_world, seed,
+                            {"device": device, "mode": "dm"}, "dm")
     ranks = []
     for rank in range(TP_WORLD):
         with open(os.path.join(tmp, f"rank{rank}.json")) as fh:
@@ -6905,6 +7568,15 @@ def serve_tp(tmp: str, seed: int, device: str, gpt2_overrides=None,
                     sorted(comms.items()))
         + f" ({n_ops} ops, expected {2 * L} + 1 all-reduces (2 a layer and "
         f"the embedding) + 1 all-gather (the head); {note})")
+    cr = b[0]["clock_reads"]
+    assert all(r["clock_reads"] == cr for r in b), \
+        [r["clock_reads"] for r in b]
+    log(f"[serve_tp] (b) the group clock (model_group.GroupClock): "
+        f"{cr['total']} reads over the world in {cr['steps']} server steps "
+        f"(submissions included), {cr['step_min']}-{cr['step_max']} a step, "
+        f"median {cr['step_median']:g}; each an all-gather of 16 bytes a "
+        f"rank, on top of the model's collectives above; the same on every "
+        f"rank ({note})")
     log(f"[serve_tp] tokens: both ranks identical; (b) vs (a): "
         f"{ties['same']} of {ties['n']} requests identical, worst gap / "
         f"error at a parting {ties['worst']:.3g} (limit {TIE_FACTOR}); fp32 "
@@ -6968,6 +7640,14 @@ def serve_tp(tmp: str, seed: int, device: str, gpt2_overrides=None,
         f"{ga_launches['flash_attention_fwd']} (one rank)")
     del a_srv, model, gref
     fresh_device(device)
+    dms = []
+    for rank in range(dm_world):
+        with open(os.path.join(tmp, f"dm{rank}.json")) as fh:
+            dms.append(json.load(fh))
+    launches += tp_keys_checks(
+        [r["keys"] for r in ranks], dms, a_keys, small, qstate, kprompts,
+        kbudgets, kspec, kids, torch.load(os.path.join(tmp, "keys_saved.pt")),
+        seed, device, note, dm_wall)
     return launches
 
 

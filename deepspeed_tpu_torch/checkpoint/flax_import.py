@@ -150,7 +150,8 @@ def gpt2_state_dict_from_flax(cfg, params: Mapping[str, Any]
 
 def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
     """The bridge's naming read backwards: each parameter of a port
-    ``TransformerLM`` or ``GPT2LMHeadModel`` (its state-dict key) -> (the
+    ``TransformerLM`` or ``GPT2LMHeadModel`` (and each tensor of an
+    ``int8_weights`` model's ``QuantDense``) (its state-dict key) -> (the
     JAX parameter path it comes from, the JAX leaf's shape). A block's
     parameter maps to the scanned stack's leaf (``blocks/block/...``), whose
     shape leads with the layer count; a linear weight (out, in) to its
@@ -161,7 +162,14 @@ def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Tuple[int, ...]]]:
     n_layer = len(blocks) if isinstance(blocks, nn.ModuleList) else 0
     out = {}
     for mod_name, mod in module.named_modules():
-        for name, p in mod.named_parameters(recurse=False):
+        # an int8 projection's tensors are buffers: its int8 kernel, its
+        # scale and its bias
+        tensors = mod.named_buffers(recurse=False) \
+            if isinstance(mod, QuantDense) else \
+            mod.named_parameters(recurse=False)
+        for name, p in tensors:
+            if p is None:
+                continue
             parts = mod_name.split(".") if mod_name else []
             stacked = len(parts) > 1 and parts[0] == "blocks" and \
                 parts[1].isdigit()

@@ -468,6 +468,18 @@ def broadcast_host(tensor, src: int = 0):
     return t.cpu().numpy()
 
 
+def broadcast_object(obj, src: int = 0):
+    """A picklable host value from global rank ``src`` to every rank of the
+    world (``obj`` is ignored on the others)."""
+    pg, _, _ = _world_group()
+    if pg is None:
+        return obj
+    box = [obj]
+    _dist().broadcast_object_list(box, src=src, group=pg,
+                                  device=_host_device())
+    return box[0]
+
+
 @timed_op
 def all_gather_host(tensor, group: Group = None):
     """(n, *shape): every rank's host value, over the world (``group``

@@ -72,14 +72,36 @@ swapped for column-, row- and vocab-parallel ones and the full weights
 this rank, so each rank's card holds 1/N of every sharded weight and of
 the KV heads (``kv_cache_spec``). The head gathers the whole vocabulary on
 every rank, so sampling, ``generate()`` and a server's decisions are the
-same on every rank. Above one rank these raise ``NotImplementedError``:
-``data`` > 1 beside ``model`` > 1 (slots sharded over data ranks), the int8
-tiers (group scales cut by the shard boundaries), ``enable_cuda_graph``
-(gloo's collectives run on the host and cannot be captured; NCCL capture
-needs a card per rank), a truthy ``zero`` config (ZeRO-Inference), and
-any module but a ``TransformerLM`` or a ``GPT2LMHeadModel`` (whose fused
-qkv splits per head; it has ``logits``, so ``forward``, and no cache, in
-both packages).
+same on every rank. A ``mesh`` with ``data`` D > 1 beside ``model`` N > 1
+(ranks data-major, the model axis innermost, as the JAX mesh) gives each
+data rank its own model group (:attr:`InferenceEngine.dp_world_size`,
+:attr:`~InferenceEngine.dp_rank`); a server spreads its contiguous slots
+over them (``serving/model_group.py``).
+
+Above one rank the int8 tier is the STORAGE tier, as the JAX engine keeps
+its compute tier to one device (JAX ``engine.py:189-198``): each leaf is
+quantized whole on the host with the JAX grouping (the full weights, as
+above), then each rank keeps its shard of the int8 values and the scales
+of the groups its elements fall in (both groups where a shard boundary
+cuts one), so every element dequantizes to the JAX ``_dequant`` value and
+a rank's weight bytes at rest are about 1/N of one rank's
+(:func:`storage_dequant`: :class:`GroupDequant`, a reshape against the
+scales, where the shard is one run of the flattened leaf or its cut runs
+along whole groups; :class:`ShardDequant`, which indexes each element's
+group, only where the cut breaks groups). An ``int8_weights`` model is
+sliced as it is: ``QuantDense`` weights and per-channel scales with their output channels
+where the columns are cut, the scales whole where the input features are
+(``module_inject.layers.RowParallelQuantDense``: the per-rank
+``int8_matmul`` products summed, the bias once after the sum).
+
+Above one rank these raise ``NotImplementedError``: ``enable_cuda_graph``
+(the port runs a model group as gloo processes on one card, whose
+collectives run on the host and cannot be captured; NCCL capture needs a
+card per rank), a truthy ``zero`` config (ZeRO-Inference: the JAX package
+streams its layers to one device too and never reads ``zero`` in its
+engine), and any module but a ``TransformerLM`` or a ``GPT2LMHeadModel``
+(whose fused qkv splits per head; it has ``logits``, so ``forward``, and
+no cache, in both packages).
 """
 
 from __future__ import annotations
@@ -94,7 +116,9 @@ from torch.nn.utils import parametrize
 
 from .. import comm
 from ..accelerator import resolve_device
-from ..module_inject import TPPlan, apply_tensor_parallel, replace_module
+from ..module_inject import (TPPlan, apply_tensor_parallel, head_dim_of,
+                             replace_module, shard_tensor)
+from ..module_inject.layers import VocabParallelHead
 from ..ops.quantization.convert import DENSE_KEYS, quantize_lm_params
 from ..parallel import mesh as mesh_mod
 from ..runtime.weight_quantizer import WeightQuantization
@@ -127,10 +151,12 @@ def _filter_logits(last, temperature: float, top_k: int, top_p: float):
 class GroupDequant(nn.Module):
     """The storage tier's parametrization of one weight: its int8 values,
     read in the JAX leaf's order (transposed for an ``nn.Linear`` weight),
-    are elements ``offset ..`` of a leaf quantized in groups of
-    ``group_len`` elements, and ``scale`` (k, 1) holds the k groups they
-    touch; each value times its group's scale, in fp32, then the compute
-    dtype (the JAX ``_dequant``: the same products, so the same bits)."""
+    fall in runs of ``group_len`` values of a leaf quantized in groups of
+    ``group_len``, the first run starting ``offset`` values before the
+    weight's first, and each run in one group: ``scale`` (k, 1) holds the
+    k runs' scales in order (one row: one scale for every value). Each
+    value times its group's scale, in fp32, then the compute dtype (the
+    JAX ``_dequant``: the same products, so the same bits)."""
 
     def __init__(self, scale: torch.Tensor, offset: int, group_len: int,
                  transposed: bool, dtype: torch.dtype):
@@ -156,10 +182,98 @@ class GroupDequant(nn.Module):
         return w.t() if self.transposed else w
 
 
+def shard_places(shape, dim: int, spans, device=None) -> torch.Tensor:
+    """Each element's place in a flattened tensor of ``shape`` whose shard
+    holds along axis ``dim`` the elements ``spans`` (each ``[lo, hi)``,
+    concatenated) and along the others all of them: int64, the shard's
+    shape."""
+    place = torch.zeros((), dtype=torch.int64, device=device)
+    for k, size in enumerate(shape):
+        ix = torch.cat([torch.arange(lo, hi, device=device)
+                        for lo, hi in spans]) if k == dim \
+            else torch.arange(size, device=device)
+        place = place + (ix * int(np.prod(shape[k + 1:]))).view(
+            [-1 if j == k else 1 for j in range(len(shape))])
+    return place
+
+
+class ShardDequant(nn.Module):
+    """The storage tier's parametrization of a rank's shard of a weight:
+    the shard, read in the JAX leaf's order (shape ``shape`` there), holds
+    along axis ``dim`` the whole weight's elements ``spans`` (each
+    ``[lo, hi)``, concatenated) and along the others all of them, so an
+    element's place in the flattened leaf is ``base + Σ index_k·stride_k``
+    and its group that over ``group_len``. ``scale`` holds the groups the
+    shard touches: groups ``g0 ..`` when they run unbroken, else those of
+    the sorted ``gids``. Each value times its group's scale in fp32, then
+    the compute dtype: the JAX ``_dequant``'s products, so the same
+    bits."""
+
+    def __init__(self, scale: torch.Tensor, gids, g0: int, shape, dim: int,
+                 spans, base: int, group_len: int, transposed: bool,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.register_buffer("scale", scale)
+        self.register_buffer("gids", gids)
+        self.g0, self.shape, self.dim = int(g0), tuple(shape), int(dim)
+        self.spans = [tuple(map(int, sp)) for sp in spans]
+        self.base, self.group_len = int(base), int(group_len)
+        self.transposed, self.dtype = transposed, dtype
+
+    def forward(self, q):
+        src = q.t() if self.transposed else q
+        gid = (self.base + shard_places(self.shape, self.dim, self.spans,
+                                        q.device)) // self.group_len
+        pos = gid - self.g0 if self.gids is None else \
+            torch.searchsorted(self.gids, gid.to(self.gids.dtype))
+        w = (src.float() * self.scale[pos]).to(self.dtype)
+        return w.t() if self.transposed else w
+
+
+def storage_dequant(scale: np.ndarray, base: int, shape, dim: int, spans,
+                    group_len: int, transposed: bool,
+                    dtype: torch.dtype) -> nn.Module:
+    """The storage tier's parametrization of one weight whose int8 values
+    are the elements ``spans`` along axis ``dim`` (all of them along the
+    others) of a tensor of JAX-layout ``shape``, which starts at element
+    ``base`` of a leaf quantized in groups of ``group_len`` with
+    ``scale`` (groups, 1): a :class:`GroupDequant` where the weight is one
+    run of the flattened leaf (a whole weight, a cut along the first axis)
+    or every ``group_len`` values of it fall in one group (a column cut
+    along whole groups), a :class:`ShardDequant` only where a cut breaks
+    the groups."""
+    inner = int(np.prod(shape[dim + 1:]))
+    if dim == 0 and len(spans) == 1:
+        lo = base + spans[0][0] * inner
+        g0, g1 = lo // group_len, (base + spans[0][1] * inner - 1) \
+            // group_len
+        return GroupDequant(torch.from_numpy(scale[g0:g1 + 1]),
+                            lo - g0 * group_len, group_len, transposed,
+                            dtype)
+    gid = ((base + shard_places(shape, dim, spans).numpy()) // group_len) \
+        .reshape(-1)
+    if gid.size % group_len == 0:
+        runs = gid.reshape(-1, group_len)
+        if (runs == runs[:, :1]).all():
+            return GroupDequant(torch.from_numpy(scale[runs[:, 0]]), 0,
+                                group_len, transposed, dtype)
+    gids = np.unique(gid)
+    if len(gids) == 1:
+        return GroupDequant(torch.from_numpy(scale[gids]), 0, group_len,
+                            transposed, dtype)
+    unbroken = gids[-1] - gids[0] + 1 == len(gids)
+    idt = torch.int32 if gids[-1] < 2 ** 31 else torch.int64
+    return ShardDequant(
+        torch.from_numpy(scale[gids, 0]),
+        None if unbroken else torch.from_numpy(gids).to(idt),
+        int(gids[0]), shape, dim, spans, base, group_len, transposed, dtype)
+
+
 def _storage_leaves(module: nn.Module) -> Dict[str, list]:
     """The JAX parameter tree's leaves as lists of (owner module, name,
-    parameter): a ``blocks`` list's parameters stacked by name over its
-    layers (keys ``blocks.*.``), every other parameter alone."""
+    parameter, state-dict key): a ``blocks`` list's parameters stacked by
+    name over its layers (keys ``blocks.*.``), every other parameter
+    alone."""
     blocks = getattr(module, "blocks", None)
     stacked = isinstance(blocks, nn.ModuleList) and len(blocks) > 0
     skip = set(map(id, blocks.parameters())) if stacked else set()
@@ -167,14 +281,17 @@ def _storage_leaves(module: nn.Module) -> Dict[str, list]:
     for path, mod in module.named_modules():
         for name, p in mod.named_parameters(recurse=False):
             if id(p) not in skip:
-                leaves[f"{path}.{name}"] = [(mod, name, p)]
+                key = f"{path}.{name}" if path else name
+                leaves[key] = [(mod, name, p, key)]
     if stacked:
         for path, mod in blocks[0].named_modules():
             for name, _ in mod.named_parameters(recurse=False):
-                leaves[f"blocks.*.{path}.{name}"] = [
+                sub = f"{path}.{name}" if path else name
+                leaves[f"blocks.*.{sub}"] = [
                     (blk.get_submodule(path), name,
-                     getattr(blk.get_submodule(path), name))
-                    for blk in blocks]
+                     getattr(blk.get_submodule(path), name),
+                     f"blocks.{li}.{sub}")
+                    for li, blk in enumerate(blocks)]
     return leaves
 
 
@@ -215,11 +332,17 @@ class InferenceEngine:
                 f"{model_dtype}: the port computes in the parameters' dtype, "
                 f"so build the model with dtype={self.dtype}")
         self._init_mesh(mesh)
+        # the storage tier above one rank groups each leaf whole: the full
+        # weights on the host (references, not copies)
+        full = None
         if self.mp_world_size > 1:
             rules = replace_module(
                 model, tp_size=self.mp_world_size,
                 injection_policy=self._config.injection_policy)
-            self._refuse_above_one_rank(model)
+            self._refuse_above_one_rank()
+            if self._config.quant_enabled:
+                full = (model_parameters if model_parameters is not None
+                        else model.state_dict())
             # swapped and sliced on the host, before the card sees it
             self.tp_plan = apply_tensor_parallel(model, rules, self.mesh,
                                                  model_parameters)
@@ -236,7 +359,8 @@ class InferenceEngine:
             if self._use_int8_compute():
                 self._quantize_structured()
             else:
-                self._quantize_storage()
+                self._quantize_storage(full)
+        del full
         # the decode steps captured so far (enable_cuda_graph), else None
         self.decode_graphs = (DecodeGraphs(self.module, self.device)
                               if self._config.enable_cuda_graph else None)
@@ -261,31 +385,30 @@ class InferenceEngine:
         self.mesh = mesh_mod.get_mesh() if mesh_mod.has_mesh() else None
         self.mp_world_size = mesh_mod.get_model_parallel_world_size() \
             if self.mesh is not None else 1
+        # the data ranks beside a model group above one rank, each with
+        # its own model group (the serving slots spread over them)
+        tp = self.mp_world_size > 1
+        self.dp_world_size = mesh_mod.get_data_parallel_world_size() \
+            if tp else 1
+        self.dp_rank = mesh_mod.get_data_parallel_rank() if tp else 0
 
-    def _refuse_above_one_rank(self, model) -> None:
-        """What a model group above one rank does not run yet (module
+    def _refuse_above_one_rank(self) -> None:
+        """What a model group above one rank does not run (module
         docstring)."""
         n = self.mp_world_size
-        if mesh_mod.get_data_parallel_world_size() > 1:
-            raise NotImplementedError(
-                f"an inference mesh with data > 1 beside model = {n} is not "
-                f"ported yet: the serving slots are not sharded over data "
-                f"ranks (run one engine per model group)")
-        if self._config.quant_enabled or getattr(
-                getattr(model, "config", None), "int8_weights", False):
-            raise NotImplementedError(
-                f"int8 weights over a model group of {n} ranks are not "
-                f"ported yet: their group and channel scales would be cut "
-                f"by the shard boundaries")
         if self._config.enable_cuda_graph:
             raise NotImplementedError(
-                f"enable_cuda_graph over a model group of {n} ranks: gloo's "
-                f"collectives run on the host and cannot be captured in a "
-                f"CUDA graph, and NCCL capture needs a card per rank")
+                f"enable_cuda_graph over a model group of {n} ranks: the "
+                f"port runs a model group as gloo processes sharing one "
+                f"card, whose collectives run on the host and cannot be "
+                f"captured in a CUDA graph; NCCL capture needs a card per "
+                f"rank")
         if self._config.zero:
             raise NotImplementedError(
-                f"ZeRO-Inference over a model group of {n} ranks is not "
-                f"ported yet")
+                f"ZeRO-Inference over a model group of {n} ranks: the JAX "
+                f"package streams its layers to one device too "
+                f"(ZeroInferenceEngine) and its InferenceEngine never reads "
+                f"zero; run ZeroInferenceEngine on one rank")
 
     # ------------------------------------------------------------------
     # int8 compute tier (JAX engine.py:189-219)
@@ -294,7 +417,7 @@ class InferenceEngine:
         cfg = getattr(self.module, "config", None)
         return (self._config.quant_enabled
                 and int(self._config.quant["bits"]) == 8
-                and self._config.mp_size == 1
+                and self.mp_world_size == 1
                 and self.dtype == torch.bfloat16
                 and hasattr(self.module, "replace_config")
                 and not cfg.int8_weights)
@@ -315,43 +438,56 @@ class InferenceEngine:
     # int8 storage tier (JAX engine.py:221-262)
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def _quantize_storage(self) -> None:
+    def _quantize_storage(self, full=None) -> None:
         """Store every floating JAX leaf of rank >= 2 as int8 + per-group
-        fp32 scales, quantized on the host with ``WeightQuantization`` as
-        the JAX engine does, and dequantized at each use through a
-        :class:`GroupDequant` parametrization (module docstring)."""
+        fp32 scales, quantized whole on the host with
+        ``WeightQuantization`` as the JAX engine does (stacked over the
+        layers for ``blocks.*``, flattened in the JAX layout), and
+        dequantized at each use through a parametrization (module
+        docstring, :func:`storage_dequant`). Above one rank ``full`` holds
+        the whole weights, and each layer keeps its shard of the int8
+        values (``shard_tensor``, as the weights were cut)."""
         qcfg = self._config.quant
         gs = int(qcfg["group_size"])
         wq = WeightQuantization(num_bits=int(qcfg["bits"]))
+        plan = self.tp_plan
+        hd = head_dim_of(self.module) if self.mp_world_size > 1 else 0
         n_leaves = 0
         for key, parts in _storage_leaves(self.module).items():
             p0 = parts[0][2]
             stacked = key.startswith("blocks.*.")
             if not p0.is_floating_point() or p0.dim() + stacked < 2:
                 continue
-            transposed = isinstance(parts[0][0], nn.Linear) and \
-                parts[0][1] == "weight"
-            src = np.stack([(p.detach().float().cpu().numpy().T
-                             if transposed else
-                             p.detach().float().cpu().numpy())
-                            for _, _, p in parts])
+            transposed = isinstance(parts[0][0], (nn.Linear,
+                                                  VocabParallelHead)) \
+                and parts[0][1] == "weight"
+            n_leaves += 1
+            # the values the module holds: the full weights in its dtype
+            src = np.stack([
+                (w.t() if transposed else w).detach().to(p0.dtype).float()
+                .cpu().numpy()
+                for w in (full[k] if full is not None else p
+                          for _, _, p, k in parts)])
             groups = src.size // gs if gs and src.size % gs == 0 else 1
             q, scale = wq.quantize_value(src, groups)
-            n = src[0].size
-            group_len = src.size // groups
-            for li, (mod, name, p) in enumerate(parts):
+            jshape = src.shape[1:]
+            cut = plan.pieces(parts[0][3], hd)
+            if cut is None:
+                dim, spans = 0, ((0, jshape[0]),)
+            else:                       # the cut axis in the JAX layout
+                dim, spans = cut
+                dim = src.ndim - 2 - dim if transposed else dim
+            for li, (mod, name, p, key) in enumerate(parts):
                 ql = torch.from_numpy(np.ascontiguousarray(
                     q[li].T if transposed else q[li]))
-                g0, g1 = li * n // group_len, ((li + 1) * n - 1) // group_len
+                ql = shard_tensor(plan, key, ql, hd).contiguous()
+                dq = storage_dequant(scale, li * src[0].size, jshape, dim,
+                                     spans, src.size // groups, transposed,
+                                     self.dtype)
                 setattr(mod, name, nn.Parameter(ql.to(p.device),
                                                 requires_grad=False))
                 parametrize.register_parametrization(
-                    mod, name, GroupDequant(
-                        torch.from_numpy(scale[g0:g1 + 1]).to(p.device),
-                        li * n - g0 * group_len, group_len, transposed,
-                        self.dtype),
-                    unsafe=True)
-            n_leaves += 1
+                    mod, name, dq.to(p.device), unsafe=True)
         log_dist(f"inference weight quantization: int{qcfg['bits']}, "
                  f"{n_leaves} kernels, group_size={gs}", ranks=[0])
 

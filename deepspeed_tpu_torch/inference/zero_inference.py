@@ -75,8 +75,10 @@ class ZeroInferenceEngine:
         if mesh_mod.has_mesh() and \
                 mesh_mod.get_model_parallel_world_size() > 1:
             raise NotImplementedError(
-                "ZeRO-Inference over a model group above one rank is not "
-                "ported yet: it streams whole layers to one card")
+                "ZeRO-Inference over a model group above one rank: it "
+                "streams whole layers to one card, as the JAX package's "
+                "ZeroInferenceEngine streams to one device (jax.device_put "
+                "with no sharding); run it on one rank")
         self.device = resolve_device(device)
         self._cuda = self.device.type == "cuda"
         host = {k: host_tensor(v) for k, v in params_host.items()}

@@ -59,8 +59,10 @@ from ..parallel import mesh as mesh_mod
 from ..parallel.axis_rules import model_dim, physical_spec
 from ..parallel.mesh import MODEL_AXIS
 from ..runtime.zero.policy import ShardingRules
-from .layers import (RowParallelLinear, SharedHeadsLinear,
-                     VocabParallelEmbedding, VocabParallelHead)
+from ..ops.quantization.linear import QuantDense
+from .layers import (RowParallelLinear, RowParallelQuantDense,
+                     SharedHeadsLinear, VocabParallelEmbedding,
+                     VocabParallelHead, VocabParallelQuantHead)
 
 # name fragments marking the SECOND linear of a pair (row-parallel: the
 # input dim split, the output all-reduced), as AutoTP's heuristics
@@ -175,7 +177,10 @@ class TPPlan:
     head's, the query and KV heads of every attention layer, the MLP's
     hidden units (each ``[lo, hi)``, or None where the unit stays whole).
     ``fused_qkv`` is GPT-2's q | k | v block width (C; 0 for a
-    ``TransformerLM``, whose q, k and v are separate projections)."""
+    ``TransformerLM``, whose q, k and v are separate projections). An
+    ``int8_weights`` projection's per-channel ``scale`` is cut with its
+    output channels (a column-parallel one, the head) and stays whole
+    where the input features are cut (a row-parallel one)."""
 
     size: int
     rank: int
@@ -192,10 +197,10 @@ class TPPlan:
         the whole tensor."""
         if self.fused_qkv:
             return self._gpt2_pieces(key, head_dim)
-        attn = re.search(r"attn\.(q|k|v|o)_proj\.(weight|bias)$", key)
+        attn = re.search(r"attn\.(q|k|v|o)_proj\.(weight|bias|scale)$", key)
         if key == "embed_tokens.weight" and self.vocab:
             return 0, (self.vocab,)
-        if key == "lm_head.weight" and self.head:
+        if key in ("lm_head.weight", "lm_head.scale") and self.head:
             return 0, (self.head,)
         if attn and self.q_heads:
             which, leaf = attn.groups()
@@ -204,7 +209,8 @@ class TPPlan:
             if which != "o":
                 return 0, (span,)
             return (1, (span,)) if leaf == "weight" else None
-        mlp = re.search(r"mlp\.(gate|up|down)_proj\.(weight|bias)$", key)
+        mlp = re.search(r"mlp\.(gate|up|down)_proj\.(weight|bias|scale)$",
+                        key)
         if mlp and self.ffn:
             which, leaf = mlp.groups()
             if which != "down":
@@ -409,11 +415,20 @@ def tp_copies(plans: Sequence[TPPlan], rank: int, key: str,
 def _swap_block(block: nn.Module, plan: TPPlan, cfg, group: str,
                 fk: dict) -> None:
     attn, mlp, D, C = block.attn, block.mlp, cfg.head_dim, cfg.n_embd
+    col, row = nn.Linear, RowParallelLinear
+    if cfg.int8_weights:
+        q8 = dict(kernel_mode=cfg.int8_kernel)
+
+        def col(i, o, bias, **kw):
+            return QuantDense(i, o, bias, **q8, **kw)
+
+        def row(i, o, bias, group, **kw):
+            return RowParallelQuantDense(i, o, bias, group, **q8, **kw)
     if plan.q_heads:
         (qlo, qhi), (klo, khi) = plan.q_heads, plan.kv_heads
         bias = cfg.qkv_bias
-        attn.q_proj = nn.Linear(C, (qhi - qlo) * D, bias, **fk)
-        if (khi - klo) * plan.size > cfg.kv_heads:
+        attn.q_proj = col(C, (qhi - qlo) * D, bias, **fk)
+        if (khi - klo) * plan.size > cfg.kv_heads and not cfg.int8_weights:
             # ranks whose query heads read one KV head each hold it
             kv = dict(span=(klo * D, khi * D), total=cfg.kv_heads * D,
                       group=group)
@@ -422,9 +437,9 @@ def _swap_block(block: nn.Module, plan: TPPlan, cfg, group: str,
             attn.v_proj = SharedHeadsLinear(C, (khi - klo) * D, bias, **kv,
                                             **fk)
         else:
-            attn.k_proj = nn.Linear(C, (khi - klo) * D, bias, **fk)
-            attn.v_proj = nn.Linear(C, (khi - klo) * D, bias, **fk)
-        attn.o_proj = RowParallelLinear((qhi - qlo) * D, C, bias, group, **fk)
+            attn.k_proj = col(C, (khi - klo) * D, bias, **fk)
+            attn.v_proj = col(C, (khi - klo) * D, bias, **fk)
+        attn.o_proj = row((qhi - qlo) * D, C, bias, group, **fk)
         attn.heads, attn.kv_heads, attn.group = qhi - qlo, khi - klo, group
         if cfg.pos_emb == "alibi":
             attn.alibi = attn.alibi[qlo:qhi].clone()
@@ -432,9 +447,9 @@ def _swap_block(block: nn.Module, plan: TPPlan, cfg, group: str,
         lo, hi = plan.ffn
         bias = cfg.mlp_bias
         if cfg.activation == "swiglu":
-            mlp.gate_proj = nn.Linear(C, hi - lo, bias, **fk)
-        mlp.up_proj = nn.Linear(C, hi - lo, bias, **fk)
-        mlp.down_proj = RowParallelLinear(hi - lo, C, bias, group, **fk)
+            mlp.gate_proj = col(C, hi - lo, bias, **fk)
+        mlp.up_proj = col(C, hi - lo, bias, **fk)
+        mlp.down_proj = row(hi - lo, C, bias, group, **fk)
         mlp.group = group
 
 
@@ -463,8 +478,9 @@ def apply_tensor_parallel(model: nn.Module, rules: ShardingRules,
     (``plan``, default :func:`tp_plan`'s) and load this rank's slice of
     ``state_dict`` (default: the model's own, full, weights) into it, in
     place and on the model's device, each slice in its full tensor's
-    dtype. A ``TransformerLM`` without int8 weights or a
-    ``GPT2LMHeadModel`` is taken above one rank."""
+    dtype. A ``TransformerLM`` (``int8_weights`` too: its int8 weights
+    and scales are sliced as the plan says) or a ``GPT2LMHeadModel`` is
+    taken above one rank."""
     from ..models.gpt2 import GPT2LMHeadModel
     from ..models.transformer_lm import TransformerLM
 
@@ -479,11 +495,6 @@ def apply_tensor_parallel(model: nn.Module, rules: ShardingRules,
             f"tensor-parallel injection is ported for TransformerLM and "
             f"GPT2LMHeadModel, not {type(model).__name__}")
     cfg = model.config
-    if getattr(cfg, "int8_weights", False):
-        raise NotImplementedError(
-            "an int8_weights model over a model group above one rank is "
-            "not ported yet: its per-channel scales would be cut by the "
-            "shard boundaries")
     plan = plan if plan is not None else tp_plan(model, rules, mesh)
     full = state_dict if state_dict is not None else model.state_dict()
     local = shard_state_dict(plan, full, head_dim_of(model))
@@ -504,7 +515,13 @@ def apply_tensor_parallel(model: nn.Module, rules: ShardingRules,
             lo, hi = plan.vocab
             model.embed_tokens = VocabParallelEmbedding(hi - lo, C, lo, group,
                                                         **fk)
-        if plan.head:
+        if plan.head and isinstance(getattr(model, "lm_head", None),
+                                    QuantDense):
+            lo, hi = plan.head      # int8_head: the int8 kernel's block
+            model.lm_head = VocabParallelQuantHead(
+                hi - lo, C, group, kernel_mode=cfg.int8_kernel,
+                device="meta")
+        elif plan.head:
             lo, hi = plan.head
             tied = model.embed_tokens if cfg.tie_word_embeddings else None
             model.lm_head = VocabParallelHead(hi - lo, C, tied, group, **fk)

@@ -21,6 +21,16 @@ DeepSpeed's ``LinearLayer`` / ``LinearAllreduce`` idiom).
   forward, this rank's slice of the gradient backward); a tied head reads
   the embedding's block.
 
+An ``int8_weights`` model's projections are ``QuantDense`` layers (an
+int8 weight (N, K) and an fp32 scale per output channel): a
+column-parallel one is a plain ``QuantDense`` over the output channels'
+slice of the weight, the scales and the bias;
+:class:`RowParallelQuantDense` holds the input features' slice of the
+weight and the whole scale vector, each rank's ``int8_matmul`` output
+(cast to the layer's dtype) is summed over the group, and the bias is
+added once after the sum; :class:`VocabParallelQuantHead` is the
+``int8_head`` head over a block of the vocabulary.
+
 Every collective goes through the port's ``comm`` over the model group
 (``parallel.mesh``'s ``model`` axis) and carries its gradient
 (``mappings``). A group of one rank calls nothing, so these layers at one
@@ -35,6 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.quantization.linear import QuantDense
 from ..parallel.mesh import MODEL_AXIS
 from .mappings import (copy_to_group, gather_from_group, reduce_from_group,
                        sum_grad_over_group)
@@ -58,6 +69,38 @@ class RowParallelLinear(nn.Linear):
             return y
         return y + (self.bias if self.bias.dtype == y.dtype
                     else self.bias.to(y.dtype))
+
+
+class RowParallelQuantDense(QuantDense):
+    """A slice of an int8 projection's input features, its scales whole:
+    the group's sum of the per-rank products, then the whole bias."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool,
+                 group: str = MODEL_AXIS, dtype=torch.bfloat16,
+                 kernel_mode: str = "auto", device=None):
+        super().__init__(in_features, out_features, bias=bias, dtype=dtype,
+                         kernel_mode=kernel_mode, device=device)
+        self.group = group
+
+    def forward(self, x):
+        y = reduce_from_group(self.product(x), self.group)
+        return y if self.bias is None else y + self.bias
+
+
+class VocabParallelQuantHead(QuantDense):
+    """The ``int8_head`` vocabulary projection over a block of ``n``
+    vocabulary rows: fp32 logits of this rank's block through the int8
+    kernel, the group's blocks gathered along the last dimension."""
+
+    def __init__(self, n: int, embed_dim: int, group: str = MODEL_AXIS,
+                 kernel_mode: str = "auto", device=None):
+        super().__init__(embed_dim, n, bias=False, dtype=torch.float32,
+                         kernel_mode=kernel_mode, device=device)
+        self.group = group
+
+    def forward(self, x):
+        part = self.product(copy_to_group(x, self.group)).float()
+        return gather_from_group(part, self.group)
 
 
 class SharedHeadsLinear(nn.Linear):

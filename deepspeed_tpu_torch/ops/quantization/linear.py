@@ -71,12 +71,16 @@ class QuantDense(nn.Module):
             out.bias.copy_(linear.bias)
         return out
 
-    def forward(self, x):
+    def product(self, x):
+        """``int8_matmul(x, weight, scale, dtype)``, without the bias."""
         if self.kernel_mode == "off":
-            y = int8_matmul_reference(x, self.weight, self.scale, self.dtype)
-        else:
-            y = int8_matmul(x.contiguous(), self.weight, self.scale,
-                            self.dtype)
+            return int8_matmul_reference(x, self.weight, self.scale,
+                                         self.dtype)
+        return int8_matmul(x.contiguous(), self.weight, self.scale,
+                           self.dtype)
+
+    def forward(self, x):
+        y = self.product(x)
         return y if self.bias is None else y + self.bias
 
     def extra_repr(self) -> str:

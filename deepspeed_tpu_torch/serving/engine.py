@@ -121,19 +121,24 @@ its shard, fed the same submissions in the same order (SPMD): its pools
 hold the rank's KV heads (the engine's ``kv_cache_spec``), the page table,
 free list and prefix trie are host state and stay whole on every rank,
 and sampling reads the whole gathered logits with a generator seeded the
-same on every rank, so every decision is the same on every rank. Twice a
-step the ranks compare a digest of the step's decisions over the model
-group (after the grant: the granted request ids and the queue; at the
-step boundary: the retired ids and reasons, every seated request's token
-count and last sampled token); a mismatch raises
+same on every rank, so every decision is the same on every rank. Beside
+``data`` > 1 ranks (a ``(data, model)`` mesh) the contiguous pool's slots
+are split over the data ranks and each step's logits assembled over them;
+the paged pool stays whole and every data rank computes every slot
+(``model_group.py``). The server's clock is one clock over the world:
+every reading is rank 0's (``model_group.GroupClock``), so every clocked
+key (deadlines, the wall budget, degradation, priority, the SLO) decides
+alike on every rank. The numerics guard fails a row on every rank when it
+is poisoned on one. Twice a step the ranks compare a digest of the step's
+decisions over the world (after the grant: the granted request ids and
+the queue; at the step boundary: the retired ids and reasons, every
+seated request's token count and last sampled token); a mismatch raises
 :class:`RankDivergenceError` on every rank at that point, before a
-diverged step could issue a collective the other ranks do not. Above one
-rank these raise ``NotImplementedError``: the keys whose decisions read a
-rank's own clock (``deadline_default_ms``, ``step_wall_budget_ms``,
-``degradation``, ``fault_injector``, ``priority`` and a submission's
-``deadline_ms``) unless ``clock`` is given (one clock every rank reads
-alike, such as a step count), and ``overlap``, ``spec_decode``, a ``role``
-other than ``"both"`` and ``cost_model``.
+diverged step could issue a collective the other ranks do not. Every
+serving key runs above one rank; ``overlap``'s pipelined order, the
+speculative drafters and verify, the disaggregated roles (each rank moves
+its own KV-head shard of a page between the two pools it holds) and the
+cost model (a rank's share of the flops and bytes) included.
 
 Disaggregated prefill/decode (``role``, the DistServe/Splitwise split):
 ``"both"`` is the colocated engine; ``"prefill"`` admits and prefills
@@ -166,6 +171,7 @@ from ..telemetry import (FlightRecorder, MetricsRegistry,
                          Tracer)
 from ..utils.logging import log_dist
 from .metrics import ServingMetrics
+from .model_group import GroupClock, RankDivergenceError, slot_rows
 from .paged_pool import PagedKVPool, PagePoolExhausted
 from .request import FinishReason, RejectReason, Request, RequestState
 from .resilience import (DegradationConfig, FaultInjectingDrafter,
@@ -194,26 +200,6 @@ _WATCHED_SERVING = ("_finite",)
 _WATCHED_DRAFTER = ("prefill_at", "decode")
 
 PAGED_KV_KEYS = ("num_pages", "page_size", "prefix_cache", "kernel")
-
-
-# keys whose decisions read the server's clock: above one rank only with a
-# clock every rank reads alike
-CLOCKED_KEYS = ("deadline_default_ms", "step_wall_budget_ms", "degradation",
-                "fault_injector", "priority")
-# keys with no model-group port yet, and why
-TP_REFUSED = {
-    "overlap": "the pipelined step issues the decode before admission, "
-               "which a model group has not been run in lockstep with",
-    "spec_decode": "the verify forward and the drafters are not run over "
-                   "a model group yet",
-    "role": "disaggregated replicas move KV pages between pools, which "
-            "would move every rank's shard",
-    "cost_model": "the analytic costs count the whole model, not a "
-                  "rank's share"}
-
-
-class RankDivergenceError(RuntimeError):
-    """The ranks of a model group disagreed on a step's decisions."""
 
 
 def _finite_rows(logits: torch.Tensor) -> torch.Tensor:
@@ -266,19 +252,16 @@ class ServingEngine:
                              f"{prefill_chunk}")
         self.engine = engine
         self.mp_world_size = int(getattr(engine, "mp_world_size", 1))
-        if self.mp_world_size > 1:
-            given = dict(deadline_default_ms=deadline_default_ms,
-                         step_wall_budget_ms=step_wall_budget_ms,
-                         degradation=degradation,
-                         fault_injector=fault_injector, priority=priority,
-                         overlap=overlap, spec_decode=spec_decode,
-                         role=role != "both", cost_model=cost_model)
-            self._refuse_above_one_rank(given, clock)
+        # above one model rank every rank of the world runs in lockstep
+        self._group = self.mp_world_size > 1 and comm.get_world_size() > 1
         # ONE monotonic clock for every time-dependent decision: deadline
         # stamps, queue expiry, SLO latencies, degradation windows and the
         # priority scheduler's rate buckets. Injectable, so tests drive a
-        # fake clock through all of them at once
+        # fake clock through all of them at once; over a model group, rank
+        # 0's readings on every rank
         self._now = clock if clock is not None else time.perf_counter
+        if self._group:
+            self._now = GroupClock(self._now)
         self.device = engine.device
         spec = engine.kv_cache_spec()
         capacity = int(spec.max_seq_len)
@@ -288,6 +271,10 @@ class ServingEngine:
         chunk = min(int(prefill_chunk), capacity)
         while chunk > 1 and capacity % chunk != 0:
             chunk //= 2
+        # over (data, model): the slots this data rank's pool holds, and
+        # the contiguous pool's forwards (the engine's, or those of this
+        # data rank's slots with the logits assembled over the data ranks)
+        shard, self._rows = slot_rows(engine, num_slots, bool(paged_kv))
         if paged_kv:
             knobs = dict(paged_kv) if isinstance(paged_kv, dict) else {}
             unknown = sorted(set(knobs) - set(PAGED_KV_KEYS))
@@ -307,7 +294,7 @@ class ServingEngine:
                 prefix_cache=bool(knobs.get("prefix_cache", True)),
                 kernel=str(knobs.get("kernel", "auto")))
         else:
-            self.pool = SlotPool(spec, num_slots, self.device)
+            self.pool = SlotPool(spec, num_slots, self.device, shard=shard)
         self._paged = isinstance(self.pool, PagedKVPool)
         self._spec: Optional[SpecDecodeConfig] = None
         self._drafter = None
@@ -536,22 +523,6 @@ class ServingEngine:
                  f"{self._spec.k if self._spec is not None else 0}",
                  ranks=[0])
 
-    def _refuse_above_one_rank(self, given: dict, clock) -> None:
-        n = self.mp_world_size
-        for key in CLOCKED_KEYS:
-            if given[key] is not None and given[key] is not False \
-                    and clock is None:
-                raise NotImplementedError(
-                    f"{key} over a model group of {n} ranks needs clock=: its "
-                    f"decisions read the server's clock, and each rank's own "
-                    f"clock would part the ranks (pass one clock every rank "
-                    f"reads alike, such as a step count)")
-        for key, why in TP_REFUSED.items():
-            if given[key]:
-                raise NotImplementedError(
-                    f"{key} over a model group of {n} ranks is not ported "
-                    f"yet: {why}")
-
     def _digest(self, phase: str, granted: Sequence[Request],
                 finished: Sequence[Request]) -> int:
         """A 62-bit digest of this step's decisions so far: the granted
@@ -574,14 +545,13 @@ class ServingEngine:
 
     def _check_lockstep(self, phase: str, granted: Sequence[Request] = (),
                         finished: Sequence[Request] = ()) -> None:
-        """Compare this step's digest across the model group (no-op on one
+        """Compare this step's digest across the world (no-op on one
         rank); a mismatch raises :class:`RankDivergenceError` on every
         rank."""
-        if self.mp_world_size == 1:
+        if not self._group:
             return
         mine = self._digest(phase, granted, finished)
-        seen = comm.all_gather_host(np.array([mine], np.int64),
-                                    group="model").reshape(-1)
+        seen = comm.all_gather_host(np.array([mine], np.int64)).reshape(-1)
         if (seen != seen[0]).any():
             err = RankDivergenceError(
                 f"the model group's ranks parted at step {self.step_id} "
@@ -843,11 +813,6 @@ class ServingEngine:
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got "
                              f"{max_new_tokens}")
-        if deadline_ms is not None and self.mp_world_size > 1 and \
-                self._now is time.perf_counter:
-            raise NotImplementedError(
-                "deadline_ms over a model group of ranks needs the server's "
-                "clock= (one clock every rank reads alike)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         req = Request(self._next_id, prompt, max_new_tokens, eos_token_id)
         self._next_id += 1
@@ -1027,7 +992,7 @@ class ServingEngine:
                                      width=width, batch=n))
             with span:
                 cache, rows = self.pool.prefill_target(slots, width)
-                logits, _ = self.engine.prefill_at(
+                logits, _ = self._rows.prefill_at(
                     torch.as_tensor(ids, device=self.device), last_pos,
                     cache=cache, rows=rows)
                 self.pool.admit_rows(cache, slots, lengths)
@@ -1241,8 +1206,8 @@ class ServingEngine:
                 logits = self.pool.run_prefill_chunk(self.engine, ids, slot,
                                                      pos, L - 1)
             else:
-                logits = self.engine.prefill_chunk(self.pool.cache, ids,
-                                                   slot, pos, L - 1)
+                logits = self._rows.prefill_chunk(self.pool.cache, ids,
+                                                  slot, pos, L - 1)
         self.pool.starts[slot] = pos + L
         req.prefill_pos = pos + L
         req.chunks += 1
@@ -1271,6 +1236,10 @@ class ServingEngine:
         one fetch beside the tokens."""
         if finite is None:
             return running
+        if self._group:
+            # a row poisoned on any rank fails on every rank
+            finite = comm.all_reduce_host(
+                np.asarray(finite, np.int64), op=comm.ReduceOp.MIN)
         ok = [(slot, req) for slot, req in running if finite[slot]]
         for slot, req in running:
             if not finite[slot] and req.state is RequestState.RUNNING:
@@ -1281,7 +1250,8 @@ class ServingEngine:
         """The pool's decode positions on the device; the cost model gets
         their host copy, the live lengths the step's attention reads."""
         if self.costs is not None:
-            self.costs.positions = self.pool.positions()
+            lo, hi = self.pool.shard
+            self.costs.positions = self.pool.positions()[lo:hi]
         return self.pool.positions_dev()
 
     def _decode_step(self, finished: List[Request], t0: float) -> None:
@@ -1297,7 +1267,7 @@ class ServingEngine:
             if self._paged:
                 logits = self.pool.run_decode(self.engine, tokens, pos)
             else:
-                logits = self.engine.decode(self.pool.cache, tokens, pos)
+                logits = self._rows.decode(self.pool.cache, tokens, pos)
         if self.faults is not None:
             # in place, on the device: a captured step's next replay
             # rewrites its output, so the poison never outlives this step
@@ -1386,7 +1356,7 @@ class ServingEngine:
             if self._paged:
                 out, n_emit = self.pool.run_verify(self.engine, *args)
             else:
-                out, n_emit = self.engine.verify_k(self.pool.cache, *args)
+                out, n_emit = self._rows.verify_k(self.pool.cache, *args)
         # the next current token of row b is its last EMITTED one,
         # out[b, n_emit[b] - 1] (masked rows: never read); in place, so
         # the token vector keeps its address for the captured step

@@ -38,6 +38,17 @@ allocation, a synchronize) fails under PyTorch's default capture mode, so
 the event loop's side (handlers, clients) must make no CUDA call: even
 ``/metrics`` and ``/healthz`` read through :meth:`AsyncEngineBridge.call`.
 Warm each server (its captures included) before the bridge starts.
+
+Above one rank of a model group every rank must run the same submissions
+in the same order, and the front end and its streams live on rank 0: at
+each iteration of its step thread, rank 0 broadcasts the operations it
+took from the queue (submissions with their parameters, cancels, stop) in
+order, and every rank applies them, then steps when there is work. The
+other ranks run :meth:`AsyncEngineBridge.follow`, the same loop fed by the
+broadcast, which serves no HTTP. The server's clock is rank 0's on every
+rank (``serving/model_group.py``), so the drain deadline decides alike;
+``call`` reads (``/metrics``, ``/healthz``) run on rank 0 alone, on its own
+clock.
 """
 
 from __future__ import annotations
@@ -47,6 +58,8 @@ import queue as _queue
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
+from ... import comm
+from ..model_group import group_size, local_reads
 from ..request import Request, RequestState
 
 #: lifecycle states with nothing left to stream
@@ -94,13 +107,10 @@ class AsyncEngineBridge:
         if stream_buffer < 2:
             raise ValueError(f"stream_buffer must be >= 2 (token + "
                              f"terminal event), got {stream_buffer}")
-        n = getattr(srv, "mp_world_size", 1)
-        if n > 1:
-            raise NotImplementedError(
-                f"the HTTP front end over a model group of {n} ranks is not "
-                f"ported yet: every rank's server would need the same "
-                f"submissions, in the same order, from one front end")
         self.srv = srv
+        # the ranks that run srv in lockstep; rank 0 holds the front end
+        self.group_size = group_size(srv)
+        self.rank = comm.get_rank() if self.group_size > 1 else 0
         self.stream_buffer = int(stream_buffer)
         self.idle_poll_s = float(idle_poll_s)
         self.drain_timeout_s = float(drain_timeout_s)
@@ -121,6 +131,9 @@ class AsyncEngineBridge:
     async def start(self) -> None:
         if self.running:
             raise RuntimeError("bridge already started")
+        if self.rank != 0:
+            raise RuntimeError("the front end lives on rank 0 of the model "
+                               "group: the other ranks call follow()")
         self._loop = asyncio.get_running_loop()
         # written before Thread.start(), which publishes them; only
         # _apply_op writes them afterwards
@@ -191,6 +204,16 @@ class AsyncEngineBridge:
         if not self.running or self._loop is None:
             raise RuntimeError("bridge is not running (call start())")
 
+    def follow(self) -> None:
+        """A rank other than 0 above one rank: apply rank 0's operations
+        and step with it until rank 0's bridge stops (module docstring).
+        Blocks the calling thread; serves no HTTP."""
+        if self.rank == 0:
+            raise RuntimeError("rank 0 runs the front end: start() it")
+        self._run()
+        if self._thread_error is not None:
+            raise self._thread_error
+
     # -- step thread ---------------------------------------------------
     def _run(self) -> None:
         try:
@@ -210,29 +233,36 @@ class AsyncEngineBridge:
         return bool(srv.live_count or srv.scheduler.pending
                     or getattr(srv, "_prefill_queue", None))
 
+    def _take_ops(self) -> List[Tuple]:
+        """This iteration's ops: up to 64 from the queue, parking on it
+        when idle (no busy spin, but waking within idle_poll_s so
+        queued-work deadlines still expire); above one rank rank 0's
+        broadcast, without the ``call`` reads only rank 0 serves."""
+        ops: List[Tuple] = []
+        if self.rank == 0:
+            try:
+                block = not self._has_work() and not self._stopping
+                ops.append(self._ops.get(
+                    block=block, timeout=self.idle_poll_s if block else None))
+                while len(ops) < 64:  # bounded: floods must not starve step
+                    ops.append(self._ops.get_nowait())
+            except _queue.Empty:
+                pass
+        if self.group_size == 1:
+            return ops
+        shared = comm.broadcast_object(
+            [(kind, payload) for kind, payload, _, _ in ops
+             if kind != "call"] if self.rank == 0 else None)
+        return ops if self.rank == 0 else \
+            [(kind, payload, None, None) for kind, payload in shared]
+
     def _loop_body(self) -> None:
         srv = self.srv
         drain_deadline = None
         while True:
-            # 1) drain ops; park here when idle (no busy spin, but wake
-            #    within idle_poll_s so queued-work deadlines still expire)
-            budget = 64
-            try:
-                block = not self._has_work() and not self._stopping
-                op = self._ops.get(block=block,
-                                   timeout=self.idle_poll_s if block
-                                   else None)
-            except _queue.Empty:
-                op = None
-            while op is not None:
+            # 1) apply this iteration's ops
+            for op in self._take_ops():
                 self._apply_op(op)
-                budget -= 1
-                if budget <= 0:
-                    break  # bounded: submit floods must not starve step()
-                try:
-                    op = self._ops.get_nowait()
-                except _queue.Empty:
-                    op = None
             # 2) stop/drain bookkeeping
             if self._stopping:
                 if drain_deadline is None:
@@ -260,6 +290,8 @@ class AsyncEngineBridge:
             if kind == "submit":
                 prompt, kw = payload
                 req = srv.submit(prompt, **kw)
+                if stream is None:
+                    return      # a following rank: no stream, no future
                 stream.req = req
                 stream.request_id = req.request_id
                 if req.state is RequestState.REJECTED:
@@ -280,7 +312,8 @@ class AsyncEngineBridge:
                     self._emit(st, [self._terminal_event(req)])
                 self._resolve(fut, req is not None)
             elif kind == "call":
-                self._resolve(fut, payload(srv))
+                with local_reads():     # rank 0 alone reads
+                    self._resolve(fut, payload(srv))
         except BaseException as e:
             self._reject(fut, e)
 

@@ -35,6 +35,10 @@ Every engine interaction goes through the :class:`AsyncEngineBridge`
 the engine directly. A client disconnect mid-stream surfaces as a write
 failure (or cancelled handler task) and triggers ``bridge.cancel``, so
 an abandoned stream releases its slot within a step.
+
+Above one rank of a model group the front end runs on rank 0 (the other
+ranks follow its bridge, ``AsyncEngineBridge.follow``); ``/healthz`` and
+``/metrics`` report rank 0's view and the group's size (``group_size``).
 """
 
 from __future__ import annotations
@@ -221,6 +225,8 @@ class ServingFrontend:
                 lambda srv: srv.fleet.to_prometheus()
                 if hasattr(srv, "fleet")
                 else srv.registry.to_prometheus())
+            text += (f"# TYPE serving_group_size gauge\n"
+                     f"serving_group_size {self.bridge.group_size}\n")
             writer.write(_response(200, text.encode("utf-8"),
                                    "text/plain; version=0.0.4"))
         else:
@@ -330,6 +336,8 @@ class ServingFrontend:
                 "num_slots": pool.num_slots if pool is not None
                 else srv.num_slots,
                 "step_id": srv.step_id,
+                # the ranks serving in lockstep (rank 0's view above)
+                "group_size": self.bridge.group_size,
             }
             deg = getattr(srv, "_degradation", None)
             if deg is not None:

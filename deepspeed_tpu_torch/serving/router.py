@@ -94,16 +94,6 @@ class NoLiveReplicaError(RuntimeError):
     """Every replica has failed; the router can no longer make progress."""
 
 
-def _refuse_model_group(replica) -> None:
-    """A replica over a model group above one rank is not routed yet."""
-    n = getattr(replica, "mp_world_size", 1)
-    if n > 1:
-        raise NotImplementedError(
-            f"ReplicaRouter over replicas of {n}-rank model groups is not "
-            f"ported yet: every rank would have to route alike and move its "
-            f"own KV shard")
-
-
 class ReplicaRouter:
     """Route requests across data-parallel :class:`ServingEngine` replicas.
 
@@ -113,6 +103,15 @@ class ReplicaRouter:
     ``affinity=False``
     disables prefix-trie scoring (dispatch is then sticky-session →
     least-loaded only).
+
+    Replicas over a model group above one rank: every rank of the world
+    builds the same fleet over its own shards and runs the router in
+    lockstep, fed the same calls in the same order. Dispatch (session,
+    prefix peek, load, spill, failover, ``add_replica``,
+    ``retire_replica``) reads only host state and the replicas' clock,
+    rank 0's readings on every rank (``model_group.GroupClock``), so it
+    is the same on every rank; a handoff moves each rank's own KV-head
+    shard of the pages between the two pools that rank holds.
     """
 
     def __init__(self, replicas: Sequence[ServingEngine],
@@ -124,8 +123,6 @@ class ReplicaRouter:
                  journey_capacity: int = 4096):
         if not replicas:
             raise ValueError("ReplicaRouter needs at least one replica")
-        for rep in replicas:
-            _refuse_model_group(rep)
         self.replicas: List[ServingEngine] = list(replicas)
         self.affinity = bool(affinity)
         self._alive: List[bool] = [True] * len(self.replicas)
@@ -788,7 +785,6 @@ class ReplicaRouter:
         fleet is already past warmup the newcomer's watchdog arms
         immediately, so a scale event records no new signature or capture
         after warmup (pinned by test). Returns the new replica index."""
-        _refuse_model_group(replica)
         role = role if role is not None else getattr(replica, "role", "both")
         if role not in ("both", "prefill", "decode"):
             raise ValueError(f"unknown replica role {role!r}")

@@ -22,6 +22,11 @@ place, and the decode positions go to the device through one static
 buffer (:meth:`positions_dev`). A decode step captured in a CUDA graph
 (``inference/decode_graph.py``) holds their addresses, so a new allocation
 would leave it writing into freed memory.
+
+Over a ``(data, model)`` mesh the slots are split over the data ranks
+(``shard=(lo, hi)``, ``serving/model_group.py``): the cache holds rows
+``[lo, hi)`` only, as row ``slot - lo``, while the slot numbers, lengths
+and free list stay those of the whole pool on every rank.
 """
 
 from __future__ import annotations
@@ -38,11 +43,13 @@ from ..accelerator import copy_from_host
 class SlotPool:
     """``num_slots`` independently occupied rows of one shared KV cache."""
 
-    def __init__(self, spec: Any, num_slots: int, device=None):
+    def __init__(self, spec: Any, num_slots: int, device=None, shard=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.spec = spec
         self.num_slots = num_slots
+        # the slots whose K/V rows this rank's cache holds
+        self.shard = (0, num_slots) if shard is None else tuple(shard)
         self.capacity = int(spec.max_seq_len)
         self.device = device
         self.cache: Dict[str, Any] = self._fresh_cache()
@@ -56,7 +63,8 @@ class SlotPool:
         self._free_set = set(self._free)
 
     def _fresh_cache(self) -> Dict[str, Any]:
-        return self.spec.stacked_cache(self.num_slots, self.device)
+        lo, hi = self.shard
+        return self.spec.stacked_cache(hi - lo, self.device)
 
     @property
     def free_count(self) -> int:

@@ -45,6 +45,12 @@ memory figures, by device name: a share of the card, not of what some
 library call attains. Explicit ``peak_flops`` / ``peak_bytes_per_s`` are
 taken as aggregate, as in the JAX model.
 
+Over a model group above one rank each rank counts its own share: its
+query and KV heads, its MLP columns, its block of the vocabulary head
+(:func:`_rank_dims`) and the weights and KV rows it stores, against one
+card's peaks. The JAX model charges the whole program against the mesh's
+devices times the peak; at an even split the two ratios are equal.
+
 KV reconciliation (:func:`kv_hbm_report`): the KV footprint predicted from
 ``KVCacheSpec`` math against the pool's cache tensors. A page pool's extra
 scratch page (the sink of dropped writes, which holds no token's row) is
@@ -118,11 +124,31 @@ def _stored(module) -> int:
     return sum(map(_nbytes, module.state_dict().values()))
 
 
-def _model_terms(module) -> Dict[str, float]:
-    """The model's terms of the count."""
+def _rank_dims(module) -> Tuple[int, int, int, int]:
+    """(query heads, KV heads, MLP hidden units, vocabulary rows) that this
+    rank's forward computes: the model's own at one rank, the layers'
+    shares over a model group (``module_inject.apply_tensor_parallel``)."""
     cfg = module.config
-    C, H, KV, D = cfg.n_embd, cfg.n_head, cfg.kv_heads, cfg.head_dim
-    F = int(cfg.mlp_ratio * C)
+    H, KV = cfg.n_head, cfg.kv_heads
+    F, V = int(cfg.mlp_ratio * cfg.n_embd), cfg.vocab_size
+    blocks = getattr(module, "blocks", None)
+    if blocks:
+        H = getattr(blocks[0].attn, "heads", H)
+        KV = getattr(blocks[0].attn, "kv_heads", KV)
+        F = getattr(blocks[0].mlp.up_proj, "out_features", F)
+    head = getattr(module, "lm_head", None)
+    if getattr(head, "group", None) is not None:   # a vocab-parallel head
+        V = getattr(head, "out_features", None) or \
+            head.local_weight().shape[0]
+    return H, KV, F, V
+
+
+def _model_terms(module) -> Dict[str, float]:
+    """The model's terms of the count (this rank's share of them over a
+    model group)."""
+    cfg = module.config
+    C, D = cfg.n_embd, cfg.head_dim
+    H, KV, F, V = _rank_dims(module)
     mlp = (3 if cfg.activation == "swiglu" else 2) * C * F
     item = torch.empty((), dtype=cfg.dtype).element_size()
     # embedding tables are gathered a row a token, unless stored int8
@@ -140,8 +166,8 @@ def _model_terms(module) -> Dict[str, float]:
         proj=2.0 * cfg.n_layer * (2 * C * H * D + 2 * C * KV * D + mlp),
         # flops a (query, key) pair, all layers: scores and the PV product
         pair=4.0 * cfg.n_layer * H * D,
-        head=2.0 * C * cfg.vocab_size,
-        vocab=float(cfg.vocab_size),
+        head=2.0 * C * V,
+        vocab=float(V),
         weights=float(weights),
         row=float(C * item * len(gathered)),
         kv_token=float(cfg.n_layer * 2 * KV * (D * (1 if quant else item)
@@ -456,7 +482,8 @@ def kv_hbm_report(pool) -> Dict[str, float]:
     """Predicted against actual KV-cache bytes of a ``SlotPool`` or
     ``PagedKVPool``. Predicted comes from ``KVCacheSpec`` math alone:
     bytes a token times capacity tokens (``num_pages * page_size`` paged,
-    ``num_slots * max_seq_len`` contiguous). Actual sums the pool's k/v
+    ``max_seq_len`` times the slots the cache holds contiguous, a data
+    rank's share over a ``(data, model)`` mesh). Actual sums the pool's k/v
     (and scale) tensors, the page pool's scratch page left out."""
     spec = pool.spec
     item = 1 if spec.quant else torch.empty((), dtype=spec.dtype) \
@@ -469,7 +496,8 @@ def kv_hbm_report(pool) -> Dict[str, float]:
         tokens = pool.num_pages * pool.page_size
         page_bytes = per_token * pool.page_size
     else:
-        tokens = pool.num_slots * spec.max_seq_len
+        lo, hi = pool.shard
+        tokens = (hi - lo) * spec.max_seq_len
         page_bytes = 0.0
     predicted = float(per_token * tokens)
     actual = 0.0

@@ -462,35 +462,108 @@ def tp_engine(model, world: int, **config):
                                       **config}, device="cpu")
 
 
-def serve(srv, prompts, budgets) -> dict:
-    """Submit every prompt, drain, audit; the tokens, the prefix-hit
-    tokens and whether every slot and page came back."""
-    from deepspeed_tpu_torch.serving import RequestState
-
-    reqs = [srv.submit(p, max_new_tokens=int(n))
-            for p, n in zip(prompts, budgets)]
-    srv.run_until_drained(max_steps=500)
-    srv.check_invariants()
+def no_leak(srv) -> bool:
+    """Every slot free and every page free or held by the prefix cache."""
     pool = srv.pool
     held = len(pool.prefix.page_counts()) if getattr(pool, "prefix", None) \
         else 0
     free = pool.free_page_count + held == pool.num_pages \
         if hasattr(pool, "free_page_count") else True
+    return free and pool.free_count == pool.num_slots
+
+
+def serve(srv, prompts, budgets, **submit_kw) -> dict:
+    """Submit every prompt (with ``submit_kw``), drain, audit; the tokens,
+    each request's state and deadline stamp, the prefix-hit tokens, the
+    cache rows and KV heads the pool holds, whether every slot and page
+    came back, the clock reads that went over the world and the steps
+    (``srv`` may be a ``ReplicaRouter``: its replicas are audited, the
+    first one's reads and steps counted)."""
+    from deepspeed_tpu_torch.serving import RequestState
+
+    reqs = [srv.submit(p, max_new_tokens=int(n), **submit_kw)
+            for p, n in zip(prompts, budgets)]
+    srv.run_until_drained(max_steps=500)
+    srv.check_invariants()
+    servers = getattr(srv, "replicas", [srv])
+    pool = servers[0].pool
     return {"tokens": [list(r.output_tokens) for r in reqs],
+            "states": [r.state.value for r in reqs],
+            "deadlines": [r.deadline_time for r in reqs],
             "finished": all(r.state is RequestState.FINISHED for r in reqs),
-            "hit_tokens": srv.stats().get("prefix_hit_tokens", 0),
-            "no_leak": free and pool.free_count == pool.num_slots,
-            "kv_heads": pool.cache["k"].shape[2]}
+            "hit_tokens": sum(s.stats().get("prefix_hit_tokens", 0)
+                              for s in servers),
+            "no_leak": all(map(no_leak, servers)),
+            "rows": pool.cache["k"].shape[1],
+            "kv_heads": pool.cache["k"].shape[2],
+            "clock_reads": getattr(servers[0]._now, "reads", 0),
+            "steps": servers[0].step_id}
 
 
-def _refusals(world: int, model, eng) -> dict:
-    """Every key that raises NotImplementedError over a model group: each
-    entry the message, or None where nothing was raised."""
+def _http(rank: int, srv, prompts, budgets) -> dict:
+    """The HTTP front end over a model group: rank 0 serves
+    ``ServingFrontend`` on a local port and streams every prompt through
+    ``POST /v1/generate`` (SSE), then reads ``/healthz``; the other ranks
+    follow its bridge. Returns the streamed tokens (rank 0) and whether
+    every slot and page came back."""
+    import asyncio
+    import json
+
+    from deepspeed_tpu_torch.serving import ServingFrontend
+
+    fe = ServingFrontend(srv)
+    if rank != 0:
+        fe.bridge.follow()
+        return {"no_leak": no_leak(srv)}
+
+    async def request(port, method, path, body=None):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        payload = b"" if body is None else json.dumps(body).encode()
+        writer.write(f"{method} {path} HTTP/1.1\r\nHost: t\r\n"
+                     f"Content-Length: {len(payload)}\r\n\r\n".encode()
+                     + payload)
+        await writer.drain()
+        raw = await reader.read()
+        writer.close()
+        return raw.partition(b"\r\n\r\n")[2].decode()
+
+    async def generate(port, prompt, n):
+        text = await request(port, "POST", "/v1/generate",
+                             {"prompt": [int(t) for t in prompt],
+                              "max_new_tokens": int(n)})
+        return [json.loads(line[6:])["token"]
+                for line in text.split("\n")
+                if line.startswith("data: ") and '"token"' in line]
+
+    async def run():
+        await fe.start()
+        try:
+            tokens = await asyncio.gather(*[
+                generate(fe.port, p, n) for p, n in zip(prompts, budgets)])
+            health = json.loads(await request(fe.port, "GET", "/healthz"))
+            metrics = await request(fe.port, "GET", "/metrics")
+        finally:
+            await fe.stop(drain=True)
+        return list(tokens), health, metrics
+
+    tokens, health, metrics = asyncio.run(run())
+    return {"tokens": tokens, "group_size": health["group_size"],
+            "metrics_group": f"serving_group_size {srv.mp_world_size}"
+            in metrics, "no_leak": no_leak(srv)}
+
+
+def _keys(rank: int, world: int, model, eng, prompts, budgets,
+          server: dict) -> dict:
+    """Every serving key over the model group, on ``server`` (paged
+    ServingEngine keys) and the traffic: each running key's result (what
+    :func:`serve` returns, and what the key computes), each key that still
+    raises NotImplementedError its message."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.inference.zero_inference import \
         ZeroInferenceEngine
-    from deepspeed_tpu_torch.serving import (AsyncEngineBridge,
-                                             FaultInjector, ReplicaRouter)
+    from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
+    from deepspeed_tpu_torch.serving import FaultInjector, ReplicaRouter
+    from deepspeed_tpu_torch.telemetry.costs import _model_terms
 
     def msg(fn):
         try:
@@ -499,30 +572,51 @@ def _refusals(world: int, model, eng) -> dict:
             return str(exc)
         return None
 
-    srv = dst.ServingEngine(eng, num_slots=2)
-    cases = {key: (lambda key=key, v=v: dst.ServingEngine(
-        eng, num_slots=2, **{key: v})) for key, v in (
-        ("deadline_default_ms", 1e3), ("step_wall_budget_ms", 1e3),
-        ("degradation", True), ("fault_injector", FaultInjector(seed=0)),
-        ("priority", True), ("overlap", True),
-        ("spec_decode", {"drafter": "ngram", "k": 2}),
-        ("role", "prefill"), ("cost_model", True))}
-    cases.update({
-        "deadline_ms": lambda: srv.submit([1, 2, 3], deadline_ms=1e3),
-        "enable_cuda_graph": lambda: tp_engine(model, world,
-                                               enable_cuda_graph=True),
-        "int8": lambda: tp_engine(model, world, quant={"enabled": True}),
-        "zero": lambda: tp_engine(model, world, zero={"stage": 3}),
-        "router": lambda: ReplicaRouter([srv]),
-        "http": lambda: AsyncEngineBridge(srv),
-        "zero_inference": lambda: ZeroInferenceEngine(*model,
-                                                      device="cpu")})
-    out = {key: msg(fn) for key, fn in cases.items()}
-    # with one clock every rank reads alike, the clocked keys are taken
-    ticks = iter(range(10 ** 6))
-    out["with_clock"] = msg(lambda: dst.ServingEngine(
-        eng, num_slots=2, deadline_default_ms=1e3, step_wall_budget_ms=1e3,
-        degradation=True, clock=lambda: float(next(ticks))))
+    def srv(**kw):
+        return dst.ServingEngine(eng, max_queue_depth=32,
+                                 **{**server, **kw})
+
+    out = {}
+    for key, kw in (("deadline_default_ms", dict(deadline_default_ms=1e6)),
+                    ("step_wall_budget_ms", dict(step_wall_budget_ms=1e-6)),
+                    ("degradation", dict(degradation=True)),
+                    ("priority", dict(priority=True)),
+                    ("overlap", dict(overlap=True)),
+                    ("spec_decode", dict(spec_decode={"drafter": "ngram",
+                                                      "k": 3}))):
+        s = srv(**kw)
+        out[key] = serve(s, prompts, budgets)
+        out[key]["overruns"] = s.metrics.step_overruns
+        if key == "spec_decode":
+            out[key]["drafted"] = s.metrics.drafted
+    out["deadline_ms"] = serve(srv(), prompts, budgets, deadline_ms=1e6)
+    # a NaN row on rank 1 only: the guard fails it on every rank
+    s = srv(guard_numerics=True, fault_injector=FaultInjector(
+        seed=0, schedule={"nan_logits": [3]} if rank == 1 else {}))
+    out["fault_injector"] = serve(s, prompts, budgets)
+    s = srv(cost_model=True)
+    out["cost_model"] = serve(s, prompts, budgets)
+    full = TransformerLM(model[0], device="meta")
+    out["cost_model"].update(
+        flops=s.costs.flops_total, mine=_model_terms(eng.module),
+        whole=_model_terms(full), mfu=s.efficiency_snapshot()["mfu"])
+    pre, dec = srv(role="prefill"), srv(role="decode")
+    out["role"] = serve(ReplicaRouter([pre, dec]), prompts, budgets)
+    out["role"].update(page_nbytes=dec.pool.page_nbytes,
+                       imported=dec.registry.counter(
+                           "paging/pages_imported").value)
+    out["router"] = serve(ReplicaRouter([srv(), srv()]), prompts, budgets)
+    out["http"] = _http(rank, srv(), prompts, budgets)
+    q = tp_engine(model, world, quant={"enabled": True})
+    out["int8"] = {"generate": q.generate(prompts[0][None], 6).tolist(),
+                   "bytes": sum(t.numel() * t.element_size() for t in
+                                q.module.state_dict().values())}
+    out.update({
+        "enable_cuda_graph": msg(lambda: tp_engine(model, world,
+                                                   enable_cuda_graph=True)),
+        "zero": msg(lambda: tp_engine(model, world, zero={"stage": 3})),
+        "zero_inference": msg(lambda: ZeroInferenceEngine(*model,
+                                                          device="cpu"))})
     return out
 
 
@@ -570,10 +664,12 @@ def _tp(rank: int, world: int, model, ids, new: int, servers: dict,
         prompts, budgets, refuse: bool = False, gpt2_family=None) -> dict:
     """``generate()`` and the forward's logits of ``ids`` over a model group
     of the world's ranks, then each of ``servers`` (label -> ServingEngine
-    keys) over the traffic, ``generate()`` of ``gpt2_family`` (a second
-    (config, state)); with ``refuse`` GPT-2 above one rank
-    (:func:`_gpt2_above_one_rank`), the refusals and a forced digest
-    mismatch (rank 1 reports another digest: every rank must raise)."""
+    keys) over the traffic (at world 4 also over a ``(data=2, model=2)``
+    mesh), ``generate()`` of ``gpt2_family`` (a second (config, state));
+    with ``refuse`` GPT-2 above one rank (:func:`_gpt2_above_one_rank`),
+    every serving key (:func:`_keys`, on the paged server), a forced
+    digest mismatch (rank 1 reports another digest: every rank must
+    raise) and a clock read rank 1 makes alone (every rank must raise)."""
     import deepspeed_tpu_torch as dst
     from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
     from deepspeed_tpu_torch.parallel import mesh as mesh_mod
@@ -592,15 +688,18 @@ def _tp(rank: int, world: int, model, ids, new: int, servers: dict,
         label: serve(dst.ServingEngine(eng, **kw), prompts, budgets)
         for label, kw in servers.items()}
     if world == 4:
-        # data 2 beside model 2: not served yet
-        try:
-            dst.init_inference(TransformerLM(model[0]),
-                               model_parameters=model[1],
-                               config={"dtype": "float32"}, device="cpu",
-                               mesh=mesh_mod.build_mesh(data=2, model=2))
-            out["data_and_model"] = None
-        except NotImplementedError as exc:
-            out["data_and_model"] = str(exc)
+        # data 2 beside model 2: each data rank its own model group
+        mesh_mod.reset_mesh()
+        deng = dst.init_inference(TransformerLM(model[0]),
+                                  model_parameters=model[1],
+                                  config={"dtype": "float32"}, device="cpu",
+                                  mesh=mesh_mod.build_mesh(data=2, model=2))
+        out["data_and_model"] = dict(
+            mp=deng.mp_world_size, dp=deng.dp_world_size,
+            dp_rank=deng.dp_rank, servers={
+                label: serve(dst.ServingEngine(deng, max_queue_depth=32,
+                                               **kw), prompts, budgets)
+                for label, kw in servers.items()})
     if gpt2_family is not None:
         out["gpt2_family"] = tp_engine(gpt2_family, world).generate(
             ids, max_new_tokens=new).tolist()
@@ -608,7 +707,8 @@ def _tp(rank: int, world: int, model, ids, new: int, servers: dict,
         out["above_one_rank"] = _gpt2_above_one_rank(world, ids)
         mesh_mod.reset_mesh()
         eng = tp_engine(model, world)
-        out["refusals"] = _refusals(world, model, eng)
+        out["keys"] = _keys(rank, world, model, eng, prompts, budgets,
+                            servers["paged"])
         srv = dst.ServingEngine(eng, num_slots=2)
         if rank == 1:
             srv._digest = lambda *args: 7
@@ -619,6 +719,149 @@ def _tp(rank: int, world: int, model, ids, new: int, servers: dict,
         except RankDivergenceError as exc:
             out["diverge"] = str(exc)
             out["diverge_leak"] = srv.pool.free_count == srv.pool.num_slots
+        # a clock read on rank 1 alone meets rank 0's read in submit
+        srv = dst.ServingEngine(eng, num_slots=2)
+        try:
+            if rank == 1:
+                srv._now()
+            srv.submit(prompts[0], max_new_tokens=2)
+            out["clock_diverge"] = None
+        except RankDivergenceError as exc:
+            out["clock_diverge"] = str(exc)
+    return out
+
+
+class FakeClock:
+    """A clock the script moves: ``t`` until ``tick()``."""
+
+    def __init__(self, t: float, step: float):
+        self.t, self.step = float(t), float(step)
+
+    def __call__(self) -> float:
+        return self.t
+
+    def tick(self) -> None:
+        self.t += self.step
+
+
+def clocked_injector(mod, clock, **kw):
+    """``mod.FaultInjector`` whose ``slow_dispatch`` moves ``clock`` by
+    ``slow_ms`` instead of sleeping."""
+    class Clocked(mod.FaultInjector):
+        def maybe_sleep(self, point="slow_dispatch"):
+            if self._roll(point):
+                clock.t += self.slow_ms / 1e3
+                return True
+            return False
+
+    return Clocked(**kw)
+
+
+def clocked_run(res, srv, clock, prompts, budgets, plan) -> tuple:
+    """Submit every prompt at step 0 (``plan[i]``: its submit keywords),
+    step to the end with ``clock`` ticking a step (``res``: the package's
+    ``serving.resilience``, whose injected faults a step may raise), and
+    return each request's (state, finish and reject reasons, tokens,
+    preemptions, class), each step's load state and the overruns."""
+    reqs = [srv.submit(p, max_new_tokens=int(n), **kw)
+            for p, n, kw in zip(prompts, budgets, plan)]
+    loads = []
+    for _ in range(300):
+        if not (srv.pending or srv.live_count):
+            break
+        try:
+            srv.step()
+        except res.InjectedFault as exc:
+            loads.append(exc.point)
+        loads.append(srv._load.state.name if srv._load is not None
+                      else None)
+        clock.tick()
+    return [(r.request_id, r.state.value, str(r.finish_reason),
+             str(r.reject_reason), list(map(int, r.output_tokens)),
+             r.preemptions, r.retry_after_s, r.priority_class)
+            for r in reqs], loads, srv.metrics.step_overruns
+
+
+def _tp_keys(rank: int, world: int, model, qmodel, ids, new: int,
+             prompts, budgets, server: dict, clocked: dict) -> dict:
+    """The serving keys the JAX TP server is held against over a model
+    group of the world's ranks: the int8 storage tier at group sizes 8
+    (no group crosses a shard boundary) and 64 (groups cross them), each
+    rank's served (dequantized) weights, parametrizations, bytes, logits
+    and tokens; an
+    ``int8_weights`` model (``qmodel``) through ``int8_matmul``'s plain
+    version: logits, tokens, a paged server's tokens; the small-model
+    drafter; the cost model's flops; and the clocked keys (``clocked``:
+    ServingEngine keys, with ``plan``, ``slow``, ``tick`` and ``t0``)
+    with rank 0 on the fake clock the JAX server reads and every other
+    rank on a clock that disagrees."""
+    import deepspeed_tpu_torch as dst
+    from deepspeed_tpu_torch.models.transformer_lm import TransformerLM
+    from deepspeed_tpu_torch.module_inject import (gather_tensor,
+                                                   replace_module, tp_plans)
+    from deepspeed_tpu_torch.parallel import mesh as mesh_mod
+    from deepspeed_tpu_torch.serving import resilience
+
+    def rest(module):
+        return sum(t.numel() * t.element_size()
+                   for t in module.state_dict().values())
+
+    mesh_mod.reset_mesh()
+    out = {}
+    for gs in (8, 64):
+        eng = tp_engine(model, world, quant={"enabled": True,
+                                             "group_size": gs})
+        mod = eng.module
+        served = {k: getattr(mod.get_submodule(k.rpartition(".")[0]),
+                             k.rpartition(".")[2]).detach().clone()
+                  for k in model[1]}
+        out[f"storage{gs}"] = dict(
+            plan=eng.tp_plan, weights=served,
+            dequant=sorted({type(m).__name__ for m in mod.modules()
+                            if type(m).__name__.endswith("Dequant")}),
+            bytes=rest(mod), logits=eng.forward(ids).numpy(),
+            generate=eng.generate(ids, max_new_tokens=new).tolist())
+    qeng = tp_engine(qmodel, world)
+    # the int8 weights and their scales gather back to the whole tensors
+    meta = TransformerLM(qmodel[0], device="meta")
+    plans = tp_plans(meta, replace_module(meta, tp_size=world))
+    hd = qmodel[0].n_embd // qmodel[0].n_head
+    local = qeng.module.state_dict()
+    gathered = {k: torch.equal(gather_tensor(plans, k, local[k], hd), t)
+                for k, t in qmodel[1].items()
+                if k.rpartition(".")[2] in ("weight", "scale")
+                and "_proj" in k}
+    out["int8_weights"] = dict(
+        gathered=gathered,
+        logits=qeng.forward(ids).numpy(),
+        generate=qeng.generate(ids, max_new_tokens=new).tolist(),
+        server=serve(dst.ServingEngine(qeng, max_queue_depth=32, **server),
+                     prompts, budgets),
+        kinds=sorted({type(m).__name__ for m in qeng.module.modules()
+                      if "Quant" in type(m).__name__}))
+    eng = tp_engine(model, world)
+    drafter = tp_engine(model, world)
+    out["spec_model"] = serve(dst.ServingEngine(
+        eng, max_queue_depth=32, spec_decode={
+            "drafter": "model", "k": 3, "draft_engine": drafter},
+        **server), prompts, budgets)
+    srv = dst.ServingEngine(eng, max_queue_depth=32, cost_model=True,
+                            **server)
+    out["cost"] = serve(srv, prompts, budgets)
+    out["cost"]["flops"] = srv.costs.flops_total
+    # rank 0 on the JAX server's clock, the others far off it
+    kw = dict(clocked)
+    plan, slow = kw.pop("plan"), kw.pop("slow")
+    tick, t0 = kw.pop("tick"), kw.pop("t0")
+    clock = FakeClock(t0, tick) if rank == 0 else \
+        FakeClock(5e4 + 17 * rank, 7.0)
+    fi = clocked_injector(resilience, clock, seed=0, slow_ms=50.0,
+                          schedule={"slow_dispatch": slow})
+    srv = dst.ServingEngine(eng, max_queue_depth=32, clock=clock,
+                            fault_injector=fi, **{**server, **kw})
+    out["clocked"] = clocked_run(resilience, srv, clock,
+                                 prompts, budgets, plan)
+    out["clocked_leak"] = no_leak(srv)
     return out
 
 
@@ -716,7 +959,7 @@ def _act_ckpt(rank: int, world: int) -> dict:
 
 
 SCENARIOS = {"act_ckpt": _act_ckpt, "train": _train, "comm": _comm,
-             "gloo_cuda": _gloo_cuda, "tp": _tp}
+             "gloo_cuda": _gloo_cuda, "tp": _tp, "tp_keys": _tp_keys}
 
 
 def main(argv) -> int:

@@ -20,11 +20,22 @@ the results may not).
   prefix: tokens equal the JAX TP servers' and are the same on every rank,
   the prefix cache is hit, no slot or page leaks; at N=4 the same on
   every rank;
+* a ``(data=2, model=2)`` mesh over the world of 4: each data rank holds
+  half the contiguous pool's slots (the paged pool whole), and both
+  servers give the JAX TP servers' tokens on every rank;
 * ``tp_size`` 1 on a one-rank mesh is bit-equal to no mesh;
-* every key that raises above one rank raises ``NotImplementedError``
-  (and the clocked keys are taken with a shared clock), and a rank that
-  reports another digest makes every rank raise ``RankDivergenceError``
-  at the step's grant, with its slot back;
+* every serving key runs at N=2 on the paged server with no ``clock=``
+  and gives the JAX TP server's tokens on every rank, with no slot or page
+  leaked, and what the key computes holds: the clocked keys' stamps and
+  overruns are rank 0's on every rank, a NaN row on rank 1 alone fails on
+  every rank, speculative decoding drafts, the cost model charges a rank
+  half the whole model's terms, a prefill/decode pair behind
+  ``ReplicaRouter`` moves half a page a rank, the HTTP front end on rank 0
+  streams the tokens while rank 1 follows, and the int8 storage tier
+  ``generate()``s the JAX storage tier's tokens; ``enable_cuda_graph``,
+  ``zero`` and ``ZeroInferenceEngine`` still raise ``NotImplementedError``;
+* a rank that reports another digest makes every rank raise
+  ``RankDivergenceError`` at the step's grant, with its slot back;
 * GPT-2 above one rank (refused until tensor-parallel training brought
   the per-head qkv split): ``GPT2LMHeadModel`` through ``init_inference``
   at ``mp_size`` 2 gives the one-rank model's logits, and through
@@ -32,8 +43,8 @@ the results may not).
   ``TransformerLM`` (vocab 64: vocab-parallel embedding and tied head)
   ``generate()``s the JAX engine's tokens at ``(1, 2)``.
 
-Two spawns (worlds 2 and 4, about 7 s each, started together before the
-JAX side runs); JAX: three TP engines, two servers.
+Two spawns (worlds 2 and 4, about 15 and 12 s, started together before
+the JAX side runs); JAX: four TP engines, two servers.
 """
 
 import dataclasses
@@ -66,10 +77,12 @@ PAGED = dict(num_slots=4, prefill_chunk=8,
 SERVERS = {"contiguous": dict(num_slots=4), "paged": PAGED}
 GPT2_FAMILY = dict(vocab_size=64, max_seq_len=64, n_embd=32, n_layer=2,
                    n_head=4)
-REFUSED = ("deadline_default_ms", "step_wall_budget_ms", "degradation",
+# the serving keys each run above one rank (_torch_dist._keys) ...
+RUNNING = ("deadline_default_ms", "step_wall_budget_ms", "degradation",
            "fault_injector", "priority", "overlap", "spec_decode", "role",
-           "cost_model", "deadline_ms", "enable_cuda_graph", "int8", "zero",
-           "router", "http", "zero_inference")
+           "cost_model", "deadline_ms", "int8", "router", "http")
+# ... and the three that still raise
+REFUSED = ("enable_cuda_graph", "zero", "zero_inference")
 
 
 def _workload():
@@ -137,7 +150,7 @@ def started(side, tmp_path_factory):
                      servers=SERVERS, refuse=True,
                      gpt2_family=side["gpt2_family"], **kw),
             4: start("tp", 4, tmp_path_factory.mktemp("tp4"), timeout=150,
-                     servers={"paged": PAGED}, **kw)}
+                     servers=SERVERS, **kw)}
 
 
 @pytest.fixture(scope="module")
@@ -154,6 +167,13 @@ def jax_side(side, started):
             eng.generate(side["ids"], max_new_tokens=NEW)),
             logits=np.asarray(eng.forward(side["ids"]), np.float32))
         if n == 2:
+            q = ds.init_inference(side["jmodel"],
+                                  model_parameters=side["params"],
+                                  config={"dtype": "float32", "mp_size": 2,
+                                          "quant": {"enabled": True}},
+                                  mesh=eng.mesh)
+            out["int8"] = np.asarray(q.generate(prompts[0][None],
+                                                max_new_tokens=6))
             out["servers"] = {}
             for label, kw in SERVERS.items():
                 srv = JServingEngine(eng, max_queue_depth=32, **kw)
@@ -233,7 +253,55 @@ def test_servers_match_jax_tp_server(jax_side, port, label):
 @pytest.mark.parametrize("key", REFUSED)
 def test_unported_keys_raise_above_one_rank(port, key):
     for r in port[2]:
-        assert r["refusals"][key], key
+        assert r["keys"][key], key
+
+
+@pytest.mark.parametrize("key", RUNNING)
+def test_keys_run_above_one_rank(jax_side, port, key):
+    """Each serving key at N=2 on the paged server, with no ``clock=``:
+    the JAX TP server's tokens, the same on every rank, no slot or page
+    leaked, and what the key computes (module docstring)."""
+    want = jax_side["servers"]["paged"]
+    got = [r["keys"][key] for r in port[2]]
+    mine = got[0]
+    if key == "int8":
+        for g in got:
+            np.testing.assert_array_equal(np.asarray(g["generate"]),
+                                          jax_side["int8"])
+        return
+    assert all(g["no_leak"] for g in got), key
+    if key == "http":
+        assert mine["tokens"] == want
+        assert mine["group_size"] == 2 and mine["metrics_group"]
+        return
+    assert all(g["tokens"] == mine["tokens"] and g["states"] ==
+               mine["states"] for g in got), key
+    if key == "fault_injector":
+        # rank 1 alone wrote the NaN row; every rank failed that request
+        failed = [i for i, s in enumerate(mine["states"]) if s == "failed"]
+        assert len(failed) == 1
+        assert [t for i, t in enumerate(mine["tokens"]) if i not in failed] \
+            == [t for i, t in enumerate(want) if i not in failed]
+        return
+    assert mine["finished"] and mine["tokens"] == want, key
+    if key in ("deadline_default_ms", "deadline_ms"):
+        # rank 0's readings stamped every rank's requests
+        assert None not in mine["deadlines"]
+        assert all(g["deadlines"] == mine["deadlines"] for g in got)
+    elif key == "step_wall_budget_ms":
+        assert mine["overruns"] > 0
+        assert all(g["overruns"] == mine["overruns"] for g in got)
+    elif key == "spec_decode":
+        assert mine["drafted"] > 0
+    elif key == "cost_model":
+        for term in ("proj", "pair", "head", "vocab", "kv_token"):
+            assert 2 * mine["mine"][term] == mine["whole"][term], term
+        assert mine["flops"] > 0 and mine["mfu"] > 0
+        assert all(g["flops"] == mine["flops"] for g in got)
+    elif key == "role":
+        L, KV, D, ps = 2, 2, 8, PAGED["paged_kv"]["page_size"]
+        assert mine["imported"] > 0
+        assert 2 * mine["page_nbytes"] == L * 2 * KV * ps * D * 4
 
 
 @pytest.mark.parametrize("entry", ["gpt2", "training"])
@@ -253,13 +321,41 @@ def test_gpt2_runs_above_one_rank(jax_side, port, entry):
             assert got["train_losses"][1] < got["train_losses"][0]
 
 
-def test_shared_clock_and_digest_mismatch(port):
-    for r in port[4]:
-        assert "data > 1" in r["data_and_model"]
+def test_shared_clock_and_digest_mismatch(jax_side, port):
+    """The world of 4 as ``(data=2, model=2)``: rank order data-major (the
+    model axis innermost, as the JAX mesh), each data rank half the
+    contiguous slots and its own model group, the JAX TP servers' tokens
+    on every rank; and a digest mismatch at N=2."""
+    for rank, r in enumerate(port[4]):
+        got = r["data_and_model"]
+        assert (got["mp"], got["dp"], got["dp_rank"]) == (2, 2, rank // 2)
+        for label, srv in got["servers"].items():
+            assert srv["finished"] and srv["no_leak"], label
+            assert srv["tokens"] == jax_side["servers"][label], label
+        assert got["servers"]["contiguous"]["rows"] == \
+            SERVERS["contiguous"]["num_slots"] // 2
+        assert got["servers"]["paged"]["rows"] == \
+            PAGED["paged_kv"]["num_pages"] + 1
     for r in port[2]:
-        assert r["refusals"]["with_clock"] is None
         assert "parted at step 1 (grant)" in r["diverge"]
         assert r["diverge_leak"]
+
+
+def test_clock_reads_pair_by_place(port):
+    """Every rank reads the group clock at the same places, as many times
+    (each server over the traffic, at N=2 and 4); a read that rank 1 makes
+    alone meets rank 0's read in ``submit`` and raises on both ranks."""
+    for n in (2, 4):
+        for label in SERVERS:
+            reads = [(r["servers"][label]["clock_reads"],
+                      r["servers"][label]["steps"]) for r in port[n]]
+            assert reads[0][0] > reads[0][1] > 0, (n, label, reads)
+            assert all(x == reads[0] for x in reads), (n, label, reads)
+    msgs = [r["clock_diverge"] for r in port[2]]
+    assert all(m and "read the server's clock at different places" in m
+               for m in msgs), msgs
+    assert "engine.py:submit:" in msgs[0], msgs
+    assert "_torch_dist.py:_tp:" in msgs[1], msgs
 
 
 def test_tp1_on_a_mesh_is_bit_equal(side):
